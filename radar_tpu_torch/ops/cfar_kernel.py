@@ -1,0 +1,105 @@
+"""2D GOCA-CFAR over padded qvg pair-sum maps: kernel K2 — port of
+``radar_tpu/ops/pallas_kernels.py:39-76, 132-270``
+(``goca_cfar_qvg_pallas``, ``pad_maps_qvg``).
+
+``goca_cfar_qvg`` runs ``csrc/cfar.cu`` for CUDA tensors and the plain
+PyTorch version ``goca_cfar_qvg_plain`` (``ops/cfar.py::goca_cfar_2d`` on
+the un-padded maps) only for CPU tensors. Both give the mask bit for bit
+and the per-(pair, gate) hit counts that ``extract_detections`` consumes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config.params import CfarParams
+from .cfar import goca_cfar_2d
+
+HALO = 128          # >= ref+guard of any accepted window
+GATE_TILE = 512     # output gate columns are padded to a multiple of this
+_METHODS = {"GOCA": 0, "SOCA": 1, "CA": 2}
+
+launch_count = 0    # K2 launches
+
+
+def _check_params(params: CfarParams) -> None:
+    """Refuse what the padded layout cannot hold exactly: a window wider
+    than HALO would read past the zero halo, and an unknown method must
+    not silently become another one."""
+    border_r = params.ref_cells_r + params.guard_cells_r
+    border_v = params.ref_cells_v + params.guard_cells_v
+    if border_r > HALO or border_v > HALO:
+        raise ValueError(
+            f"CFAR window ref+guard (r={border_r}, v={border_v}) exceeds "
+            f"HALO={HALO}; use ops/cfar.py::goca_cfar_2d for windows this "
+            "wide")
+    if params.method not in _METHODS:
+        raise ValueError(f"unknown CFAR method: {params.method}")
+    if params.means_impl != "shift":
+        raise NotImplementedError(
+            f"cfg.cfar.means_impl={params.means_impl!r} is not ported")
+
+
+def pad_maps_qvg(maps_qvg: torch.Tensor) -> torch.Tensor:
+    """Zero-pad [pairs, V, G] maps: HALO columns on the left, fill to
+    HALO + ceil(G/GATE_TILE)*GATE_TILE + HALO, Doppler rows to a multiple
+    of 8 (the JAX layout, kept so the two are interchangeable)."""
+    num_v, num_g = maps_qvg.shape[1:]
+    g_pad = -(-num_g // GATE_TILE) * GATE_TILE + 2 * HALO
+    v_pad = -(-num_v // 8) * 8
+    return torch.nn.functional.pad(
+        maps_qvg, (HALO, g_pad - num_g - HALO, 0, v_pad - num_v))
+
+
+def goca_cfar_qvg_plain(maps_padded: torch.Tensor, params: CfarParams,
+                        num_gates: int, num_v: int):
+    """Plain PyTorch version of K2: (mask bool [pairs, V, G_out], rc int32
+    [pairs, G_out]) with G_out = n_tiles * GATE_TILE; padded columns are
+    False. Runs on any device (the card uses it to check K2)."""
+    _check_params(params)
+    num_q, _, g_pad = maps_padded.shape
+    maps = maps_padded[:, :num_v, HALO:HALO + num_gates]
+    m, _ = goca_cfar_2d(maps, params, layout="qvg")
+    mask = torch.zeros((num_q, num_v, g_pad - 2 * HALO), dtype=torch.bool,
+                       device=maps_padded.device)
+    mask[:, :, :num_gates] = m
+    return mask, mask.sum(dim=1, dtype=torch.int32)
+
+
+def _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v):
+    global launch_count
+    from .. import _build
+
+    num_q, v_pad, g_pad = maps_padded.shape
+    if maps_padded.dtype != torch.float32 or not maps_padded.is_contiguous():
+        raise ValueError("K2 takes contiguous f32 maps")
+    if (g_pad - 2 * HALO) % GATE_TILE or v_pad % 8 or v_pad < num_v \
+            or num_gates > g_pad - 2 * HALO:
+        raise ValueError("pad the maps with pad_maps_qvg()")
+    lib = _build.load("cfar")
+    dev = maps_padded.device
+    out_cols = g_pad - 2 * HALO
+    mask = torch.empty((num_q, num_v, out_cols), dtype=torch.bool, device=dev)
+    rc = torch.empty((num_q, out_cols), dtype=torch.int32, device=dev)
+    code = lib.k2_cfar(
+        maps_padded.data_ptr(), num_q, v_pad, g_pad, num_v, num_gates, HALO,
+        params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
+        params.ref_cells_v, float(np.float32(1.0 / params.ref_cells_r)),
+        float(np.float32(1.0 / params.ref_cells_v)),
+        float(np.float32(params.threshold_factor)), _METHODS[params.method],
+        mask.data_ptr(), rc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, "k2_cfar")
+    launch_count += 1
+    return mask, rc
+
+
+def goca_cfar_qvg(maps_padded: torch.Tensor, params: CfarParams,
+                  num_gates: int, num_v: int):
+    """2D CFAR over ``pad_maps_qvg`` maps: K2 for a CUDA tensor (or it
+    raises), the plain version for a CPU tensor."""
+    _check_params(params)
+    if maps_padded.is_cuda:
+        return _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v)
+    return goca_cfar_qvg_plain(maps_padded, params, num_gates, num_v)

@@ -1,0 +1,324 @@
+"""Fused noise range-Doppler map — port of ``radar_tpu/ops/pallas_rdm.py``
+(``make_rdm_plan``, ``noise_rdm_pallas_gen(rolling=True, signal=...)`` and
+its planes-input sibling ``noise_rdm_pallas_planes``).
+
+Per pulse-compression segment (narrow FIR, medium and long LFM matched
+filter) the map is
+
+  rdm[b] = sum_c L[b, c] * D @ PC_seg(x_c) + sum_k st[k, b] * dv[k] (x) pb[k]
+
+with x_c the white uniform noise planes of beam c, PC_seg the segment's
+causal convolution, D the MTD DFT matrix, L the 13x13 Cholesky factor of
+the DBF-output noise covariance and (dv, pb, st) the rank-K signal factors.
+
+Kernel K1 (``csrc/noise_rdm.cu``) computes this on the card, with the
+noise drawn inside the kernel (draw mode) or read from given planes
+(planes mode). ``noise_rdm_plain`` is its plain PyTorch version; the
+wrapper ``noise_rdm`` runs the kernel for CUDA tensors and the plain
+version only for CPU tensors.
+
+Noise draws. The TPU kernel draws from the TPU's hardware generator; the
+port uses a counter-based Philox4x32-10 keyed by the frame seed's two
+32-bit words and counted by (absolute sample index within the segment
+buffer, pulse, beam, segment). Any window covering a sample regenerates
+the same value, the property the banded convolution relies on. Philox does
+not reproduce the TPU's bits, so draws are held by statistics and by the
+bit-identity of ``philox_planes`` (plain) with the kernel's own draws.
+Each draw uses words 0 and 1 of one Philox block for the (re, im) rails:
+24-bit integers ``k = w >> 8`` mapped to ``(k + 0.5 - 2^23) * 2a/2^24``
+with ``a = sqrt(1.5)`` (zero mean, rail variance 1/2); samples before
+``pad_front`` (pre-PRT causal history) are zero.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+A_UNIF = float(np.sqrt(1.5))          # unit rail variance: a^2/3 = 1/2
+# (k + 0.5 - 2^23) * U_SCALE maps a 24-bit integer to U[-a, a)
+U_SCALE = float(np.float32(2.0 * A_UNIF * 2.0 ** -24))
+KERNEL_TILE = 128                     # output gates per block in K1
+
+launch_count = 0                      # K1 launches (one per noise_rdm call)
+
+
+class RdmSegSpec(NamedTuple):
+    c0: int             # first sample in the compact-z layout
+    r_len: int          # samples read from compact z
+    pad_front: int      # zero causal history
+    pad_tail: int
+    j_len: int          # true output gates
+    g0: int             # first output gate of the segment
+    tile: int           # output gate tile T
+    window: int         # padded input window W (128-aligned)
+    taps: torch.Tensor  # [lh] complex64 filter h (causal conv)
+    mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
+
+    @property
+    def xlen(self) -> int:
+        """Samples of the segment buffer that any output reads."""
+        return (-(-self.j_len // self.tile) - 1) * self.tile + self.window
+
+
+class RdmPlan(NamedTuple):
+    segments: tuple
+    s_compact: int
+    n_gates: int
+    n_dop: int
+    n_pulses: int
+    d: torch.Tensor     # [V, P] complex64 MTD DFT (window+fftshift folded)
+
+
+def _banded(h: np.ndarray, tile: int) -> np.ndarray:
+    """[tile+len(h)-1, tile] banded filter: column t holds h reversed at
+    offset t (causal linear convolution)."""
+    lh = len(h)
+    w = tile + lh - 1
+    m = np.zeros((w, tile), np.complex128)
+    for tt in range(tile):
+        k = tt + lh - 1 - np.arange(w)
+        sel = (k >= 0) & (k < lh)
+        m[sel, tt] = h[k[sel]]
+    return m
+
+
+def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
+                  lane: int = 128, *, device) -> RdmPlan:
+    """Segment geometry identical to the JAX ``make_rdm_plan`` (same
+    c0/r_len/pad_front/pad_tail/j_len/tile/window); constants as complex64
+    tensors on ``device``."""
+    g1, g2, _ = precomp.gate_splits
+    n_total = precomp.n_total_gate
+    fd = precomp.fir_delay
+    c64 = torch.complex64
+    segs = []
+    c0 = g0 = 0
+    for h, out_lo, out_hi in (
+            (np.asarray(precomp.mf_narrow, np.complex128), fd, fd + g1),
+            (np.asarray(precomp.mf_medium_win), g1, g1 + g2),
+            (np.asarray(precomp.mf_long_win), g1 + g2, n_total)):
+        lh = len(h)
+        t = min(tile, int(2 ** np.ceil(np.log2(out_hi - out_lo))))
+        t = -(-t // lane) * lane
+        r0 = max(out_lo - (lh - 1), 0)
+        r_len = out_hi - r0
+        pad_front = (lh - 1) - (out_lo - r0)
+        j_len = out_hi - out_lo
+        w = t + lh - 1
+        w_pad = -(-w // 128) * 128
+        xlen = (-(-j_len // t) - 1) * t + w_pad
+        mp = np.pad(_banded(h, t), ((0, w_pad - w), (0, 0)))
+        segs.append(RdmSegSpec(
+            c0=c0, r_len=r_len, pad_front=pad_front,
+            pad_tail=max(xlen - (pad_front + r_len), 0), j_len=j_len,
+            g0=g0, tile=t, window=w_pad,
+            taps=torch.as_tensor(np.ascontiguousarray(h)).to(device=device,
+                                                             dtype=c64),
+            mp=torch.as_tensor(mp).to(device=device, dtype=c64)))
+        c0 += r_len
+        g0 += j_len
+    m = np.asarray(mtd_matrix)
+    return RdmPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
+                   n_dop=m.shape[0], n_pulses=num_pulses,
+                   d=torch.as_tensor(m).to(device=device, dtype=c64))
+
+
+def seed_words(frame_seed: int) -> tuple[int, int]:
+    """Philox key of a frame: the low and high 32-bit words of the 64-bit
+    integer frame seed (each frame of a run takes its own seed)."""
+    s = int(frame_seed) & 0xFFFFFFFFFFFFFFFF
+    return s & 0xFFFFFFFF, s >> 32
+
+
+# ---------------------------------------------------------------- Philox
+
+_MASK = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of a * m for int64 tensors holding uint32
+    values, without 64-bit overflow (16-bit split of ``a``)."""
+    p_lo = (a & 0xFFFF) * m                  # < 2^48
+    p_hi = (a >> 16) * m                     # < 2^48
+    lo = (p_lo + ((p_hi & 0xFFFF) << 16)) & _MASK
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding uint32
+    counter words (broadcast together); returns the four output words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + 0x9E3779B9) & _MASK
+            k1 = (k1 + 0xBB67AE85) & _MASK
+        hi0, lo0 = _mulhilo(c0, 0xD2511F53)
+        hi1, lo1 = _mulhilo(c2, 0xCD9E8D57)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _uniform_rail(w: torch.Tensor) -> torch.Tensor:
+    k24 = (w >> 8).to(torch.float32)
+    return (k24 - 8388607.5) * torch.tensor(U_SCALE, dtype=torch.float32,
+                                             device=w.device)
+
+
+def philox_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
+                  device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The white (re, im) planes [B, P, xlen] f32 of every segment exactly
+    as K1 draws them in draw mode (plain PyTorch integer arithmetic)."""
+    i64 = torch.int64
+    p = torch.arange(plan.n_pulses, dtype=i64, device=device)[None, :, None]
+    b = torch.arange(num_b, dtype=i64, device=device)[:, None, None]
+    out = []
+    for si, seg in enumerate(plan.segments):
+        n = torch.arange(seg.xlen, dtype=i64, device=device)[None, None, :]
+        c3 = torch.full((), si, dtype=i64, device=device)
+        w0, w1, _, _ = philox4x32_10(n, p, b, c3, seed[0], seed[1])
+        keep = n >= seg.pad_front
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        out.append((torch.where(keep, _uniform_rail(w0), zero),
+                    torch.where(keep, _uniform_rail(w1), zero)))
+    return out
+
+
+def planes_from_compact(z: torch.Tensor, plan: RdmPlan):
+    """Per-segment padded planes from a compact white cube z [B, P,
+    s_compact] complex (the slicing of the JAX ``noise_rdm_pallas``)."""
+    if z.shape[2] != plan.s_compact:
+        raise ValueError(f"z has {z.shape[2]} compact samples, the plan "
+                         f"{plan.s_compact}")
+    out = []
+    for seg in plan.segments:
+        piece = z[:, :, seg.c0:seg.c0 + seg.r_len]
+        tail = max(seg.xlen - seg.pad_front - seg.r_len, 0)
+        pad = lambda x: torch.nn.functional.pad(x, (seg.pad_front, tail))
+        out.append((pad(piece.real.contiguous()),
+                    pad(piece.imag.contiguous())))
+    return out
+
+
+# ------------------------------------------------------- plain version
+
+
+def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
+                    signal=None) -> torch.Tensor:
+    """Plain PyTorch version of K1: banded-matmul PC per segment, MTD
+    matrix product, Cholesky beam mix, rank-K signal add. ``planes``:
+    per-segment (re, im) [B, P, >= xlen] f32. Returns [B, V, G]
+    complex64. Runs on any device (the card uses it to check K1)."""
+    num_b = l_factor.shape[0]
+    pcs = []
+    for seg, (xr, xi) in zip(plan.segments, planes):
+        ntiles = -(-seg.j_len // seg.tile)
+        x = torch.complex(xr[:, :plan.n_pulses, :seg.xlen],
+                          xi[:, :plan.n_pulses, :seg.xlen])
+        win = x.unfold(-1, seg.window, seg.tile)         # [B, P, nt, W]
+        pc = torch.matmul(win, seg.mp)                   # [B, P, nt, T]
+        pcs.append(pc.reshape(num_b, plan.n_pulses,
+                              ntiles * seg.tile)[..., :seg.j_len])
+    pc = torch.cat(pcs, dim=-1)                          # [B, P, G]
+    mt = torch.matmul(plan.d, pc)                        # [B, V, G]
+    y = torch.einsum("bc,cvg->bvg", l_factor, mt)
+    if signal is not None:
+        dv, pb, st = signal                              # [K,V] [K,G] [K,B]
+        for k in range(dv.shape[0]):
+            outer = dv[k][:, None] * pb[k][None, :]
+            y = y + st[k][:, None, None] * outer[None]
+    return y
+
+
+# ------------------------------------------------------------- kernel
+
+
+def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
+    global launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("noise_rdm")
+    dev = l_factor.device
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    if num_b > 16:
+        raise ValueError(f"K1 mixes at most 16 beams, got {num_b}")
+    for t in (l_factor, plan.d):
+        if t.device != dev or t.dtype != torch.complex64:
+            raise ValueError("K1 constants must be complex64 on the card")
+    lmat = l_factor.contiguous()
+    d = plan.d.contiguous()
+    if signal is not None:
+        dv, pb, st = (s.to(dev, torch.complex64).contiguous() for s in signal)
+        num_k = dv.shape[0]
+        if dv.shape != (num_k, num_v) or pb.shape != (num_k, num_g) \
+                or st.shape != (num_k, num_b):
+            raise ValueError("signal factors must be [K,V], [K,G], [K,B]")
+        sig_ptrs = (dv.data_ptr(), pb.data_ptr(), st.data_ptr())
+    else:
+        num_k, sig_ptrs = 0, (None, None, None)
+    pc = torch.empty((num_b, num_p, num_g), dtype=torch.complex64,
+                     device=dev)
+    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s0, s1 = seed if seed is not None else (0, 0)
+    for si, seg in enumerate(plan.segments):
+        if seg.tile != KERNEL_TILE:
+            raise ValueError(f"K1 needs {KERNEL_TILE}-gate tiles")
+        taps = seg.taps.contiguous()
+        if planes is not None:
+            xr, xi = planes[si]
+            if (xr.device != dev or xr.dtype != torch.float32
+                    or xr.shape != xi.shape or xr.dim() != 3
+                    or xr.shape[0] != num_b or xr.shape[1] < num_p
+                    or xr.shape[2] < seg.xlen):
+                raise ValueError(f"planes of segment {si} must be f32 "
+                                 f"[{num_b}, >={num_p}, >={seg.xlen}] on "
+                                 "the card")
+            # freed tensors are reused only by later work on this stream,
+            # so temporaries may go out of scope before the kernel runs
+            xr = xr[:, :num_p].contiguous()
+            xi = xi[:, :num_p].contiguous()
+            x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
+        else:
+            x_ptrs, x_len = (None, None), 0
+        rc = lib.k1_pc(taps.data_ptr(), taps.shape[0], seg.pad_front,
+                       seg.j_len, seg.g0, si, s0, s1,
+                       ctypes.c_float(U_SCALE), x_ptrs[0], x_ptrs[1],
+                       x_len, num_b, num_p, num_g, pc.data_ptr(), stream)
+        _build.check(lib, rc, "k1_pc")
+    _build.check(lib, lib.k1_mix(pc.data_ptr(), lmat.data_ptr(), num_b,
+                            num_p * num_g, stream), "k1_mix")
+    _build.check(lib, lib.k1_mtd(d.data_ptr(), pc.data_ptr(), num_b, num_v,
+                            num_p, num_g, *sig_ptrs, num_k,
+                            out.data_ptr(), stream), "k1_mtd")
+    launch_count += 1
+    return out
+
+
+def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
+              seed: tuple[int, int] | None = None, planes=None,
+              layout: str = "vgb") -> torch.Tensor:
+    """Complete noise (+ signal) RDM: draw mode with ``seed`` (two uint32
+    key words, see ``seed_words``) or planes mode with ``planes``.
+
+    ``l_factor`` [B, B] complex64 decides the device: a CUDA tensor runs
+    K1 (or raises), a CPU tensor the plain version. ``layout="bvg"``
+    returns the native [B, V, G]; ``"vgb"`` the [V, G, B] view."""
+    if (seed is None) == (planes is None):
+        raise ValueError("give exactly one of seed= and planes=")
+    if layout not in ("vgb", "bvg"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if l_factor.is_cuda:
+        bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes)
+    else:
+        if planes is None:
+            planes = philox_planes(plan, seed, l_factor.shape[0],
+                                   device=l_factor.device)
+        bm = noise_rdm_plain(plan, l_factor, planes, signal)
+    return bm if layout == "bvg" else bm.permute(1, 2, 0)

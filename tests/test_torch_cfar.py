@@ -1,0 +1,126 @@
+"""PyTorch port: 2D GOCA-CFAR, kernel K2's plain version and the first-K
+extraction, held bit-exactly against the JAX package (masks, row counts,
+indices, amplitudes and counts are compared with equality)."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from radar_tpu.config.params import CfarParams as JCfar
+from radar_tpu.ops.cfar import extract_detections as j_extract
+from radar_tpu.ops.cfar import goca_cfar_2d as j_cfar
+from radar_tpu.ops.cfar import pair_sum_maps as j_pair_sum_maps
+from radar_tpu.ops.pallas_kernels import goca_cfar_qvg_pallas
+from radar_tpu.ops.pallas_kernels import pad_maps_qvg as j_pad
+
+from radar_tpu_torch.config.params import CfarParams
+from radar_tpu_torch.ops import cfar_kernel as ck
+from radar_tpu_torch.ops.cfar import (extract_detections, goca_cfar_2d,
+                                      pair_sum_maps)
+
+SMALL = dict(ref_cells_v=3, guard_cells_v=4, ref_cells_r=5, guard_cells_r=10)
+
+
+def _maps(seed, shape, hits=12, axes=(1, 2)):
+    """Exponential clutter with strong cells away from the borders."""
+    rng = np.random.default_rng(seed)
+    maps = rng.exponential(size=shape).astype(np.float32)
+    for _ in range(hits):
+        idx = [rng.integers(0, n) for n in shape]
+        idx[axes[0]] = rng.integers(8, shape[axes[0]] - 8)
+        idx[axes[1]] = rng.integers(16, shape[axes[1]] - 16)
+        maps[tuple(idx)] += 60.0
+    return maps
+
+
+
+@pytest.mark.parametrize("layout", ["vgq", "qvg"])
+@pytest.mark.parametrize("method", ["GOCA", "SOCA", "CA"])
+def test_goca_cfar_2d_matches_jax(layout, method):
+    shape = (40, 300, 4) if layout == "vgq" else (4, 40, 300)
+    axes = (0, 1) if layout == "vgq" else (1, 2)
+    maps = _maps(1, shape, axes=axes)
+    mask, thr = goca_cfar_2d(torch.from_numpy(maps),
+                             CfarParams(method=method, **SMALL), layout)
+    mask_j, thr_j = j_cfar(jnp.asarray(maps), JCfar(method=method, **SMALL),
+                           layout)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_j))
+    assert mask.sum() >= 10
+    # the port multiplies by the f32 reciprocal of ref where eager JAX
+    # divides: thresholds agree to the last bit or one ulp
+    np.testing.assert_allclose(thr.numpy(), np.asarray(thr_j), rtol=2.5e-7)
+
+
+@pytest.mark.parametrize("method", ["GOCA", "SOCA", "CA"])
+def test_k2_plain_matches_jax_pallas_kernel(method):
+    """K2's plain version vs the JAX Pallas kernel (interpret mode): mask
+    and per-(pair, gate) row counts identical; padded columns False."""
+    num_q, num_v, num_g = 3, 48, 700          # 700: not a GATE_TILE multiple
+    maps = _maps(2, (num_q, num_v, num_g))
+    tp = ck.pad_maps_qvg(torch.from_numpy(maps))
+    jp = j_pad(jnp.asarray(maps))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    mask, rc = ck.goca_cfar_qvg(tp, CfarParams(method=method, **SMALL),
+                                num_g, num_v)
+    mask_j, rc_j = goca_cfar_qvg_pallas(jp, JCfar(method=method, **SMALL),
+                                        num_g, num_v, interpret=True)
+    assert mask.shape == mask_j.shape and rc.dtype == torch.int32
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_j))
+    np.testing.assert_array_equal(rc.numpy(), np.asarray(rc_j))
+    assert mask[:, :, num_g:].sum() == 0 and mask.sum() >= 10
+
+
+def test_pair_sum_maps_match_jax():
+    rng = np.random.default_rng(6)
+    rdm = (rng.standard_normal((20, 50, 5))
+           + 1j * rng.standard_normal((20, 50, 5))).astype(np.complex64)
+    got = pair_sum_maps(torch.from_numpy(rdm))
+    want = np.asarray(j_pair_sum_maps(jnp.asarray(rdm)))
+    assert got.shape == want.shape == (20, 50, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+
+
+def test_k2_refuses_what_jax_refuses():
+    maps = ck.pad_maps_qvg(torch.zeros(2, 40, 300))
+    with pytest.raises(ValueError, match="HALO"):
+        ck.goca_cfar_qvg(maps, CfarParams(ref_cells_r=100, guard_cells_r=40),
+                         300, 40)
+    with pytest.raises(ValueError, match="method"):
+        ck.goca_cfar_qvg(maps, CfarParams(method="GO"), 300, 40)
+    with pytest.raises(NotImplementedError, match="means_impl"):
+        ck.goca_cfar_qvg(maps, CfarParams(means_impl="matmul"), 300, 40)
+
+
+@pytest.mark.parametrize("capacity", [8, 64, 512])
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_extract_detections_matches_jax(capacity, with_counts):
+    """First-K extraction on a padded qvg mask, with the kernel's row
+    counts or without: same slots, indices, amplitudes, validity and the
+    true count (above capacity too)."""
+    rng = np.random.default_rng(3)
+    num_q, num_v, num_g, g_out = 4, 32, 300, 512
+    mask = np.zeros((num_q, num_v, g_out), bool)
+    mask[:, :, :num_g] = rng.random((num_q, num_v, num_g)) < 0.004
+    maps = rng.exponential(size=(num_q, num_v, num_g)).astype(np.float32)
+    rc = mask.sum(axis=1).astype(np.int32)
+    got = extract_detections(torch.from_numpy(mask), torch.from_numpy(maps),
+                             capacity, layout="qvg",
+                             row_counts=torch.from_numpy(rc)
+                             if with_counts else None)
+    want = j_extract(jnp.asarray(mask), jnp.asarray(maps), capacity,
+                     layout="qvg", impl="direct",
+                     row_counts=jnp.asarray(rc) if with_counts else None)
+    for f in ("v_idx", "r_idx", "pair_idx", "amp", "valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+    assert int(got.count) == int(want.count) == int(mask.sum())
+    # order: (pair, range, velocity)-major, as the reference's find
+    n = min(capacity, int(mask.sum()))
+    q, v, g = np.nonzero(mask)
+    order = np.lexsort((v, g, q))[:n]
+    np.testing.assert_array_equal(got.pair_idx.numpy()[:n], q[order])
+    np.testing.assert_array_equal(got.r_idx.numpy()[:n], g[order])
+    np.testing.assert_array_equal(got.v_idx.numpy()[:n], v[order])

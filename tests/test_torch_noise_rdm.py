@@ -1,0 +1,197 @@
+"""PyTorch port: the fused noise RDM (kernel K1's plain version, its Philox
+draws) held against the JAX Pallas kernels run in interpret mode with f32
+multiplies.
+
+Tolerance of the RDM comparisons, relative to the reference's RMS: the
+RMS of the difference within 1e-5, every element within 1e-4 (f32 sums of
+up to 700 x 332 terms taken in another order: the banded PC per 128-gate
+tile, the DFT, the mix). The kernel itself runs only on the card (tests
+marked ``cuda``, in test_torch_cuda.py)."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from radar_tpu.config import params as jparams
+from radar_tpu.ops.dbf import dbf_weights_effective_np as j_weff
+from radar_tpu.ops.mtd import make_mtd_matrix as j_mtd_matrix
+from radar_tpu.ops.pallas_rdm import (gen_noise_planes_pallas,
+                                      make_rdm_plan as j_rdm_plan,
+                                      noise_rdm_pallas_gen,
+                                      noise_rdm_pallas_planes,
+                                      segment_buffer_len)
+from radar_tpu.ops.pulse_compression import make_matmul_plan as j_matmul_plan
+from radar_tpu.pipeline.lowrank import make_lowrank_stages as j_lowrank
+from radar_tpu.sim.echo import beam_noise_factor as j_noise_factor
+from radar_tpu.sim.scenario import TargetBatch as JTargets
+from radar_tpu.waveform.precompute import precompute as j_precompute
+
+from radar_tpu_torch.config import params as tparams
+from radar_tpu_torch.ops import noise_rdm as nr
+from radar_tpu_torch.pipeline.lowrank import make_lowrank_stages
+from radar_tpu_torch.sim.scenario import TargetBatch
+from radar_tpu_torch.waveform.precompute import from_numpy
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TARGETS = ([3000.0, 6000.0], [15.0, -8.0], [10.0, 12.0], [20.0, 14.0])
+SEED = (3, 5)
+
+
+def _close(got, want, rtol=1e-5):
+    got = got.detach().cpu().numpy() if torch.is_tensor(got) else got
+    want = np.asarray(want)
+    rms = lambda x: float(np.sqrt(np.mean(np.abs(x) ** 2)))
+    err = got - want
+    assert rms(err) <= rtol * rms(want)
+    assert float(np.max(np.abs(err))) <= 10 * rtol * rms(want)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    over = {**jparams.PERF_OVERRIDES, "matmul_precision": "f32",
+            "use_pallas_cfar": True}
+    tcfg = tparams.small_test_config().replace(**over)
+    jcfg = jparams.small_test_config().replace(**over)
+    jpre = j_precompute(jcfg)
+    mtd = j_mtd_matrix(jpre.mtd_win, jcfg.sig.prt_num)
+    jplan = j_rdm_plan(jpre, mtd, jcfg.sig.prt_num, tile=128, lane=128)
+    l_np = j_noise_factor(j_weff(jpre.dbf_w, jcfg.dbf_variant))
+    jl = j_lowrank(jcfg, jpre, None, j_matmul_plan(jpre), mtd, jpre.mtd_win,
+                   jnp.complex64)
+    tpre = from_numpy(jpre._asdict())
+    tl = make_lowrank_stages(tcfg, tpre, device="cpu")
+    factors = tl.signal_factors(TargetBatch.make(*TARGETS))
+    return dict(tcfg=tcfg, tpre=tpre, jplan=jplan, l_np=l_np, jl=jl, tl=tl,
+                factors=factors)
+
+
+
+def test_philox_matches_known_answers():
+    """Philox4x32-10 known-answer vectors of the Random123 suite."""
+    kat = [((0, 0, 0, 0), (0, 0),
+            (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+           ((0xffffffff,) * 4, (0xffffffff, 0xffffffff),
+            (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+           ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+            (0xa4093822, 0x299f31d0),
+            (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for ctr, key, want in kat:
+        got = nr.philox4x32_10(*[torch.tensor(c, dtype=torch.int64)
+                                 for c in ctr], *key)
+        assert tuple(int(g) for g in got) == want
+
+
+def test_philox_rail_statistics():
+    """1e6 uniform rails: mean 0 within 5 sigma, variance 1/2 within 1%,
+    support inside [-sqrt(1.5), sqrt(1.5))."""
+    n = torch.arange(1_000_000, dtype=torch.int64)
+    w0, w1, _, _ = nr.philox4x32_10(n, torch.tensor(7), torch.tensor(2),
+                                    torch.tensor(1), 11, 13)
+    for w in (w0, w1):
+        u = nr._uniform_rail(w).double()
+        assert abs(float(u.mean())) < 5 * np.sqrt(0.5 / u.numel())
+        assert abs(float(u.var()) / 0.5 - 1.0) < 0.01
+        assert float(u.min()) >= -nr.A_UNIF and float(u.max()) < nr.A_UNIF
+
+
+def test_philox_planes_zero_pad_front_and_are_keyed(setup):
+    plan = setup["tl"].rplan
+    a = nr.philox_planes(plan, SEED, 5, device="cpu")
+    b = nr.philox_planes(plan, (SEED[0], SEED[1] + 1), 5, device="cpu")
+    for seg, (xr, xi), (yr, _) in zip(plan.segments, a, b):
+        assert xr.shape == (5, plan.n_pulses, seg.xlen)
+        assert torch.all(xr[..., :seg.pad_front] == 0)
+        assert torch.all(xi[..., :seg.pad_front] == 0)
+        assert torch.all(xr[..., seg.pad_front:] != 0)
+        assert not torch.equal(xr, yr)
+    # the segment index keys the stream: equal geometry, other draws
+    assert not torch.equal(a[1][0][..., :100], a[2][0][..., :100])
+
+
+def test_planes_mode_matches_jax_planes_kernel(setup):
+    """Plain K1 in planes mode + fused signal vs the JAX DMA-plane kernel
+    fed the same numpy planes, plus the JAX XLA signal RDM."""
+    jplan, l_np, tl = setup["jplan"], setup["l_np"], setup["tl"]
+    num_b, num_p = l_np.shape[0], tl.rplan.n_pulses
+    rng = np.random.default_rng(11)
+    xrs, xis = [], []
+    for seg in jplan.segments:
+        shape = (num_b, jplan.p_pad, segment_buffer_len(seg))
+        xr = rng.standard_normal(shape).astype(np.float32)
+        xi = rng.standard_normal(shape).astype(np.float32)
+        xr[..., :seg.pad_front] = 0.0
+        xi[..., :seg.pad_front] = 0.0
+        xrs.append(xr)
+        xis.append(xi)
+    want = (noise_rdm_pallas_planes([jnp.asarray(x) for x in xrs],
+                                    [jnp.asarray(x) for x in xis], jplan,
+                                    l_np, interpret=True,
+                                    mul_dtype=jnp.float32)
+            + setup["jl"].signal_rdm(JTargets.make(*TARGETS)))
+    planes = [(torch.from_numpy(xr[:, :num_p]), torch.from_numpy(xi[:, :num_p]))
+              for xr, xi in zip(xrs, xis)]
+    got = nr.noise_rdm(tl.rplan, tl.l_factor, setup["factors"],
+                       planes=planes, layout="vgb")
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    _close(got, want)
+
+
+def test_plain_matches_jax_rolling_gen_kernel_on_its_planes(setup):
+    """Plain K1 vs the JAX in-kernel-draw rolling kernel with the rank-K
+    signal fused, fed the exact planes that kernel draws (exported by
+    gen_noise_planes_pallas)."""
+    jplan, l_np, tl = setup["jplan"], setup["l_np"], setup["tl"]
+    num_p = tl.rplan.n_pulses
+    seed = jnp.asarray(SEED, jnp.int32)
+    a = float(np.sqrt(1.5))
+    sig = tuple(jnp.asarray(f.numpy()) for f in setup["factors"])
+    want = noise_rdm_pallas_gen(seed, jplan, l_np, a, interpret=True,
+                                mul_dtype=jnp.float32,
+                                out_dtype=jnp.float32, rolling=True,
+                                signal=sig)
+    xrs, xis = gen_noise_planes_pallas(seed, jplan, l_np.shape[0], a,
+                                       interpret=True, mul_dtype=jnp.float32)
+    planes = [(torch.from_numpy(np.array(xr)[:, :num_p]),
+               torch.from_numpy(np.array(xi)[:, :num_p]))
+              for xr, xi in zip(xrs, xis)]
+    got = nr.noise_rdm(tl.rplan, tl.l_factor, setup["factors"],
+                       planes=planes, layout="vgb")
+    assert float(np.max(np.abs(np.asarray(want)))) > 0.0
+    _close(got, want)
+
+
+def test_draw_mode_is_plain_on_philox_planes(setup):
+    tl = setup["tl"]
+    planes = nr.philox_planes(tl.rplan, SEED, 5, device="cpu")
+    a = nr.noise_rdm(tl.rplan, tl.l_factor, setup["factors"], seed=SEED,
+                     layout="bvg")
+    b = nr.noise_rdm_plain(tl.rplan, tl.l_factor, planes, setup["factors"])
+    assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, planes=planes)
+
+
+def test_noise_power_matches_cholesky_factor(setup):
+    """Noise-only draw-mode RDM: the per-beam power equals
+    diag(L L^H) x (PC filter energy x DFT row energy) to MC error."""
+    tl = setup["tl"]
+    rdm = nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, layout="bvg")
+    plan = tl.rplan
+    l2 = (tl.l_factor.abs() ** 2).sum(1).double()              # [B]
+    d2 = (plan.d.abs() ** 2).sum(1).double()                    # [V]
+    g = []
+    for seg in plan.segments:
+        g.append(torch.full((seg.j_len,),
+                            float((seg.taps.abs() ** 2).sum())))
+    h2 = torch.cat(g).double()                                   # [G]
+    want = l2[:, None, None] * d2[None, :, None] * h2[None, None, :]
+    # pad_front zeros lower the first gates of segment 0: compare the rest
+    sl = slice(plan.segments[0].pad_front, None)
+    ratio = float((rdm.abs() ** 2).double()[..., sl].mean()
+                  / want[..., sl].mean())
+    assert abs(ratio - 1.0) < 0.02
