@@ -2,14 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from ``radar_tpu_torch/csrc`` with nvcc, checks
-each against its plain PyTorch version at the full perf-config shapes
-(16 channels x 332 pulses x 5819 samples -> RDM [13 beams, 332 Doppler,
-3404 gates] -> 12 pair maps), drives the frame processor once on the
-benchmark's two targets, shows through the launch counters that the frame
-ran on kernels K1 and K2, and times kernels, plain versions and the frame
-with CUDA events. Every phase prints one line; any failure raises and
-exits non-zero. The last line is the result:
+Builds the port's kernels from ``radar_tpu_torch/csrc`` with nvcc (one
+process per source, all at once) and checks each against its plain
+PyTorch version at the full shapes of the reference's frame (16 channels x
+332 pulses x 5819 samples -> RDM [13 beams, 332 Doppler, 3404 gates] -> 12
+pair maps). Then it drives two paths on the benchmark's two targets:
+
+- the perf-config frame, through kernels K1 (noise RDM) and K2 (CFAR);
+- the exact reference stream, the default entry point (per-element echoes
+  -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
+  ``noise_impl="pallas"``) and K3 (pair sum + CFAR), in three
+  configurations, at small widths against the CPU, and in the multi-frame
+  driver ``run_multiframe``.
+
+The launch counters are set to 0 just before each path runs and read just
+after, to show the path went through its kernels. Kernels, plain versions
+and frames are timed with CUDA events. Every phase prints one line; any
+failure raises and exits non-zero. The last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the repository beside it, it fails at once.
 """
@@ -22,6 +31,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def _line(phase: str, **kw) -> None:
@@ -60,6 +71,116 @@ def _time_pair(kernel, plain, reps: int = 5):
     return statistics.median(tk), statistics.median(tp)
 
 
+def _found(rows, truth, dr: float, dv: float) -> list:
+    """Whether each truth target has a row within 2 gates and 2 Doppler
+    bins."""
+    return [bool(np.any((np.abs(rows[:, 0] - r) <= 2 * dr)
+                        & (np.abs(rows[:, 1] - v) <= 2 * dv)))
+            for r, v in zip(truth.range_m, truth.velocity_ms)]
+
+
+def _rows(res):
+    """Valid final targets of a FrameResult as host rows (range, velocity,
+    angle, power)."""
+    t = res.targets
+    ok = t.valid.cpu().numpy()
+    return np.stack([x.cpu().numpy()[ok] for x in
+                     (t.range_m, t.velocity_ms, t.angle_deg, t.power)], 1)
+
+
+def _same_rows(a, b, rtol: float) -> None:
+    """Rows of ``a`` paired with the nearest row of ``b`` in (range,
+    velocity), then held to ``rtol``."""
+    _require(a.shape == b.shape, f"same targets {a.shape} vs {b.shape}")
+    dist = (np.abs(a[:, None, 0] - b[None, :, 0])
+            + 10 * np.abs(a[:, None, 1] - b[None, :, 1]))
+    pair = np.argmin(dist, axis=1)
+    _require(len(set(pair.tolist())) == len(pair), "targets pair up")
+    np.testing.assert_allclose(a, b[pair], rtol=rtol)
+
+
+def _reference_stages(cfg, pre, truth, dev, reps: int = 5) -> dict:
+    """Median CUDA-event ms of each stage of the reference stream with K5
+    noise (the frame processor's composition, stage by stage)."""
+    import torch
+
+    from radar_tpu_torch.cluster.stages import cluster_stage1, cluster_stage2
+    from radar_tpu_torch.measure.estimate import estimate_parameters
+    from radar_tpu_torch.ops.awgn import awgn
+    from radar_tpu_torch.ops.cfar import extract_detections
+    from radar_tpu_torch.ops.cfar_kernel import goca_cfar_2d_fused
+    from radar_tpu_torch.ops.dbf import dbf
+    from radar_tpu_torch.ops.mtd import make_mtd_matrix, mtd_matmul
+    from radar_tpu_torch.ops.noise_rdm import seed_words
+    from radar_tpu_torch.ops.pulse_compression import (
+        make_matmul_plan, pulse_compress_matmul, to_device)
+    from radar_tpu_torch.pipeline.frame import measure_consts
+    from radar_tpu_torch.sim.echo import synthesize_echoes
+
+    mplan = to_device(make_matmul_plan(pre), dev)
+    mtd_t = torch.as_tensor(make_mtd_matrix(pre.mtd_win, cfg.sig.prt_num)
+                            ).to(dev, torch.complex64)
+    mc = measure_consts(cfg, pre, device=dev)
+    ip, st = cfg.interp, {}
+
+    def maps():
+        mag = st["mag"]
+        st["maps"] = (mag[:-1] + mag[1:]).permute(1, 2, 0)
+
+    stages = (
+        ("synthesis", lambda: st.update(
+            raw=synthesize_echoes(truth, pre, cfg, device=dev))),
+        ("K5 AWGN", lambda: st.update(noisy=awgn(st["raw"],
+                                                  seed_words(3)))),
+        ("DBF", lambda: st.update(beams=dbf(st["noisy"], pre.dbf_w))),
+        ("PC (banded matmul)", lambda: st.update(
+            pc=pulse_compress_matmul(st["beams"], mplan))),
+        ("MTD (matmul)", lambda: st.update(rdm=mtd_matmul(st["pc"], mtd_t))),
+        ("|RDM| beams-major", lambda: st.update(
+            mag=st["rdm"].permute(2, 0, 1).abs().contiguous())),
+        ("K3 CFAR", lambda: st.update(
+            mask=goca_cfar_2d_fused(st["mag"], cfg.cfar)[0])),
+        ("pair maps", maps),
+        ("extraction", lambda: st.update(dets=extract_detections(
+            st["mask"], st["maps"], cfg.cfar.max_detections,
+            layout="vgq"))),
+        ("estimation", lambda: st.update(params=estimate_parameters(
+            st["dets"], st["maps"], st["rdm"], mc, ip.extra_dots,
+            ip.r_interp_times, ip.v_interp_times, maps_layout="vgq"))),
+        ("clustering", lambda: cluster_stage2(cluster_stage1(
+            st["params"], cfg.cluster), cfg.cluster)),
+    )
+    times = {name: [] for name, _ in stages}
+    for _ in range(reps + 1):
+        for name, fn in stages:
+            times[name] += _event_ms(fn, 1)
+    return {name: statistics.median(t[1:]) for name, t in times.items()}
+
+
+def _device_busy_ms(fn, reps: int = 5):
+    """(device-busy ms per call, top kernels) from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    # kernel rows only: an operator's row repeats its kernels' device time
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0))
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and dev_t(e) > 0]
+    top = sorted(evs, key=dev_t, reverse=True)[:6]
+    return (sum(dev_t(e) for e in evs) / reps / 1000.0,
+            [(e.key[:60], round(dev_t(e) / reps / 1000.0, 4)) for e in top])
+
+
 def main() -> int:
     import torch
 
@@ -68,16 +189,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
 
     from radar_tpu_torch import _build
-    from radar_tpu_torch.config.params import (PERF_OVERRIDES, perf_config,
+    from radar_tpu_torch.config.params import (PERF_OVERRIDES, full_config,
+                                               perf_config,
                                                small_test_config)
+    from radar_tpu_torch.ops import awgn as k5
     from radar_tpu_torch.ops import cfar_kernel as ck
     from radar_tpu_torch.ops import noise_rdm as nr
+    from radar_tpu_torch.pipeline.driver import run_multiframe
     from radar_tpu_torch.pipeline.frame import make_frame_processor
     from radar_tpu_torch.pipeline.lowrank import make_lowrank_stages
-    from radar_tpu_torch.sim.scenario import TargetBatch
+    from radar_tpu_torch.sim.scenario import (TargetBatch,
+                                              default_two_target_scene)
     from radar_tpu_torch.waveform.precompute import precompute
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -92,8 +216,7 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
-    for name in ("noise_rdm", "cfar"):
-        _build.load(name)
+    _build.build_all(["noise_rdm", "cfar", "awgn"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():
@@ -172,20 +295,21 @@ def main() -> int:
     process = make_frame_processor(cfg, pre, device=dev)
     process(1, truth)                      # warm-up outside the count
     torch.cuda.synchronize()
-    nr.launch_count = 0
-    ck.launch_count = 0
+    counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
+                      "K3": ck.k3_launch_count, "K5": k5.launch_count}
+
+    def reset():
+        nr.launch_count = ck.launch_count = 0
+        ck.k3_launch_count = k5.launch_count = 0
+
+    reset()
     res = process(20261016, truth)
     torch.cuda.synchronize()
-    launches = {"K1": nr.launch_count, "K2": ck.launch_count}
-    t = res.targets
-    ok = t.valid.cpu().numpy()
-    rows = np.stack([x.cpu().numpy()[ok] for x in
-                     (t.range_m, t.velocity_ms, t.angle_deg, t.power)], 1)
+    launches = counts()
+    rows = _rows(res)
     dr = float(pre.delta_r)
     dv = float(pre.velocity_axis[1] - pre.velocity_axis[0])
-    found = [bool(np.any((np.abs(rows[:, 0] - r) <= 2 * dr)
-                         & (np.abs(rows[:, 1] - v) <= 2 * dv)))
-             for r, v in zip(truth.range_m, truth.velocity_ms)]
+    found = _found(rows, truth, dr, dv)
     _line("frame", launches=launches, num_raw=int(res.num_raw_detections),
           num_final=int(res.num_final), found=found,
           targets=np.round(rows, 3).tolist())
@@ -200,15 +324,120 @@ def main() -> int:
                            [20.0, 14.0])
     a = make_frame_processor(small, device=dev)(5, tb2)
     b = make_frame_processor(small, device="cpu")(5, tb2)
-    def rows_of(r):
-        ok = r.targets.valid.cpu().numpy()
-        x = np.stack([r.targets.range_m.cpu().numpy()[ok],
-                      r.targets.velocity_ms.cpu().numpy()[ok]], 1)
-        return x[np.lexsort((x[:, 1], x[:, 0]))]
     _line("small", card_final=int(a.num_final), cpu_final=int(b.num_final))
     _require(int(a.num_final) == int(b.num_final) >= 2,
              "card and CPU frames agree")
-    np.testing.assert_allclose(rows_of(a), rows_of(b), rtol=1e-4)
+    _same_rows(_rows(a)[:, :2], _rows(b)[:, :2], rtol=1e-4)
+
+    # ---- 7. K5 at the raw-cube shape vs its plain version, statistics
+    ref_cfg = full_config()
+    shape = (ref_cfg.sig.prt_num, ref_cfg.sig.point_prt,
+             ref_cfg.sig.channel_num)
+    zeros = torch.zeros(shape, dtype=torch.complex64, device=dev)
+    k5_seed = nr.seed_words(77)
+    y = k5.awgn(zeros, k5_seed)
+    y_p = k5.awgn_plain(zeros, k5_seed)
+    torch.cuda.synchronize()
+    k5_err = float((y - y_p).abs().max())
+    re, im = y.real.double().reshape(-1), y.imag.double().reshape(-1)
+    stats = {}
+    for name, rail in (("re", re), ("im", im)):
+        c = rail - rail.mean()
+        var = float(rail.var())
+        stats[name] = {"mean": float(rail.mean()), "var": var,
+                       "kurt": float((c**4).mean()) / var**2,
+                       "lag1": float((c[1:] * c[:-1]).mean()) / var}
+    re_im = float((re * im).mean())
+    sig = torch.full_like(zeros, 3.0 - 2.0j)
+    passthrough = float((k5.awgn(sig, k5_seed) - y - sig).abs().max())
+    _line("K5", shape=list(shape), max_abs_err=k5_err,
+          identical=bool(torch.equal(y, y_p)), tol="max|err|<=1e-5",
+          stats=stats, re_im=re_im, passthrough_err=passthrough)
+    _require(k5_err <= 1e-5, "K5 vs plain")
+    for st in stats.values():
+        _require(abs(st["mean"]) < 5e-3 and abs(st["var"] - 0.5) < 5e-3
+                 and abs(st["kurt"] - 3.0) < 5e-2 and abs(st["lag1"]) < 5e-3,
+                 f"K5 rail statistics {st}")
+    _require(abs(re_im) < 5e-3 and passthrough <= 1e-5,
+             "K5 re*im correlation and signal pass-through")
+    del y, y_p, sig, re, im
+
+    # ---- 8. K3 at full size vs its plain version, on |RDM| of a
+    # reference-stream frame
+    ref_pre = precompute(ref_cfg)
+    inter = make_frame_processor(ref_cfg, ref_pre, device=dev,
+                                 return_intermediates=True)(11, truth)
+    mag = inter.rdm.permute(2, 0, 1).abs().contiguous()    # [13, 332, 3404]
+    del inter
+    m3, t3 = ck.goca_cfar_2d_fused(mag, ref_cfg.cfar)
+    m3_p, t3_p = ck.goca_cfar_2d_fused_plain(mag, ref_cfg.cfar)
+    torch.cuda.synchronize()
+    k3_mask_diff = int((m3 != m3_p).sum())
+    k3_err = float((t3 - t3_p).abs().max())
+    _line("K3", mag=list(mag.shape), hits=int(m3.sum()),
+          mask_cells_differing=k3_mask_diff, thr_max_abs_err=k3_err,
+          tol="identical mask and threshold")
+    _require(k3_mask_diff == 0 and k3_err == 0.0 and int(m3.sum()) > 0,
+             "K3 == plain")
+
+    # ---- 9. the reference stream (the default entry point), full size
+    ref_frames = {}
+    for label, cfg_r, want in (
+            ("pallas_noise", ref_cfg.replace(noise_impl="pallas"),
+             ("K5", "K3")),
+            ("threefry", ref_cfg, ("K3",)),
+            ("pallas_cfar", ref_cfg.replace(use_pallas_cfar=True),
+             ("K2",)),
+            ("bf16", ref_cfg.replace(matmul_precision="bf16"), ("K3",)),
+            ("fused", ref_cfg.replace(fused_synth_dbf=True), ("K3",))):
+        proc = make_frame_processor(cfg_r, ref_pre, device=dev)
+        proc(1, truth)                     # warm-up outside the count
+        torch.cuda.synchronize()
+        reset()
+        res = proc(20261016, truth)
+        torch.cuda.synchronize()
+        got = counts()
+        rows = _rows(res)
+        found = _found(rows, truth, dr, dv)
+        _line("ref_frame", config=label, launches=got,
+              num_raw=int(res.num_raw_detections),
+              num_final=int(res.num_final), found=found,
+              targets=np.round(rows, 3).tolist())
+        _require(all(got[k] >= 1 for k in want), f"{label} launched {want}")
+        _require(label != "threefry" or got["K5"] == 0,
+                 "the threefry stream draws no K5 noise")
+        _require(bool(np.all(np.isfinite(rows))) and all(found),
+                 f"{label}: truth targets found")
+        ref_frames[label] = (proc, got)
+    ref_launches = ref_frames["pallas_noise"][1]
+
+    # small widths: K5 + K3 on the card vs the plain versions on the CPU
+    small_ref = small_test_config().replace(noise_impl="pallas")
+    a = make_frame_processor(small_ref, device=dev)(5, tb2)
+    b = make_frame_processor(small_ref, device="cpu")(5, tb2)
+    _line("ref_small", card_final=int(a.num_final),
+          cpu_final=int(b.num_final))
+    _require(int(a.num_final) == int(b.num_final) >= 2,
+             "reference stream: card and CPU frames agree")
+    _same_rows(_rows(a), _rows(b), rtol=1e-4)
+
+    # ---- 10. the multi-frame driver, default scene, 5 frames
+    scene = default_two_target_scene()
+    mf_proc = ref_frames["threefry"][0]
+    reset()
+    log, tracks, _ = run_multiframe(ref_cfg, scene, 5, seed=0,
+                                    processor=mf_proc, device=dev)
+    mf_launches = counts()
+    near = lambda tr, r, v: abs(tr.range_m - r) <= 30 and \
+        abs(tr.velocity_ms - v) <= 2 * dv
+    good = [[t for t in tracks if near(t, r, v) and t.num_points >= 4]
+            for r, v in ((3000.0, 20.0), (10000.0, 25.0))]
+    _line("multiframe", frames=5, log_rows=len(log), tracks=len(tracks),
+          launches=mf_launches,
+          track_rows=[[round(t.range_m, 2), round(t.velocity_ms, 3),
+                       t.num_points] for t in tracks])
+    _require(all(good) and mf_launches["K3"] >= 5,
+             "run_multiframe: a track of >= 4 points near each truth")
 
     # ---- 6. times (CUDA events, median), card and power limit beside
     k1_ms, k1_plain_ms = _time_pair(
@@ -221,10 +450,34 @@ def main() -> int:
         lambda: ck.goca_cfar_qvg_plain(maps_p, cfg.cfar, num_g, num_v))
     frame_ms = statistics.median(_event_ms(lambda: process(20261016, truth),
                                            10))
+    k3_ms, k3_plain_ms = _time_pair(
+        lambda: ck.goca_cfar_2d_fused(mag, ref_cfg.cfar),
+        lambda: ck.goca_cfar_2d_fused_plain(mag, ref_cfg.cfar))
+    k5_ms, k5_plain_ms = _time_pair(lambda: k5.awgn(zeros, k5_seed),
+                                    lambda: k5.awgn_plain(zeros, k5_seed))
+    ref_proc = ref_frames["pallas_noise"][0]
+    ref_ms = statistics.median(_event_ms(lambda: ref_proc(20261016, truth),
+                                         5))
+    mf_ms = statistics.median(_event_ms(lambda: run_multiframe(
+        ref_cfg, scene, 3, processor=mf_proc, device=dev), 3)) / 3
     for name, ms in (("K1", k1_ms), ("K1 plain", k1_plain_ms),
                      ("K2", k2_ms), ("K2 plain", k2_plain_ms),
-                     ("frame", frame_ms)):
+                     ("frame", frame_ms),
+                     ("K3", k3_ms), ("K3 plain", k3_plain_ms),
+                     ("K5", k5_ms), ("K5 plain", k5_plain_ms),
+                     ("reference-stream frame (K5 + K3)", ref_ms),
+                     ("run_multiframe, per frame", mf_ms)):
         _line("time", what=repr(name), ms=round(ms, 4), card=repr(card))
+
+    # ---- 11. where the reference frame's time goes
+    stage_ms = _reference_stages(ref_cfg, ref_pre, truth, dev)
+    _line("ref_stages", card=repr(card),
+          ms={k: round(v, 4) for k, v in stage_ms.items()},
+          sum_ms=round(sum(stage_ms.values()), 4))
+    busy_ms, top = _device_busy_ms(lambda: ref_proc(20261016, truth))
+    _line("ref_profile", device_busy_ms=round(busy_ms, 4),
+          frame_ms=round(ref_ms, 4),
+          idle_share=round(1.0 - busy_ms / ref_ms, 4), top_kernels=top)
 
     print(json.dumps({"kernels": [
         {"name": "K1 fused noise RDM (draw mode, rank-K signal)",
@@ -236,7 +489,17 @@ def main() -> int:
          "source": "radar_tpu_torch/csrc/cfar.cu",
          "replaces": "radar_tpu/ops/pallas_kernels.py:234",
          "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "K3 pair sum + 2D GOCA-CFAR (mask, threshold)",
+         "route": "cuda", "source": "radar_tpu_torch/csrc/cfar.cu",
+         "replaces": "radar_tpu/ops/pallas_kernels.py:292",
+         "launches": ref_launches["K3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "K5 complex AWGN (Philox + Box-Muller)", "route": "cuda",
+         "source": "radar_tpu_torch/csrc/awgn.cu",
+         "replaces": "radar_tpu/ops/pallas_noise.py:106",
+         "launches": ref_launches["K5"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

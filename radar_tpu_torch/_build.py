@@ -5,7 +5,8 @@ a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries go to ``build/radar_tpu_torch/`` at the
 repository root, named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused. Nothing is compiled at
-import time; the first kernel call builds.
+import time; the first kernel call builds, and ``build_all`` compiles
+several sources at once, one ``nvcc`` process each.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "radar_tpu_torch")
 
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# K2's mask must be bit-identical to the plain version: no FMA contraction
-_EXTRA = {"noise_rdm": [], "cfar": ["-fmad=false"]}
+# K2, K3 and K5 must match their plain versions' rounding: no FMA
+# contraction
+_EXTRA = {"noise_rdm": [], "cfar": ["-fmad=false"], "awgn": ["-fmad=false"]}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F, _LL = ctypes.c_float, ctypes.c_longlong
@@ -39,6 +41,11 @@ _SIGNATURES = {
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                     _I, _P, _P, _P],
+        "k3_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
+                    _P],
+    },
+    "awgn": {
+        "k5_awgn": [_P, _P, _LL, _U, _U, _F, _F, _P],
     },
 }
 
@@ -55,10 +62,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The compiled library ``name`` (building it on first use)."""
-    if name in _libs:
-        return _libs[name]
+def _library_path(name: str) -> tuple[str, str, list]:
     src = os.path.join(_CSRC, name + ".cu")
     flags = _COMMON + _EXTRA[name]
     digest = hashlib.sha256(" ".join(flags).encode())
@@ -66,18 +70,48 @@ def load(name: str) -> ctypes.CDLL:
         with open(path, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    t0 = time.perf_counter()
-    log = ""
-    if not os.path.exists(out):
+    return src, out, flags
+
+
+def build_all(names) -> None:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` process per source, all running at once; then load them."""
+    started = []
+    for name in names:
+        if name in _libs:
+            continue
+        src, out, flags = _library_path(name)
+        if os.path.exists(out):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, src],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.Popen([_nvcc(), *flags, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, t0 in started:
+        log, _ = proc.communicate()
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-        os.replace(tmp, out)
-    build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+            failed.append(f"nvcc failed on {src}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        load(name)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled library ``name`` (building it on first use)."""
+    if name in _libs:
+        return _libs[name]
+    _, out, _ = _library_path(name)
+    if not os.path.exists(out):
+        build_all([name])
+        return _libs[name]
+    build_info.setdefault(name, {"seconds": 0.0, "log": ""})
     lib = ctypes.CDLL(out)
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes

@@ -1,5 +1,5 @@
 """Connected-component labeling for detection clustering — port of
-``radar_tpu/cluster/connected.py:24-108``.
+``radar_tpu/cluster/connected.py:24-129``.
 
 The reference's BFS flood fills (fun_process_single_frame.m:302-407)
 become masked min-label propagation plus pointer jumping over the gate-
@@ -9,6 +9,7 @@ member index, so the fixpoint equals the JAX package's labels exactly.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 CHECK_EVERY = 4   # propagation steps between convergence checks (host syncs)
@@ -78,3 +79,25 @@ def merge_winner_take_all(labels: torch.Tensor, valid: torch.Tensor,
     merged = {k: v[winner] for k, v in fields.items()}
     merged["power"] = power[winner]
     return merged, valid & (labels == idx)
+
+
+def connected_components_np(adj: np.ndarray) -> np.ndarray:
+    """Host BFS connected components of a dense bool adjacency [n, n] (the
+    variable-length cumulative logs of inter-frame track association).
+    Returns 0-based component ids in first-seen order, the ids the
+    reference's BFS assigns."""
+    n = adj.shape[0]
+    comp = -np.ones(n, dtype=np.int64)
+    next_id = 0
+    for i in range(n):
+        if comp[i] >= 0:
+            continue
+        stack = [i]
+        comp[i] = next_id
+        while stack:
+            u = stack.pop()
+            for v in np.nonzero(adj[u] & (comp < 0))[0]:
+                comp[v] = next_id
+                stack.append(v)
+        next_id += 1
+    return comp

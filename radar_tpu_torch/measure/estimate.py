@@ -1,5 +1,5 @@
 """Per-detection parameter estimation: spline peak refinement + amplitude
-monopulse — port of ``radar_tpu/measure/estimate.py:33-235``.
+monopulse — port of ``radar_tpu/measure/estimate.py:33-80, 103-111, 144-235``.
 
 Reference (fun_process_single_frame.m:226-299): for each detection the
 +/-extra_dots stencil of the pair-sum map is upsampled with MATLAB's
@@ -29,16 +29,20 @@ class ParamDetections(NamedTuple):
 
 
 def _stencil_gather(maps: torch.Tensor, v_idx, r_idx, pair_idx, extra: int,
-                    axis: str) -> torch.Tensor:
-    """+/-extra stencil of a [pairs, V, G] map along range ('r', clipped to
-    the map) or Doppler ('v', wrapped: the fftshifted Doppler axis is
-    circular) -> [cap, 2e+1]."""
+                    axis: str, layout: str) -> torch.Tensor:
+    """+/-extra stencil of a pair-sum map ([pairs, V, G] "qvg" or
+    [V, G, pairs] "vgq") along range ('r', clipped to the map) or Doppler
+    ('v', wrapped: the fftshifted Doppler axis is circular) -> [cap, 2e+1]."""
     offs = torch.arange(-extra, extra + 1, device=maps.device)
+    v_ax, r_ax = (1, 2) if layout == "qvg" else (0, 1)
     if axis == "r":
-        cells = (r_idx[:, None] + offs[None, :]).clamp(0, maps.shape[2] - 1)
-        return maps[pair_idx[:, None], v_idx[:, None], cells]
-    cells = torch.remainder(v_idx[:, None] + offs[None, :], maps.shape[1])
-    return maps[pair_idx[:, None], cells, r_idx[:, None]]
+        r = (r_idx[:, None] + offs[None, :]).clamp(0, maps.shape[r_ax] - 1)
+        v = v_idx[:, None]
+    else:
+        r = r_idx[:, None]
+        v = torch.remainder(v_idx[:, None] + offs[None, :], maps.shape[v_ax])
+    p = pair_idx[:, None]
+    return maps[p, v, r] if layout == "qvg" else maps[v, r, p]
 
 
 def _spline_peak_offset(stencil: torch.Tensor, q: torch.Tensor, times: int,
@@ -55,17 +59,18 @@ def estimate_parameters(dets: Detections, pair_maps: torch.Tensor,
                         r_times: int, v_times: int, layout: str = "vgb",
                         maps_layout: str = "qvg") -> ParamDetections:
     """``rdm``: [V, G, beams] ("vgb") or [beams, V, G] ("bvg") complex;
-    ``pair_maps``: [pairs, V, G] ("qvg", the layout the port's tail uses);
-    ``consts``: ``pipeline.frame.MeasureConsts`` on the rdm's device."""
-    if maps_layout != "qvg":
+    ``pair_maps``: [pairs, V, G] ("qvg", the kernel-CFAR tail) or
+    [V, G, pairs] ("vgq", the default tail); ``consts``:
+    ``pipeline.frame.MeasureConsts`` on the rdm's device."""
+    if maps_layout not in ("qvg", "vgq"):
         raise NotImplementedError(f"maps_layout={maps_layout!r} is not "
-                                  "ported (the port's tail runs 'qvg')")
+                                  "ported (the port runs 'qvg' and 'vgq')")
     f32 = torch.float32
     q_r = consts.q_range.to(f32)
     q_v = consts.q_vel.to(f32)
     gather = lambda axis: _stencil_gather(
         pair_maps, dets.v_idx, dets.r_idx, dets.pair_idx, extra_dots,
-        axis).to(f32)
+        axis, maps_layout).to(f32)
     off_r, _ = _spline_peak_offset(gather("r"), q_r, r_times, extra_dots)
     est_range = consts.range_axis[dets.r_idx] + off_r * consts.delta_r
     off_v, _ = _spline_peak_offset(gather("v"), q_v, v_times, extra_dots)

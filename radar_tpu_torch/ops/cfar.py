@@ -1,5 +1,5 @@
 """2D GOCA-CFAR and first-K detection extraction — port of
-``radar_tpu/ops/cfar.py:146-216, 367-454``.
+``radar_tpu/ops/cfar.py:146-216, 272-312, 367-454``.
 
 Reference (fun_process_single_frame.m:172-223): on each adjacent-beam sum
 map |RDM_A| + |RDM_B|, a cross-shaped greatest-of cell-averaging detector
@@ -12,8 +12,9 @@ with guard cells, and border cells (closer than ref+guard to an edge)
 never tested. The window means are ``ref`` ordered shifted adds, as in the
 reference, then a multiply by the f32 reciprocal of ``ref`` — what XLA
 compiles the reference's division by the constant into (eager JAX divides,
-which can differ in the last bit); the port does the same on every device
-so kernel K2 can match it bit for bit.
+which can differ in the last bit) — and the "CA" combine takes the fused
+multiply-add XLA's CPU compiler makes of it. The port does the same on
+every device, so kernels K2 and K3 match it bit for bit.
 
 Detections leave as a fixed-capacity list in (pair, range, velocity)
 order, the order of MATLAB's column-major ``find`` per pair (ref :215-221).
@@ -42,27 +43,31 @@ def _shifted(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     return out
 
 
-def lead_trail_means(x: torch.Tensor, guard: int, ref: int,
-                     axis: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """lead[i] = mean(x[i-guard-ref : i-guard]), trail[i] =
-    mean(x[i+guard+1 : i+guard+ref+1]); zero fill past the edges."""
+def _lead_trail_sums(x: torch.Tensor, guard: int, ref: int, axis: int):
+    """Window sums of the ``ref`` cells before and after the guard band,
+    added in the reference's order (k = guard+1 .. guard+ref)."""
     lead = torch.zeros_like(x)
     trail = torch.zeros_like(x)
     for k in range(guard + 1, guard + ref + 1):
         lead = lead + _shifted(x, k, axis)
         trail = trail + _shifted(x, -k, axis)
-    inv = float(np.float32(1.0 / ref))
-    return lead * inv, trail * inv
+    return lead, trail
 
 
-def _combine(lead: torch.Tensor, trail: torch.Tensor,
+def _combine(lead: torch.Tensor, trail: torch.Tensor, ref: int,
              method: str) -> torch.Tensor:
+    """The per-axis noise estimate from the two window sums. For "CA" XLA
+    contracts ``lead*inv + trail*inv`` into ``fma(lead, inv, trail*inv)``;
+    the product lead*inv is exact in f64, so the f64 sum rounded to f32 is
+    that FMA (but for a double rounding, at odds of about 2^-29)."""
+    inv = float(np.float32(1.0 / ref))
     if method == "GOCA":
-        return torch.maximum(lead, trail)
+        return torch.maximum(lead * inv, trail * inv)
     if method == "SOCA":
-        return torch.minimum(lead, trail)
+        return torch.minimum(lead * inv, trail * inv)
     if method == "CA":
-        return 0.5 * (lead + trail)
+        s = lead.double() * inv + (trail * inv).double()
+        return 0.5 * s.to(lead.dtype)
     raise ValueError(f"unknown CFAR method: {method}")
 
 
@@ -81,12 +86,12 @@ def goca_noise_and_valid(maps: torch.Tensor, params: CfarParams,
         raise NotImplementedError(
             f"cfg.cfar.means_impl={params.means_impl!r} is not ported")
     r_axis, v_axis = {"vgq": (1, 0), "qvg": (2, 1)}[layout]
-    lead_r, trail_r = lead_trail_means(maps, params.guard_cells_r,
-                                       params.ref_cells_r, axis=r_axis)
-    noise_r = _combine(lead_r, trail_r, params.method)
-    lead_v, trail_v = lead_trail_means(maps, params.guard_cells_v,
-                                       params.ref_cells_v, axis=v_axis)
-    noise_v = _combine(lead_v, trail_v, params.method)
+    noise_r = _combine(*_lead_trail_sums(maps, params.guard_cells_r,
+                                         params.ref_cells_r, r_axis),
+                       params.ref_cells_r, params.method)
+    noise_v = _combine(*_lead_trail_sums(maps, params.guard_cells_v,
+                                         params.ref_cells_v, v_axis),
+                       params.ref_cells_v, params.method)
     noise = torch.maximum(noise_r, noise_v)
 
     num_v, num_r = maps.shape[v_axis], maps.shape[r_axis]
@@ -123,47 +128,79 @@ class Detections(NamedTuple):
     count: torch.Tensor     # int32 scalar (true number found, may exceed cap)
 
 
+def _first_k(row_counts: torch.Tensor, capacity: int, column):
+    """The first ``capacity`` hits over rows of width V in row order.
+    ``row_counts`` [rows] holds each row's hits and ``column(r)`` returns
+    rows ``r`` [cap] as [cap, V] int32 masks. Returns (row [cap], position
+    in row [cap], valid [cap]). A prefix sum and a binary search give each
+    slot's row; a cumsum over the fetched row finds its position. All on
+    the device: no ``nonzero``, no host sync."""
+    rcf = row_counts.reshape(-1).to(torch.int64)
+    dev = rcf.device
+    incl = torch.cumsum(rcf, 0)
+    row_off = incl - rcf                                        # exclusive
+    slots = torch.arange(capacity, dtype=torch.int64, device=dev)
+    valid = slots < torch.clamp(incl[-1], max=capacity)
+    r_s = (torch.searchsorted(row_off, slots, right=True) - 1).clamp(
+        0, rcf.shape[0] - 1)
+    col = column(r_s)
+    within = torch.cumsum(col, dim=1) - col                     # exclusive
+    hit = (col > 0) & (within == (slots - row_off[r_s])[:, None])
+    return r_s, torch.argmax(hit.to(torch.int32), dim=1), valid
+
+
+def first_k_true_vgq(mask: torch.Tensor, capacity: int):
+    """Ascending (pair, range, velocity)-major flat indices of the first
+    ``capacity`` True cells of a [V, G, pairs] mask, and their validity;
+    invalid slots hold 0. Rows are (pair, gate) of width V, read in the
+    mask's own layout (no relayout of the cube)."""
+    num_v, num_g, _ = mask.shape
+    rc = mask.sum(dim=0, dtype=torch.int32).T                  # [Q, G]
+    r_s, v_c, valid = _first_k(
+        rc, capacity,
+        lambda r: mask[:, r % num_g, r // num_g].T.to(torch.int32))
+    return torch.where(valid, r_s * num_v + v_c, 0), valid
+
+
 def extract_detections(mask: torch.Tensor, maps: torch.Tensor,
                        capacity: int, layout: str = "qvg",
                        row_counts: torch.Tensor | None = None) -> Detections:
-    """The first ``capacity`` True cells of a [pairs, V, G'] mask in
-    (pair, range, velocity) order, with their ``maps`` [pairs, V, G]
-    amplitudes (G' >= G; columns past G must be False).
+    """The first ``capacity`` True cells of the mask in (pair, range,
+    velocity) order, with their ``maps`` amplitudes: the JAX
+    ``impl="direct"`` extraction (its ``"rowfetch"`` gives the same output
+    bit for bit in all cases, so the port has only this one).
 
-    Rows are (pair, gate) columns of width V. Their hit counts
-    (``row_counts`` [pairs, G'], e.g. from kernel K2, or the mask's sum)
-    give each slot's row by a prefix sum and a binary search; a cumsum over
-    the slot's gathered column finds its Doppler bin. Everything stays on
-    the device: no ``nonzero``, no host sync."""
-    if layout != "qvg":
+    ``layout="qvg"``: mask [pairs, V, G'] and maps [pairs, V, G] (G' >= G,
+    columns past G False); ``row_counts`` [pairs, G'] (e.g. from kernel K2)
+    saves the mask reduction. ``layout="vgq"``: mask and maps [V, G,
+    pairs]. Rows are (pair, gate) of width V in both layouts, read where
+    they lie, with no host sync."""
+    if layout == "vgq":
+        num_v, num_g, _ = mask.shape
+        idx, valid = first_k_true_vgq(mask, capacity)
+        pair, rem = idx // (num_g * num_v), idx % (num_g * num_v)
+        r, v = rem // num_v, rem % num_v
+        amp = maps[v, r, pair]
+        count = mask.sum()
+    elif layout == "qvg":
+        num_g = mask.shape[2]
+        if row_counts is None:
+            row_counts = mask.sum(dim=1, dtype=torch.int32)
+        r_s, v_c, valid = _first_k(
+            row_counts, capacity,
+            lambda r: mask[r // num_g, :, r % num_g].to(torch.int32))
+        zero = torch.zeros((), dtype=torch.int64, device=mask.device)
+        pair = torch.where(valid, r_s // num_g, zero)
+        r = torch.where(valid, r_s % num_g, zero)
+        v = torch.where(valid, v_c, zero)
+        amp = maps[pair, v, r]
+        count = row_counts.sum()
+    else:
         raise NotImplementedError(f"extract_detections layout={layout!r} "
-                                  "is not ported (the slice runs 'qvg')")
-    num_q, num_v, num_g = mask.shape
-    dev = mask.device
-    if row_counts is None:
-        row_counts = mask.sum(dim=1, dtype=torch.int32)
-    rcf = row_counts.reshape(-1).to(torch.int64)               # [Q*G']
-    incl = torch.cumsum(rcf, 0)
-    row_off = incl - rcf                                        # exclusive
-    total = incl[-1]
-    slots = torch.arange(capacity, dtype=torch.int64, device=dev)
-    valid = slots < torch.clamp(total, max=capacity)
-    r_s = torch.searchsorted(row_off, slots, right=True) - 1
-    r_s = r_s.clamp(0, num_q * num_g - 1)
-    q_s = r_s // num_g
-    g_s = r_s % num_g
-    col = mask[q_s, :, g_s].to(torch.int32)                     # [cap, V]
-    within = torch.cumsum(col, dim=1) - col                     # exclusive
-    want = slots - row_off[r_s]
-    hit = (col > 0) & (within == want[:, None])
-    v_c = torch.argmax(hit.to(torch.int32), dim=1)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    pair = torch.where(valid, q_s, zero)
-    r = torch.where(valid, g_s, zero)
-    v = torch.where(valid, v_c, zero)
-    amp = maps[pair, v, r]
+                                  "is not ported (the port runs 'qvg' and "
+                                  "'vgq')")
     return Detections(
         v_idx=v, r_idx=r, pair_idx=pair,
         amp=torch.where(valid, amp, torch.zeros((), dtype=amp.dtype,
-                                                device=dev)),
-        valid=valid, count=rcf.sum().to(torch.int32))
+                                                device=amp.device)),
+        valid=valid, count=count.to(torch.int32))

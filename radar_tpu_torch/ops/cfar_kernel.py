@@ -1,11 +1,17 @@
-"""2D GOCA-CFAR over padded qvg pair-sum maps: kernel K2 — port of
-``radar_tpu/ops/pallas_kernels.py:39-76, 132-270``
-(``goca_cfar_qvg_pallas``, ``pad_maps_qvg``).
+"""2D GOCA-CFAR kernels K2 and K3 — port of
+``radar_tpu/ops/pallas_kernels.py:39-129, 132-318``.
 
-``goca_cfar_qvg`` runs ``csrc/cfar.cu`` for CUDA tensors and the plain
-PyTorch version ``goca_cfar_qvg_plain`` (``ops/cfar.py::goca_cfar_2d`` on
-the un-padded maps) only for CPU tensors. Both give the mask bit for bit
-and the per-(pair, gate) hit counts that ``extract_detections`` consumes.
+- K2 (``goca_cfar_qvg_pallas``, ``pad_maps_qvg``): CFAR over padded qvg
+  pair-sum maps. ``goca_cfar_qvg`` runs ``csrc/cfar.cu`` for CUDA tensors
+  and the plain PyTorch version ``goca_cfar_qvg_plain``
+  (``ops/cfar.py::goca_cfar_2d`` on the un-padded maps) only for CPU
+  tensors. Both give the mask bit for bit and the per-(pair, gate) hit
+  counts that ``extract_detections`` consumes.
+- K3 (``goca_cfar_2d_pallas``): the adjacent-beam pair sum fused with the
+  same CFAR, on beams-major magnitudes [B, V, G]. ``goca_cfar_2d_fused``
+  runs ``csrc/cfar.cu`` for CUDA tensors and the plain version
+  ``goca_cfar_2d_fused_plain`` (``goca_cfar_2d`` of the pair sums) only
+  for CPU tensors; mask and threshold agree bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ GATE_TILE = 512     # output gate columns are padded to a multiple of this
 _METHODS = {"GOCA": 0, "SOCA": 1, "CA": 2}
 
 launch_count = 0    # K2 launches
+k3_launch_count = 0  # K3 launches
 
 
 def _check_params(params: CfarParams) -> None:
@@ -103,3 +110,52 @@ def goca_cfar_qvg(maps_padded: torch.Tensor, params: CfarParams,
     if maps_padded.is_cuda:
         return _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v)
     return goca_cfar_qvg_plain(maps_padded, params, num_gates, num_v)
+
+
+def goca_cfar_2d_fused_plain(mag: torch.Tensor, params: CfarParams):
+    """Plain PyTorch version of K3: ``goca_cfar_2d(pair_sum_maps(.))`` of
+    beams-major magnitudes ``mag`` [B, V, G] -> (mask bool, threshold) as
+    [V, G, B-1] views of [B-1, V, G] tensors. Runs on any device (the card
+    uses it to check K3)."""
+    _check_params(params)
+    maps = mag[:-1] + mag[1:]                                   # [Q, V, G]
+    mask, thr = goca_cfar_2d(maps, params, layout="qvg")
+    return mask.permute(1, 2, 0), thr.permute(1, 2, 0)
+
+
+def _goca_cfar_2d_fused_cuda(mag: torch.Tensor, params: CfarParams):
+    global k3_launch_count
+    from .. import _build
+
+    if mag.dtype != torch.float32 or not mag.is_contiguous() \
+            or mag.dim() != 3 or mag.shape[0] < 2:
+        raise ValueError("K3 takes contiguous f32 magnitudes [B >= 2, V, G]")
+    lib = _build.load("cfar")
+    num_b, num_v, num_g = mag.shape
+    mask = torch.empty((num_b - 1, num_v, num_g), dtype=torch.bool,
+                       device=mag.device)
+    thr = torch.empty((num_b - 1, num_v, num_g), dtype=torch.float32,
+                      device=mag.device)
+    code = lib.k3_cfar(
+        mag.data_ptr(), num_b, num_v, num_g, params.guard_cells_r,
+        params.ref_cells_r, params.guard_cells_v, params.ref_cells_v,
+        float(np.float32(1.0 / params.ref_cells_r)),
+        float(np.float32(1.0 / params.ref_cells_v)),
+        float(np.float32(params.threshold_factor)), _METHODS[params.method],
+        mask.data_ptr(), thr.data_ptr(),
+        torch.cuda.current_stream(mag.device).cuda_stream)
+    _build.check(lib, code, "k3_cfar")
+    k3_launch_count += 1
+    return mask.permute(1, 2, 0), thr.permute(1, 2, 0)
+
+
+def goca_cfar_2d_fused(mag: torch.Tensor, params: CfarParams):
+    """Pair sum |RDM_b| + |RDM_b+1| and 2D CFAR of beams-major magnitudes
+    ``mag`` [B, V, G]: (mask bool [V, G, B-1], threshold [V, G, B-1]), the
+    outputs of ``goca_cfar_2d(pair_sum_maps(rdm))``, as views of
+    [B-1, V, G] tensors. K3 for a CUDA tensor (or it raises), the plain
+    version for a CPU tensor."""
+    _check_params(params)
+    if mag.is_cuda:
+        return _goca_cfar_2d_fused_cuda(mag, params)
+    return goca_cfar_2d_fused_plain(mag, params)

@@ -1,12 +1,24 @@
-"""MTD as one constant-matrix product — port of ``radar_tpu/ops/mtd.py:29-58``
-(the reference's windowed, fftshifted slow-time FFT,
-fun_process_single_frame.m:129-136, folded into a [n_dop, pulses] matrix).
+"""MTD: the reference's windowed, fftshifted slow-time FFT
+(fun_process_single_frame.m:129-136) — port of ``radar_tpu/ops/mtd.py:20-58``,
+as the FFT (``mtd``) or folded into one constant [n_dop, pulses] matrix
+product (``mtd_matmul``). ``fft_len`` zero-pads the transform (the v7_7
+512-point variant, main_simulate_echoes_with_array_v7_7.m:150).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def mtd(pc: torch.Tensor, mtd_win, fft_len: int | None = None
+        ) -> torch.Tensor:
+    """[pulses, gates, beams] -> [fft_len or pulses, gates, beams] RDM:
+    kaiser window, FFT over pulses, fftshift."""
+    w = torch.as_tensor(np.asarray(mtd_win), device=pc.device).to(
+        pc.real.dtype)
+    y = torch.fft.fft(pc * w[:, None, None], n=fft_len, dim=0)
+    return torch.fft.fftshift(y, dim=0)
 
 
 def make_mtd_matrix(mtd_win, num_pulses: int,

@@ -1,19 +1,39 @@
-"""Single-frame processor — port of ``radar_tpu/pipeline/frame.py:40-97,
-182-319`` for the flagship perf configuration with the kernel CFAR
-(``perf_config().replace(use_pallas_cfar=True)`` in JAX terms):
+"""Single-frame processor — port of ``radar_tpu/pipeline/frame.py:40-348``.
 
-  rank-K signal factors -> K1: noise draws + PC + MTD + beam mix + signal
-  -> 12 adjacent-beam sum maps (qvg) -> K2: 2D GOCA-CFAR + row counts
-  -> first-K extraction -> spline/monopulse estimation -> two clusterings
+Three streams produce the range-Doppler map (RDM), as in the JAX code:
 
-The JAX package runs the same detections with or without its Pallas CFAR
-(bit-identical by construction), so the port accepts either value of
-``use_pallas_cfar`` and always runs K2. Every other variant flag it does
-not run raises ``NotImplementedError`` naming the flag.
+- the exact reference stream (the default; always under
+  ``return_intermediates``): per-element echo synthesis -> AWGN
+  (``torch.randn`` for ``noise_impl="threefry"``, kernel K5 for
+  ``"pallas"``) -> DBF -> pulse compression -> MTD;
+- the fused stream (``fused_synth_dbf``): echoes synthesized in beam space
+  plus beam-space AWGN -> pulse compression -> MTD;
+- the rank-K perf stream (``fused_synth_dbf`` and ``lowrank_rdm``): kernel
+  K1 draws the noise and forms the whole RDM (``pipeline/lowrank.py``).
+
+Two tails take the RDM to detections:
+
+- vgq (the default): pair sums + 2D CFAR in kernel K3 -> first-K
+  extraction over [V, G, pairs] -> spline/monopulse estimation;
+- qvg (``use_pallas_cfar``, and always on the perf stream, whose
+  detections JAX makes bit-identical either way): padded qvg pair sums ->
+  kernel K2 -> extraction from K2's row counts -> estimation.
+
+Both end in the two clustering stages. Variant flags the port does not run
+raise ``NotImplementedError`` naming the flag; the precedence warnings of
+``radar_tpu/pipeline/frame.py:146-180`` are given where their flags are
+not refused. JAX's ``extract_impl="rowfetch"`` runs the direct extraction,
+bit-identical in all cases (``radar_tpu/ops/cfar.py:387-389``).
+
+Frame seeds. Where JAX takes a ``jax.random`` key, the port takes an
+integer frame seed: it seeds the ``torch.Generator`` of the threefry-style
+draws, and its two 32-bit words key the Philox streams of K1 and K5
+(``ops/noise_rdm.py::seed_words``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -21,9 +41,20 @@ import torch
 
 from ..cluster.stages import ClusteredTargets, cluster_stage1, cluster_stage2
 from ..config.params import RadarConfig
-from ..measure.estimate import estimate_parameters
-from ..ops.cfar import extract_detections
-from ..ops.cfar_kernel import HALO, goca_cfar_qvg, pad_maps_qvg
+from ..measure.estimate import ParamDetections, estimate_parameters
+from ..ops.awgn import awgn
+from ..ops.cfar import Detections, extract_detections
+from ..ops.cfar_kernel import (HALO, goca_cfar_2d_fused, goca_cfar_qvg,
+                               pad_maps_qvg)
+from ..ops.dbf import dbf, dbf_weights_effective_np
+from ..ops.mtd import make_mtd_matrix, mtd, mtd_matmul
+from ..ops.noise_rdm import seed_words
+from ..ops.pulse_compression import (make_matmul_plan, make_plan,
+                                     pulse_compress, pulse_compress_matmul,
+                                     to_device)
+from ..sim.echo import (add_noise, add_noise_beamspace, beam_noise_factor,
+                        synthesize_echo_beams, synthesize_echoes,
+                        white_complex_noise)
 from ..waveform.precompute import Precomputed, precompute
 from .lowrank import make_lowrank_stages
 
@@ -49,47 +80,101 @@ class FrameResult(NamedTuple):
     num_final: torch.Tensor            # int32
 
 
-def measure_consts(precomp: Precomputed, *, device) -> MeasureConsts:
+class FrameIntermediates(NamedTuple):
+    """Stage taps of the reference stream (``return_intermediates``), in
+    JAX's layouts: raw_iq [P, S, C], beams [P, S, B], pc [P, G, B], rdm
+    [V, G, B], pair_maps [V, G, pairs]."""
+
+    raw_iq: torch.Tensor
+    beams: torch.Tensor
+    pc: torch.Tensor
+    rdm: torch.Tensor
+    pair_maps: torch.Tensor
+    detections: Detections
+    params: ParamDetections
+    stage1: ClusteredTargets
+    result: FrameResult
+
+
+def measure_consts(cfg: RadarConfig, precomp: Precomputed, *,
+                   device) -> MeasureConsts:
+    n_dop = cfg.mtd_fft_len or cfg.sig.prt_num
+    if n_dop == cfg.sig.prt_num:
+        vel_axis, delta_v = precomp.velocity_axis, precomp.delta_v
+    else:
+        # zero-padded MTD (v7_7:150): the axis respans the same ambiguity
+        # window over n_dop bins
+        v_max = cfg.sig.v_max
+        vel_axis = np.linspace(-v_max / 2, v_max / 2, n_dop)
+        delta_v = v_max / n_dop
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     return MeasureConsts(
-        range_axis=t(precomp.range_axis),
-        velocity_axis=t(precomp.velocity_axis),
-        delta_r=float(precomp.delta_r), delta_v=float(precomp.delta_v),
+        range_axis=t(precomp.range_axis), velocity_axis=t(vel_axis),
+        delta_r=float(precomp.delta_r), delta_v=float(delta_v),
         beam_angles_deg=t(precomp.beam_angles_deg),
         k_slopes_lut=t(precomp.k_slopes_lut), q_range=t(precomp.q_range),
         q_vel=t(precomp.q_vel))
 
 
 # (flag, value the port does not run)
-_REFUSED = (("fused_synth_dbf", False), ("lowrank_rdm", False),
-            ("kernel_maps", True), ("beams_major_tail", True),
+_REFUSED = (("kernel_maps", True), ("beams_major_tail", True),
             ("tail_from_rdm", True), ("monopulse_complex", True),
-            ("monopulse_refined", True))
+            ("monopulse_refined", True), ("kernel_out_bf16", True))
+_CHOICES = (("noise_impl", ("threefry", "pallas")),
+            ("pc_method", ("matmul", "fft")),
+            ("mtd_method", ("matmul", "fft")))
 
 
 def check_config(cfg: RadarConfig) -> None:
+    """Refuse what the port does not run; give JAX's precedence warnings
+    for what it runs."""
     for flag, refused in _REFUSED:
         if getattr(cfg, flag) == refused:
-            raise NotImplementedError(
-                f"cfg.{flag}={refused!r} is not ported (the port runs the "
-                "perf-config frame path)")
+            raise NotImplementedError(f"cfg.{flag}={refused!r} is not ported")
+    for flag, choices in _CHOICES:
+        if getattr(cfg, flag) not in choices:
+            raise ValueError(f"cfg.{flag}={getattr(cfg, flag)!r}: not one "
+                             f"of {choices}")
     if cfg.cluster.keep_pair_mode:
         raise NotImplementedError(
             "cfg.cluster.keep_pair_mode=True is not ported")
     if cfg.cfar.means_impl != "shift":
         raise NotImplementedError(
             f"cfg.cfar.means_impl={cfg.cfar.means_impl!r} is not ported")
+    if cfg.extract_native_scan:
+        if not cfg.use_pallas_cfar:
+            # JAX runs it on the vgq tail, keeping another subset of hits
+            # beyond capacity (radar_tpu/ops/cfar.py:380-385)
+            raise NotImplementedError(
+                "cfg.extract_native_scan=True is not ported")
+        warnings.warn(
+            "cfg.extract_native_scan is ignored when cfg.use_pallas_cfar "
+            "is set: the qvg tail has no native-scan extraction",
+            stacklevel=3)
+
+
+def _generator(frame_seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(int(frame_seed) & 0xFFFFFFFFFFFFFFFF)
+    return g
 
 
 def make_frame_processor(cfg: RadarConfig,
-                         precomp: Precomputed | None = None, *, device):
-    """Returns ``process(frame_seed, targets, noise_planes=None) ->
-    FrameResult`` running on ``device``. On a CUDA device the RDM and the
-    CFAR run as kernels K1 and K2; on the CPU as their plain versions.
+                         precomp: Precomputed | None = None, *, device,
+                         return_intermediates: bool = False):
+    """Returns ``process(frame_seed, targets, noise=None, noise_planes=None)
+    -> FrameResult`` (``FrameIntermediates`` under
+    ``return_intermediates``) running on ``device``. On a CUDA device the
+    kernels run (K1, K2, K3, K5 as the branch needs them); on the CPU their
+    plain versions.
 
-    ``noise_planes`` (per-segment (re, im) [B, P, >= xlen] f32 white
-    planes, e.g. ``ops.noise_rdm.planes_from_compact(z, rplan)``) replaces
-    the Philox draws, so tests can inject the reference's noise."""
+    Injected noise replaces the stream's draws, so tests can feed both
+    packages the same noise: ``noise`` is the [P, S, C] complex AWGN cube
+    added to the raw echo on the reference stream, or the [P, S, B] white
+    CN(0,1) cube before the beam mix on the fused stream;
+    ``noise_planes`` (per-segment (re, im) [B, P, >= xlen] f32 planes, e.g.
+    ``ops.noise_rdm.planes_from_compact(z, rplan)``) replaces K1's draws on
+    the perf stream. The wrong kind for the stream raises."""
     check_config(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -97,27 +182,115 @@ def make_frame_processor(cfg: RadarConfig,
                            "available")
     if precomp is None:
         precomp = precompute(cfg)
-    lr = make_lowrank_stages(cfg, precomp, device=device)
-    mc = measure_consts(precomp, device=device)
+    fused = cfg.fused_synth_dbf and not return_intermediates
+    lowrank = cfg.lowrank_rdm and fused
+    mc = measure_consts(cfg, precomp, device=device)
     ip = cfg.interp
-    num_v, num_g = lr.rplan.n_dop, lr.rplan.n_gates
+    cap = cfg.cfar.max_detections
+    c64 = torch.complex64
 
-    def process(frame_seed: int, targets, noise_planes=None) -> FrameResult:
-        rdm = lr.noise_rdm_sig(frame_seed, targets, layout="bvg",
-                               planes=noise_planes)               # [B, V, G]
-        mag = rdm.abs()
-        maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
-        mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
-        maps_q = maps_p[:, :num_v, HALO:HALO + num_g]             # [Q, V, G]
-        dets = extract_detections(mask, maps_q, cfg.cfar.max_detections,
-                                  layout="qvg", row_counts=rc)
+    def tail(mag, rdm, rdm_layout, qvg):
+        """Detections, estimates and clusters from the magnitudes [B, V, G]
+        and the complex RDM; returns (pair maps [V, G, pairs], dets,
+        params, stage 1, result)."""
+        num_v, num_g = mag.shape[1:]
+        if qvg:
+            maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
+            mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
+            maps = maps_p[:, :num_v, HALO:HALO + num_g]           # [Q, V, G]
+            dets = extract_detections(mask, maps, cap, layout="qvg",
+                                      row_counts=rc)
+            layout = "qvg"
+        else:
+            mask, _ = goca_cfar_2d_fused(mag, cfg.cfar)           # [V, G, Q]
+            # the tail gathers <= cap stencils of the pair sums: a [V, G, Q]
+            # view of one elementwise pass
+            maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)
+            dets = extract_detections(mask, maps, cap, layout="vgq")
+            layout = "vgq"
         params = estimate_parameters(
-            dets, maps_q, rdm, mc, ip.extra_dots, ip.r_interp_times,
-            ip.v_interp_times, layout="bvg", maps_layout="qvg")
-        final = cluster_stage2(cluster_stage1(params, cfg.cluster),
-                               cfg.cluster)
-        return FrameResult(targets=final, num_raw_detections=dets.count,
-                           num_final=final.count.to(torch.int32))
+            dets, maps, rdm, mc, ip.extra_dots, ip.r_interp_times,
+            ip.v_interp_times, layout=rdm_layout, maps_layout=layout)
+        s1 = cluster_stage1(params, cfg.cluster)
+        final = cluster_stage2(s1, cfg.cluster)
+        result = FrameResult(targets=final, num_raw_detections=dets.count,
+                             num_final=final.count.to(torch.int32))
+        pair_maps = maps.permute(1, 2, 0) if qvg else maps
+        return pair_maps, dets, params, s1, result
 
-    process.stages = lr
+    if lowrank:
+        lr = make_lowrank_stages(cfg, precomp, device=device)
+
+        def process(frame_seed: int, targets, noise=None,
+                    noise_planes=None) -> FrameResult:
+            if noise is not None:
+                raise ValueError("the rank-K perf stream takes injected "
+                                 "noise as noise_planes=")
+            rdm = lr.noise_rdm_sig(frame_seed, targets, layout="bvg",
+                                   planes=noise_planes)            # [B, V, G]
+            return tail(rdm.abs(), rdm, "bvg", qvg=True)[-1]
+
+        process.stages = lr
+        return process
+
+    w_eff = dbf_weights_effective_np(precomp.dbf_w, cfg.dbf_variant)
+    if fused:
+        mix = np.ascontiguousarray(w_eff.T)                          # [C, B]
+        l_t = torch.as_tensor(beam_noise_factor(w_eff)).to(device, c64)
+    prec = cfg.matmul_precision
+    mplan = (to_device(make_matmul_plan(precomp), device)
+             if cfg.pc_method == "matmul" else None)
+    pplan = make_plan(precomp)
+    mtd_t = (torch.as_tensor(make_mtd_matrix(
+        precomp.mtd_win, cfg.sig.prt_num, cfg.mtd_fft_len)).to(device, c64)
+        if cfg.mtd_method == "matmul" else None)
+
+    def stream(frame_seed, targets, noise):
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=device)
+        if fused:
+            sig = synthesize_echo_beams(targets, precomp, cfg, mix,
+                                        device=device)
+            if noise is None:
+                noise = white_complex_noise(
+                    sig.shape, _generator(frame_seed, device), device=device)
+            elif noise.shape != sig.shape:
+                raise ValueError(f"the fused stream takes white beam noise "
+                                 f"{tuple(sig.shape)}, got "
+                                 f"{tuple(noise.shape)}")
+            noisy, beams = None, add_noise_beamspace(sig, l_t, noise)
+        else:
+            raw = synthesize_echoes(targets, precomp, cfg, device=device)
+            if noise is not None:
+                if noise.shape != raw.shape:
+                    raise ValueError(f"the reference stream takes channel "
+                                     f"AWGN {tuple(raw.shape)}, got "
+                                     f"{tuple(noise.shape)}")
+                noisy = raw + noise.to(c64)
+            elif cfg.noise_impl == "pallas":
+                noisy = awgn(raw, seed_words(frame_seed))
+            else:
+                noisy = add_noise(raw, _generator(frame_seed, device))
+            beams = dbf(noisy, precomp.dbf_w, cfg.dbf_variant)
+        pc = (pulse_compress_matmul(beams, mplan, precision=prec)
+              if mplan is not None else pulse_compress(beams, precomp, pplan))
+        rdm = (mtd_matmul(pc, mtd_t, precision=prec) if mtd_t is not None
+               else mtd(pc, precomp.mtd_win, cfg.mtd_fft_len))   # [V, G, B]
+        return noisy, beams, pc, rdm
+
+    def process(frame_seed: int, targets, noise=None, noise_planes=None):
+        if noise_planes is not None:
+            raise ValueError("noise_planes= drives the rank-K perf stream "
+                             "only; this stream takes noise=")
+        noisy, beams, pc, rdm = stream(frame_seed, targets, noise)
+        mag = rdm.permute(2, 0, 1).abs().contiguous()             # [B, V, G]
+        pair_maps, dets, params, s1, result = tail(
+            mag, rdm, "vgb", qvg=cfg.use_pallas_cfar)
+        if return_intermediates:
+            return FrameIntermediates(
+                raw_iq=noisy, beams=beams, pc=pc, rdm=rdm,
+                pair_maps=pair_maps, detections=dets, params=params,
+                stage1=s1, result=result)
+        return result
+
     return process

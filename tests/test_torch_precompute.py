@@ -59,6 +59,7 @@ def test_import_loads_no_jax():
     JAX: run in a fresh interpreter."""
     code = ("import sys, radar_tpu_torch, radar_tpu_torch.pipeline.frame, "
             "radar_tpu_torch.ops.noise_rdm, radar_tpu_torch.ops.cfar_kernel, "
+            "radar_tpu_torch.ops.awgn, radar_tpu_torch.pipeline.driver, "
             "radar_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'radar_tpu' or m.startswith('radar_tpu.') "

@@ -69,7 +69,7 @@ def scene():
                          if f.endswith("idx") else T(getattr(dets, f))
                          for f in Detections._fields])
     tcfg = tparams.small_test_config(max_detections=64)
-    tmc = measure_consts(from_numpy(pre._asdict()), device="cpu")
+    tmc = measure_consts(tcfg, from_numpy(pre._asdict()), device="cpu")
     return dict(cfg=cfg, tcfg=tcfg, rdm=rdm, maps=maps, dets=tdets,
                 est=est, tmc=tmc, n=int(dets.count))
 
