@@ -6,19 +6,34 @@ Builds the port's kernels from ``radar_tpu_torch/csrc`` with nvcc (one
 process per source, all at once) and checks each against its plain
 PyTorch version at the full shapes of the reference's frame (16 channels x
 332 pulses x 5819 samples -> RDM [13 beams, 332 Doppler, 3404 gates] -> 12
-pair maps). Then it drives two paths on the benchmark's two targets:
+pair maps). Then it drives the port's paths on the benchmark's two
+targets:
 
 - the perf-config frame, through kernels K1 (noise RDM) and K2 (CFAR);
 - the exact reference stream, the default entry point (per-element echoes
   -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
-  ``noise_impl="pallas"``) and K3 (pair sum + CFAR), in three
+  ``noise_impl="pallas"``) and K3 (pair sum + CFAR), in five
   configurations, at small widths against the CPU, and in the multi-frame
-  driver ``run_multiframe``.
+  driver ``run_multiframe``;
+- the checks of ``scripts/validate_rdm_gen.py``: K1 fed the planes that
+  kernel K1c exports equals K1 draw mode bit for bit, kernel K4 (the
+  window schedule) against K1, and the moments of K1's draws against the
+  "pallas" route's torch-drawn planes; K1c and K4 against their plain
+  versions;
+- the rank-K stream's three noise-RDM routes (``pallas_prng``, ``pallas``
+  with normal and uniform rails, ``xla``) at full size and, at small
+  widths, against the CPU;
+- the Monte-Carlo studies: ``snr_sweep`` of the perf config (5 points x 16
+  trials) and one point each of the reference stream and the xla route,
+  and ``run_streaming_mc`` (128 injected targets, then the statistical
+  hold at 40 targets per scene).
 
 The launch counters are set to 0 just before each path runs and read just
-after, to show the path went through its kernels. Kernels, plain versions
-and frames are timed with CUDA events. Every phase prints one line; any
-failure raises and exits non-zero. The last line is the result:
+after, to show the path went through its kernels. Kernels, plain versions,
+library calls and frames are timed with CUDA events, Monte-Carlo
+throughput with the host clock. Every phase prints one line; any failure
+raises and exits non-zero. The line before the last lists every kernel
+with its bound; the last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or without the repository beside it, it fails at once.
 """
@@ -33,6 +48,9 @@ import sys
 import time
 
 import numpy as np
+
+PEAK_FP32 = 67e12     # H100 SXM FLOP/s, float32 outside the tensor cores
+PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
 
 
 def _line(phase: str, **kw) -> None:
@@ -181,6 +199,74 @@ def _device_busy_ms(fn, reps: int = 5):
             [(e.key[:60], round(dev_t(e) / reps / 1000.0, 4)) for e in top])
 
 
+def _k1_bound_ms(plan, num_b: int) -> float:
+    """Least time of K1's (and K4's) work at the FP32 peak: the complex
+    MACs of the convolutions, the beam mix and the DFT, 8 FLOPs each, over
+    67 TFLOP/s (the rank-K signal epilogue is negligible)."""
+    conv = sum(s.j_len * s.taps.shape[0] for s in plan.segments)
+    macs = num_b * plan.n_pulses * (conv + num_b * plan.n_gates
+                                    + plan.n_dop * plan.n_gates)
+    return 8.0 * macs / PEAK_FP32 * 1e3
+
+
+def _bytes_ms(*tensors) -> float:
+    """Least time to move each tensor once at the HBM rate."""
+    return sum(t.numel() * t.element_size() for t in tensors) / PEAK_HBM * 1e3
+
+
+def _validate_rdm_gen(nr, lr_prng, lr_uni, lr_norm, plan, lmat, dev, counts,
+                      reset) -> dict:
+    """The checks of scripts/validate_rdm_gen.py through the port's entry
+    points: K1 on K1c's planes == K1 draw mode (bit check), K4 (all beams
+    per block) vs K1 (rolling check), and the moments of K1 draw mode vs
+    the "pallas" route's torch-drawn planes over eight frames. The launch
+    counters are read around these checks only. Returns (results, K1c's
+    planes, the Philox key)."""
+    import torch
+
+    from radar_tpu_torch.pipeline.driver import frame_seed
+
+    num_b = lmat.shape[0]
+    seed = nr.seed_words(frame_seed(12345, 1))
+    reset()
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=dev)
+    y_gen = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg")
+    y_dma = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg")
+    y_k4 = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg", rolling=False,
+                        beams_per_step=num_b)
+
+    def moments(noise_rdm):
+        acc = torch.zeros(3, dtype=torch.float64, device=dev)
+        for i in range(8):
+            y = noise_rdm(frame_seed(7, i), layout="bvg")
+            yr = torch.view_as_real(y).double()
+            var = (yr ** 2).mean()
+            acc += torch.stack([yr.mean(), var,
+                                (y.abs() > 8.0 * var.sqrt()).sum().double()])
+        m = (acc / 8).tolist()
+        return {"mean": m[0], "var": m[1], "tail_count_8sigma": m[2]}
+
+    out = {"moments_pallas_prng": moments(lr_prng.noise_rdm),
+           "moments_pallas_uniform": moments(lr_uni.noise_rdm),
+           "moments_pallas_normal": moments(lr_norm.noise_rdm)}
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+    bit = float((y_gen - y_dma).abs().max())
+    ymax = float(y_gen.abs().max())
+    roll = float((y_k4 - y_gen).abs().max())
+    out["bit_check"] = {"max_abs_diff": bit, "max_abs_out": ymax,
+                        "pass": bit == 0.0 and ymax > 0.0}
+    out["rolling_check"] = {"max_abs_diff": roll, "max_abs_out": ymax,
+                            "rel": roll / ymax,
+                            "pass": ymax > 0.0 and roll <= 2.0 ** -7 * ymax}
+    base = out["moments_pallas_uniform"]["var"]
+    out["var_ratio"] = out["moments_pallas_prng"]["var"] / base
+    out["var_ratio_normal"] = out["moments_pallas_normal"]["var"] / base
+    out["moments_pass"] = (abs(out["var_ratio"] - 1.0) < 0.02 and
+                           abs(out["moments_pallas_prng"]["mean"]) < 1e-2)
+    return out, planes, seed
+
+
 def main() -> int:
     import torch
 
@@ -200,6 +286,8 @@ def main() -> int:
     from radar_tpu_torch.pipeline.driver import run_multiframe
     from radar_tpu_torch.pipeline.frame import make_frame_processor
     from radar_tpu_torch.pipeline.lowrank import make_lowrank_stages
+    from radar_tpu_torch.pipeline.montecarlo import make_trial_fn, snr_sweep
+    from radar_tpu_torch.pipeline.streaming import run_streaming_mc
     from radar_tpu_torch.sim.scenario import (TargetBatch,
                                               default_two_target_scene)
     from radar_tpu_torch.waveform.precompute import precompute
@@ -296,11 +384,13 @@ def main() -> int:
     process(1, truth)                      # warm-up outside the count
     torch.cuda.synchronize()
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
-                      "K3": ck.k3_launch_count, "K5": k5.launch_count}
+                      "K3": ck.k3_launch_count, "K5": k5.launch_count,
+                      "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
         ck.k3_launch_count = k5.launch_count = 0
+        nr.k1c_launch_count = nr.k4_launch_count = 0
 
     reset()
     res = process(20261016, truth)
@@ -439,6 +529,182 @@ def main() -> int:
     _require(all(good) and mf_launches["K3"] >= 5,
              "run_multiframe: a track of >= 4 points near each truth")
 
+    # ---- 12. the validation entry point (scripts/validate_rdm_gen.py):
+    # K1c's planes through K1 == K1 draw mode, K4 vs K1, moments
+    lr_uni = make_lowrank_stages(cfg.replace(noise_rdm_impl="pallas"), pre,
+                                 device=dev)
+    lr_norm = make_lowrank_stages(cfg.replace(noise_rdm_impl="pallas",
+                                              noise_dist="normal"), pre,
+                                  device=dev)
+    val, k1c_planes, vseed = _validate_rdm_gen(nr, lr, lr_uni, lr_norm, plan,
+                                               lmat, dev, counts, reset)
+    val_launches = val.pop("launches")
+    _line("validate", launches=val_launches, bit_check=val["bit_check"],
+          rolling_check=val["rolling_check"], var_ratio=val["var_ratio"],
+          var_ratio_normal=val["var_ratio_normal"],
+          moments={k: val[k] for k in ("moments_pallas_prng",
+                                       "moments_pallas_uniform",
+                                       "moments_pallas_normal")},
+          tol="bit 0; rolling <= 2^-7 max|y|; |var ratio-1|<0.02, "
+              "|mean|<1e-2")
+    _require(val["bit_check"]["pass"], "K1 on K1c planes == K1 draw mode")
+    _require(val["rolling_check"]["pass"], "K4 within 2^-7 max|y| of K1")
+    _require(val["moments_pass"], "moments of K1 draws vs the pallas route")
+    _require(all(val_launches[k] >= 1 for k in ("K1", "K1c", "K4")),
+             "the validation path launched K1, K1c and K4")
+
+    # K1c at full size vs its plain version, bit for bit
+    ph_planes = nr.philox_planes(plan, vseed, num_b, device=dev)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, c) and torch.equal(b, d))
+            for (a, b), (c, d) in zip(k1c_planes, ph_planes)]
+    k1c_err = max(float((a - c).abs().max()) for (a, _), (c, _) in
+                  zip(k1c_planes, ph_planes))
+    _line("K1c", planes=[list(a.shape) for a, _ in k1c_planes],
+          identical_per_segment=same, max_abs_err=k1c_err, tol="bit-equal")
+    _require(all(same), "K1c == philox_planes bit for bit")
+
+    # K4 at full size vs its plain version (K1's tolerances) and vs K1
+    ref_noise = nr.noise_rdm_plain(plan, lmat, ph_planes)
+    rms_n = float(ref_noise.abs().pow(2).mean().sqrt())
+    k1_noise = nr.noise_rdm(plan, lmat, seed=vseed, layout="bvg")
+    k4 = {}
+    for bps in (num_b, 1):
+        y4 = nr.noise_rdm(plan, lmat, seed=vseed, layout="bvg",
+                          rolling=False, beams_per_step=bps)
+        torch.cuda.synchronize()
+        d4 = (y4 - ref_noise).abs()
+        k4[bps] = {"max_abs_err": float(d4.max()),
+                   "rms_err_over_rms": float(d4.pow(2).mean().sqrt()) / rms_n,
+                   "vs_K1_over_max": float((y4 - k1_noise).abs().max())
+                   / float(k1_noise.abs().max())}
+        _require(k4[bps]["rms_err_over_rms"] <= 1e-5, f"K4({bps}) rms error")
+        _require(bool((d4 <= 1e-4 * rms_n + 1e-5 * ref_noise.abs()).all()),
+                 f"K4({bps}) element error")
+        _require(k4[bps]["vs_K1_over_max"] <= 2.0 ** -7, f"K4({bps}) vs K1")
+    _line("K4", beams_per_step=k4,
+          tol="rms(err)<=1e-5*rms, |err|<=1e-4*rms+1e-5*|ref|; "
+              "vs K1 <= 2^-7 max|y|")
+    k4_err = k4[num_b]["max_abs_err"]
+    del ph_planes, k1c_planes, ref_noise, k1_noise, y4, d4
+
+    # ---- 13. the rank-K stream's three routes at full size
+    route_cfgs = {"pallas_prng": cfg,
+                  "pallas_uniform": cfg.replace(noise_rdm_impl="pallas"),
+                  "pallas_normal": cfg.replace(noise_rdm_impl="pallas",
+                                               noise_dist="normal"),
+                  "xla": perf_config(pallas=False)}
+    for label, cfg_l in route_cfgs.items():
+        proc = make_frame_processor(cfg_l, pre, device=dev)
+        proc(1, truth)                     # warm-up outside the count
+        torch.cuda.synchronize()
+        reset()
+        res = proc(20261016, truth)
+        torch.cuda.synchronize()
+        got = counts()
+        rows = _rows(res)
+        found = _found(rows, truth, dr, dv)
+        _line("route", noise_rdm_impl=label, launches=got,
+              num_final=int(res.num_final), found=found,
+              targets=np.round(rows, 3).tolist())
+        _require(bool(np.all(np.isfinite(rows))) and all(found),
+                 f"{label}: truth targets found")
+        _require(got["K2"] >= 1 and (got["K1"] == 0 if label == "xla"
+                                     else got["K1"] >= 1),
+                 f"{label}: K1 launched on the kernel routes only")
+
+    # small widths: each route on the card vs the CPU on the same noise
+    small32 = small_test_config().replace(
+        **{**PERF_OVERRIDES, "matmul_precision": "f32"})
+    for label, over in (("pallas_prng", {}),
+                        ("pallas_uniform", {"noise_rdm_impl": "pallas"}),
+                        ("pallas_normal", {"noise_rdm_impl": "pallas",
+                                           "noise_dist": "normal"}),
+                        ("xla", {"noise_rdm_impl": "xla",
+                                 "noise_dist": "normal"})):
+        cfg_s = small32.replace(**over)
+        cpu = make_frame_processor(cfg_s, device="cpu")
+        on_card = make_frame_processor(cfg_s, device=dev)
+        st_c = cpu.stages
+        if label == "xla":
+            z = st_c.gen_noise(5)
+            a, b = on_card(0, tb2, noise=z.to(dev)), cpu(0, tb2, noise=z)
+        else:
+            pl_c = (st_c.noise_planes(5) if st_c.noise_planes is not None
+                    else nr.gen_noise_planes(st_c.rplan, (5, 0),
+                                             st_c.l_factor.shape[0],
+                                             device="cpu"))
+            pl_d = [(x.to(dev), y.to(dev)) for x, y in pl_c]
+            a = on_card(0, tb2, noise_planes=pl_d)
+            b = cpu(0, tb2, noise_planes=pl_c)
+        _line("route_small", noise_rdm_impl=label,
+              card_final=int(a.num_final), cpu_final=int(b.num_final))
+        _require(int(a.num_final) == int(b.num_final) >= 2,
+                 f"{label}: card and CPU frames agree")
+        _same_rows(_rows(a), _rows(b), rtol=1e-4)
+
+    # ---- 14. the SNR sweep (perf config, then one point each of the
+    # reference stream and the xla route)
+    snrs = [-10.0, 0.0, 10.0, 20.0, 30.0]
+    sweeps = {}
+    for label, cfg_m, pre_m, vec, n_tr, want in (
+            ("perf", cfg, pre, snrs, 16, {"K1": 80, "K2": 80}),
+            ("reference", ref_cfg, ref_pre, [10.0], 8, {"K3": 8}),
+            ("xla", perf_config(pallas=False), pre, [10.0], 8, {"K2": 8})):
+        reset()
+        t0 = time.perf_counter()
+        sw = snr_sweep(cfg_m, snr_db_vector=vec, num_trials=n_tr,
+                       precomp=pre_m, device=dev)
+        wall = time.perf_counter() - t0
+        got = counts()
+        sweeps[label] = got
+        _line("snr_sweep", config=label, launches=got, trials=n_tr,
+              snr_db=vec, pd=sw.detection_probability.tolist(),
+              sigma_deg=sw.angle_error_std.tolist(),
+              theory_deg=sw.theory_bound.tolist(), wall_s=round(wall, 3))
+        _require(all(got[k] >= n for k, n in want.items()),
+                 f"{label} sweep launched {want}")
+        _require(label != "xla" or got["K1"] == 0,
+                 "the xla route launches no K1")
+        _require(bool(np.all(sw.detection_probability == 1.0)),
+                 f"{label} sweep: Pd = 1 at every point")
+        _require(bool(np.all(sw.angle_error_std < sw.theory_bound)),
+                 f"{label} sweep: sigma below the theory bound")
+
+    # ---- 15. streaming Monte-Carlo, perf config, 128 injected targets
+    # (8 per scene), then the statistical hold at the hold's own scene
+    # density (40 targets per scene, the CLI default behind
+    # results/streaming_mc_10k_perf.json): the 512-detection cap drops
+    # targets of dense scenes, so the rate depends on targets per scene
+    st_proc = make_frame_processor(cfg, pre, device=dev)
+    st_proc(1, truth)
+    reset()
+    t0 = time.perf_counter()
+    stats = run_streaming_mc(cfg, num_scenes=4, targets_per_scene=8,
+                             trials_per_scene=4, snr_range=(-5.0, 20.0),
+                             processor=st_proc, device=dev)
+    st_wall = time.perf_counter() - t0
+    st_launches = counts()
+    dense = run_streaming_mc(cfg, num_scenes=4, targets_per_scene=40,
+                             trials_per_scene=2, snr_range=(-5.0, 20.0),
+                             processor=st_proc, device=dev)
+    for label, s_ in (("8_per_scene", stats), ("40_per_scene", dense)):
+        _line("streaming_mc", scenes=label,
+              launches=st_launches if s_ is stats else "-",
+              targets=s_.total_targets, detected=s_.total_detected,
+              rate=s_.detection_rate,
+              rate_by_snr=s_.snr_bin_rate.tolist(),
+              bin_counts=s_.snr_bin_counts.tolist(),
+              range_rmse_m=s_.range_rmse_m,
+              velocity_rmse_ms=s_.velocity_rmse_ms)
+    _require(stats.total_targets == 128 and st_launches["K1"] == 16,
+             "streaming MC: 128 targets over 16 K1 frames")
+    _require(stats.range_rmse_m <= 2 * 8.4, "streaming MC range RMSE")
+    _require(abs(dense.detection_rate - 0.683) <= 0.13
+             and dense.range_rmse_m <= 2 * 8.4,
+             "streaming MC at 40 targets per scene: rate 0.683 +- 0.13, "
+             "range RMSE <= 16.8 m")
+
     # ---- 6. times (CUDA events, median), card and power limit beside
     k1_ms, k1_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg"),
@@ -460,14 +726,67 @@ def main() -> int:
                                          5))
     mf_ms = statistics.median(_event_ms(lambda: run_multiframe(
         ref_cfg, scene, 3, processor=mf_proc, device=dev), 3)) / 3
+    k1c_ms, k1c_plain_ms = _time_pair(
+        lambda: nr.gen_noise_planes(plan, seed, num_b, device=dev),
+        lambda: nr.philox_planes(plan, seed, num_b, device=dev))
+    n_planes = sum(num_b * plan.n_pulses * sg.xlen for sg in plan.segments)
+    k1c_lib_ms = statistics.median(_event_ms(
+        lambda: torch.rand(2 * n_planes, device=dev), 10))
+    k4_ms, k4_plain_ms = _time_pair(
+        lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg",
+                             rolling=False, beams_per_step=num_b),
+        lambda: nr.noise_rdm_plain(
+            plan, lmat, nr.philox_planes(plan, seed, num_b, device=dev)))
+    k4_1_ms = statistics.median(_event_ms(
+        lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg",
+                             rolling=False, beams_per_step=1), 10))
+    k1_noise_ms = statistics.median(_event_ms(
+        lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg"), 10))
+    k5_lib_ms = statistics.median(_event_ms(
+        lambda: torch.randn(shape, dtype=torch.complex64, device=dev), 10))
+
+    # Monte-Carlo throughput: host clock around a batch of 16 trials that
+    # ends in the copy to the host (median of 3, after a warm-up batch)
+    tb10 = TargetBatch.make([10000.0], [20.0], [10.0], [10.0])
+    mc_rate = {}
+    for label, cfg_m, pre_m in (("perf", cfg, pre),
+                                ("reference", ref_cfg, ref_pre)):
+        trials = make_trial_fn(cfg_m, pre_m, device=dev)
+        batch = lambda: trials(tb10, range(16))[1].cpu()
+        batch()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch()
+            walls.append(time.perf_counter() - t0)
+        mc_rate[label] = 16 / statistics.median(walls)
+        if label == "perf":
+            batch_ms = statistics.median(walls) * 1e3
+            mc_busy, mc_top = _device_busy_ms(
+                lambda: trials(tb10, range(16)), reps=2)
+    st_rate = stats.total_targets / st_wall
     for name, ms in (("K1", k1_ms), ("K1 plain", k1_plain_ms),
                      ("K2", k2_ms), ("K2 plain", k2_plain_ms),
                      ("frame", frame_ms),
                      ("K3", k3_ms), ("K3 plain", k3_plain_ms),
                      ("K5", k5_ms), ("K5 plain", k5_plain_ms),
                      ("reference-stream frame (K5 + K3)", ref_ms),
-                     ("run_multiframe, per frame", mf_ms)):
+                     ("run_multiframe, per frame", mf_ms),
+                     ("K1c", k1c_ms), ("K1c plain", k1c_plain_ms),
+                     ("K1c library (torch.rand of the planes)", k1c_lib_ms),
+                     ("K4 (13 beams per block)", k4_ms),
+                     ("K4 plain", k4_plain_ms),
+                     ("K4 (1 beam per block)", k4_1_ms),
+                     ("K1 noise only", k1_noise_ms),
+                     ("K5 library (torch.randn)", k5_lib_ms)):
         _line("time", what=repr(name), ms=round(ms, 4), card=repr(card))
+    _line("mc_rate", card=repr(card),
+          sweep_trials_per_s={k: round(v, 3) for k, v in mc_rate.items()},
+          streaming_targets_per_s=round(st_rate, 3),
+          perf_batch16_ms=round(batch_ms, 4),
+          perf_batch16_device_busy_ms=round(mc_busy, 4),
+          perf_batch16_idle_share=round(1.0 - mc_busy / batch_ms, 4),
+          top_kernels=mc_top)
 
     # ---- 11. where the reference frame's time goes
     stage_ms = _reference_stages(ref_cfg, ref_pre, truth, dev)
@@ -479,27 +798,38 @@ def main() -> int:
           frame_ms=round(ref_ms, 4),
           idle_share=round(1.0 - busy_ms / ref_ms, 4), top_kernels=top)
 
+    # launches: K1 and K2 from the perf SNR sweep (this slice's main path),
+    # K3 and K5 from the reference frame, K1c and K4 from the validation
+    # path; bounds from this run's shapes
+    k1_bound = _k1_bound_ms(plan, num_b)
+    kernels = [
+        ("K1 fused noise RDM (draw mode, rank-K signal)", "noise_rdm.cu",
+         "radar_tpu/ops/pallas_rdm.py:980", sweeps["perf"]["K1"], k1_err,
+         k1_ms, k1_plain_ms, k1_bound, "operations", None),
+        ("K2 2D GOCA-CFAR on qvg maps", "cfar.cu",
+         "radar_tpu/ops/pallas_kernels.py:234", sweeps["perf"]["K2"], k2_err,
+         k2_ms, k2_plain_ms, _bytes_ms(maps_p, mask, rc), "bytes", None),
+        ("K3 pair sum + 2D GOCA-CFAR (mask, threshold)", "cfar.cu",
+         "radar_tpu/ops/pallas_kernels.py:292", ref_launches["K3"], k3_err,
+         k3_ms, k3_plain_ms, _bytes_ms(mag, m3, t3), "bytes", None),
+        ("K5 complex AWGN (Philox + Box-Muller)", "awgn.cu",
+         "radar_tpu/ops/pallas_noise.py:106", ref_launches["K5"], k5_err,
+         k5_ms, k5_plain_ms, 2 * _bytes_ms(zeros), "bytes", k5_lib_ms),
+        ("K1c noise-plane export (draw mode's Philox planes)", "noise_rdm.cu",
+         "radar_tpu/ops/pallas_rdm.py:1052", val_launches["K1c"], k1c_err,
+         k1c_ms, k1c_plain_ms, n_planes * 8 / PEAK_HBM * 1e3, "bytes",
+         k1c_lib_ms),
+        ("K4 noise RDM, window schedule (13 beams per block, in-block mix)",
+         "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:980 (rolling=False)",
+         val_launches["K4"], k4_err, k4_ms, k4_plain_ms, k1_bound,
+         "operations", None)]
     print(json.dumps({"kernels": [
-        {"name": "K1 fused noise RDM (draw mode, rank-K signal)",
-         "route": "cuda", "source": "radar_tpu_torch/csrc/noise_rdm.cu",
-         "replaces": "radar_tpu/ops/pallas_rdm.py:980",
-         "launches": launches["K1"], "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
-        {"name": "K2 2D GOCA-CFAR on qvg maps", "route": "cuda",
-         "source": "radar_tpu_torch/csrc/cfar.cu",
-         "replaces": "radar_tpu/ops/pallas_kernels.py:234",
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "K3 pair sum + 2D GOCA-CFAR (mask, threshold)",
-         "route": "cuda", "source": "radar_tpu_torch/csrc/cfar.cu",
-         "replaces": "radar_tpu/ops/pallas_kernels.py:292",
-         "launches": ref_launches["K3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "K5 complex AWGN (Philox + Box-Muller)", "route": "cuda",
-         "source": "radar_tpu_torch/csrc/awgn.cu",
-         "replaces": "radar_tpu/ops/pallas_noise.py:106",
-         "launches": ref_launches["K5"], "max_abs_err": k5_err,
-         "ms": k5_ms, "plain_ms": k5_plain_ms}]}), flush=True)
+        {"name": name, "route": "cuda",
+         "source": "radar_tpu_torch/csrc/" + src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": bms, "bound_by": by, "library_ms": lib}
+        for name, src, rep, n, err, ms, pms, bms, by, lib in kernels]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,6 +35,9 @@ _SIGNATURES = {
     "noise_rdm": {
         "k1_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
                   _I, _P, _P],
+        "k4_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
+                  _I, _I, _P, _P, _P],
+        "k1c_planes": [_I, _I, _I, _U, _U, _F, _I, _I, _P, _P, _P],
         "k1_mix": [_P, _P, _I, _LL, _P],
         "k1_mtd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     },

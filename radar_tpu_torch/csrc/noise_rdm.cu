@@ -17,6 +17,17 @@
 //   3. mtd_kernel: out[b] = D [V,P] @ pc[b] [P,G] + rank-K signal, written
 //      once as the [B, V, G] complex64 map.
 //
+// Two more kernels share this file and its staging and convolution code:
+//   K4 (pc_window_kernel) replaces noise_rdm_pallas_gen(rolling=False,
+//      beams_per_step=k), body _make_kernel_gen: the same draws and map, one
+//      block convolving a window of k beams in turn; with k = B it mixes
+//      the beams in the block, so step 2 does not run.
+//   K1c (planes_kernel) replaces gen_noise_planes_pallas: it writes the
+//      white planes draw mode draws, so planes mode can be fed the same
+//      noise. Bound by its 8 bytes written per sample (163.5 MB at the full
+//      shape, 0.05 ms at 3.35 TB/s); each sample also costs one Philox
+//      block, ~10 rounds of two 32-bit multiplies.
+//
 // What bounds it on this card: FP32 CUDA-core FMAs. At the full perf
 // shape (13 beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
 // convolutions are 8.1e9 complex MACs and the DFT 4.9e9, 5.2e10 real FMAs
@@ -33,6 +44,12 @@
 // thread. Draws are regenerated per window (counter-based, ~6.5x on the
 // long segment) instead of being stored: Philox costs far less than the
 // 117 MB round trip a stored noise cube would.
+//
+// K4's trouble spot is shared memory: a window of 13 beams x 8 pulse rows
+// of the long segment (827 samples, re/im f32) would take ~690 KB, three
+// times the 227 KB a block has. So K4 streams the beams through one staged
+// window (54.5 KB) and keeps only each beam's 8 x 128 convolved gates
+// (8 KB a beam, 104 KB for 13): ~164 KB in all, one block per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,29 +66,15 @@ constexpr int kMaxB = 16;     // beams the mix kernel holds in registers
 
 __host__ __device__ __forceinline__ int padded(int e) { return e + (e >> 5); }
 
+// Stages the noise window of beam b for rows p0 .. p0+kRows-1 and buffer
+// samples n0 .. n0+wl-1 into shared memory: Philox draws (zero before
+// pad_front) in draw mode, the given planes in planes mode.
 template <bool kDraw>
-__global__ void __launch_bounds__(kThreads)
-pc_kernel(const float2* __restrict__ taps, int lh, int pad_front, int j_len,
-          int g0, unsigned seg, uint2 key, float scale,
-          const float* __restrict__ xr, const float* __restrict__ xi,
-          long long x_len, int num_p, int num_g, float2* __restrict__ pc) {
-  extern __shared__ float smem[];
-  const int wl = kTile + lh - 1;            // window samples per row
-  const int wlp = padded(wl - 1) + 1;       // padded row stride (words)
-  float* sw_r = smem;
-  float* sw_i = sw_r + kRows * wlp;
-  float* th_r = sw_i + kRows * wlp;         // reversed taps: h[lh-1-k]
-  float* th_i = th_r + lh;
-
-  const int p0 = blockIdx.y * kRows;
-  const int b = blockIdx.z;
-  const int n0 = blockIdx.x * kTile;        // first buffer sample read
-
-  for (int k = threadIdx.x; k < lh; k += kThreads) {
-    const float2 h = taps[lh - 1 - k];
-    th_r[k] = h.x;
-    th_i[k] = h.y;
-  }
+__device__ __forceinline__ void stage_window(
+    float* sw_r, float* sw_i, int wl, int wlp, int p0, int b, int n0,
+    int pad_front, unsigned seg, uint2 key, float scale,
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    long long x_len, int num_p) {
   for (int idx = threadIdx.x; idx < kRows * wl; idx += kThreads) {
     const int r = idx / wl;
     const int e = idx - r * wl;
@@ -95,16 +98,16 @@ pc_kernel(const float2* __restrict__ taps, int lh, int pad_front, int j_len,
     sw_r[r * wlp + padded(e)] = vr;
     sw_i[r * wlp + padded(e)] = vi;
   }
-  __syncthreads();
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int p = p0 + warp;
-  if (p >= num_p) return;
-  const float* wr = sw_r + warp * wlp;
-  const float* wi = sw_i + warp * wlp;
-  const int t0 = (threadIdx.x & 31) * kOuts;
-  // out[t] = sum_k h[lh-1-k] * w[t+k]; xr_[o] holds w[t0+k+o]
-  float ar[kOuts], ai[kOuts], xr_[kOuts], xi_[kOuts];
+// Causal convolution of one staged row: out[t0+o] = sum_k h[lh-1-k] *
+// w[t0+o+k] for the lane's kOuts contiguous gates (th = reversed taps).
+__device__ __forceinline__ void conv_row(const float* wr, const float* wi,
+                                         const float* th_r, const float* th_i,
+                                         int lh, int t0, float (&ar)[kOuts],
+                                         float (&ai)[kOuts]) {
+  // xr_[o] holds w[t0+k+o]
+  float xr_[kOuts], xi_[kOuts];
 #pragma unroll
   for (int o = 0; o < kOuts; ++o) {
     ar[o] = 0.f;
@@ -131,12 +134,162 @@ pc_kernel(const float2* __restrict__ taps, int lh, int pad_front, int j_len,
       xi_[o] = xi_[o + 1];
     }
   }
+}
+
+__device__ __forceinline__ void load_reversed_taps(const float2* __restrict__ taps,
+                                                   int lh, float* th_r,
+                                                   float* th_i) {
+  for (int k = threadIdx.x; k < lh; k += kThreads) {
+    const float2 h = taps[lh - 1 - k];
+    th_r[k] = h.x;
+    th_i[k] = h.y;
+  }
+}
+
+// y[b] = sum_c L[b,c] x[c], c ascending, in the order mix_kernel takes.
+__device__ __forceinline__ float2 mix_one(const float2* sl, int num_b, int b,
+                                          const float2 (&x)[kMaxB]) {
+  float yr = 0.f, yi = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxB; ++c) {
+    if (c < num_b) {
+      const float2 l = sl[b * num_b + c];
+      yr = fmaf(l.x, x[c].x, yr);
+      yr = fmaf(-l.y, x[c].y, yr);
+      yi = fmaf(l.x, x[c].y, yi);
+      yi = fmaf(l.y, x[c].x, yi);
+    }
+  }
+  return make_float2(yr, yi);
+}
+
+template <bool kDraw>
+__global__ void __launch_bounds__(kThreads)
+pc_kernel(const float2* __restrict__ taps, int lh, int pad_front, int j_len,
+          int g0, unsigned seg, uint2 key, float scale,
+          const float* __restrict__ xr, const float* __restrict__ xi,
+          long long x_len, int num_p, int num_g, float2* __restrict__ pc) {
+  extern __shared__ float smem[];
+  const int wl = kTile + lh - 1;            // window samples per row
+  const int wlp = padded(wl - 1) + 1;       // padded row stride (words)
+  float* sw_r = smem;
+  float* sw_i = sw_r + kRows * wlp;
+  float* th_r = sw_i + kRows * wlp;         // reversed taps: h[lh-1-k]
+  float* th_i = th_r + lh;
+
+  const int p0 = blockIdx.y * kRows;
+  const int b = blockIdx.z;
+  const int n0 = blockIdx.x * kTile;        // first buffer sample read
+
+  load_reversed_taps(taps, lh, th_r, th_i);
+  stage_window<kDraw>(sw_r, sw_i, wl, wlp, p0, b, n0, pad_front, seg, key,
+                      scale, xr, xi, x_len, num_p);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int p = p0 + warp;
+  if (p >= num_p) return;
+  const int t0 = (threadIdx.x & 31) * kOuts;
+  float ar[kOuts], ai[kOuts];
+  conv_row(sw_r + warp * wlp, sw_i + warp * wlp, th_r, th_i, lh, t0, ar, ai);
   float2* row = pc + ((long long)b * num_p + p) * num_g + g0;
 #pragma unroll
   for (int o = 0; o < kOuts; ++o) {
     const int j = n0 + t0 + o;
     if (j < j_len) row[j] = make_float2(ar[o], ai[o]);
   }
+}
+
+// K4: the window schedule (TPU _make_kernel_gen, rolling=False). One block
+// per (gate tile, pulse-row group, window of bps beams) stages each beam of
+// its window in turn into the same shared window, convolves it, and keeps
+// the un-mixed rows of all bps beams in shared memory. When the window is
+// every beam (lmat given), the block applies the beam mix before it writes
+// pc, so k1_mix does not run; otherwise it writes the un-mixed rows.
+template <bool kDraw>
+__global__ void __launch_bounds__(kThreads)
+pc_window_kernel(const float2* __restrict__ taps, int lh, int pad_front,
+                 int j_len, int g0, unsigned seg, uint2 key, float scale,
+                 const float* __restrict__ xr, const float* __restrict__ xi,
+                 long long x_len, int num_b, int num_p, int num_g, int bps,
+                 const float2* __restrict__ lmat, float2* __restrict__ pc) {
+  extern __shared__ float smem[];
+  const int wl = kTile + lh - 1;
+  const int wlp = padded(wl - 1) + 1;
+  float* sw_r = smem;
+  float* sw_i = sw_r + kRows * wlp;
+  float* th_r = sw_i + kRows * wlp;
+  float* th_i = th_r + lh;
+  // [bps][kRows][kTile] un-mixed rows, then L; 8-byte aligned
+  float2* ob = reinterpret_cast<float2*>(smem + ((2 * kRows * wlp + 2 * lh + 1) & ~1));
+  float2* sl = ob + bps * kRows * kTile;
+
+  const int p0 = blockIdx.y * kRows;
+  const int b0 = blockIdx.z * bps;
+  const int nb = min(bps, num_b - b0);      // beams of this window
+  const int n0 = blockIdx.x * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int t0 = (threadIdx.x & 31) * kOuts;
+
+  load_reversed_taps(taps, lh, th_r, th_i);
+  if (lmat != nullptr)
+    for (int i = threadIdx.x; i < num_b * num_b; i += kThreads) sl[i] = lmat[i];
+  for (int ub = 0; ub < nb; ++ub) {
+    __syncthreads();                        // the last beam's window is read
+    stage_window<kDraw>(sw_r, sw_i, wl, wlp, p0, b0 + ub, n0, pad_front, seg,
+                        key, scale, xr, xi, x_len, num_p);
+    __syncthreads();
+    if (p0 + warp < num_p) {
+      float ar[kOuts], ai[kOuts];
+      conv_row(sw_r + warp * wlp, sw_i + warp * wlp, th_r, th_i, lh, t0, ar,
+               ai);
+      float2* orow = ob + (ub * kRows + warp) * kTile + t0;
+#pragma unroll
+      for (int o = 0; o < kOuts; ++o) orow[o] = make_float2(ar[o], ai[o]);
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < kRows * kTile; idx += kThreads) {
+    const int r = idx / kTile, t = idx - r * kTile;
+    const int p = p0 + r, j = n0 + t;
+    if (p >= num_p || j >= j_len) continue;
+    const long long off = (long long)p * num_g + g0 + j;
+    if (lmat != nullptr) {
+      float2 x[kMaxB];
+#pragma unroll
+      for (int c = 0; c < kMaxB; ++c)
+        x[c] = c < num_b ? ob[(c * kRows + r) * kTile + t] : make_float2(0.f, 0.f);
+      for (int b = 0; b < num_b; ++b)
+        pc[(long long)b * num_p * num_g + off] = mix_one(sl, num_b, b, x);
+    } else {
+      for (int ub = 0; ub < nb; ++ub)
+        pc[(long long)(b0 + ub) * num_p * num_g + off] =
+            ob[(ub * kRows + r) * kTile + t];
+    }
+  }
+}
+
+// K1c: the per-segment white planes [B, P, xlen] that draw mode draws
+// (same Philox counters, key and rails; zeros before pad_front). One
+// thread per sample, consecutive threads on consecutive samples.
+__global__ void __launch_bounds__(kThreads)
+planes_kernel(int pad_front, int xlen, unsigned seg, uint2 key, float scale,
+              int num_p, float* __restrict__ xr, float* __restrict__ xi) {
+  const int n = blockIdx.x * kThreads + threadIdx.x;
+  if (n >= xlen) return;
+  const int row = blockIdx.y;               // b * num_p + p
+  const int b = row / num_p, p = row - b * num_p;
+  float vr = 0.f, vi = 0.f;
+  if (n >= pad_front) {
+    const uint4 w = philox4x32_10(
+        make_uint4((unsigned)n, (unsigned)p, (unsigned)b, seg), key);
+    vr = uniform_rail(w.x, scale);
+    vi = uniform_rail(w.y, scale);
+  }
+  const long long off = (long long)row * xlen + n;
+  xr[off] = vr;
+  xi[off] = vi;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -153,22 +306,8 @@ mix_kernel(float2* __restrict__ pc, const float2* __restrict__ lmat,
     for (int c = 0; c < kMaxB; ++c)
       x[c] = c < num_b ? pc[c * pg + i] : make_float2(0.f, 0.f);
 #pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
-      if (b < num_b) {
-        float yr = 0.f, yi = 0.f;
-#pragma unroll
-        for (int c = 0; c < kMaxB; ++c) {
-          if (c < num_b) {
-            const float2 l = sl[b * num_b + c];
-            yr = fmaf(l.x, x[c].x, yr);
-            yr = fmaf(-l.y, x[c].y, yr);
-            yi = fmaf(l.x, x[c].y, yi);
-            yi = fmaf(l.y, x[c].x, yi);
-          }
-        }
-        pc[b * pg + i] = make_float2(yr, yi);
-      }
-    }
+    for (int b = 0; b < kMaxB; ++b)
+      if (b < num_b) pc[b * pg + i] = mix_one(sl, num_b, b, x);
   }
 }
 
@@ -289,6 +428,51 @@ int k1_pc(const void* taps, int lh, int pad_front, int j_len, int g0,
         static_cast<const float*>(xi), x_len, num_p, num_g,
         static_cast<float2*>(pc));
   }
+  return (int)cudaGetLastError();
+}
+
+// K4: one segment's convolution with bps beams per block. With lmat given
+// (bps == num_b), the block writes the beam-mixed pc and k1_mix must not
+// run; without, the un-mixed pc as k1_pc does.
+int k4_pc(const void* taps, int lh, int pad_front, int j_len, int g0, int seg,
+          unsigned s0, unsigned s1, float scale, const void* xr,
+          const void* xi, long long x_len, int num_b, int num_p, int num_g,
+          int bps, const void* lmat, void* pc, void* stream) {
+  if (bps < 1 || bps > num_b || num_b > kMaxB ||
+      (lmat != nullptr && bps != num_b))
+    return (int)cudaErrorInvalidValue;
+  const int wl = kTile + lh - 1;
+  const int wlp = padded(wl - 1) + 1;
+  const size_t floats = (2 * (size_t)kRows * wlp + 2 * (size_t)lh + 1) & ~(size_t)1;
+  const size_t smem = floats * sizeof(float) +
+                      ((size_t)bps * kRows * kTile +
+                       (lmat != nullptr ? (size_t)num_b * num_b : 0)) * sizeof(float2);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const dim3 grid((j_len + kTile - 1) / kTile, (num_p + kRows - 1) / kRows,
+                  (num_b + bps - 1) / bps);
+  const uint2 key = make_uint2(s0, s1);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = xr == nullptr ? pc_window_kernel<true> : pc_window_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float2*>(taps), lh, pad_front, j_len, g0,
+      (unsigned)seg, key, scale, static_cast<const float*>(xr),
+      static_cast<const float*>(xi), x_len, num_b, num_p, num_g, bps,
+      static_cast<const float2*>(lmat), static_cast<float2*>(pc));
+  return (int)cudaGetLastError();
+}
+
+// K1c: one segment's draw-mode planes xr, xi [B, P, xlen] f32.
+int k1c_planes(int pad_front, int xlen, int seg, unsigned s0, unsigned s1,
+               float scale, int num_b, int num_p, void* xr, void* xi,
+               void* stream) {
+  if ((long long)num_b * num_p > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((xlen + kThreads - 1) / kThreads, num_b * num_p);
+  planes_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pad_front, xlen, (unsigned)seg, make_uint2(s0, s1), scale, num_p,
+      static_cast<float*>(xr), static_cast<float*>(xi));
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Fused noise range-Doppler map — port of ``radar_tpu/ops/pallas_rdm.py``
-(``make_rdm_plan``, ``noise_rdm_pallas_gen(rolling=True, signal=...)`` and
-its planes-input sibling ``noise_rdm_pallas_planes``).
+(``make_rdm_plan``, ``noise_rdm_pallas_gen`` rolling and not, its
+planes-input sibling ``noise_rdm_pallas_planes``, ``noise_rdm_pallas`` on a
+compact cube and the plane exporter ``gen_noise_planes_pallas``).
 
 Per pulse-compression segment (narrow FIR, medium and long LFM matched
 filter) the map is
@@ -13,9 +14,12 @@ the DBF-output noise covariance and (dv, pb, st) the rank-K signal factors.
 
 Kernel K1 (``csrc/noise_rdm.cu``) computes this on the card, with the
 noise drawn inside the kernel (draw mode) or read from given planes
-(planes mode). ``noise_rdm_plain`` is its plain PyTorch version; the
-wrapper ``noise_rdm`` runs the kernel for CUDA tensors and the plain
-version only for CPU tensors.
+(planes mode). Kernel K4, the schedule of the TPU's non-rolling kernel,
+computes the same map with ``beams_per_step`` beams per block; kernel K1c
+writes the planes draw mode draws (``gen_noise_planes``).
+``noise_rdm_plain`` is the plain PyTorch version of K1 and K4,
+``philox_planes`` that of K1c; the wrappers run the kernels for CUDA
+tensors and the plain versions only on the CPU.
 
 Noise draws. The TPU kernel draws from the TPU's hardware generator; the
 port uses a counter-based Philox4x32-10 keyed by the frame seed's two
@@ -43,6 +47,8 @@ U_SCALE = float(np.float32(2.0 * A_UNIF * 2.0 ** -24))
 KERNEL_TILE = 128                     # output gates per block in K1
 
 launch_count = 0                      # K1 launches (one per noise_rdm call)
+k4_launch_count = 0                   # K4 launches (rolling=False calls)
+k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 
 
 class RdmSegSpec(NamedTuple):
@@ -235,8 +241,10 @@ def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
 # ------------------------------------------------------------- kernel
 
 
-def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
-    global launch_count
+def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
+                    beams_per_step):
+    """K1 (``beams_per_step=None``) or K4's window schedule."""
+    global launch_count, k4_launch_count
     import ctypes
 
     from .. import _build
@@ -267,6 +275,8 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     s0, s1 = seed if seed is not None else (0, 0)
+    # K4 with every beam in one window mixes in the block
+    mixed = beams_per_step == num_b
     for si, seg in enumerate(plan.segments):
         if seg.tile != KERNEL_TILE:
             raise ValueError(f"K1 needs {KERNEL_TILE}-gate tiles")
@@ -287,38 +297,114 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
             x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
         else:
             x_ptrs, x_len = (None, None), 0
-        rc = lib.k1_pc(taps.data_ptr(), taps.shape[0], seg.pad_front,
-                       seg.j_len, seg.g0, si, s0, s1,
-                       ctypes.c_float(U_SCALE), x_ptrs[0], x_ptrs[1],
-                       x_len, num_b, num_p, num_g, pc.data_ptr(), stream)
-        _build.check(lib, rc, "k1_pc")
-    _build.check(lib, lib.k1_mix(pc.data_ptr(), lmat.data_ptr(), num_b,
-                            num_p * num_g, stream), "k1_mix")
+        args = (taps.data_ptr(), taps.shape[0], seg.pad_front, seg.j_len,
+                seg.g0, si, s0, s1, ctypes.c_float(U_SCALE), x_ptrs[0],
+                x_ptrs[1], x_len, num_b, num_p, num_g)
+        if beams_per_step is None:
+            rc = lib.k1_pc(*args, pc.data_ptr(), stream)
+            _build.check(lib, rc, "k1_pc")
+        else:
+            rc = lib.k4_pc(*args, beams_per_step,
+                           lmat.data_ptr() if mixed else None,
+                           pc.data_ptr(), stream)
+            _build.check(lib, rc, "k4_pc")
+    if not mixed:
+        _build.check(lib, lib.k1_mix(pc.data_ptr(), lmat.data_ptr(), num_b,
+                                     num_p * num_g, stream), "k1_mix")
     _build.check(lib, lib.k1_mtd(d.data_ptr(), pc.data_ptr(), num_b, num_v,
-                            num_p, num_g, *sig_ptrs, num_k,
-                            out.data_ptr(), stream), "k1_mtd")
-    launch_count += 1
+                                 num_p, num_g, *sig_ptrs, num_k,
+                                 out.data_ptr(), stream), "k1_mtd")
+    if beams_per_step is None:
+        launch_count += 1
+    else:
+        k4_launch_count += 1
     return out
 
 
 def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
               seed: tuple[int, int] | None = None, planes=None,
-              layout: str = "vgb") -> torch.Tensor:
+              layout: str = "vgb", rolling: bool = True,
+              beams_per_step: int | None = None) -> torch.Tensor:
     """Complete noise (+ signal) RDM: draw mode with ``seed`` (two uint32
     key words, see ``seed_words``) or planes mode with ``planes``.
 
     ``l_factor`` [B, B] complex64 decides the device: a CUDA tensor runs
-    K1 (or raises), a CPU tensor the plain version. ``layout="bvg"``
-    returns the native [B, V, G]; ``"vgb"`` the [V, G, B] view."""
+    the kernel (or raises), a CPU tensor the plain version. ``rolling``
+    (the default) runs K1; ``rolling=False`` runs K4, the schedule of the
+    TPU's non-rolling kernel, with ``beams_per_step`` beams per block
+    (default 1; any value gives the same draws, keyed by the true beam).
+    ``layout="bvg"`` returns the native [B, V, G]; ``"vgb"`` the [V, G, B]
+    view."""
     if (seed is None) == (planes is None):
         raise ValueError("give exactly one of seed= and planes=")
     if layout not in ("vgb", "bvg"):
         raise ValueError(f"unknown layout {layout!r}")
+    num_b = l_factor.shape[0]
+    if rolling:
+        if beams_per_step is not None:
+            raise ValueError("beams_per_step= sets the schedule of "
+                             "rolling=False")
+    else:
+        beams_per_step = 1 if beams_per_step is None else beams_per_step
+        if not 1 <= beams_per_step <= num_b:
+            raise ValueError(f"beams_per_step={beams_per_step} is not in "
+                             f"[1, {num_b}]")
     if l_factor.is_cuda:
-        bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes)
+        bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes,
+                             beams_per_step)
     else:
         if planes is None:
-            planes = philox_planes(plan, seed, l_factor.shape[0],
-                                   device=l_factor.device)
+            planes = philox_planes(plan, seed, num_b, device=l_factor.device)
         bm = noise_rdm_plain(plan, l_factor, planes, signal)
     return bm if layout == "bvg" else bm.permute(1, 2, 0)
+
+
+def noise_rdm_compact(z: torch.Tensor, plan: RdmPlan,
+                      l_factor: torch.Tensor) -> torch.Tensor:
+    """Noise RDM [V, G, B] of a compact white cube z [B, P, s_compact]
+    complex: the per-segment planes of ``planes_from_compact`` through K1
+    planes mode (port of ``radar_tpu/ops/pallas_rdm.py::
+    noise_rdm_pallas``)."""
+    return noise_rdm(plan, l_factor, planes=planes_from_compact(z, plan))
+
+
+# ------------------------------------------------------------ K1c
+
+
+def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device):
+    global k1c_launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("noise_rdm")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = []
+    for si, seg in enumerate(plan.segments):
+        shape = (num_b, plan.n_pulses, seg.xlen)
+        xr = torch.empty(shape, dtype=torch.float32, device=device)
+        xi = torch.empty(shape, dtype=torch.float32, device=device)
+        rc = lib.k1c_planes(seg.pad_front, seg.xlen, si, seed[0], seed[1],
+                            ctypes.c_float(U_SCALE), num_b, plan.n_pulses,
+                            xr.data_ptr(), xi.data_ptr(), stream)
+        _build.check(lib, rc, "k1c_planes")
+        out.append((xr, xi))
+    k1c_launch_count += 1
+    return out
+
+
+def gen_noise_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
+                     device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The white (re, im) planes [B, P, xlen] f32 of every segment that
+    draw mode draws for ``seed`` — port of ``radar_tpu/ops/pallas_rdm.py::
+    gen_noise_planes_pallas``, so planes mode can be fed draw mode's noise
+    (``noise_rdm(planes=gen_noise_planes(...))`` equals ``noise_rdm(seed=
+    ...)`` bit for bit). The port's plane layout is its own: [B, P, xlen]
+    with no pulse-pad rows and no tail beyond the samples a window reads.
+
+    On a CUDA device kernel K1c writes them; on the CPU its plain version
+    ``philox_planes`` does, with the same bits."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _gen_planes_cuda(plan, seed, num_b, device)
+    return philox_planes(plan, seed, num_b, device=device)

@@ -14,7 +14,10 @@ Frame seeds. JAX keys frame ``i`` with ``jax.random.fold_in(key, i)``; the
 port derives the integer ``frame_seed(seed, i) = (seed mod 2^32) * 2^32 +
 i`` (distinct for every frame of every run seed below 2^32, for frame
 indices below 2^32). Its high and low words are the Philox key of K1 and
-K5, and it seeds the ``torch.Generator`` of the other draws.
+K5, and it seeds the ``torch.Generator`` of the other draws. The
+Monte-Carlo studies key trial ``t`` at point ``i`` (SNR index or scene)
+with ``trial_seed(seed, i, t) = (seed mod 2^32) * 2^32 + i * 2^20 + t``,
+where JAX folds ``i`` and splits keys per batch.
 
 Association runs the dense numpy BFS (``cluster/connected.py::
 connected_components_np``), which gives the same partition and component
@@ -38,6 +41,18 @@ from .frame import make_frame_processor
 def frame_seed(seed: int, frame_idx: int) -> int:
     """The integer seed of frame ``frame_idx`` of a run with ``seed``."""
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(frame_idx) & 0xFFFFFFFF)
+
+
+def trial_seed(seed: int, point: int, trial: int) -> int:
+    """The integer seed of Monte-Carlo trial ``trial`` at point ``point``
+    (an SNR index of ``snr_sweep``, a scene of ``run_streaming_mc``) of a
+    run with ``seed``: ``(seed mod 2^32) * 2^32 + point * 2^20 + trial``.
+    Distinct for points below 2^12 and trials below 2^20 (larger ones
+    raise); it depends on nothing else, so not on the batch size."""
+    if not (0 <= point < 1 << 12 and 0 <= trial < 1 << 20):
+        raise ValueError(f"trial_seed takes points below 2^12 and trials "
+                         f"below 2^20, got ({point}, {trial})")
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (point << 20) | trial
 
 
 def _host(x) -> np.ndarray:
@@ -155,11 +170,12 @@ def tracks_without_association(log: DetectionLog) -> list[Track]:
 def run_multiframe(cfg: RadarConfig, initial_targets: TargetBatch,
                    num_frames: int, seed: int = 0, processor=None,
                    precomp=None, progress: bool = False, store=None,
-                   kinematics: str = "altitude", *, device):
-    """Run the multi-frame simulation on ``device``; returns (log, tracks,
-    scenario). ``processor`` may be a frame processor built once and reused
-    (called as ``processor(frame_seed, targets)``). Resuming from a
-    ``store`` is not ported."""
+                   kinematics: str = "altitude", *, device="cuda"):
+    """Run the multi-frame simulation on ``device`` (the card by default;
+    ``"cpu"`` runs the plain versions); returns (log, tracks, scenario).
+    ``processor`` may be a frame processor built once and reused (called
+    as ``processor(frame_seed, targets)``). Resuming from a ``store`` is
+    not ported."""
     if store is not None:
         raise NotImplementedError(
             "store= (resume from a checkpoint store) is not ported")

@@ -8,8 +8,11 @@ Three streams produce the range-Doppler map (RDM), as in the JAX code:
   ``"pallas"``) -> DBF -> pulse compression -> MTD;
 - the fused stream (``fused_synth_dbf``): echoes synthesized in beam space
   plus beam-space AWGN -> pulse compression -> MTD;
-- the rank-K perf stream (``fused_synth_dbf`` and ``lowrank_rdm``): kernel
-  K1 draws the noise and forms the whole RDM (``pipeline/lowrank.py``).
+- the rank-K perf stream (``fused_synth_dbf`` and ``lowrank_rdm``), by
+  ``noise_rdm_impl``: kernel K1 draws the noise and forms the whole RDM
+  (``"pallas_prng"``), K1 takes torch-drawn planes (``"pallas"``), or the
+  plain chain PC -> MTD -> mix runs on white noise (``"xla"``), each added
+  to the rank-K signal RDM (``pipeline/lowrank.py``).
 
 Two tails take the RDM to detections:
 
@@ -29,6 +32,10 @@ Frame seeds. Where JAX takes a ``jax.random`` key, the port takes an
 integer frame seed: it seeds the ``torch.Generator`` of the threefry-style
 draws, and its two 32-bit words key the Philox streams of K1 and K5
 (``ops/noise_rdm.py::seed_words``).
+
+The stages are built once by ``make_frame_stages``; the frame processor
+and the Monte-Carlo trial function (``pipeline/montecarlo.py``) compose
+them, as JAX's trial function reuses the frame's stages.
 """
 
 from __future__ import annotations
@@ -53,8 +60,8 @@ from ..ops.pulse_compression import (make_matmul_plan, make_plan,
                                      pulse_compress, pulse_compress_matmul,
                                      to_device)
 from ..sim.echo import (add_noise, add_noise_beamspace, beam_noise_factor,
-                        synthesize_echo_beams, synthesize_echoes,
-                        white_complex_noise)
+                        seeded_generator, synthesize_echo_beams,
+                        synthesize_echoes, white_complex_noise)
 from ..waveform.precompute import Precomputed, precompute
 from .lowrank import make_lowrank_stages
 
@@ -153,28 +160,65 @@ def check_config(cfg: RadarConfig) -> None:
             stacklevel=3)
 
 
-def _generator(frame_seed: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(int(frame_seed) & 0xFFFFFFFFFFFFFFFF)
-    return g
+def detection_tail(cfg: RadarConfig, mc: MeasureConsts, mag: torch.Tensor,
+                   rdm: torch.Tensor, rdm_layout: str, qvg: bool):
+    """Detections, estimates and clusters from the magnitudes [B, V, G]
+    and the complex RDM (``rdm_layout`` "vgb" or "bvg"): the qvg tail (K2)
+    or the vgq tail (K3). Returns (pair maps [V, G, pairs], detections,
+    parameters, stage-1 clusters, FrameResult)."""
+    num_v, num_g = mag.shape[1:]
+    cap, ip = cfg.cfar.max_detections, cfg.interp
+    if qvg:
+        maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
+        mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
+        maps = maps_p[:, :num_v, HALO:HALO + num_g]               # [Q, V, G]
+        dets = extract_detections(mask, maps, cap, layout="qvg",
+                                  row_counts=rc)
+        layout = "qvg"
+    else:
+        mask, _ = goca_cfar_2d_fused(mag, cfg.cfar)               # [V, G, Q]
+        # the tail gathers <= cap stencils of the pair sums: a [V, G, Q]
+        # view of one elementwise pass
+        maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)
+        dets = extract_detections(mask, maps, cap, layout="vgq")
+        layout = "vgq"
+    params = estimate_parameters(
+        dets, maps, rdm, mc, ip.extra_dots, ip.r_interp_times,
+        ip.v_interp_times, layout=rdm_layout, maps_layout=layout)
+    s1 = cluster_stage1(params, cfg.cluster)
+    final = cluster_stage2(s1, cfg.cluster)
+    result = FrameResult(targets=final, num_raw_detections=dets.count,
+                         num_final=final.count.to(torch.int32))
+    pair_maps = maps.permute(1, 2, 0) if qvg else maps
+    return pair_maps, dets, params, s1, result
 
 
-def make_frame_processor(cfg: RadarConfig,
-                         precomp: Precomputed | None = None, *, device,
-                         return_intermediates: bool = False):
-    """Returns ``process(frame_seed, targets, noise=None, noise_planes=None)
-    -> FrameResult`` (``FrameIntermediates`` under
-    ``return_intermediates``) running on ``device``. On a CUDA device the
-    kernels run (K1, K2, K3, K5 as the branch needs them); on the CPU their
-    plain versions.
+class FrameStages(NamedTuple):
+    """The stages of one frame, composed by ``make_frame_processor`` and by
+    the Monte-Carlo trial function (``pipeline/montecarlo.py``), which
+    synthesizes once per SNR point and runs the rest per trial."""
 
-    Injected noise replaces the stream's draws, so tests can feed both
-    packages the same noise: ``noise`` is the [P, S, C] complex AWGN cube
-    added to the raw echo on the reference stream, or the [P, S, B] white
-    CN(0,1) cube before the beam mix on the fused stream;
-    ``noise_planes`` (per-segment (re, im) [B, P, >= xlen] f32 planes, e.g.
-    ``ops.noise_rdm.planes_from_compact(z, rplan)``) replaces K1's draws on
-    the perf stream. The wrong kind for the stream raises."""
+    cfg: RadarConfig
+    mc: MeasureConsts
+    lowrank: object     # LowrankStages of the rank-K stream, else None
+    synth: object       # targets -> noiseless raw [P,S,C] or beams [P,S,B]
+    chain: object       # (echo, frame_seed, noise, kernel_noise) ->
+                        # (noisy raw, beams, pc, rdm [V, G, B])
+    qvg: bool           # the tail: qvg (K2) or vgq (K3)
+
+    def detect(self, rdm: torch.Tensor, rdm_layout: str):
+        """``detection_tail`` on an RDM in ``rdm_layout``."""
+        mag = (rdm.abs() if rdm_layout == "bvg"
+               else rdm.permute(2, 0, 1).abs().contiguous())    # [B, V, G]
+        return detection_tail(self.cfg, self.mc, mag, rdm, rdm_layout,
+                              self.qvg)
+
+
+def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
+                      *, device, return_intermediates: bool = False
+                      ) -> FrameStages:
+    """The frame's stages on ``device``; raises for a CUDA device without
+    CUDA and for what the port does not run."""
     check_config(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -183,56 +227,14 @@ def make_frame_processor(cfg: RadarConfig,
     if precomp is None:
         precomp = precompute(cfg)
     fused = cfg.fused_synth_dbf and not return_intermediates
-    lowrank = cfg.lowrank_rdm and fused
     mc = measure_consts(cfg, precomp, device=device)
-    ip = cfg.interp
-    cap = cfg.cfar.max_detections
+    if cfg.lowrank_rdm and fused:
+        # the rank-K stream always takes the qvg tail, whose detections JAX
+        # makes bit-identical to the vgq tail
+        return FrameStages(cfg, mc,
+                           make_lowrank_stages(cfg, precomp, device=device),
+                           None, None, qvg=True)
     c64 = torch.complex64
-
-    def tail(mag, rdm, rdm_layout, qvg):
-        """Detections, estimates and clusters from the magnitudes [B, V, G]
-        and the complex RDM; returns (pair maps [V, G, pairs], dets,
-        params, stage 1, result)."""
-        num_v, num_g = mag.shape[1:]
-        if qvg:
-            maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
-            mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
-            maps = maps_p[:, :num_v, HALO:HALO + num_g]           # [Q, V, G]
-            dets = extract_detections(mask, maps, cap, layout="qvg",
-                                      row_counts=rc)
-            layout = "qvg"
-        else:
-            mask, _ = goca_cfar_2d_fused(mag, cfg.cfar)           # [V, G, Q]
-            # the tail gathers <= cap stencils of the pair sums: a [V, G, Q]
-            # view of one elementwise pass
-            maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)
-            dets = extract_detections(mask, maps, cap, layout="vgq")
-            layout = "vgq"
-        params = estimate_parameters(
-            dets, maps, rdm, mc, ip.extra_dots, ip.r_interp_times,
-            ip.v_interp_times, layout=rdm_layout, maps_layout=layout)
-        s1 = cluster_stage1(params, cfg.cluster)
-        final = cluster_stage2(s1, cfg.cluster)
-        result = FrameResult(targets=final, num_raw_detections=dets.count,
-                             num_final=final.count.to(torch.int32))
-        pair_maps = maps.permute(1, 2, 0) if qvg else maps
-        return pair_maps, dets, params, s1, result
-
-    if lowrank:
-        lr = make_lowrank_stages(cfg, precomp, device=device)
-
-        def process(frame_seed: int, targets, noise=None,
-                    noise_planes=None) -> FrameResult:
-            if noise is not None:
-                raise ValueError("the rank-K perf stream takes injected "
-                                 "noise as noise_planes=")
-            rdm = lr.noise_rdm_sig(frame_seed, targets, layout="bvg",
-                                   planes=noise_planes)            # [B, V, G]
-            return tail(rdm.abs(), rdm, "bvg", qvg=True)[-1]
-
-        process.stages = lr
-        return process
-
     w_eff = dbf_weights_effective_np(precomp.dbf_w, cfg.dbf_variant)
     if fused:
         mix = np.ascontiguousarray(w_eff.T)                          # [C, B]
@@ -245,32 +247,39 @@ def make_frame_processor(cfg: RadarConfig,
         precomp.mtd_win, cfg.sig.prt_num, cfg.mtd_fft_len)).to(device, c64)
         if cfg.mtd_method == "matmul" else None)
 
-    def stream(frame_seed, targets, noise):
+    def synth(targets):
+        if fused:
+            return synthesize_echo_beams(targets, precomp, cfg, mix,
+                                         device=device)
+        return synthesize_echoes(targets, precomp, cfg, device=device)
+
+    def chain(echo, frame_seed, noise=None, kernel_noise=True):
+        """Noise and processing of a noiseless echo. ``kernel_noise=False``
+        draws the reference stream's AWGN with ``torch.randn`` whatever
+        ``noise_impl`` says, as the JAX trial function does."""
         if noise is not None:
             noise = torch.as_tensor(noise, device=device)
         if fused:
-            sig = synthesize_echo_beams(targets, precomp, cfg, mix,
-                                        device=device)
             if noise is None:
                 noise = white_complex_noise(
-                    sig.shape, _generator(frame_seed, device), device=device)
-            elif noise.shape != sig.shape:
+                    echo.shape, seeded_generator(frame_seed, device),
+                    device=device)
+            elif noise.shape != echo.shape:
                 raise ValueError(f"the fused stream takes white beam noise "
-                                 f"{tuple(sig.shape)}, got "
+                                 f"{tuple(echo.shape)}, got "
                                  f"{tuple(noise.shape)}")
-            noisy, beams = None, add_noise_beamspace(sig, l_t, noise)
+            noisy, beams = None, add_noise_beamspace(echo, l_t, noise)
         else:
-            raw = synthesize_echoes(targets, precomp, cfg, device=device)
             if noise is not None:
-                if noise.shape != raw.shape:
+                if noise.shape != echo.shape:
                     raise ValueError(f"the reference stream takes channel "
-                                     f"AWGN {tuple(raw.shape)}, got "
+                                     f"AWGN {tuple(echo.shape)}, got "
                                      f"{tuple(noise.shape)}")
-                noisy = raw + noise.to(c64)
-            elif cfg.noise_impl == "pallas":
-                noisy = awgn(raw, seed_words(frame_seed))
+                noisy = echo + noise.to(c64)
+            elif kernel_noise and cfg.noise_impl == "pallas":
+                noisy = awgn(echo, seed_words(frame_seed))
             else:
-                noisy = add_noise(raw, _generator(frame_seed, device))
+                noisy = add_noise(echo, seeded_generator(frame_seed, device))
             beams = dbf(noisy, precomp.dbf_w, cfg.dbf_variant)
         pc = (pulse_compress_matmul(beams, mplan, precision=prec)
               if mplan is not None else pulse_compress(beams, precomp, pplan))
@@ -278,14 +287,54 @@ def make_frame_processor(cfg: RadarConfig,
                else mtd(pc, precomp.mtd_win, cfg.mtd_fft_len))   # [V, G, B]
         return noisy, beams, pc, rdm
 
+    return FrameStages(cfg, mc, None, synth, chain, qvg=cfg.use_pallas_cfar)
+
+
+def make_frame_processor(cfg: RadarConfig,
+                         precomp: Precomputed | None = None, *,
+                         device="cuda", return_intermediates: bool = False):
+    """Returns ``process(frame_seed, targets, noise=None, noise_planes=None)
+    -> FrameResult`` (``FrameIntermediates`` under
+    ``return_intermediates``) running on ``device`` (the card by default;
+    ``"cpu"`` runs the kernels' plain versions). On a CUDA device the
+    kernels run (K1, K2, K3, K5 as the branch needs them).
+
+    Injected noise replaces the stream's draws, so tests can feed both
+    packages the same noise: ``noise`` is the [P, S, C] complex AWGN cube
+    added to the raw echo on the reference stream, the [P, S, B] white
+    CN(0,1) cube before the beam mix on the fused stream, or the white z
+    [P, S(_compact), B] of the rank-K stream's xla route;
+    ``noise_planes`` (per-segment (re, im) [B, P, >= xlen] f32 planes, e.g.
+    ``ops.noise_rdm.planes_from_compact(z, rplan)``) replaces the draws of
+    the rank-K stream's kernel routes. The wrong kind raises."""
+    st = make_frame_stages(cfg, precomp, device=device,
+                           return_intermediates=return_intermediates)
+    lr = st.lowrank
+    if lr is not None:
+        def process(frame_seed: int, targets, noise=None,
+                    noise_planes=None) -> FrameResult:
+            if lr.impl == "pallas_prng":
+                if noise is not None:
+                    raise ValueError("the rank-K perf stream takes injected "
+                                     "noise as noise_planes=")
+                # the complete RDM from one K1 call (signal fused)
+                rdm = lr.noise_rdm_sig(frame_seed, targets, layout="bvg",
+                                       planes=noise_planes)
+            else:
+                rdm = lr.noisy_rdm(lr.signal_rdm(targets, lr.rdm_layout),
+                                   frame_seed, noise, noise_planes)
+            return st.detect(rdm, lr.rdm_layout)[-1]
+
+        process.stages = lr
+        return process
+
     def process(frame_seed: int, targets, noise=None, noise_planes=None):
         if noise_planes is not None:
             raise ValueError("noise_planes= drives the rank-K perf stream "
                              "only; this stream takes noise=")
-        noisy, beams, pc, rdm = stream(frame_seed, targets, noise)
-        mag = rdm.permute(2, 0, 1).abs().contiguous()             # [B, V, G]
-        pair_maps, dets, params, s1, result = tail(
-            mag, rdm, "vgb", qvg=cfg.use_pallas_cfar)
+        noisy, beams, pc, rdm = st.chain(st.synth(targets), frame_seed,
+                                         noise)
+        pair_maps, dets, params, s1, result = st.detect(rdm, "vgb")
         if return_intermediates:
             return FrameIntermediates(
                 raw_iq=noisy, beams=beams, pc=pc, rdm=rdm,

@@ -138,6 +138,14 @@ def beam_noise_factor(dbf_w_effective, p_noise: float = P_NOISE_FLOOR):
         return vecs * np.sqrt(np.clip(vals, 0.0, None))[None, :]
 
 
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with the integer ``seed``
+    (mod 2^64): the source of a frame's or trial's torch draws."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
+    return g
+
+
 def white_complex_noise(shape, generator: torch.Generator, *,
                         device) -> torch.Tensor:
     """iid CN(0,1) complex64 cube: each rail N(0, 1/2)."""

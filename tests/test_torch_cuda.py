@@ -1,7 +1,8 @@
-"""PyTorch port on the card: kernels K1, K2, K3 and K5 against their plain
-PyTorch versions, and the perf-config and reference-stream frames through
-the kernels against the plain path on the CPU. Marked ``cuda``; each test
-skips without an NVIDIA GPU.
+"""PyTorch port on the card: kernels K1, K1c, K2, K3, K4 and K5 against
+their plain PyTorch versions, the perf-config frame (each noise-RDM route)
+and the reference-stream frame through the kernels against the plain path
+on the CPU, and a small SNR sweep. Marked ``cuda``; each test skips
+without an NVIDIA GPU.
 
 This file imports neither JAX nor ``radar_tpu``, so it also runs where
 JAX is not installed (the suite's conftest.py needs JAX):
@@ -163,3 +164,84 @@ def test_reference_frame_on_card_matches_cpu(cuda_device):
     b = make_frame_processor(cfg, device="cpu")(5, tb)
     assert int(a.num_final) == int(b.num_final) >= 2
     _assert_same_rows(_rows(a), _rows(b), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k1c_matches_philox_planes_on_card(cuda_device):
+    """K1c writes the planes draw mode draws, bit for bit equal to the
+    plain Philox planes; planes mode on them equals draw mode."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    seed = (7, 11)
+    before = nr.k1c_launch_count
+    got = nr.gen_noise_planes(lr.rplan, seed, 5, device=cuda_device)
+    want = nr.philox_planes(lr.rplan, seed, 5, device=cuda_device)
+    torch.cuda.synchronize()
+    assert nr.k1c_launch_count == before + 1
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    fed = nr.noise_rdm(lr.rplan, lr.l_factor, planes=got, layout="bvg")
+    drawn = nr.noise_rdm(lr.rplan, lr.l_factor, seed=seed, layout="bvg")
+    torch.cuda.synchronize()
+    assert torch.equal(fed, drawn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beams_per_step", [1, 2, 5])
+def test_k4_matches_plain_on_card(cuda_device, beams_per_step):
+    """K4 (window schedule, in-block mix at 5 beams per block) vs its
+    plain version (RMS of the difference within 1e-5 of the RMS) and vs
+    K1 on the same seed (the same f32 arithmetic: identical)."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    factors = lr.signal_factors(TargetBatch.make(*TARGETS))
+    seed = (3, 5)
+    ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor,
+                             nr.philox_planes(lr.rplan, seed, 5,
+                                              device=cuda_device), factors)
+    before = nr.k4_launch_count
+    got = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=seed,
+                       layout="bvg", rolling=False,
+                       beams_per_step=beams_per_step)
+    k1 = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=seed,
+                      layout="bvg")
+    torch.cuda.synchronize()
+    assert nr.k4_launch_count == before + 1
+    rms = lambda x: float(x.abs().pow(2).mean().sqrt())
+    assert rms(got - ref) <= 1e-5 * rms(ref)
+    assert float((got - k1).abs().max()) <= 2.0 ** -7 * float(k1.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,dist", [("xla", "normal"),
+                                       ("pallas", "uniform")])
+def test_lowrank_route_on_card_matches_cpu(cuda_device, impl, dist):
+    """The xla and pallas routes on the card and on the CPU, fed the same
+    injected noise: same final targets within rtol 1e-4."""
+    cfg = CFG.replace(noise_rdm_impl=impl, noise_dist=dist)
+    tb = TargetBatch.make(*TARGETS)
+    cpu = make_frame_processor(cfg, device="cpu")
+    card = make_frame_processor(cfg, device=cuda_device)
+    if impl == "xla":
+        z = cpu.stages.gen_noise(5)
+        a, b = card(0, tb, noise=z.to(cuda_device)), cpu(0, tb, noise=z)
+    else:
+        planes = cpu.stages.noise_planes(5)
+        on_card = [(x.to(cuda_device), y.to(cuda_device)) for x, y in planes]
+        a, b = card(0, tb, noise_planes=on_card), cpu(0, tb,
+                                                      noise_planes=planes)
+    assert int(a.num_final) == int(b.num_final) >= 2
+    _assert_same_rows(_rows(a), _rows(b), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_snr_sweep_on_card(cuda_device):
+    """A small perf-config sweep through K1 on the card: Pd rises."""
+    from radar_tpu_torch.pipeline.montecarlo import snr_sweep
+
+    cfg = small_test_config(channels=8, pulses=32).replace(**PERF_OVERRIDES)
+    before = nr.launch_count
+    res = snr_sweep(cfg, snr_db_vector=[-42.0, 25.0], num_trials=6,
+                    truth=TargetBatch.make([3000.0], [10.0], [10.0], [0.0]),
+                    device=cuda_device)
+    assert nr.launch_count >= before + 12
+    assert res.detection_probability[0] <= 0.3
+    assert res.detection_probability[-1] >= 0.9

@@ -153,3 +153,18 @@ def test_run_multiframe_own_noise_and_refusals():
     log2, tracks2, _ = tdriver.run_multiframe(off, tb, 2, device="cpu")
     assert len(tracks2) == len(log2) and all(t.num_points == 1
                                              for t in tracks2)
+
+
+@pytest.mark.parametrize("entry", ["make_frame_processor", "run_multiframe"])
+def test_entry_points_default_to_the_card(entry):
+    """Without ``device=`` the entry points run on the card, and raise
+    where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cfg = tparams.small_test_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "make_frame_processor":
+            make_frame_processor(cfg)
+        else:
+            tdriver.run_multiframe(cfg, TargetBatch.make([3000.0], [15.0],
+                                                         [10.0], [10.0]), 1)

@@ -154,7 +154,6 @@ def test_no_target_no_detection():
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("noise_rdm_impl", "xla"), ("noise_rdm_impl", "pallas"),
     ("kernel_maps", True), ("beams_major_tail", True),
     ("tail_from_rdm", True), ("monopulse_complex", True),
     ("monopulse_refined", True), ("pc_method", "fft"),

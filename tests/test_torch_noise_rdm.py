@@ -1,12 +1,15 @@
-"""PyTorch port: the fused noise RDM (kernel K1's plain version, its Philox
-draws) held against the JAX Pallas kernels run in interpret mode with f32
-multiplies.
+"""PyTorch port: the fused noise RDM (the plain version of kernels K1 and
+K4, the Philox draws that K1c exports) held against the JAX Pallas
+kernels run in interpret mode with f32 multiplies: the rolling and
+non-rolling draw kernels fed the planes JAX's exporter writes, and the
+planes kernel.
 
 Tolerance of the RDM comparisons, relative to the reference's RMS: the
 RMS of the difference within 1e-5, every element within 1e-4 (f32 sums of
 up to 700 x 332 terms taken in another order: the banded PC per 128-gate
-tile, the DFT, the mix). The kernel itself runs only on the card (tests
-marked ``cuda``, in test_torch_cuda.py)."""
+tile, the DFT, the mix); K1c's CPU path bit-equal to ``philox_planes``.
+The kernels themselves run only on the card (tests marked ``cuda``, in
+test_torch_cuda.py)."""
 
 from __future__ import annotations
 
@@ -195,3 +198,63 @@ def test_noise_power_matches_cholesky_factor(setup):
     ratio = float((rdm.abs() ** 2).double()[..., sl].mean()
                   / want[..., sl].mean())
     assert abs(ratio - 1.0) < 0.02
+
+
+@pytest.fixture(scope="module")
+def gen_planes(setup):
+    """The planes JAX's generator exports for SEED (interpret, f32)."""
+    jplan, l_np = setup["jplan"], setup["l_np"]
+    seed = jnp.asarray(SEED, jnp.int32)
+    xrs, xis = gen_noise_planes_pallas(seed, jplan, l_np.shape[0],
+                                       float(np.sqrt(1.5)), interpret=True,
+                                       mul_dtype=jnp.float32)
+    num_p = setup["tl"].rplan.n_pulses
+    return seed, [(torch.from_numpy(np.array(xr)[:, :num_p]),
+                   torch.from_numpy(np.array(xi)[:, :num_p]))
+                  for xr, xi in zip(xrs, xis)]
+
+
+@pytest.mark.parametrize("per_step", ["one", "all"])
+def test_window_schedule_matches_jax_non_rolling_kernel(setup, gen_planes,
+                                                        per_step):
+    """K4's plain path (``rolling=False``) vs JAX's non-rolling in-kernel
+    draw kernel with 1 or B beams per grid step, fed the planes that
+    kernel draws."""
+    jplan, l_np, tl = setup["jplan"], setup["l_np"], setup["tl"]
+    k = 1 if per_step == "one" else l_np.shape[0]
+    seed, planes = gen_planes
+    want = noise_rdm_pallas_gen(seed, jplan, l_np, float(np.sqrt(1.5)),
+                                interpret=True, mul_dtype=jnp.float32,
+                                out_dtype=jnp.float32, rolling=False,
+                                beams_per_step=k)
+    got = nr.noise_rdm(tl.rplan, tl.l_factor, planes=planes, layout="vgb",
+                       rolling=False, beams_per_step=k)
+    assert float(np.max(np.abs(np.asarray(want)))) > 0.0
+    _close(got, want)
+
+
+def test_gen_noise_planes_on_cpu_is_philox_planes(setup):
+    """K1c's CPU path is its plain version, ``philox_planes``, bit for bit,
+    and planes mode on them equals draw mode; no kernel launches."""
+    tl = setup["tl"]
+    before = nr.k1c_launch_count
+    got = nr.gen_noise_planes(tl.rplan, SEED, 5, device="cpu")
+    want = nr.philox_planes(tl.rplan, SEED, 5, device="cpu")
+    assert nr.k1c_launch_count == before
+    for (a, b), (c, d) in zip(got, want):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    assert torch.equal(
+        nr.noise_rdm(tl.rplan, tl.l_factor, planes=got, layout="bvg"),
+        nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, layout="bvg"))
+
+
+def test_schedule_arguments_are_checked(setup):
+    tl = setup["tl"]
+    with pytest.raises(ValueError, match="rolling=False"):
+        nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, beams_per_step=2)
+    for bad in (0, 6):
+        with pytest.raises(ValueError, match="beams_per_step"):
+            nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, rolling=False,
+                         beams_per_step=bad)
+    a = nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, rolling=False)
+    assert torch.equal(a, nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED))
