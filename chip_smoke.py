@@ -26,7 +26,15 @@ targets:
 - the Monte-Carlo studies: ``snr_sweep`` of the perf config (5 points x 16
   trials) and one point each of the reference stream and the xla route,
   and ``run_streaming_mc`` (128 injected targets, then the statistical
-  hold at 40 targets per scene).
+  hold at 40 targets per scene);
+- the noise-RDM kernel studies: phase ``rdm_variants`` runs the planes
+  kernel's schedules K10 (resident), K7 (stacked) and K9 (all beams)
+  through ``noise_rdm_compact`` with bf16 operands on a cube holding K1c's
+  planes, then holds each at f32 and bf16 against its plain version, K1
+  and its own f32 map, K10 with bf16 output and K7 on its own draws; phase
+  ``pc_study`` runs ``scripts/bench_pc2d.py``'s three chains (cuBLAS
+  banded, flat 2D, K8) and holds K8 against its plain version and the
+  banded-matmul PC.
 
 The launch counters are set to 0 just before each path runs and read just
 after, to show the path went through its kernels. Kernels, plain versions,
@@ -50,6 +58,7 @@ import time
 import numpy as np
 
 PEAK_FP32 = 67e12     # H100 SXM FLOP/s, float32 outside the tensor cores
+PEAK_BF16 = 989e12    # H100 SXM FLOP/s, bf16 tensor cores, dense
 PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
 
 
@@ -199,14 +208,27 @@ def _device_busy_ms(fn, reps: int = 5):
             [(e.key[:60], round(dev_t(e) / reps / 1000.0, 4)) for e in top])
 
 
-def _k1_bound_ms(plan, num_b: int) -> float:
-    """Least time of K1's (and K4's) work at the FP32 peak: the complex
-    MACs of the convolutions, the beam mix and the DFT, 8 FLOPs each, over
-    67 TFLOP/s (the rank-K signal epilogue is negligible)."""
+def _k1_bound_ms(plan, num_b: int, peak: float = PEAK_FP32) -> float:
+    """Least time of the noise RDM's work (K1, K4, K7, K9, K10) at the
+    ``peak`` of its operand type: the complex MACs of the convolutions, the
+    beam mix and the DFT, 8 FLOPs each (the rank-K signal epilogue is
+    negligible)."""
     conv = sum(s.j_len * s.taps.shape[0] for s in plan.segments)
     macs = num_b * plan.n_pulses * (conv + num_b * plan.n_gates
                                     + plan.n_dop * plan.n_gates)
-    return 8.0 * macs / PEAK_FP32 * 1e3
+    return 8.0 * macs / peak * 1e3
+
+
+def _bound(ops_ms: float, bytes_ms: float):
+    """(bound ms, what bounds it): the larger of the two least times."""
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def _rel_rms(a, b) -> float:
+    """RMS of a - b over the RMS of b."""
+    return float((a - b).abs().pow(2).mean().sqrt()
+                 / b.abs().pow(2).mean().sqrt())
 
 
 def _bytes_ms(*tensors) -> float:
@@ -267,6 +289,256 @@ def _validate_rdm_gen(nr, lr_prng, lr_uni, lr_norm, plan, lmat, dev, counts,
     return out, planes, seed
 
 
+# bf16 holds at full size, RMS of the difference over the RMS: both sides
+# round the same values at the same points, but their f32 sums (700 taps,
+# 332 pulses) are taken in other orders (on the tensor cores, not even
+# IEEE-sequential), so a few intermediates land on the other side of a
+# bf16 rounding boundary (2^-8 on that element; 1.4e-4 measured for the
+# CUDA-core K10). A missing or misplaced rounding point costs >= 1e-3
+# (bf16 vs f32 is ~4e-3), so 3e-4 still catches it. The output rounding of
+# bf16 planes turns such a flip into a whole output ulp: twice that.
+BF16_HOLD = 3e-4
+BF16_OUT_HOLD = 6e-4
+VARIANTS = (("K10", "resident", "radar_tpu/ops/pallas_rdm.py:789"),
+            ("K7", "stacked", "radar_tpu/ops/pallas_rdm.py:627"),
+            ("K9", "allbeams", "radar_tpu/ops/pallas_rdm.py:1088"))
+
+
+def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
+    """Phase ``rdm_variants``: the planes kernel's schedules K10, K7 and K9
+    through the A/B entry point ``noise_rdm_compact`` at full size, on a
+    compact cube holding K1c's planes for one seed, then each schedule at
+    f32 and bf16 against its plain version, K1 and its own f32 map; K7 on
+    its own draws; times. Returns the kernels-line rows."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    num_b, num_p = lmat.shape[0], plan.n_pulses
+    seed = nr.seed_words(4242)
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=dev)
+    planes16 = [(x.to(bf), y.to(bf)) for x, y in planes]
+    z = torch.zeros((num_b, num_p, plan.s_compact), dtype=torch.complex64,
+                    device=dev)
+    for seg, (xr, xi) in zip(plan.segments, planes):
+        sl = slice(seg.pad_front, seg.pad_front + seg.r_len)
+        z[:, :, seg.c0:seg.c0 + seg.r_len] = torch.complex(xr[..., sl],
+                                                           xi[..., sl])
+    torch.cuda.synchronize()
+    counts = lambda: {k: getattr(nr, f"{k.lower()}_launch_count")
+                      for k, _, _ in VARIANTS}
+    for k, _, _ in VARIANTS:
+        setattr(nr, f"{k.lower()}_launch_count", 0)
+    y16 = {v: nr.noise_rdm_compact(z, plan, lmat, variant=v, mul_dtype=bf)
+           for _, v, _ in VARIANTS}
+    torch.cuda.synchronize()
+    launches = counts()
+    _line("rdm_variants", path="noise_rdm_compact(variant=, mul_dtype=bf16)",
+          launches=launches)
+    _require(all(n >= 1 for n in launches.values()),
+             "the schedules' path launched K10, K7 and K9")
+
+    ref = {md: nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=md)
+           for md in (f32, bf)}
+    k1 = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg")
+    errs, first = {}, None
+    for name, v, _ in VARIANTS:
+        y32 = nr.noise_rdm(plan, lmat, planes=planes, variant=v,
+                           layout="bvg")
+        y = nr.noise_rdm(plan, lmat, planes=planes16, variant=v,
+                         mul_dtype=bf, layout="bvg")
+        torch.cuda.synchronize()
+        first = first or (y32, y)
+        e = {"identical_to_K10": [bool(torch.equal(y32, first[0])),
+                                  bool(torch.equal(y, first[1]))],
+             "f32_vs_plain": _rel_rms(y32, ref[f32]),
+             "bf16_vs_plain": _rel_rms(y, ref[bf]),
+             "f32_vs_K1": _rel_rms(y32, k1),
+             "bf16_vs_own_f32": _rel_rms(y, y32),
+             "compact_equals_planes": bool(torch.equal(
+                 y16[v].permute(2, 0, 1), y)),
+             "bf16_max_abs_err": float((y - ref[bf]).abs().max())}
+        errs[name] = e
+        _line("rdm_variants", kernel=name, variant=v, **e,
+              tol=f"f32 <=1e-5, bf16 <={BF16_HOLD} (rms rel); vs K1 "
+                  "<=1e-5; bf16 vs f32 in [1e-3, 1e-2]")
+        _require(e["f32_vs_plain"] <= 1e-5
+                 and e["bf16_vs_plain"] <= BF16_HOLD
+                 and e["f32_vs_K1"] <= 1e-5
+                 and 1e-3 <= e["bf16_vs_own_f32"] <= 1e-2
+                 and e["compact_equals_planes"]
+                 and bool(torch.isfinite(torch.view_as_real(y)).all()),
+                 f"{name} ({v}) holds")
+        del y32, y
+    out16 = nr.noise_rdm(plan, lmat, planes=planes16, variant="resident",
+                         mul_dtype=bf, out_dtype=bf, layout="bvg")
+    ref_out16 = nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=bf,
+                                   out_dtype=bf)
+    drawn = nr.noise_rdm(plan, lmat, seed=seed, stacked=True, layout="bvg")
+    fed = nr.noise_rdm(plan, lmat, planes=planes, variant="stacked",
+                       layout="bvg")
+    torch.cuda.synchronize()
+    e_out = _rel_rms(out16, ref_out16)
+    e_draw = _rel_rms(drawn, fed)
+    _line("rdm_variants", resident_bf16_out_vs_plain=e_out,
+          out_rounded=bool(torch.equal(out16, nr.round_mul(out16, bf))),
+          stacked_draws_vs_planes=e_draw,
+          stacked_draws_identical=bool(torch.equal(drawn, fed)),
+          tol=f"bf16 out <={BF16_OUT_HOLD}; draws vs K1c planes <=1e-5")
+    _require(e_out <= BF16_OUT_HOLD and torch.equal(out16, nr.round_mul(out16, bf)),
+             "K10 with bf16 output planes")
+    _require(e_draw <= 1e-5, "K7 draw mode == K7 on K1c's planes")
+    del ref, k1, out16, ref_out16, drawn, fed, y16, first
+
+    # times at bf16 (the TPU's default), kernel vs plain on the same cube
+    planes_c = nr.planes_from_compact(z, plan, bf)
+    rows = []
+    n_in = z.numel() * z.element_size()
+    n_out = num_b * plan.n_dop * plan.n_gates * 8
+    bound, by = _bound(_k1_bound_ms(plan, num_b, PEAK_BF16),
+                       (n_in + n_out) / PEAK_HBM * 1e3)
+    for name, v, rep in VARIANTS:
+        ms, pms = _time_pair(
+            lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v,
+                                         mul_dtype=bf),
+            lambda: nr.noise_rdm_plain(plan, lmat, planes_c, mul_dtype=bf))
+        ms32 = statistics.median(_event_ms(
+            lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v), 5))
+        busy, top = _device_busy_ms(
+            lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v,
+                                         mul_dtype=bf), reps=3)
+        _line("time", what=repr(f"{name} ({v}, bf16) / plain / f32"),
+              ms=round(ms, 4), plain_ms=round(pms, 4), f32_ms=round(ms32, 4),
+              device_busy_ms=round(busy, 4), top_kernels=top,
+              card=repr(card))
+        rows.append((f"{name} noise RDM, variant={v!r}, bf16 operands",
+                     "rdm_variants.cu", rep, launches[name],
+                     errs[name]["bf16_max_abs_err"], ms, pms, bound, by,
+                     None))
+    k1p_ms, k1p_plain_ms = _time_pair(
+        lambda: nr.noise_rdm(plan, lmat, planes=planes, layout="bvg"),
+        lambda: nr.noise_rdm_plain(plan, lmat, planes))
+    _line("time", what=repr("K1 planes mode / plain"), ms=round(k1p_ms, 4),
+          plain_ms=round(k1p_plain_ms, 4), card=repr(card))
+    return rows
+
+
+def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
+    """Phase ``pc_study``: ``scripts/bench_pc2d.py``'s three chains at full
+    size (white z -> PC -> MTD with bf16 operands -> mix): the cuBLAS banded
+    chain over the compact noise plan, the flat 2D chain, and K8. Holds K8
+    against its plain version and the f32 banded-matmul PC. Returns the
+    kernels-line row of K8."""
+    import torch
+
+    from radar_tpu_torch.ops.mtd import make_mtd_matrix
+    from radar_tpu_torch.ops.precision import einsum_complex_bf16
+    from radar_tpu_torch.ops.pulse_compression import (compact_noise_plan,
+                                                       make_matmul_plan,
+                                                       pulse_compress_matmul,
+                                                       to_device)
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    bf, f32 = torch.bfloat16, torch.float32
+    num_p, num_b = ref_cfg.sig.prt_num, ref_cfg.sig.beam_num
+    nplan_np, nlen = compact_noise_plan(make_matmul_plan(ref_pre))
+    nplan = to_device(nplan_np, dev)
+    pplan = ppc.make_pallas_pc_plan(ref_pre, device=dev)
+    _require(pplan.s_compact == nlen, "one compact layout")
+    mtd_m = torch.as_tensor(make_mtd_matrix(ref_pre.mtd_win, num_p)).to(
+        dev, torch.complex64)
+    rng = np.random.default_rng(0)
+    l_t = torch.as_tensor(((rng.normal(size=(num_b, num_b))
+                            + 1j * rng.normal(size=(num_b, num_b))) * 0.1
+                           ).astype(np.complex64)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    z = torch.complex(torch.randn((num_b, num_p, nlen), generator=g,
+                                  device=dev),
+                      torch.randn((num_b, num_p, nlen), generator=g,
+                                  device=dev)) * float(np.sqrt(0.5))
+    z_psb = z.permute(1, 2, 0).contiguous()           # [P, S, B]
+    z_flat = z.reshape(num_b * num_p, nlen)
+
+    def chain_psb():
+        pcz = pulse_compress_matmul(z_psb, nplan, precision="bf16")
+        rdmz = einsum_complex_bf16("vp,pjb->vjb", mtd_m, pcz)
+        return torch.einsum("vjb,cb->vjc", rdmz, l_t)
+
+    def chain_flat2d():
+        pcz = torch.cat([einsum_complex_bf16("rw,wj->rj",
+                                             z_flat[:, w0:w0 + wlen], m)
+                         for w0, wlen, m in nplan.chunks], dim=1)
+        rdmz = einsum_complex_bf16("vp,bpj->bvj", mtd_m,
+                                   pcz.reshape(num_b, num_p, -1))
+        return torch.einsum("cb,bvj->vjc", l_t, rdmz)
+
+    def chain_pallas_pc():
+        rdmz = einsum_complex_bf16("vp,bpj->bvj", mtd_m,
+                                   ppc.pulse_compress_noise(z, pplan))
+        return torch.einsum("cb,bvj->vjc", l_t, rdmz)
+
+    chains = {"chain_PSB": chain_psb, "chain_flat2d": chain_flat2d,
+              "chain_pallas_pc": chain_pallas_pc}
+    ppc.launch_count = 0
+    out = {name: fn() for name, fn in chains.items()}
+    torch.cuda.synchronize()
+    launches = ppc.launch_count
+    ms = {name: statistics.median(_event_ms(fn, 5))
+          for name, fn in chains.items()}
+    vs = {name: _rel_rms(y, out["chain_PSB"]) for name, y in out.items()}
+    _line("pc_study", launches_K8=launches, ms=ms, rms_vs_chain_PSB=vs,
+          card=repr(card), tol="<=1e-2")
+    _require(launches == 1 and all(v <= 1e-2 for v in vs.values()),
+             "the three chains agree and chain_pallas_pc launched K8")
+    del out
+
+    errs = {}
+    for label, md, tol in (("f32", f32, 1e-5), ("bf16", bf, 1e-4)):
+        got = ppc.pulse_compress_noise(z, pplan, mul_dtype=md)
+        ref = ppc.pulse_compress_noise_plain(z, pplan, mul_dtype=md)
+        torch.cuda.synchronize()
+        errs[label] = (_rel_rms(got, ref), float((got - ref).abs().max()))
+        _require(errs[label][0] <= tol, f"K8 ({label}) vs plain")
+        if md == f32:
+            mm = pulse_compress_matmul(z_psb, nplan).permute(2, 0, 1)
+            errs["f32_vs_matmul"] = _rel_rms(got, mm)
+            _require(errs["f32_vs_matmul"] <= 1e-5, "K8 f32 vs matmul PC")
+        del got, ref
+    _line("pc_study", K8_vs_plain=errs,
+          tol="f32 <=1e-5, bf16 <=1e-4, f32 vs matmul <=1e-5 (rms rel)")
+
+    # the library yardstick: one bf16 torch.matmul per segment of the
+    # stacked windows [B, nt, 2P, W] with [Mr | Mi] [W, 2T]
+    lib_in = []
+    for seg in pplan.segments:
+        nt = -(-seg.j_len // seg.tile)
+        pad = lambda x: torch.nn.functional.pad(
+            x[:, :, seg.c0:seg.c0 + seg.r_len], (seg.pad_front, seg.pad_tail))
+        win = lambda x: pad(x).unfold(-1, seg.window, seg.tile)[:, :, :nt]
+        x2 = torch.cat([win(z.real), win(z.imag)], dim=1).to(bf)
+        lib_in.append((x2.permute(0, 2, 1, 3).contiguous(),
+                       torch.cat([seg.mr, seg.mi], dim=1).to(bf)))
+    lib_ms = statistics.median(_event_ms(
+        lambda: [torch.matmul(x, m) for x, m in lib_in], 10))
+    k8_ms, k8_plain_ms = _time_pair(
+        lambda: ppc.pulse_compress_noise(z, pplan),
+        lambda: ppc.pulse_compress_noise_plain(z, pplan))
+    _line("pc_study", chain_pallas_pc_profile=_device_busy_ms(
+        chain_pallas_pc, reps=3), card=repr(card))
+    _line("time", what=repr("K8 (bf16) / plain / library (3 bf16 "
+                            "torch.matmul calls)"), ms=round(k8_ms, 4),
+          plain_ms=round(k8_plain_ms, 4), library_ms=round(lib_ms, 4),
+          card=repr(card))
+    macs = num_b * num_p * sum(sg.j_len * sg.taps for sg in pplan.segments)
+    # z read once, the complex64 PC written once
+    bound, by = _bound(8.0 * macs / PEAK_BF16 * 1e3,
+                       (z.numel() + num_b * num_p * pplan.n_gates) * 8
+                       / PEAK_HBM * 1e3)
+    return [("K8 banded PC of white noise (study), bf16 operands",
+             "rdm_variants.cu", "radar_tpu/studies/pallas_pc.py:150",
+             launches, errs["bf16"][1], k8_ms, k8_plain_ms, bound, by,
+             lib_ms)]
+
+
 def main() -> int:
     import torch
 
@@ -304,7 +576,7 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
-    _build.build_all(["noise_rdm", "cfar", "awgn"])
+    _build.build_all(["noise_rdm", "rdm_variants", "cfar", "awgn"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():
@@ -705,6 +977,11 @@ def main() -> int:
              "streaming MC at 40 targets per scene: rate 0.683 +- 0.13, "
              "range RMSE <= 16.8 m")
 
+    # ---- 16. the noise-RDM kernel studies: the planes kernel's schedules
+    # (K10, K7, K9) and the banded-PC study (K8)
+    study_rows = _rdm_variants(nr, plan, lmat, dev, card)
+    study_rows += _pc_study(nr, ref_cfg, ref_pre, dev, card)
+
     # ---- 6. times (CUDA events, median), card and power limit beside
     k1_ms, k1_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg"),
@@ -798,9 +1075,10 @@ def main() -> int:
           frame_ms=round(ref_ms, 4),
           idle_share=round(1.0 - busy_ms / ref_ms, 4), top_kernels=top)
 
-    # launches: K1 and K2 from the perf SNR sweep (this slice's main path),
-    # K3 and K5 from the reference frame, K1c and K4 from the validation
-    # path; bounds from this run's shapes
+    # launches: K1 and K2 from the perf SNR sweep, K3 and K5 from the
+    # reference frame, K1c and K4 from the validation path, K7, K9 and K10
+    # from noise_rdm_compact and K8 from chain_pallas_pc (the noise-RDM
+    # kernel studies); bounds from this run's shapes
     k1_bound = _k1_bound_ms(plan, num_b)
     kernels = [
         ("K1 fused noise RDM (draw mode, rank-K signal)", "noise_rdm.cu",
@@ -822,7 +1100,7 @@ def main() -> int:
         ("K4 noise RDM, window schedule (13 beams per block, in-block mix)",
          "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:980 (rolling=False)",
          val_launches["K4"], k4_err, k4_ms, k4_plain_ms, k1_bound,
-         "operations", None)]
+         "operations", None)] + study_rows
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "radar_tpu_torch/csrc/" + src, "replaces": rep,

@@ -26,8 +26,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "radar_tpu_torch")
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # K2, K3 and K5 must match their plain versions' rounding: no FMA
-# contraction
-_EXTRA = {"noise_rdm": [], "cfar": ["-fmad=false"], "awgn": ["-fmad=false"]}
+# contraction; the noise-RDM kernels are held by RMS-relative bounds and
+# may contract
+_EXTRA = {"noise_rdm": [], "rdm_variants": [], "cfar": ["-fmad=false"],
+          "awgn": ["-fmad=false"]}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F, _LL = ctypes.c_float, ctypes.c_longlong
@@ -40,6 +42,17 @@ _SIGNATURES = {
         "k1c_planes": [_I, _I, _I, _U, _U, _F, _I, _I, _P, _P, _P],
         "k1_mix": [_P, _P, _I, _LL, _P],
         "k1_mtd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    },
+    "rdm_variants": {
+        "rv_band_pc": [_I, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _U, _U, _F,
+                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P],
+        "rv_ring_pc": [_I, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P, _P, _P],
+        "rv_mtd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "rv_mix": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+        "rv_mtd_mix": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                       _I, _P, _P],
     },
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,

@@ -16,8 +16,19 @@ Kernel K1 (``csrc/noise_rdm.cu``) computes this on the card, with the
 noise drawn inside the kernel (draw mode) or read from given planes
 (planes mode). Kernel K4, the schedule of the TPU's non-rolling kernel,
 computes the same map with ``beams_per_step`` beams per block; kernel K1c
-writes the planes draw mode draws (``gen_noise_planes``).
-``noise_rdm_plain`` is the plain PyTorch version of K1 and K4,
+writes the planes draw mode draws (``gen_noise_planes``). K1 and K4
+compute in float32 throughout.
+
+The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
+the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
+``mul_dtype`` (float32, or bfloat16 as the TPU's perf path runs): kernels
+K10 (``"resident"``), K7 (``"stacked"``, and ``stacked=True`` in draw
+mode) and K9 (``"allbeams"``), in ``csrc/rdm_variants.cu``. They round to
+``mul_dtype`` (nearest even) the planes, the filter, D and L, the PC result
+and the DFT result, accumulate every product in float32, and mix the beams
+after the rounded DFT; ``"resident"`` may round its output to bfloat16.
+
+``noise_rdm_plain`` is the plain PyTorch version of every schedule,
 ``philox_planes`` that of K1c; the wrappers run the kernels for CUDA
 tensors and the plain versions only on the CPU.
 
@@ -46,9 +57,15 @@ A_UNIF = float(np.sqrt(1.5))          # unit rail variance: a^2/3 = 1/2
 U_SCALE = float(np.float32(2.0 * A_UNIF * 2.0 ** -24))
 KERNEL_TILE = 128                     # output gates per block in K1
 
+VARIANTS = ("beams", "resident", "stacked", "allbeams")
+RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
+
 launch_count = 0                      # K1 launches (one per noise_rdm call)
 k4_launch_count = 0                   # K4 launches (rolling=False calls)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
+k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
+k9_launch_count = 0                   # K9 launches ("allbeams")
+k10_launch_count = 0                  # K10 launches ("resident")
 
 
 class RdmSegSpec(NamedTuple):
@@ -192,9 +209,11 @@ def philox_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
     return out
 
 
-def planes_from_compact(z: torch.Tensor, plan: RdmPlan):
+def planes_from_compact(z: torch.Tensor, plan: RdmPlan,
+                        dtype=torch.float32):
     """Per-segment padded planes from a compact white cube z [B, P,
-    s_compact] complex (the slicing of the JAX ``noise_rdm_pallas``)."""
+    s_compact] complex (the slicing of the JAX ``noise_rdm_pallas``), as
+    ``dtype`` (JAX rounds the cube to its multiply type before padding)."""
     if z.shape[2] != plan.s_compact:
         raise ValueError(f"z has {z.shape[2]} compact samples, the plan "
                          f"{plan.s_compact}")
@@ -203,42 +222,90 @@ def planes_from_compact(z: torch.Tensor, plan: RdmPlan):
         piece = z[:, :, seg.c0:seg.c0 + seg.r_len]
         tail = max(seg.xlen - seg.pad_front - seg.r_len, 0)
         pad = lambda x: torch.nn.functional.pad(x, (seg.pad_front, tail))
-        out.append((pad(piece.real.contiguous()),
-                    pad(piece.imag.contiguous())))
+        out.append((pad(piece.real.to(dtype).contiguous()),
+                    pad(piece.imag.to(dtype).contiguous())))
     return out
+
+
+def round_mul(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` as float32 (complex64 if complex) holding ``dtype`` values:
+    each real plane rounded to ``dtype`` (nearest even, as JAX's
+    ``astype``) and widened back. The identity for float32."""
+    if x.is_complex():
+        if dtype == torch.float32:
+            return x
+        return torch.complex(x.real.to(dtype).float(), x.imag.to(dtype).float())
+    return x.float() if dtype == torch.float32 else x.to(dtype).float()
 
 
 # ------------------------------------------------------- plain version
 
 
 def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
-                    signal=None) -> torch.Tensor:
-    """Plain PyTorch version of K1: banded-matmul PC per segment, MTD
-    matrix product, Cholesky beam mix, rank-K signal add. ``planes``:
-    per-segment (re, im) [B, P, >= xlen] f32. Returns [B, V, G]
-    complex64. Runs on any device (the card uses it to check K1)."""
+                    signal=None, *, mul_dtype=torch.float32,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of every schedule (K1, K4, K7, K9, K10):
+    banded-matmul PC per segment, MTD matrix product, Cholesky beam mix,
+    rank-K signal add. ``planes``: per-segment (re, im) [B, P, >= xlen]
+    (float32 or ``mul_dtype``). With ``mul_dtype`` bfloat16 the planes,
+    the filter, D and L, the PC result and the MTD result are rounded to
+    it (the TPU variants' rounding points, ``radar_tpu/ops/pallas_rdm.py``
+    :527-536, :822-825); the output is rounded to ``out_dtype``. Returns
+    [B, V, G] complex64. Runs on any device (the card uses it to check the
+    kernels)."""
     num_b = l_factor.shape[0]
+    md = mul_dtype
     pcs = []
     for seg, (xr, xi) in zip(plan.segments, planes):
         ntiles = -(-seg.j_len // seg.tile)
-        x = torch.complex(xr[:, :plan.n_pulses, :seg.xlen],
-                          xi[:, :plan.n_pulses, :seg.xlen])
+        x = torch.complex(round_mul(xr[:, :plan.n_pulses, :seg.xlen], md),
+                          round_mul(xi[:, :plan.n_pulses, :seg.xlen], md))
         win = x.unfold(-1, seg.window, seg.tile)         # [B, P, nt, W]
-        pc = torch.matmul(win, seg.mp)                   # [B, P, nt, T]
+        pc = torch.matmul(win, round_mul(seg.mp, md))    # [B, P, nt, T]
         pcs.append(pc.reshape(num_b, plan.n_pulses,
                               ntiles * seg.tile)[..., :seg.j_len])
-    pc = torch.cat(pcs, dim=-1)                          # [B, P, G]
-    mt = torch.matmul(plan.d, pc)                        # [B, V, G]
-    y = torch.einsum("bc,cvg->bvg", l_factor, mt)
+    pc = round_mul(torch.cat(pcs, dim=-1), md)           # [B, P, G]
+    mt = round_mul(torch.matmul(round_mul(plan.d, md), pc), md)  # [B, V, G]
+    y = torch.einsum("bc,cvg->bvg", round_mul(l_factor, md), mt)
     if signal is not None:
         dv, pb, st = signal                              # [K,V] [K,G] [K,B]
         for k in range(dv.shape[0]):
             outer = dv[k][:, None] * pb[k][None, :]
             y = y + st[k][:, None, None] * outer[None]
-    return y
+    return round_mul(y, out_dtype)
 
 
 # ------------------------------------------------------------- kernel
+
+
+def _signal_args(signal, dev, num_b, num_v, num_g):
+    """(K, pointers of dv, pb, st) of the rank-K signal factors for a
+    kernel's epilogue; (0, null pointers) without a signal."""
+    if signal is None:
+        return 0, (None, None, None), ()
+    dv, pb, st = (s.to(dev, torch.complex64).contiguous() for s in signal)
+    num_k = dv.shape[0]
+    if dv.shape != (num_k, num_v) or pb.shape != (num_k, num_g) \
+            or st.shape != (num_k, num_b):
+        raise ValueError("signal factors must be [K,V], [K,G], [K,B]")
+    return num_k, (dv.data_ptr(), pb.data_ptr(), st.data_ptr()), (dv, pb, st)
+
+
+def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
+    """Segment ``si``'s planes as contiguous ``dtype`` [B, P, >= xlen] on
+    the card: (xr, xi)."""
+    xr, xi = planes[si]
+    if (xr.device != dev or xr.dtype not in (torch.float32, dtype)
+            or xr.shape != xi.shape or xr.dim() != 3
+            or xr.shape[0] != num_b or xr.shape[1] < num_p
+            or xr.shape[2] < seg.xlen):
+        raise ValueError(f"planes of segment {si} must be float32 or "
+                         f"{dtype} [{num_b}, >={num_p}, >={seg.xlen}] on "
+                         "the card")
+    # freed tensors are reused only by later work on this stream, so
+    # temporaries may go out of scope before the kernel runs
+    return (xr[:, :num_p].to(dtype).contiguous(),
+            xi[:, :num_p].to(dtype).contiguous())
 
 
 def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
@@ -260,15 +327,7 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
             raise ValueError("K1 constants must be complex64 on the card")
     lmat = l_factor.contiguous()
     d = plan.d.contiguous()
-    if signal is not None:
-        dv, pb, st = (s.to(dev, torch.complex64).contiguous() for s in signal)
-        num_k = dv.shape[0]
-        if dv.shape != (num_k, num_v) or pb.shape != (num_k, num_g) \
-                or st.shape != (num_k, num_b):
-            raise ValueError("signal factors must be [K,V], [K,G], [K,B]")
-        sig_ptrs = (dv.data_ptr(), pb.data_ptr(), st.data_ptr())
-    else:
-        num_k, sig_ptrs = 0, (None, None, None)
+    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
     pc = torch.empty((num_b, num_p, num_g), dtype=torch.complex64,
                      device=dev)
     out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
@@ -282,18 +341,8 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
             raise ValueError(f"K1 needs {KERNEL_TILE}-gate tiles")
         taps = seg.taps.contiguous()
         if planes is not None:
-            xr, xi = planes[si]
-            if (xr.device != dev or xr.dtype != torch.float32
-                    or xr.shape != xi.shape or xr.dim() != 3
-                    or xr.shape[0] != num_b or xr.shape[1] < num_p
-                    or xr.shape[2] < seg.xlen):
-                raise ValueError(f"planes of segment {si} must be f32 "
-                                 f"[{num_b}, >={num_p}, >={seg.xlen}] on "
-                                 "the card")
-            # freed tensors are reused only by later work on this stream,
-            # so temporaries may go out of scope before the kernel runs
-            xr = xr[:, :num_p].contiguous()
-            xi = xi[:, :num_p].contiguous()
+            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p,
+                                    torch.float32)
             x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
         else:
             x_ptrs, x_len = (None, None), 0
@@ -321,10 +370,133 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
     return out
 
 
+def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
+                  schedule: str, mul_dtype, out_dtype):
+    """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
+    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic."""
+    global k7_launch_count, k9_launch_count, k10_launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("rdm_variants")
+    dev = l_factor.device
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    if num_b > 16:
+        raise ValueError(f"the beam mix takes at most 16 beams, got {num_b}")
+    for t in (l_factor, plan.d):
+        if t.device != dev or t.dtype != torch.complex64:
+            raise ValueError("the kernels' constants must be complex64 on "
+                             "the card")
+    md, bf16 = mul_dtype, int(mul_dtype == torch.bfloat16)
+    lmat = round_mul(l_factor, md).contiguous()
+    d = round_mul(plan.d, md)
+    dr, di = d.real.contiguous(), d.imag.contiguous()
+    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
+    pcr = torch.empty((num_b, num_p, num_g), dtype=md, device=dev)
+    pci = torch.empty_like(pcr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s0, s1 = seed if seed is not None else (0, 0)
+    for si, seg in enumerate(plan.segments):
+        lh = seg.taps.shape[0]
+        if planes is not None:
+            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
+            x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
+        else:
+            x_ptrs, x_len = (None, None), 0
+        if schedule == "resident":
+            if seg.tile != KERNEL_TILE:
+                raise ValueError(f"K10 needs {KERNEL_TILE}-gate tiles")
+            taps = round_mul(seg.taps, md)
+            tr, ti = taps.real.contiguous(), taps.imag.contiguous()
+            ntiles = -(-seg.j_len // seg.tile)
+            per_run = -(-ntiles // -(-ntiles // RESIDENT_RUN))
+            rc = lib.rv_ring_pc(bf16, *x_ptrs, x_len, tr.data_ptr(),
+                                ti.data_ptr(), lh, seg.window, per_run,
+                                ntiles, num_b, num_p, seg.j_len, seg.g0,
+                                num_g, pcr.data_ptr(), pci.data_ptr(), stream)
+            _build.check(lib, rc, "rv_ring_pc")
+            continue
+        mp = round_mul(seg.mp, md)
+        mr, mi = mp.real.contiguous(), mp.imag.contiguous()
+        rc = lib.rv_band_pc(bf16, 0 if planes is not None else 2, *x_ptrs,
+                            None, x_len, 0, 0, seg.pad_front, si, s0, s1,
+                            ctypes.c_float(U_SCALE), mr.data_ptr(),
+                            mi.data_ptr(), seg.window, seg.tile, lh, num_b,
+                            num_p, seg.j_len, seg.g0, num_g, pcr.data_ptr(),
+                            pci.data_ptr(), None, stream)
+        _build.check(lib, rc, "rv_band_pc")
+    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
+                      device=dev)
+    if schedule == "allbeams":
+        rc = lib.rv_mtd_mix(bf16, dr.data_ptr(), di.data_ptr(),
+                            pcr.data_ptr(), pci.data_ptr(), lmat.data_ptr(),
+                            num_b, num_v, num_p, num_g, *sig_ptrs, num_k,
+                            out.data_ptr(), stream)
+        _build.check(lib, rc, "rv_mtd_mix")
+        k9_launch_count += 1
+        return out
+    mtr = torch.empty((num_b, num_v, num_g), dtype=md, device=dev)
+    mti = torch.empty_like(mtr)
+    _build.check(lib, lib.rv_mtd(bf16, dr.data_ptr(), di.data_ptr(),
+                                 pcr.data_ptr(), pci.data_ptr(), num_b,
+                                 num_v, num_p, num_g, mtr.data_ptr(),
+                                 mti.data_ptr(), stream), "rv_mtd")
+    _build.check(lib, lib.rv_mix(bf16, mtr.data_ptr(), mti.data_ptr(),
+                                 lmat.data_ptr(), num_b, num_v, num_g,
+                                 *sig_ptrs, num_k,
+                                 int(out_dtype != torch.float32),
+                                 out.data_ptr(), stream), "rv_mix")
+    if schedule == "resident":
+        k10_launch_count += 1
+    else:
+        k7_launch_count += 1
+    return out
+
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_schedule(planes, rolling, beams_per_step, variant, stacked,
+                    mul_dtype, out_dtype) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if mul_dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError("mul_dtype and out_dtype are torch.float32 or "
+                         "torch.bfloat16")
+    if planes is None and variant != "beams":
+        raise ValueError(f"variant={variant!r} is a planes-mode schedule; "
+                         "draw mode takes stacked=True or rolling=False")
+    if stacked:
+        if planes is not None:
+            raise ValueError("stacked=True is the draw-mode option; planes "
+                             "mode takes variant='stacked'")
+        if not rolling:
+            raise ValueError("stacked=True requires rolling=True")
+    if variant in ("stacked", "allbeams") and out_dtype != torch.float32:
+        # as radar_tpu/ops/pallas_rdm.py:760-765: these schedules write f32
+        raise ValueError(f"variant {variant!r} implements float32 output "
+                         "only")
+    if variant == "beams" and not stacked and (
+            mul_dtype != torch.float32 or out_dtype != torch.float32):
+        raise NotImplementedError(
+            "variant='beams' (K1, and K4 with rolling=False) computes in "
+            "float32 only: mul_dtype=/out_dtype=torch.bfloat16 run in the "
+            "variants 'resident', 'stacked', 'allbeams' and in draw mode "
+            "with stacked=True")
+    if rolling:
+        if beams_per_step is not None:
+            raise ValueError("beams_per_step= sets the schedule of "
+                             "rolling=False")
+
+
 def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
               seed: tuple[int, int] | None = None, planes=None,
               layout: str = "vgb", rolling: bool = True,
-              beams_per_step: int | None = None) -> torch.Tensor:
+              beams_per_step: int | None = None, variant: str = "beams",
+              stacked: bool = False, mul_dtype=torch.float32,
+              out_dtype=torch.float32) -> torch.Tensor:
     """Complete noise (+ signal) RDM: draw mode with ``seed`` (two uint32
     key words, see ``seed_words``) or planes mode with ``planes``.
 
@@ -334,38 +506,57 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
     TPU's non-rolling kernel, with ``beams_per_step`` beams per block
     (default 1; any value gives the same draws, keyed by the true beam).
     ``layout="bvg"`` returns the native [B, V, G]; ``"vgb"`` the [V, G, B]
-    view."""
+    view.
+
+    ``variant`` (planes mode) picks the schedule of the TPU's planes
+    kernel: ``"beams"`` (K1), ``"resident"`` (K10), ``"stacked"`` (K7),
+    ``"allbeams"`` (K9); ``stacked=True`` (draw mode) runs K7 on K1's
+    draws. These take ``mul_dtype`` float32 or bfloat16; ``out_dtype``
+    bfloat16 rounds the output of ``"resident"`` and of ``stacked=True``
+    (``"stacked"``/``"allbeams"`` raise ``ValueError`` as JAX does). K1 and
+    K4 compute in float32 only and raise ``NotImplementedError`` for
+    bfloat16."""
     if (seed is None) == (planes is None):
         raise ValueError("give exactly one of seed= and planes=")
     if layout not in ("vgb", "bvg"):
         raise ValueError(f"unknown layout {layout!r}")
+    _check_schedule(planes, rolling, beams_per_step, variant, stacked,
+                    mul_dtype, out_dtype)
     num_b = l_factor.shape[0]
-    if rolling:
-        if beams_per_step is not None:
-            raise ValueError("beams_per_step= sets the schedule of "
-                             "rolling=False")
-    else:
+    if not rolling:
         beams_per_step = 1 if beams_per_step is None else beams_per_step
         if not 1 <= beams_per_step <= num_b:
             raise ValueError(f"beams_per_step={beams_per_step} is not in "
                              f"[1, {num_b}]")
+    schedule = "stacked" if stacked else variant
     if l_factor.is_cuda:
-        bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes,
-                             beams_per_step)
+        if schedule == "beams":
+            bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes,
+                                 beams_per_step)
+        else:
+            bm = _variant_cuda(plan, l_factor, signal, seed, planes,
+                               schedule, mul_dtype, out_dtype)
     else:
         if planes is None:
             planes = philox_planes(plan, seed, num_b, device=l_factor.device)
-        bm = noise_rdm_plain(plan, l_factor, planes, signal)
+        bm = noise_rdm_plain(plan, l_factor, planes, signal,
+                             mul_dtype=mul_dtype, out_dtype=out_dtype)
     return bm if layout == "bvg" else bm.permute(1, 2, 0)
 
 
 def noise_rdm_compact(z: torch.Tensor, plan: RdmPlan,
-                      l_factor: torch.Tensor) -> torch.Tensor:
+                      l_factor: torch.Tensor, *, variant: str = "beams",
+                      mul_dtype=torch.float32,
+                      out_dtype=torch.float32) -> torch.Tensor:
     """Noise RDM [V, G, B] of a compact white cube z [B, P, s_compact]
-    complex: the per-segment planes of ``planes_from_compact`` through K1
-    planes mode (port of ``radar_tpu/ops/pallas_rdm.py::
-    noise_rdm_pallas``)."""
-    return noise_rdm(plan, l_factor, planes=planes_from_compact(z, plan))
+    complex: the per-segment planes of ``planes_from_compact``, rounded to
+    ``mul_dtype``, through the planes kernel's ``variant`` (port of
+    ``radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas``, the A/B entry point
+    of the TPU's schedules)."""
+    return noise_rdm(plan, l_factor,
+                     planes=planes_from_compact(z, plan, mul_dtype),
+                     variant=variant, mul_dtype=mul_dtype,
+                     out_dtype=out_dtype)
 
 
 # ------------------------------------------------------------ K1c

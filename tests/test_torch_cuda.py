@@ -1,5 +1,5 @@
-"""PyTorch port on the card: kernels K1, K1c, K2, K3, K4 and K5 against
-their plain PyTorch versions, the perf-config frame (each noise-RDM route)
+"""PyTorch port on the card: kernels K1, K1c, K2, K3, K4, K5, K7, K8, K9
+and K10 against their plain PyTorch versions, the perf-config frame (each noise-RDM route)
 and the reference-stream frame through the kernels against the plain path
 on the CPU, and a small SNR sweep. Marked ``cuda``; each test skips
 without an NVIDIA GPU.
@@ -245,3 +245,99 @@ def test_snr_sweep_on_card(cuda_device):
     assert nr.launch_count >= before + 12
     assert res.detection_probability[0] <= 0.3
     assert res.detection_probability[-1] >= 0.9
+
+
+_MUL = {"f32": torch.float32, "bf16": torch.bfloat16}
+_COUNTER = {"resident": "k10_launch_count", "stacked": "k7_launch_count",
+            "allbeams": "k9_launch_count"}
+
+
+def _rms(x) -> float:
+    return float(x.abs().pow(2).mean().sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["resident", "stacked", "allbeams"])
+def test_rdm_variants_match_plain_on_card(cuda_device, variant, dtype):
+    """K10, K7 and K9 (the planes kernel's schedules) vs the plain version
+    at the same multiply type: RMS of the difference within 1e-5 of the RMS
+    at f32; at bf16 within 3e-4: f32 sums in another order (on the tensor
+    cores, not even IEEE-sequential) move a few intermediates across a bf16
+    rounding boundary, 2^-8 on that element, while a missing rounding point
+    would cost >= 1e-3. At f32 also vs K1 planes mode."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    md = _MUL[dtype]
+    planes = nr.philox_planes(lr.rplan, (3, 5), 5, device=cuda_device)
+    ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, mul_dtype=md)
+    before = getattr(nr, _COUNTER[variant])
+    got = nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes, variant=variant,
+                       mul_dtype=md, layout="bvg")
+    torch.cuda.synchronize()
+    assert getattr(nr, _COUNTER[variant]) == before + 1
+    assert _rms(got - ref) <= (1e-5 if dtype == "f32" else 3e-4) * _rms(ref)
+    if dtype == "f32":
+        k1 = nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes, layout="bvg")
+        assert _rms(got - k1) <= 1e-5 * _rms(k1)
+
+
+@pytest.mark.cuda
+def test_k7_draw_mode_and_k10_bf16_out_on_card(cuda_device):
+    """K7 on its own Philox draws with the rank-K signal equals K7 on the
+    plain Philox planes bit for bit and the plain version to 1e-5 RMS; K10
+    with bf16 output planes within 6e-4 RMS of its plain version (twice
+    the bf16 bound: the output rounding turns a flip into an output
+    ulp)."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    factors = lr.signal_factors(TargetBatch.make(*TARGETS))
+    planes = nr.philox_planes(lr.rplan, (3, 5), 5, device=cuda_device)
+    drawn = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=(3, 5),
+                         stacked=True, layout="bvg")
+    fed = nr.noise_rdm(lr.rplan, lr.l_factor, factors, planes=planes,
+                       variant="stacked", layout="bvg")
+    ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, factors)
+    bf = torch.bfloat16
+    k10 = nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes,
+                       variant="resident", mul_dtype=bf, out_dtype=bf,
+                       layout="bvg")
+    ref16 = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, mul_dtype=bf,
+                               out_dtype=bf)
+    torch.cuda.synchronize()
+    assert torch.equal(drawn, fed)
+    assert _rms(drawn - ref) <= 1e-5 * _rms(ref)
+    assert torch.equal(k10, nr.round_mul(k10, bf))
+    assert _rms(k10 - ref16) <= 6e-4 * _rms(ref16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k8_matches_plain_on_card(cuda_device, dtype):
+    """K8 (banded PC of the compact cube) vs its plain version (RMS within
+    1e-5 of the RMS at f32, 1e-4 at bf16) and, at f32, vs the banded-matmul
+    PC on the compact noise plan (rtol 1e-5, atol 2e-4)."""
+    from radar_tpu_torch.ops.pulse_compression import (
+        compact_noise_plan, make_matmul_plan, pulse_compress_matmul,
+        to_device)
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    cfg = small_test_config(channels=8, pulses=8)
+    pre = precompute(cfg)
+    plan = ppc.make_pallas_pc_plan(pre, device=cuda_device)
+    rng = np.random.default_rng(0)
+    shape = (3, 8, plan.s_compact)
+    z = torch.from_numpy((rng.normal(size=shape)
+                          + 1j * rng.normal(size=shape)).astype(np.complex64))
+    md = _MUL[dtype]
+    before = ppc.launch_count
+    got = ppc.pulse_compress_noise(z.to(cuda_device), plan, mul_dtype=md)
+    ref = ppc.pulse_compress_noise_plain(z.to(cuda_device), plan,
+                                         mul_dtype=md)
+    torch.cuda.synchronize()
+    assert ppc.launch_count == before + 1
+    assert _rms(got - ref) <= (1e-5 if dtype == "f32" else 1e-4) * _rms(ref)
+    if dtype == "f32":
+        nplan, _ = compact_noise_plan(make_matmul_plan(pre))
+        want = pulse_compress_matmul(z.permute(1, 2, 0),
+                                     to_device(nplan, "cpu")).permute(2, 0, 1)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=2e-4)

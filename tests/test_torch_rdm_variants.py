@@ -1,0 +1,174 @@
+"""PyTorch port: the planes kernel's schedules (``variant=`` "beams",
+"resident", "stacked", "allbeams") and their multiply types, the plain
+version of kernels K1, K10, K7 and K9, held against the JAX
+``noise_rdm_pallas`` run in interpret mode on the same compact white cube,
+at ``small_test_config()`` (5 beams, 32 pulses, 3404 gates).
+
+Tolerances, relative to the reference's RMS: at float32 the RMS of the
+difference within 1e-5 (f32 sums of up to 700 x 32 terms in another order)
+and every element within rtol = atol = 3e-4 (as tests/test_pallas_rdm.py);
+at bfloat16 the RMS of the difference within 1e-4: both sides round the
+same values at the same points, but a sum taken in another order can move
+an intermediate across a bf16 rounding boundary (2^-8 on that element);
+with bf16 output planes 2e-4, and the output rounding itself exact.
+Each case makes one JAX call. The kernels themselves run only on the card
+(tests marked ``cuda``, in test_torch_cuda.py)."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from radar_tpu.config import params as jparams
+from radar_tpu.ops.dbf import dbf_weights_effective_np as j_weff
+from radar_tpu.ops.mtd import make_mtd_matrix as j_mtd_matrix
+from radar_tpu.ops.pallas_rdm import (make_rdm_plan as j_rdm_plan,
+                                      noise_rdm_pallas,
+                                      noise_rdm_pallas_planes)
+from radar_tpu.sim.echo import beam_noise_factor as j_noise_factor
+from radar_tpu.waveform.precompute import precompute as j_precompute
+
+from radar_tpu_torch.ops import noise_rdm as nr
+from radar_tpu_torch.waveform.precompute import from_numpy
+
+SEED = (3, 5)
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _rms(x) -> float:
+    return float(np.sqrt(np.mean(np.abs(np.asarray(x, np.complex128)) ** 2)))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jparams.small_test_config()
+    jpre = j_precompute(jcfg)
+    mtd = j_mtd_matrix(jpre.mtd_win, jcfg.sig.prt_num)
+    jplan = j_rdm_plan(jpre, mtd, jcfg.sig.prt_num, tile=128, lane=128)
+    l_np = j_noise_factor(j_weff(jpre.dbf_w, jcfg.dbf_variant))
+    plan = nr.make_rdm_plan(from_numpy(jpre._asdict()), mtd,
+                            jcfg.sig.prt_num, device="cpu")
+    lt = torch.as_tensor(l_np).to(torch.complex64)
+    rng = np.random.default_rng(17)
+    shape = (l_np.shape[0], jcfg.sig.prt_num, plan.s_compact)
+    z = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+         * np.sqrt(0.5)).astype(np.complex64)
+    return dict(jplan=jplan, l_np=l_np, plan=plan, lt=lt, z=z)
+
+
+def _jax_bf16_out(setup):
+    """JAX's resident schedule with bf16 multiplies and bf16 output planes
+    (``noise_rdm_pallas_planes``, planes padded as ``noise_rdm_pallas``
+    pads them)."""
+    jplan, z = setup["jplan"], setup["z"]
+    zr = jnp.real(jnp.asarray(z)).astype(jnp.bfloat16)
+    zi = jnp.imag(jnp.asarray(z)).astype(jnp.bfloat16)
+    xrs, xis = [], []
+    for seg in jplan.segments:
+        pad = ((0, 0), (0, jplan.p_pad - z.shape[1]),
+               (seg.pad_front, seg.pad_tail))
+        xrs.append(jnp.pad(zr[:, :, seg.c0:seg.c0 + seg.r_len], pad))
+        xis.append(jnp.pad(zi[:, :, seg.c0:seg.c0 + seg.r_len], pad))
+    return noise_rdm_pallas_planes(xrs, xis, jplan, setup["l_np"],
+                                   interpret=True, mul_dtype=jnp.bfloat16,
+                                   variant="resident",
+                                   out_dtype=jnp.bfloat16)
+
+
+@pytest.mark.parametrize("variant,dtype,out", [
+    ("beams", "f32", "f32"), ("resident", "f32", "f32"),
+    ("stacked", "f32", "f32"), ("allbeams", "f32", "f32"),
+    ("resident", "bf16", "f32"), ("stacked", "bf16", "f32"),
+    ("allbeams", "bf16", "f32"), ("resident", "bf16", "bf16")])
+def test_variant_matches_jax(setup, variant, dtype, out):
+    """``noise_rdm_compact(variant=, mul_dtype=, out_dtype=)`` (plain on
+    the CPU) vs JAX's interpret-mode kernel of the same schedule; at bf16
+    also 1e-3..1e-2 RMS away from the port's own f32 map, which shows the
+    rounding happened."""
+    jmd, tmd = DTYPES[dtype]
+    z = setup["z"]
+    if out == "bf16":
+        want = np.asarray(_jax_bf16_out(setup))
+    else:
+        want = np.asarray(noise_rdm_pallas(jnp.asarray(z), setup["jplan"],
+                                           setup["l_np"], interpret=True,
+                                           mul_dtype=jmd, variant=variant))
+    counts = (nr.k7_launch_count, nr.k9_launch_count, nr.k10_launch_count)
+    got = nr.noise_rdm_compact(torch.from_numpy(z), setup["plan"],
+                               setup["lt"], variant=variant, mul_dtype=tmd,
+                               out_dtype=DTYPES[out][1])
+    assert counts == (nr.k7_launch_count, nr.k9_launch_count,
+                      nr.k10_launch_count)
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    got = got.numpy()
+    rms = _rms(want)
+    assert rms > 0.0
+    if dtype == "f32":
+        assert _rms(got - want) <= 1e-5 * rms
+        np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+        return
+    f32 = nr.noise_rdm_compact(torch.from_numpy(z), setup["plan"],
+                               setup["lt"], variant=variant).numpy()
+    assert 1e-3 * rms <= _rms(got - f32) <= 1e-2 * rms
+    if out == "f32":
+        assert _rms(got - want) <= 1e-4 * rms
+        return
+    # bf16 output planes: the f32-output map rounded once more, exactly;
+    # against JAX a pre-rounding difference that straddles an output
+    # rounding boundary becomes a whole output ulp (2^-8), so the RMS
+    # bound is twice the bf16-multiply one
+    f32_out = nr.noise_rdm_compact(torch.from_numpy(z), setup["plan"],
+                                   setup["lt"], variant=variant,
+                                   mul_dtype=tmd)
+    assert torch.equal(torch.from_numpy(got), nr.round_mul(f32_out, tmd))
+    assert _rms(got - want) <= 2e-4 * rms
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_stacked_draw_mode_is_planes_mode_on_philox_planes(setup, dtype):
+    """``stacked=True`` in draw mode equals the stacked planes schedule fed
+    the plain Philox planes, bit for bit on the CPU (K1's draws, as the
+    TPU's rolling kernel with ``stacked=True`` draws its own)."""
+    md = DTYPES[dtype][1]
+    plan, lt = setup["plan"], setup["lt"]
+    a = nr.noise_rdm(plan, lt, seed=SEED, stacked=True, mul_dtype=md,
+                     layout="bvg")
+    b = nr.noise_rdm(plan, lt, planes=nr.philox_planes(plan, SEED, 5,
+                                                      device="cpu"),
+                     variant="stacked", mul_dtype=md, layout="bvg")
+    assert torch.equal(a, b) and float(a.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"variant": "stacked", "mul_dtype": torch.bfloat16,
+      "out_dtype": torch.bfloat16}, ValueError),
+    ({"variant": "allbeams", "out_dtype": torch.bfloat16}, ValueError),
+    ({"variant": "beams", "mul_dtype": torch.bfloat16}, NotImplementedError),
+    ({"variant": "beams", "out_dtype": torch.bfloat16}, NotImplementedError),
+    ({"variant": "blocked"}, ValueError),
+    ({"mul_dtype": torch.float16}, ValueError),
+    ({"stacked": True}, ValueError)])
+def test_planes_schedules_refuse_what_they_do_not_run(setup, kwargs, error):
+    """stacked/allbeams write float32 only (as JAX raises); K1 ("beams")
+    computes in float32 only; unknown variants and types raise;
+    ``stacked=True`` is the draw-mode option."""
+    planes = nr.planes_from_compact(torch.from_numpy(setup["z"]),
+                                    setup["plan"])
+    with pytest.raises(error):
+        nr.noise_rdm(setup["plan"], setup["lt"], planes=planes, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    ({"variant": "resident"}, ValueError),
+    ({"stacked": True, "rolling": False}, ValueError),
+    ({"rolling": False, "mul_dtype": torch.bfloat16}, NotImplementedError),
+    ({"mul_dtype": torch.bfloat16}, NotImplementedError)])
+def test_draw_mode_refuses_planes_schedules(setup, kwargs, error):
+    """Draw mode runs K1, K4 (float32) or the stacked products
+    (``stacked=True``, rolling only, as JAX); the planes schedules need
+    planes."""
+    with pytest.raises(error):
+        nr.noise_rdm(setup["plan"], setup["lt"], seed=SEED, **kwargs)
