@@ -34,7 +34,17 @@ targets:
   and its own f32 map, K10 with bf16 output and K7 on its own draws; phase
   ``pc_study`` runs ``scripts/bench_pc2d.py``'s three chains (cuBLAS
   banded, flat 2D, K8) and holds K8 against its plain version and the
-  banded-matmul PC.
+  banded-matmul PC;
+- the multi-device layer (phase ``multichip``, the arms of
+  ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
+  ``run_ranks``, all on one card (gloo, plain collectives staged through
+  the host) or one per card on NCCL with 4 cards. ``range_rdma`` runs the
+  range-sharded PC of a full frame's beams (4316 rows x 5819 samples,
+  700-tap matched filter) with kernel K6's peer-store halo ring and holds
+  it bit for bit against the plain ring; ``perf_dp_fused``/``perf_dp_xla``
+  run 4 perf frames at dp=4, ``stream``/``lowrank`` one frame sharded over
+  (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
+  perf sweep and a streaming MC at dp=4, each against its single-rank run.
 
 The launch counters are set to 0 just before each path runs and read just
 after, to show the path went through its kernels. Kernels, plain versions,
@@ -60,6 +70,7 @@ import numpy as np
 PEAK_FP32 = 67e12     # H100 SXM FLOP/s, float32 outside the tensor cores
 PEAK_BF16 = 989e12    # H100 SXM FLOP/s, bf16 tensor cores, dense
 PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
+PEAK_NVLINK = 450e9   # H100 SXM NVLink bytes/s each way, card to card
 
 
 def _line(phase: str, **kw) -> None:
@@ -539,6 +550,431 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
              lib_ms)]
 
 
+MULTICHIP_RANKS = 4
+SLEEP_CYCLES = 4_000_000     # torch.cuda._sleep ahead of a timed call: ~2 ms
+
+
+def _same(a: dict, b: dict, rtol: float = 0.0) -> bool:
+    """Two host FrameResults (``dryrun.host_result``): counts and valid
+    slots equal, the valid slots' fields equal (``rtol`` 0) or within
+    ``rtol``."""
+    if any(not np.array_equal(a[k], b[k])
+           for k in ("num_raw", "num_final", "valid")):
+        return False
+    v = np.asarray(b["valid"], bool)
+    return all(np.allclose(a[f][v], b[f][v], rtol=rtol, atol=0.0)
+               if rtol else np.array_equal(a[f][v], b[f][v])
+               for f in ("range_m", "velocity_ms", "angle_deg", "power"))
+
+
+def _multichip_rank() -> dict:
+    """Body of each rank of phase ``multichip`` (``run_ranks``): the arms of
+    ``__graft_entry__.py::dryrun_multichip`` with the single-rank runs they
+    must equal, K6 at the full-width range-sharded PC, and CUDA-event times
+    of K6, its plain version, the library copy and the sharded PC. The
+    launch counters are set to 0 just before each arm and read after."""
+    import torch
+    import torch.distributed as dist
+
+    from radar_tpu_torch.config.params import full_config, perf_config
+    from radar_tpu_torch.ops import awgn as k5
+    from radar_tpu_torch.ops import cfar_kernel as ck
+    from radar_tpu_torch.ops import noise_rdm as nr
+    from radar_tpu_torch.parallel import pallas_ring as ring
+    from radar_tpu_torch.parallel.collectives import (
+        gather_along, pulse_compress_range_sharded, shard_along)
+    from radar_tpu_torch.parallel.dp import (broadcast_targets,
+                                             make_dp_frame_processor,
+                                             make_dp_sharded_frame_processor)
+    from radar_tpu_torch.parallel.dryrun import host_result
+    from radar_tpu_torch.parallel.mesh import make_mesh
+    from radar_tpu_torch.parallel.sharded import make_sharded_frame_processor
+    from radar_tpu_torch.pipeline.driver import frame_seed
+    from radar_tpu_torch.pipeline.frame import make_frame_processor
+    from radar_tpu_torch.pipeline.montecarlo import snr_sweep
+    from radar_tpu_torch.pipeline.streaming import run_streaming_mc
+    from radar_tpu_torch.sim.scenario import TargetBatch
+    from radar_tpu_torch.waveform.precompute import precompute
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    c64 = torch.complex64
+    counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
+                      "K3": ck.k3_launch_count, "K5": k5.launch_count,
+                      "K6": ring.k6_launch_count}
+
+    def reset():
+        nr.launch_count = ck.launch_count = ck.k3_launch_count = 0
+        k5.launch_count = ring.k6_launch_count = 0
+
+    truth = TargetBatch.make([3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0],
+                             [10.0, 15.0])
+    out = {"rank": rank}
+    t_rank = time.perf_counter()
+
+    # ---- range_rdma: a full frame's beams (13 x 332 rows) x 5819 samples,
+    # zero-padded to 4 x 1455, through the long segment's matched filter
+    ring_mesh = make_mesh(cpi=world)
+    dev = ring_mesh.device
+    out["transport"] = {"backend": ring_mesh.backend,
+                        "staging": ring_mesh.staging, "device": str(dev)}
+    full = full_config()
+    pre = precompute(full)
+    rows = full.sig.beam_num * full.sig.prt_num
+    num_s = full.sig.point_prt
+    s_pad = -(-num_s // world) * world
+    taps = np.ascontiguousarray(pre.mf_long_win)
+    halo, nfft = len(taps) - 1, 4096
+    g = torch.Generator(device=dev).manual_seed(20261016)
+    x = torch.randn((rows, num_s), dtype=c64, generator=g, device=dev)
+    xl = shard_along(torch.cat([x, x.new_zeros((rows, s_pad - num_s))], 1),
+                     ring_mesh, "cpi", 1)
+    f_pp = pulse_compress_range_sharded(ring_mesh, taps, nfft,
+                                        halo_impl="ppermute")
+    f_rd = pulse_compress_range_sharded(ring_mesh, taps, nfft,
+                                        halo_impl="rdma")
+    f_rd(xl)                               # sets up K6; outside the count
+    torch.cuda.synchronize()
+    reset()
+    y_rd = f_rd(xl)
+    torch.cuda.synchronize()
+    launches = counts()
+    y_pp = f_pp(xl)
+    ex = f_rd.exchange
+    k6_halo = ex(xl)
+    plain_halo = ring.halo_right_plain(xl, ring_mesh, halo)
+    arm = {"launches": launches, "shape": [rows, xl.shape[1], halo, 8],
+           "halo_identical": bool(torch.equal(k6_halo, plain_halo)),
+           "halo_max_abs_err": float((k6_halo - plain_halo).abs().max()),
+           "halo_nonzero": bool(plain_halo.abs().max() > 0),
+           "output_identical": bool(torch.equal(y_rd, y_pp))}
+    y = gather_along(y_rd, ring_mesh, "cpi", 1)[:, :num_s]
+    if rank == 0:
+        hf = torch.fft.fft(torch.as_tensor(taps).to(dev, c64), n=8192)
+        ref = torch.fft.ifft(torch.fft.fft(x, n=8192) * hf)[:, :num_s]
+        arm["err_over_max"] = float((y - ref).abs().max()
+                                    / ref.abs().max())
+    del y, x
+
+    def in_turns(fn) -> None:
+        """``fn`` on one rank at a time, the others waiting at a barrier."""
+        for turn in range(world):
+            ring_mesh.barrier("cpi")
+            if turn == rank:
+                fn()
+                torch.cuda.synchronize()
+
+    def timed(fn, reps: int = 7, turns: bool = False, after_rep=None,
+              busy: bool = False, host: list | None = None) -> float:
+        """Median CUDA-event ms of ``fn`` on this rank, the ranks aligned by
+        a barrier: all at once, or (``turns``) one rank at a time with the
+        others idle; ``after_rep`` (untimed) ends each round, after a
+        barrier. ``busy`` puts a sleep kernel ahead of the first event, so
+        that the card is still busy while the host launches ``fn`` and the
+        events hold device time only; ``host`` collects the host ms of each
+        call of ``fn`` (its launches, when it does not wait)."""
+        ts = []
+        for _ in range(reps):
+            for turn in (range(world) if turns else [rank]):
+                ring_mesh.barrier("cpi")
+                if turn != rank:
+                    continue
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                if busy:
+                    torch.cuda._sleep(SLEEP_CYCLES)
+                a.record()
+                h0 = time.perf_counter()
+                fn()
+                h1 = time.perf_counter()
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+                if host is not None:
+                    host.append(1e3 * (h1 - h0))
+            if after_rep is not None:
+                ring_mesh.barrier("cpi")
+                after_rep()
+        return statistics.median(ts)
+
+    def kernel_ms(fn, names=(None,), reps: int = 7, after_rep=None) -> dict:
+        """Device ms per round of the kernels whose name holds each of
+        ``names`` (all kernels for None), from torch.profiler, ``fn`` run
+        one rank at a time, ``after_rep`` ending each round (its kernels
+        counted too)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timed(fn, reps, turns=True, after_rep=after_rep)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        dev_t = lambda e: getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0))
+        return {n: sum(dev_t(e) for e in evs if n is None or n in e.key)
+                / reps / 1000.0 for n in names}
+
+    # K6 in rounds: every rank pushes in its turn, then every rank pulls in
+    # its turn, so no kernel shares the card with another rank's. The
+    # library yardstick: one copy_ into the right neighbour's receive slot,
+    # on the card that holds it (ranks on separate cards: a peer copy).
+    pulls = lambda: in_turns(ex.pull)
+    push = lambda: ex.push(xl)
+    peer, src = ex.peer_slot_view(), xl[:, xl.shape[1] - halo:]
+    copy = lambda: peer.copy_(src)
+    host_push, host_copy = [], []
+    k6 = kernel_ms(push, ("push_kernel", "pull_kernel"), after_rep=pulls)
+    arm["ms"] = {
+        "K6": k6["push_kernel"] + k6["pull_kernel"],
+        "K6_push": k6["push_kernel"], "K6_pull": k6["pull_kernel"],
+        "K6_push_events": timed(push, turns=True, after_rep=pulls,
+                                host=host_push),
+        "K6_push_events_busy": timed(push, turns=True, after_rep=pulls,
+                                     busy=True),
+        "K6_exchange_all_ranks": timed(lambda: ex(xl)),
+        "plain_ring": timed(lambda: ring.halo_right_plain(xl, ring_mesh,
+                                                          halo)),
+        "library_copy": kernel_ms(copy)[None],
+        "library_copy_events": timed(copy, turns=True, host=host_copy),
+        "library_copy_events_busy": timed(copy, turns=True, busy=True),
+        "pc_rdma": timed(lambda: f_rd(xl)),
+        "pc_ppermute": timed(lambda: f_pp(xl))}
+    arm["ms"]["K6_push_host"] = statistics.median(host_push)
+    arm["ms"]["library_copy_host"] = statistics.median(host_copy)
+    ring_mesh.barrier("cpi")
+    f_rd.close()
+    out["range_rdma"] = arm
+    del y_rd, y_pp, k6_halo, plain_halo, xl, peer, src
+
+    # ---- perf_dp_fused / perf_dp_xla: a batch of 4 full frames at dp=4;
+    # rank r checks frame r+1 against its own single-rank frame
+    dp_mesh = make_mesh(dp=world)
+    seeds = [frame_seed(20261016, i) for i in range(world)]
+    batch_targets = broadcast_targets(truth, world)
+    perf = perf_config()
+    pre_p = precompute(perf)
+    j = (rank + 1) % world
+    for label, cfg in (("perf_dp_fused", perf),
+                       ("perf_dp_xla", perf_config(pallas=False))):
+        proc = make_dp_frame_processor(cfg, dp_mesh, pre_p)
+        proc(seeds, batch_targets)         # warm-up outside the count
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        batch = host_result(proc(seeds, batch_targets))
+        wall = time.perf_counter() - t0
+        got = counts()
+        single = host_result(make_frame_processor(cfg, pre_p, device=dev)(
+            seeds[j], truth))
+        out[label] = {"launches": got, "batch_ms": 1e3 * wall,
+                      "exact": _same({k: v[j] for k, v in batch.items()},
+                                     single),
+                      "batch": batch if rank == 0 else None}
+
+    # ---- stream / lowrank: one full frame sharded over (1, 2, 2)
+    mesh_122 = make_mesh(1, 2, 2)
+    for label, cfg in (("stream", full),
+                       ("lowrank", full.replace(fused_synth_dbf=True,
+                                                lowrank_rdm=True))):
+        pre_c = pre if label == "stream" else precompute(cfg)
+        proc = make_sharded_frame_processor(cfg, mesh_122, pre_c)
+        proc(1, truth)                     # warm-up outside the count
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        res = host_result(proc(20261016, truth))
+        wall = time.perf_counter() - t0
+        out[label] = {"launches": counts(), "frame_ms": 1e3 * wall,
+                      "result": res}
+        if rank == 0:
+            out[label]["single"] = host_result(make_frame_processor(
+                cfg, pre_c, device=dev)(20261016, truth))
+
+    # ---- dp_x_model: dp=2 x ch=2, a batch of 4 full frames
+    proc = make_dp_sharded_frame_processor(full, make_mesh(dp=2, ch=2),
+                                           pre)
+    seeds7 = [frame_seed(7, i) for i in range(4)]
+    targets4 = broadcast_targets(truth, 4)
+    proc([frame_seed(8, i) for i in range(4)], targets4)   # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    batch = host_result(proc(seeds7, targets4))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    single = host_result(make_frame_processor(full, pre, device=dev)(
+        seeds7[rank], truth))
+    out["dp_x_model"] = {
+        "launches": launches, "batch_ms": 1e3 * wall,
+        "same": _same({k: v[rank] for k, v in batch.items()}, single,
+                      rtol=1e-4),
+        "num_final": batch["num_final"].tolist()}
+
+    # ---- mc_dp: the perf sweep and a small streaming MC at dp=4
+    reset()
+    t0 = time.perf_counter()
+    sw = snr_sweep(perf, [0.0, 20.0], num_trials=16, mesh=dp_mesh,
+                   precomp=pre_p)
+    sw_wall = time.perf_counter() - t0
+    sw_launches = counts()
+    st_kw = dict(num_scenes=2, targets_per_scene=8, trials_per_scene=4,
+                 snr_range=(-5.0, 20.0), precomp=pre_p)
+    st = run_streaming_mc(perf, mesh=dp_mesh, dp_trials=True, **st_kw)
+    mc = {"launches": sw_launches, "sweep_s": sw_wall,
+          "pd": sw.detection_probability.tolist(), "errors": sw.errors,
+          "streaming": st}
+    if rank == 0:
+        mc["sweep_single"] = snr_sweep(perf, [0.0, 20.0], num_trials=16,
+                                       precomp=pre_p, device=dev).errors
+    if rank == 1:
+        mc["streaming_single"] = run_streaming_mc(perf, device=dev, **st_kw)
+    out["mc_dp"] = mc
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def _host_rows(h: dict) -> np.ndarray:
+    """Valid final targets of a host FrameResult as rows (range, velocity,
+    angle, power)."""
+    v = np.asarray(h["valid"], bool)
+    return np.stack([h[f][v] for f in ("range_m", "velocity_ms",
+                                       "angle_deg", "power")], 1)
+
+
+def _multichip(card: str, truth, dr: float, dv: float) -> list:
+    """Phase ``multichip``: ``_multichip_rank`` on 4 ranks through
+    ``run_ranks`` (one card: 4 processes on it, gloo with host-staged plain
+    collectives; 4 or more cards: a rank per card on NCCL). Prints one line
+    per arm, raises on any failed hold, returns K6's kernels-line row."""
+    import torch
+
+    from radar_tpu_torch.parallel.multihost import choose_backend, run_ranks
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    _require("Exclusive_Process" not in smi,
+             "compute mode Default: ranks sharing a card need several "
+             "processes per card, and K6 maps their buffers by CUDA IPC")
+    n, cards = MULTICHIP_RANKS, torch.cuda.device_count()
+    backend = choose_backend("cuda", n)
+    _line("multichip", world_size=n, cards=cards, backend=backend,
+          staging=backend == "gloo",
+          devices=[f"cuda:{r % cards}" for r in range(n)])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(_multichip_rank, n, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    _line("multichip", transport=[r["transport"] for r in res],
+          rank_s=[round(r["rank_s"], 2) for r in res])
+
+    rr = [r["range_rdma"] for r in res]
+    med = lambda key: statistics.median(a["ms"][key] for a in rr)
+    _line("multichip", arm="range_rdma", shape=rr[0]["shape"],
+          launches=[a["launches"]["K6"] for a in rr],
+          halo_identical=[a["halo_identical"] for a in rr],
+          output_identical=[a["output_identical"] for a in rr],
+          err_over_max=rr[0]["err_over_max"],
+          ms_per_rank={k: [round(a["ms"][k], 4) for a in rr]
+                       for k in rr[0]["ms"]},
+          card=repr(card), tol="halo and output identical; 1e-4 of max")
+    _require(all(a["launches"]["K6"] == 1 for a in rr),
+             "range_rdma: one K6 launch per call per rank")
+    _require(all(a["halo_identical"] and a["output_identical"]
+                 for a in rr), "range_rdma: K6 == the plain ring")
+    _require(all(a["halo_nonzero"] for a in rr[1:]),
+             "range_rdma: ranks 1-3 received a halo")
+    _require(rr[0]["err_over_max"] <= 1e-4,
+             "range_rdma: within 1e-4 of the unsharded convolution")
+
+    found = lambda h: _found(_host_rows(h), truth, dr, dv)
+    for label, want in (("perf_dp_fused", {"K1": 1, "K2": 1}),
+                        ("perf_dp_xla", {"K1": 0, "K2": 1})):
+        arms = [r[label] for r in res]
+        batch = arms[0]["batch"]
+        frames = [{k: v[i] for k, v in batch.items()} for i in range(n)]
+        _line("multichip", arm=label, launches=[a["launches"] for a in arms],
+              exact=[a["exact"] for a in arms],
+              num_final=batch["num_final"].tolist(),
+              found=[found(f) for f in frames],
+              batch_ms=[round(a["batch_ms"], 3) for a in arms])
+        _require(all(a["exact"] for a in arms),
+                 f"{label}: every frame == its single-rank frame")
+        _require(all(a["launches"][k] == v for a in arms
+                     for k, v in want.items()),
+                 f"{label}: {want} per rank (one frame each)")
+        _require(all(all(found(f)) for f in frames),
+                 f"{label}: truth targets found in every frame")
+
+    for label, kernel in (("stream", "K3"), ("lowrank", "K2")):
+        arms = [r[label] for r in res]
+        single = arms[0]["single"]
+        same = [_same(a["result"], single, rtol=1e-4) for a in arms]
+        _line("multichip", arm=label, mesh="dp=1,ch=2,cpi=2",
+              launches=[a["launches"] for a in arms], same=same,
+              num_raw=int(single["num_raw"]),
+              num_final=int(single["num_final"]),
+              found=found(arms[0]["result"]),
+              frame_ms=[round(a["frame_ms"], 3) for a in arms],
+              tol="counts exact, fields rtol 1e-4")
+        _require(all(same), f"{label}: == the single-rank frame")
+        _require(all(a["launches"][kernel] >= 1 for a in arms),
+                 f"{label}: the tail launched {kernel}")
+        _require(all(found(arms[0]["result"])),
+                 f"{label}: truth targets found")
+
+    arms = [r["dp_x_model"] for r in res]
+    _line("multichip", arm="dp_x_model", mesh="dp=2,ch=2,cpi=1",
+          launches=[a["launches"] for a in arms],
+          same=[a["same"] for a in arms], num_final=arms[0]["num_final"],
+          batch_ms=[round(a["batch_ms"], 3) for a in arms],
+          tol="counts exact, fields rtol 1e-4")
+    _require(all(a["same"] for a in arms),
+             "dp_x_model: every frame == its single-rank frame")
+    _require(all(a["launches"]["K3"] == 2 for a in arms),
+             "dp_x_model: K3 twice per rank (4 frames / dp 2)")
+
+    arms = [r["mc_dp"] for r in res]
+    sw_same = all(np.array_equal(a["errors"], arms[0]["sweep_single"],
+                                 equal_nan=True) for a in arms)
+    st1 = res[1]["mc_dp"]["streaming_single"]
+    st_same = all(a["streaming"].total_detected == st1.total_detected
+                  and np.array_equal(a["streaming"].snr_bin_rate,
+                                     st1.snr_bin_rate, equal_nan=True)
+                  and a["streaming"].range_rmse_m == st1.range_rmse_m
+                  for a in arms)
+    _line("multichip", arm="mc_dp", launches=[a["launches"] for a in arms],
+          sweep_pd=arms[0]["pd"], sweep_identical=sw_same,
+          sweep_s=[round(a["sweep_s"], 3) for a in arms],
+          streaming_rate=arms[0]["streaming"].detection_rate,
+          streaming_targets=arms[0]["streaming"].total_targets,
+          streaming_identical=st_same)
+    _require(sw_same and st_same,
+             "mc_dp: the dp sweep and streaming MC == the one-rank runs")
+    _require(all(a["launches"]["K1"] == 8 for a in arms),
+             "mc_dp: 8 K1 trials per rank (2 points x 16 trials / 4)")
+    _line("multichip", wall_s=round(wall, 2), card=repr(card))
+
+    # K6 reads the halo once and writes it once: both on one card, or the
+    # write over NVLink when every rank has its own card
+    rows, _, halo, esize = rr[0]["shape"]
+    nbytes = rows * halo * esize
+    bound = (nbytes / PEAK_NVLINK if cards >= n else 2 * nbytes / PEAK_HBM)
+    # ms: the push and the pull kernel (profiler); the events beside it
+    extra = {k: med(k) for k in ("K6_push", "K6_pull", "K6_push_events",
+                                 "K6_push_events_busy", "K6_push_host",
+                                 "K6_exchange_all_ranks")}
+    return [("K6 ring halo exchange (peer stores by CUDA IPC, push + pull)",
+             "ring.cu", "radar_tpu/parallel/pallas_ring.py:80",
+             sum(a["launches"]["K6"] for a in rr),
+             max(a["halo_max_abs_err"] for a in rr), med("K6"),
+             med("plain_ring"), bound * 1e3, "bytes", med("library_copy"),
+             extra)]
+
+
 def main() -> int:
     import torch
 
@@ -576,7 +1012,7 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
-    _build.build_all(["noise_rdm", "rdm_variants", "cfar", "awgn"])
+    _build.build_all(["noise_rdm", "rdm_variants", "cfar", "awgn", "ring"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():
@@ -982,6 +1418,9 @@ def main() -> int:
     study_rows = _rdm_variants(nr, plan, lmat, dev, card)
     study_rows += _pc_study(nr, ref_cfg, ref_pre, dev, card)
 
+    # ---- 17. the multi-device layer on 4 ranks (K6 in range_rdma)
+    study_rows += _multichip(card, truth, dr, dv)
+
     # ---- 6. times (CUDA events, median), card and power limit beside
     k1_ms, k1_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg"),
@@ -1077,8 +1516,9 @@ def main() -> int:
 
     # launches: K1 and K2 from the perf SNR sweep, K3 and K5 from the
     # reference frame, K1c and K4 from the validation path, K7, K9 and K10
-    # from noise_rdm_compact and K8 from chain_pallas_pc (the noise-RDM
-    # kernel studies); bounds from this run's shapes
+    # from noise_rdm_compact, K8 from chain_pallas_pc (the noise-RDM kernel
+    # studies) and K6 from one range-sharded PC on 4 ranks (the sum over
+    # the ranks); bounds from this run's shapes
     k1_bound = _k1_bound_ms(plan, num_b)
     kernels = [
         ("K1 fused noise RDM (draw mode, rank-K signal)", "noise_rdm.cu",
@@ -1101,13 +1541,15 @@ def main() -> int:
          "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:980 (rolling=False)",
          val_launches["K4"], k4_err, k4_ms, k4_plain_ms, k1_bound,
          "operations", None)] + study_rows
+    # a row may end with a dict of extra keys
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "radar_tpu_torch/csrc/" + src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-         "bound_ms": bms, "bound_by": by, "library_ms": lib}
-        for name, src, rep, n, err, ms, pms, bms, by, lib in kernels]}),
-        flush=True)
+         "bound_ms": bms, "bound_by": by, "library_ms": lib,
+         **(extra[0] if extra else {})}
+        for name, src, rep, n, err, ms, pms, bms, by, lib, *extra
+        in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

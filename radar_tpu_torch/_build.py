@@ -29,10 +29,11 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # contraction; the noise-RDM kernels are held by RMS-relative bounds and
 # may contract
 _EXTRA = {"noise_rdm": [], "rdm_variants": [], "cfar": ["-fmad=false"],
-          "awgn": ["-fmad=false"]}
+          "awgn": ["-fmad=false"], "ring": []}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F, _LL = ctypes.c_float, ctypes.c_longlong
+_ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "noise_rdm": {
         "k1_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
@@ -62,6 +63,16 @@ _SIGNATURES = {
     },
     "awgn": {
         "k5_awgn": [_P, _P, _LL, _U, _U, _F, _F, _P],
+    },
+    "ring": {
+        "k6_handle_bytes": [],
+        "k6_alloc": [_I, _LL, _P, _P],
+        "k6_open": [_I, _P, _P],
+        "k6_close": [_P],
+        "k6_free": [_P],
+        "k6_push": [_P, _LL, _I, _LL, _P, _LL, _ULL, _LL, _P, _P],
+        "k6_pull": [_P, _LL, _P, _LL, _ULL, _I, _LL, _P],
+        "k6_status": [_P, _P, _P, _P],
     },
 }
 

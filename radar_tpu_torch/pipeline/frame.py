@@ -204,6 +204,8 @@ class FrameStages(NamedTuple):
     synth: object       # targets -> noiseless raw [P,S,C] or beams [P,S,B]
     chain: object       # (echo, frame_seed, noise, kernel_noise) ->
                         # (noisy raw, beams, pc, rdm [V, G, B])
+    pc: object          # beams [P, S, B] -> pc [P, G, B] (any pulse count)
+    mtd: object         # pc [P, G, B] -> rdm [V, G, B] (any gate count)
     qvg: bool           # the tail: qvg (K2) or vgq (K3)
 
     def detect(self, rdm: torch.Tensor, rdm_layout: str):
@@ -233,7 +235,7 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
         # makes bit-identical to the vgq tail
         return FrameStages(cfg, mc,
                            make_lowrank_stages(cfg, precomp, device=device),
-                           None, None, qvg=True)
+                           None, None, None, None, qvg=True)
     c64 = torch.complex64
     w_eff = dbf_weights_effective_np(precomp.dbf_w, cfg.dbf_variant)
     if fused:
@@ -281,13 +283,21 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
             else:
                 noisy = add_noise(echo, seeded_generator(frame_seed, device))
             beams = dbf(noisy, precomp.dbf_w, cfg.dbf_variant)
-        pc = (pulse_compress_matmul(beams, mplan, precision=prec)
-              if mplan is not None else pulse_compress(beams, precomp, pplan))
-        rdm = (mtd_matmul(pc, mtd_t, precision=prec) if mtd_t is not None
-               else mtd(pc, precomp.mtd_win, cfg.mtd_fft_len))   # [V, G, B]
-        return noisy, beams, pc, rdm
+        pc = pc_stage(beams)
+        return noisy, beams, pc, mtd_stage(pc)
 
-    return FrameStages(cfg, mc, None, synth, chain, qvg=cfg.use_pallas_cfar)
+    def pc_stage(beams):
+        if mplan is not None:
+            return pulse_compress_matmul(beams, mplan, precision=prec)
+        return pulse_compress(beams, precomp, pplan)
+
+    def mtd_stage(pc):
+        if mtd_t is not None:
+            return mtd_matmul(pc, mtd_t, precision=prec)
+        return mtd(pc, precomp.mtd_win, cfg.mtd_fft_len)          # [V, G, B]
+
+    return FrameStages(cfg, mc, None, synth, chain, pc_stage, mtd_stage,
+                       qvg=cfg.use_pallas_cfar)
 
 
 def make_frame_processor(cfg: RadarConfig,

@@ -118,12 +118,15 @@ def snr_sweep(cfg: RadarConfig, snr_db_vector=None, num_trials: int = 100,
               device="cuda") -> SweepResult:
     """Run the sweep on ``device`` (the card by default). Defaults mirror
     the reference: SNR -10..30 dB step 2, truth target R=10 km, V=20 m/s,
-    El=10 deg (beam pair index 5, 0-based). ``mesh=`` (trials sharded over
-    devices) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the dp-sharded trial batch) is not ported; see ROADMAP "
-            "Queue 1 #14")
+    El=10 deg (beam pair index 5, 0-based).
+
+    ``mesh``: a ``parallel.mesh.Mesh`` with a ``dp`` axis, on every rank:
+    each trial batch is sharded over dp (``parallel/dp.py::
+    make_dp_trial_fn``, the reference's ``parfor`` boundary,
+    main_plot_snr_vs_angle_error.m:167, mapped onto ranks), trials run on
+    the mesh's device and every rank returns the whole sweep, equal to the
+    one-rank sweep trial for trial. ``batch_size`` and ``num_trials`` must
+    be multiples of the dp size."""
     if snr_db_vector is None:
         snr_db_vector = np.arange(-10.0, 30.0 + 1e-9, 2.0)
     snr_db_vector = np.asarray(snr_db_vector, np.float64)
@@ -135,7 +138,19 @@ def snr_sweep(cfg: RadarConfig, snr_db_vector=None, num_trials: int = 100,
         true_pair_idx = true_pair_index(precomp, truth.elevation_deg[0])
     k_slope = float(precomp.k_slopes_lut[true_pair_idx])
 
-    trials_fn = make_trial_fn(cfg, precomp, device=device)
+    if mesh is not None:
+        from ..parallel.dp import make_dp_trial_fn
+        from ..parallel.mesh import AXIS_DP, check_mesh
+
+        n_dp = check_mesh(mesh).shape[AXIS_DP]
+        if batch_size % n_dp or num_trials % n_dp:
+            raise ValueError(
+                f"batch_size={batch_size} and num_trials={num_trials} must "
+                f"be multiples of the dp axis size {n_dp}")
+        trials_fn = make_dp_trial_fn(cfg, mesh, precomp)
+        progress = progress and mesh.rank == 0
+    else:
+        trials_fn = make_trial_fn(cfg, precomp, device=device)
     errors = np.full((len(snr_db_vector), num_trials), np.nan)
     for i, snr in enumerate(snr_db_vector):
         tb = TargetBatch(truth.range_m, truth.velocity_ms,

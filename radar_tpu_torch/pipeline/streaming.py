@@ -10,9 +10,16 @@ are copied to the host once per scene. Truth matching uses the clustering
 gates; statistics aggregate per-SNR-bin detection rates over all injected
 targets.
 
+With a mesh (every rank calls with the same arguments and gets the whole
+statistics), ``dp_trials=True`` shards each scene's trials over the dp
+axis (``parallel/dp.py``), the reference's parfor boundary
+(main_plot_snr_vs_angle_error.m:167) on ranks, equal to the one-rank run
+trial for trial; without it, every trial's frame is sharded over the mesh
+(``parallel/sharded.py``).
+
 Trial seeds: trial ``t`` of scene ``s`` takes the integer seed
-``pipeline/driver.py::trial_seed(seed, s, t)``. Not ported: the mesh
-routes (``mesh=``, ``dp_trials=``) and the checkpoint store (``store=``).
+``pipeline/driver.py::trial_seed(seed, s, t)``. Not ported: the checkpoint
+store (``store=``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch
 
 from ..config.params import RadarConfig
 from ..sim.scenario import TargetBatch
-from ..waveform.precompute import Precomputed, precompute
+from ..waveform.precompute import Precomputed
 from .driver import trial_seed
 from .frame import make_frame_processor
 
@@ -106,27 +113,53 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
                      dp_trials: bool = False, store=None, *,
                      device="cuda", processor=None) -> StreamingStats:
     """Total injected targets = num_scenes*targets_per_scene*trials_per_scene,
-    run on ``device`` (the card by default). ``processor`` may be a frame
-    processor built once and reused."""
-    for name, value, item in (("mesh", mesh, 14), ("dp_trials", dp_trials, 14),
-                              ("store", store, 9)):
-        if value:
-            raise NotImplementedError(
-                f"{name}= is not ported; see ROADMAP Queue 1 #{item}")
-    if processor is None:
-        if precomp is None:
-            precomp = precompute(cfg)
+    run on ``device`` (the card by default), or on the mesh's device with
+    ``mesh`` (see the module docstring). ``processor`` may be a frame
+    processor built once and reused (single-device route only)."""
+    if store is not None:
+        raise NotImplementedError("store= is not ported; see ROADMAP Queue "
+                                  "1 #9")
+    if dp_trials and mesh is None:
+        raise NotImplementedError(
+            "dp_trials=True without mesh= (which JAX ignores) is not "
+            "ported: it shards the trials over a mesh's dp axis")
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+        if processor is not None:
+            raise ValueError("processor= drives the single-device route; "
+                             "with mesh= the route is built from the mesh")
+        if dp_trials:
+            from ..parallel.dp import (broadcast_targets,
+                                       make_dp_frame_processor)
+
+            proc_dp = make_dp_frame_processor(cfg, mesh, precomp)
+
+            def trial_targets(seeds, truth):
+                return proc_dp(seeds, broadcast_targets(truth,
+                                                        len(seeds))).targets
+        else:
+            from ..parallel.sharded import make_sharded_frame_processor
+
+            processor = make_sharded_frame_processor(cfg, mesh, precomp)
+        progress = progress and mesh.rank == 0
+    elif processor is None:
         processor = make_frame_processor(cfg, precomp, device=device)
+    if processor is not None:
+        def trial_targets(seeds, truth):
+            finals = [processor(s, truth).targets for s in seeds]
+            return type(finals[0])(*(torch.stack(xs) for xs in zip(*finals)))
 
     rng = np.random.default_rng(seed)
     all_snr, all_det, all_dr, all_dv = [], [], [], []
     for s in range(num_scenes):
         truth = random_scene(rng, targets_per_scene, cfg, snr_range)
-        finals = [processor(trial_seed(seed, s, t), truth).targets
-                  for t in range(trials_per_scene)]
+        finals = trial_targets([trial_seed(seed, s, t)
+                                for t in range(trials_per_scene)], truth)
         # one copy per scene: [trials, slots] per field
-        host = HostTargets(*(torch.stack([getattr(f, name) for f in finals])
-                             .cpu().numpy() for name in HostTargets._fields))
+        host = HostTargets(*(getattr(finals, name).cpu().numpy()
+                             for name in HostTargets._fields))
         for t in range(trials_per_scene):
             det, dr, dv = _match_rate(
                 HostTargets(*(x[t] for x in host)), truth, match_gate_r,

@@ -1,8 +1,9 @@
-"""PyTorch port on the card: kernels K1, K1c, K2, K3, K4, K5, K7, K8, K9
-and K10 against their plain PyTorch versions, the perf-config frame (each noise-RDM route)
-and the reference-stream frame through the kernels against the plain path
-on the CPU, and a small SNR sweep. Marked ``cuda``; each test skips
-without an NVIDIA GPU.
+"""PyTorch port on the card: kernels K1, K1c, K2, K3, K4, K5, K6, K7, K8,
+K9 and K10 against their plain PyTorch versions (K6 on a ring of two ranks
+sharing the card, through ``run_ranks``), the perf-config frame (each
+noise-RDM route) and the reference-stream frame through the kernels
+against the plain path on the CPU, and a small SNR sweep. Marked ``cuda``;
+each test skips without an NVIDIA GPU.
 
 This file imports neither JAX nor ``radar_tpu``, so it also runs where
 JAX is not installed (the suite's conftest.py needs JAX):
@@ -341,3 +342,37 @@ def test_k8_matches_plain_on_card(cuda_device, dtype):
                                      to_device(nplan, "cpu")).permute(2, 0, 1)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-5, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_k6_matches_plain_on_card(cuda_device):
+    """K6 on a ring of two ranks on the card against its plain version (the
+    batch_isend_irecv ring), bit for bit: complex64 rows whose 16-byte
+    alignment alternates, float32 with aligned rows, and float32 whose
+    source and destination rows differ in alignment (4-byte copies); three
+    calls each (both receive slots, one reused), one launch per call."""
+    from radar_tpu_torch.parallel import dryrun
+    from radar_tpu_torch.parallel.multihost import run_ranks
+
+    cases = [(37, 101, 33, torch.complex64), (64, 256, 16, torch.float32),
+             (5, 19, 6, torch.float32)]
+    for out in run_ranks(dryrun.k6_check, 2, cases, device="cuda",
+                         timeout=300):
+        assert all(out["equal"]) and len(out["equal"]) == 9
+        assert out["launches"] == [3, 3, 3]
+
+
+@pytest.mark.cuda
+def test_k6_timeout_raises_instead_of_hanging(cuda_device):
+    """A rank whose neighbour never exchanges raises after K6's bounded
+    wait, naming the rank and the call."""
+    import time
+
+    from radar_tpu_torch.parallel import dryrun
+    from radar_tpu_torch.parallel.multihost import run_ranks
+
+    t0 = time.monotonic()
+    msg = run_ranks(dryrun.k6_timeout, 2, 1.0, device="cuda",
+                    timeout=300)[0]
+    assert "timed out" in msg and "rank 0" in msg and "sequence 1" in msg
+    assert time.monotonic() - t0 < 120
