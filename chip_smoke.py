@@ -31,10 +31,13 @@ targets:
   kernel's schedules K10 (resident), K7 (stacked) and K9 (all beams)
   through ``noise_rdm_compact`` with bf16 operands on a cube holding K1c's
   planes, then holds each at f32 and bf16 against its plain version, K1
-  and its own f32 map, K10 with bf16 output and K7 on its own draws; phase
-  ``pc_study`` runs ``scripts/bench_pc2d.py``'s three chains (cuBLAS
-  banded, flat 2D, K8) and holds K8 against its plain version and the
-  banded-matmul PC;
+  and its own f32 map, K10 with bf16 output and K7 on its own draws (at
+  bf16 the PC of K7 and K9 is the strip GEMM of ``csrc/band_pc_sm90.cu``,
+  counted); phase ``pc_study`` runs ``scripts/bench_pc2d.py``'s three
+  chains (cuBLAS banded, flat 2D, K8) and holds K8 against its plain
+  version and the banded-matmul PC, then splits K8 at bf16 into its
+  staging kernel and strip GEMM (profiler) with the GEMM's TFLOP/s over
+  the band it walks and over the convolution's own MACs;
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -195,8 +198,8 @@ def _reference_stages(cfg, pre, truth, dev, reps: int = 5) -> dict:
     return {name: statistics.median(t[1:]) for name, t in times.items()}
 
 
-def _device_busy_ms(fn, reps: int = 5):
-    """(device-busy ms per call, top kernels) from torch.profiler."""
+def _kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` by kernel name, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -212,11 +215,25 @@ def _device_busy_ms(fn, reps: int = 5):
     # kernel rows only: an operator's row repeats its kernels' device time
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0))
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and dev_t(e) > 0]
-    top = sorted(evs, key=dev_t, reverse=True)[:6]
-    return (sum(dev_t(e) for e in evs) / reps / 1000.0,
-            [(e.key[:60], round(dev_t(e) / reps / 1000.0, 4)) for e in top])
+    return {e.key: dev_t(e) / reps / 1000.0 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_t(e) > 0}
+
+
+def _busy_top(ms: dict):
+    """(device-busy ms, the six longest kernels) of ``_kernel_ms``'s
+    result."""
+    top = sorted(ms.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    return sum(ms.values()), [(k[:60], round(v, 4)) for k, v in top]
+
+
+def _device_busy_ms(fn, reps: int = 5):
+    """(device-busy ms per call, top kernels) from torch.profiler."""
+    return _busy_top(_kernel_ms(fn, reps))
+
+
+def _named_ms(ms: dict, name: str) -> float:
+    """The summed ms of the kernels of ``ms`` whose name holds ``name``."""
+    return sum(v for k, v in ms.items() if name in k)
 
 
 def _k1_bound_ms(plan, num_b: int, peak: float = PEAK_FP32) -> float:
@@ -339,14 +356,17 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
                       for k, _, _ in VARIANTS}
     for k, _, _ in VARIANTS:
         setattr(nr, f"{k.lower()}_launch_count", 0)
+    nr.strip_pc_launch_count = 0
     y16 = {v: nr.noise_rdm_compact(z, plan, lmat, variant=v, mul_dtype=bf)
            for _, v, _ in VARIANTS}
     torch.cuda.synchronize()
     launches = counts()
+    strip_launches = nr.strip_pc_launch_count
     _line("rdm_variants", path="noise_rdm_compact(variant=, mul_dtype=bf16)",
-          launches=launches)
+          launches=launches, strip_gemm_launches=strip_launches)
     _require(all(n >= 1 for n in launches.values()),
              "the schedules' path launched K10, K7 and K9")
+    _require(strip_launches == 2, "K7's and K9's bf16 PC ran the strip GEMM")
 
     ref = {md: nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=md)
            for md in (f32, bf)}
@@ -414,17 +434,22 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
             lambda: nr.noise_rdm_plain(plan, lmat, planes_c, mul_dtype=bf))
         ms32 = statistics.median(_event_ms(
             lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v), 5))
-        busy, top = _device_busy_ms(
+        prof = _kernel_ms(
             lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v,
                                          mul_dtype=bf), reps=3)
+        busy, top = _busy_top(prof)
+        # the PC stage: the strip GEMM (K7, K9) or the ring PC (K10)
+        pc_ms = _named_ms(prof, "strip_pc_kernel") + _named_ms(
+            prof, "ring_pc_kernel")
         _line("time", what=repr(f"{name} ({v}, bf16) / plain / f32"),
               ms=round(ms, 4), plain_ms=round(pms, 4), f32_ms=round(ms32, 4),
-              device_busy_ms=round(busy, 4), top_kernels=top,
+              device_busy_ms=round(busy, 4), pc_stage_ms=round(pc_ms, 4),
+              top_kernels=top,
               card=repr(card))
         rows.append((f"{name} noise RDM, variant={v!r}, bf16 operands",
                      "rdm_variants.cu", rep, launches[name],
                      errs[name]["bf16_max_abs_err"], ms, pms, bound, by,
-                     None))
+                     None, {"pc_stage_ms": pc_ms}))
     k1p_ms, k1p_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, planes=planes, layout="bvg"),
         lambda: nr.noise_rdm_plain(plan, lmat, planes))
@@ -489,17 +514,21 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
 
     chains = {"chain_PSB": chain_psb, "chain_flat2d": chain_flat2d,
               "chain_pallas_pc": chain_pallas_pc}
-    ppc.launch_count = 0
+    ppc.launch_count = ppc.stage_launch_count = nr.strip_pc_launch_count = 0
     out = {name: fn() for name, fn in chains.items()}
     torch.cuda.synchronize()
     launches = ppc.launch_count
+    parts = (ppc.stage_launch_count, nr.strip_pc_launch_count)
     ms = {name: statistics.median(_event_ms(fn, 5))
           for name, fn in chains.items()}
     vs = {name: _rel_rms(y, out["chain_PSB"]) for name, y in out.items()}
-    _line("pc_study", launches_K8=launches, ms=ms, rms_vs_chain_PSB=vs,
+    _line("pc_study", launches_K8=launches,
+          launches_stage_and_strip_gemm=parts, ms=ms, rms_vs_chain_PSB=vs,
           card=repr(card), tol="<=1e-2")
-    _require(launches == 1 and all(v <= 1e-2 for v in vs.values()),
-             "the three chains agree and chain_pallas_pc launched K8")
+    _require(launches == 1 and parts == (1, 1)
+             and all(v <= 1e-2 for v in vs.values()),
+             "the three chains agree and chain_pallas_pc launched K8 "
+             "(its staging kernel and strip GEMM)")
     del out
 
     errs = {}
@@ -544,10 +573,47 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     bound, by = _bound(8.0 * macs / PEAK_BF16 * 1e3,
                        (z.numel() + num_b * num_p * pplan.n_gates) * 8
                        / PEAK_HBM * 1e3)
-    return [("K8 banded PC of white noise (study), bf16 operands",
-             "rdm_variants.cu", "radar_tpu/studies/pallas_pc.py:150",
-             launches, errs["bf16"][1], k8_ms, k8_plain_ms, bound, by,
-             lib_ms)]
+
+    # K8's two kernels (profiler) and the strip GEMM's rate over the band
+    # it walks (128-row x 128-gate blocks, k to the strip's padded depth)
+    # and over the convolution's own MACs, 8 FLOPs a complex MAC
+    split = _kernel_ms(lambda: ppc.pulse_compress_noise(z, pplan), reps=5)
+    stage_ms = _named_ms(split, "stage_kernel")
+    gemm_ms = _named_ms(split, "strip_pc_kernel")
+    _require(stage_ms > 0.0 and gemm_ms > 0.0,
+             "the profiler saw K8's staging kernel and strip GEMM")
+    # K8's events on a card kept busy (a sleep kernel ahead of the first
+    # event) and the host's time per call: on an idle card the events also
+    # hold the host work before the first launch
+    busy, host = [], []
+    for _ in range(10):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        ppc.pulse_compress_noise(z, pplan)
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        busy.append(a.elapsed_time(b))
+    rows = num_b * num_p
+    walked = sum(-(-rows // 128) * 128 * -(-sg.j_len // 128) * 128
+                 * sg.strip.shape[2] for sg in pplan.segments)
+    rate = {"stage_ms": stage_ms, "gemm_ms": gemm_ms,
+            "busy_card_ms": statistics.median(busy),
+            "host_ms": statistics.median(host),
+            "gemm_tflops_band": 8.0 * walked / gemm_ms / 1e9,
+            "gemm_tflops_direct": 8.0 * macs / gemm_ms / 1e9,
+            "band_gflop": 8.0 * walked / 1e9,
+            "direct_gflop": 8.0 * macs / 1e9}
+    _line("pc_study", K8_split={k: round(v, 4) for k, v in rate.items()},
+          other_ms=round(sum(split.values()) - stage_ms - gemm_ms, 4),
+          bound_ms=round(bound, 4), bound_by=by, card=repr(card))
+    return [("K8 banded PC of white noise (study), bf16 operands: staging "
+             "+ strip GEMM", "band_pc_sm90.cu",
+             "radar_tpu/studies/pallas_pc.py:150", launches, errs["bf16"][1],
+             k8_ms, k8_plain_ms, bound, by, lib_ms, rate)]
 
 
 MULTICHIP_RANKS = 4
@@ -1012,7 +1078,8 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
-    _build.build_all(["noise_rdm", "rdm_variants", "cfar", "awgn", "ring"])
+    _build.build_all(["noise_rdm", "rdm_variants", "band_pc_sm90", "cfar",
+                      "awgn", "ring"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():

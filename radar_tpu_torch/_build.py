@@ -28,8 +28,8 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K2, K3 and K5 must match their plain versions' rounding: no FMA
 # contraction; the noise-RDM kernels are held by RMS-relative bounds and
 # may contract
-_EXTRA = {"noise_rdm": [], "rdm_variants": [], "cfar": ["-fmad=false"],
-          "awgn": ["-fmad=false"], "ring": []}
+_EXTRA = {"noise_rdm": [], "rdm_variants": [], "band_pc_sm90": [],
+          "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": []}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F, _LL = ctypes.c_float, ctypes.c_longlong
@@ -54,6 +54,10 @@ _SIGNATURES = {
         "rv_mix": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
         "rv_mtd_mix": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                        _I, _P, _P],
+    },
+    "band_pc_sm90": {
+        "sp_band_pc": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
+        "sp_stage": [_P, _LL, _I, _I, _P, _I, _P, _P],
     },
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,

@@ -12,6 +12,9 @@
 //       (:1088);
 //   K8  studies/pallas_pc.py::pulse_compress_noise_pallas, body
 //       _make_seg_kernel (:150): the banded PC alone, f32 out.
+// With bf16 operands, K8 and the planes-mode PC of K7 and K9 run the strip
+// GEMM of band_pc_sm90.cu (TMA + wgmma); here they run at f32, and K7's
+// draw mode at both types.
 //
 // Per segment, with x the white planes, M the banded filter [W, T], D the
 // MTD DFT [V, P] and L the 13x13 Cholesky factor, the RDM variants compute
@@ -32,12 +35,16 @@
 //
 // Launches, all on the caller's stream:
 //   K10: ring_pc_kernel per segment -> DFT GEMM -> mix_kernel;
-//   K7:  banded PC GEMM per segment -> DFT GEMM -> mix_kernel;
-//   K9:  banded PC GEMM per segment -> mtd_mix_kernel (DFT of all beams,
-//        rounded, mixed in the block: no mt round trip, one output write);
-//   K8:  banded PC GEMM per segment on the compact cube, f32 complex out.
+//   K7:  banded PC GEMM per segment (bf16 planes: the strip GEMM of
+//        band_pc_sm90.cu) -> DFT GEMM -> mix_kernel;
+//   K9:  the same PC -> mtd_mix_kernel (DFT of all beams, rounded, mixed in
+//        the block: no mt round trip, one output write);
+//   K8:  f32: banded PC GEMM per segment on the compact cube, f32 complex
+//        out (bf16: band_pc_sm90.cu).
 // The GEMMs (band_pc_kernel, mtd_gemm_kernel) run on the CUDA cores at f32
-// and on the tensor cores at bf16 (band_pc_tc_kernel, mtd_gemm_tc_kernel).
+// and on the tensor cores at bf16 (mtd_gemm_tc_kernel; band_pc_tc_kernel
+// for K7's draw mode only, whose Philox draws are made in the GEMM's
+// loads, which TMA cannot do).
 //
 // What bounds them on this card: operations. At the full perf shape (13
 // beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
@@ -202,7 +209,7 @@ __device__ __forceinline__ float2 load_sample(const PcArgs& a, int b, int p,
 // One 64-pulse x 64-gate block of the f32 PC of beam blockIdx.z: the
 // stacked product of the window of its tile with the columns n0 .. n0+63
 // of M, over M's rows n0 .. n0+63+lh-2 only (the rest of those columns is
-// 0). bf16 runs band_pc_tc_kernel.
+// 0). bf16 runs band_pc_tc_kernel in draw mode, else band_pc_sm90.cu.
 template <int kSrc, bool kRoundOut>
 __global__ void __launch_bounds__(kThreads) band_pc_kernel(PcArgs a) {
   __shared__ float ar_s[kBK * (kBM + 1)], ai_s[kBK * (kBM + 1)];
@@ -386,7 +393,7 @@ __device__ __forceinline__ void tc_store(const TcAcc& c, Store store) {
               c.rr[mi][ni][e] - c.ii[mi][ni][e], c.ri[mi][ni][e] + c.ir[mi][ni][e]);
 }
 
-// band_pc_kernel on the tensor cores (bf16 operands).
+// band_pc_kernel on the tensor cores (bf16 operands), for draw mode.
 template <int kSrc, bool kRoundOut>
 __global__ void __launch_bounds__(kThreads) band_pc_tc_kernel(PcArgs a) {
   using T = __nv_bfloat16;
@@ -784,18 +791,15 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// f32 on the CUDA cores, bf16 on the tensor cores
+// f32 on the CUDA cores; bf16 (draw mode only: planes and the compact cube
+// run the strip GEMM of band_pc_sm90.cu) on the tensor cores
 int launch_band_pc(bool bf16, int src, const PcArgs& a, int num_b,
                    cudaStream_t st) {
   const dim3 grid(((a.j_len + a.tile - 1) / a.tile) * (a.tile / kBN),
                   (a.num_p + kBM - 1) / kBM, num_b);
   if (bf16) {
-    if (src == kPlanes)
-      band_pc_tc_kernel<kPlanes, true><<<grid, kThreads, 0, st>>>(a);
-    else if (src == kDraw)
-      band_pc_tc_kernel<kDraw, true><<<grid, kThreads, 0, st>>>(a);
-    else
-      band_pc_tc_kernel<kCompact, false><<<grid, kThreads, 0, st>>>(a);
+    if (src != kDraw) return (int)cudaErrorInvalidValue;
+    band_pc_tc_kernel<kDraw, true><<<grid, kThreads, 0, st>>>(a);
   } else {
     if (src == kPlanes)
       band_pc_kernel<kPlanes, true><<<grid, kThreads, 0, st>>>(a);
@@ -890,7 +894,7 @@ const char* radar_error_string(int code) {
 }
 
 // Banded PC of one segment (K7's and K9's PC stage, K8). bf16: operands are
-// bf16 values. src 0: T planes xr, xi [B, P, x_len] -> rounded T planes
+// bf16 values, src 2 only. src 0: T planes xr, xi [B, P, x_len] -> rounded T planes
 // outr, outi [B, P, num_g] at gate offset g0; src 2: the same from Philox
 // draws (K1's counters, key (s0, s1)); src 1: the compact complex64 cube z
 // [B, P, x_len], segment slice c0 .. c0+r_len after pad_front zeros ->

@@ -27,6 +27,10 @@ mode) and K9 (``"allbeams"``), in ``csrc/rdm_variants.cu``. They round to
 ``mul_dtype`` (nearest even) the planes, the filter, D and L, the PC result
 and the DFT result, accumulate every product in float32, and mix the beams
 after the rounded DFT; ``"resident"`` may round its output to bfloat16.
+At bfloat16 the planes-mode PC of K7 and K9 is the strip GEMM of
+``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on the Toeplitz strip
+of each segment's filter, rounded to bfloat16 once per plan, ``strip``),
+which K8 (``studies/pallas_pc.py``) shares.
 
 ``noise_rdm_plain`` is the plain PyTorch version of every schedule,
 ``philox_planes`` that of K1c; the wrappers run the kernels for CUDA
@@ -59,6 +63,8 @@ KERNEL_TILE = 128                     # output gates per block in K1
 
 VARIANTS = ("beams", "resident", "stacked", "allbeams")
 RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
+STRIP_BN = 128                        # gates of a strip-GEMM block
+STRIP_BK = 64                         # k depth of its stages (128-byte rows)
 
 launch_count = 0                      # K1 launches (one per noise_rdm call)
 k4_launch_count = 0                   # K4 launches (rolling=False calls)
@@ -66,6 +72,8 @@ k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
 k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
+strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
+                                      # K9 planes mode and of K8)
 
 
 class RdmSegSpec(NamedTuple):
@@ -79,6 +87,7 @@ class RdmSegSpec(NamedTuple):
     window: int         # padded input window W (128-aligned)
     taps: torch.Tensor  # [lh] complex64 filter h (causal conv)
     mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
+    strip: torch.Tensor  # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
 
     @property
     def xlen(self) -> int:
@@ -108,6 +117,28 @@ def _banded(h: np.ndarray, tile: int) -> np.ndarray:
     return m
 
 
+def toeplitz_strip(col: torch.Tensor, bn: int = STRIP_BN) -> torch.Tensor:
+    """The strip S = M[:bn+lh-1, :bn] of a banded filter M[k, n] =
+    h[n+lh-1-k], from its first column ``col`` = M[:lh, 0] (h reversed), with
+    zero rows up to a multiple of ``STRIP_BK``: [k_pad, bn]. M is Toeplitz,
+    so S gives every bn-gate block of M: M[n0 + k, n0 + n] = S[k, n]."""
+    lh = col.shape[0]
+    k_pad = -(-(bn + lh - 1) // STRIP_BK) * STRIP_BK
+    d = (torch.arange(k_pad, device=col.device)[:, None]
+         - torch.arange(bn, device=col.device)[None, :])
+    return torch.where((d >= 0) & (d < lh), col[d.clamp(0, lh - 1)],
+                       torch.zeros((), dtype=col.dtype, device=col.device))
+
+
+def strip_bf16(mr: torch.Tensor, mi: torch.Tensor, lh: int) -> torch.Tensor:
+    """[2, STRIP_BN, k_pad] bfloat16: the strips of the real and imaginary
+    float32 banded-filter planes ``mr``, ``mi`` [W, T], transposed so k is
+    contiguous (the strip GEMM's K-major operand), each value rounded once to
+    bfloat16 (nearest even, as ``round_mul``)."""
+    return torch.stack([toeplitz_strip(m[:lh, 0]).T for m in (mr, mi)]).to(
+        torch.bfloat16).contiguous()
+
+
 def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
                   lane: int = 128, *, device) -> RdmPlan:
     """Segment geometry identical to the JAX ``make_rdm_plan`` (same
@@ -133,14 +164,15 @@ def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
         w = t + lh - 1
         w_pad = -(-w // 128) * 128
         xlen = (-(-j_len // t) - 1) * t + w_pad
-        mp = np.pad(_banded(h, t), ((0, w_pad - w), (0, 0)))
+        mp = torch.as_tensor(np.pad(_banded(h, t), ((0, w_pad - w), (0, 0)))
+                             ).to(device=device, dtype=c64)
         segs.append(RdmSegSpec(
             c0=c0, r_len=r_len, pad_front=pad_front,
             pad_tail=max(xlen - (pad_front + r_len), 0), j_len=j_len,
             g0=g0, tile=t, window=w_pad,
             taps=torch.as_tensor(np.ascontiguousarray(h)).to(device=device,
                                                              dtype=c64),
-            mp=torch.as_tensor(mp).to(device=device, dtype=c64)))
+            mp=mp, strip=strip_bf16(mp.real, mp.imag, lh)))
         c0 += r_len
         g0 += j_len
     m = np.asarray(mtd_matrix)
@@ -370,10 +402,89 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
     return out
 
 
+def _rows8(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous [B, P, n] as [B*P, n'] rows, n' = n padded with zero
+    columns to a multiple of 8 (TMA's 16-byte row-stride rule)."""
+    pad = -x.shape[-1] % 8
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(-1, x.shape[-1])
+
+
+def strip_pc(segments, rows: int, num_g: int, *, out=None, outr=None,
+             outi=None) -> None:
+    """Launch the strip GEMM (``csrc/band_pc_sm90.cu``, ``strip_pc_kernel``)
+    over up to three segments at once. ``segments``: (xr, xi, strip, j_len,
+    g0) each, with xr, xi bfloat16 [rows, columns] views of a segment's
+    padded sample buffer (unit column stride, a row stride that is a multiple
+    of 8, 16-byte aligned) and ``strip`` its plan's [2, STRIP_BN, k_pad]
+    bfloat16 strip. Writes gates g0 .. g0+j_len-1 of each row of the
+    complex64 ``out`` [rows, num_g], or, rounded, of the bfloat16 planes
+    ``outr``, ``outi`` [rows, num_g]."""
+    bf = torch.bfloat16
+    dst = (out,) if out is not None else (outr, outi)
+    want = torch.complex64 if out is not None else bf
+    dev = dst[0].device
+    if not 1 <= len(segments) <= 3 or any(
+            t is None or t.device != dev or t.dtype != want
+            or not t.is_contiguous() or t.numel() != rows * num_g
+            for t in dst):
+        raise ValueError("strip_pc takes 1-3 segments and a contiguous "
+                         f"{want} output of {rows} x {num_g} on the card")
+    vals = []
+    for xr, xi, strip, j_len, g0 in segments:
+        for x in (xr, xi):
+            if (x.device != dev or x.dtype != bf or x.dim() != 2
+                    or x.shape != xr.shape or x.stride() != xr.stride()
+                    or x.shape[0] != rows or x.stride(1) != 1
+                    or x.stride(0) % 8 or x.data_ptr() % 16):
+                raise ValueError(
+                    "strip_pc samples must be bfloat16 [rows, n] with a row "
+                    "stride that is a multiple of 8, 16-byte aligned")
+        check_strip(strip, dev)
+        vals += [xr.data_ptr(), xi.data_ptr(), xr.shape[1], xr.stride(0),
+                 strip.data_ptr(), strip.shape[2], j_len, g0]
+    launch_strips(vals, rows, num_g,
+                  torch.cuda.current_stream(dev).cuda_stream, out=out,
+                  outr=outr, outi=outi)
+
+
+def check_strip(strip: torch.Tensor, dev) -> None:
+    """Raise unless ``strip`` is a bfloat16 [2, STRIP_BN, k_pad] strip on
+    ``dev`` (k_pad a multiple of STRIP_BK)."""
+    if (strip.device != dev or strip.dtype != torch.bfloat16
+            or strip.dim() != 3 or tuple(strip.shape[:2]) != (2, STRIP_BN)
+            or strip.shape[2] % STRIP_BK or not strip.is_contiguous()):
+        raise ValueError(f"the strip must be bfloat16 [2, {STRIP_BN}, "
+                         f"k * {STRIP_BK}] on the card")
+
+
+def launch_strips(vals, rows: int, num_g: int, stream: int, *, out=None,
+                  outr=None, outi=None) -> None:
+    """``sp_band_pc`` on checked arguments, on ``stream``: ``vals`` holds 8
+    integers a segment (the pointers of xr and xi, their columns and row
+    stride, the strip's pointer and k_pad, j_len, g0), as ``strip_pc``
+    builds them."""
+    global strip_pc_launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("band_pc_sm90")
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    rc = lib.sp_band_pc(len(vals) // 8, (ctypes.c_longlong * len(vals))(*vals),
+                        rows, num_g, int(out is None), ptr(outr), ptr(outi),
+                        ptr(out), stream)
+    _build.check(lib, rc, "sp_band_pc")
+    strip_pc_launch_count += 1
+
+
 def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
                   schedule: str, mul_dtype, out_dtype):
     """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
-    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic."""
+    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic. The bf16 PC of K7
+    and K9 on planes is the strip GEMM (``strip_pc``, one launch for the
+    three segments); draw mode and f32 keep ``rv_band_pc``."""
     global k7_launch_count, k9_launch_count, k10_launch_count
     import ctypes
 
@@ -398,7 +509,16 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     s0, s1 = seed if seed is not None else (0, 0)
-    for si, seg in enumerate(plan.segments):
+    strips = bf16 and planes is not None and schedule != "resident"
+    if strips:
+        segs = []
+        for si, seg in enumerate(plan.segments):
+            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
+            segs.append((_rows8(xr), _rows8(xi), seg.strip, seg.j_len,
+                         seg.g0))
+        strip_pc(segs, num_b * num_p, num_g, outr=pcr, outi=pci)
+    # K10's ring PC, and the PC at f32 or in draw mode: a launch a segment
+    for si, seg in enumerate(() if strips else plan.segments):
         lh = seg.taps.shape[0]
         if planes is not None:
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)

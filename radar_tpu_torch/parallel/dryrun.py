@@ -4,10 +4,11 @@ dryrun_multichip``, in SPMD form.
 
 Each function here is the body of every rank of a :func:`multihost.
 run_ranks` launch (``tests/test_torch_parallel.py``, ``test_torch_ring.py``
-and ``test_torch_dp.py`` launch them as gloo ranks on the CPU): it builds
-its meshes, runs, and returns picklable host results. They live in the
-package, not in ``tests/``, so that a spawned rank imports them without
-importing the tests' JAX.
+and ``test_torch_dp.py`` launch them as gloo ranks on the CPU, passing
+``device="cpu"``): it builds its meshes, runs, and returns picklable host
+results. Like the port's other entry points they default to the card.
+They live in the package, not in ``tests/``, so that a spawned rank
+imports them without importing the tests' JAX.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def sleep_on(rank: int, seconds: float) -> int:
     return dist.get_rank()
 
 
-def layout(device="cpu") -> dict:
+def layout(device="cuda") -> dict:
     """Coordinates, groups and transport of a (2, 2, 2) mesh; the sum of
     the global ranks over each group; the multihost mesh of ch=2 and its
     batch slice (8 ranks)."""
@@ -83,7 +84,7 @@ def layout(device="cpu") -> dict:
     return out
 
 
-def collectives(iq, w, pc, mtd_win, x_cov, device="cpu") -> dict:
+def collectives(iq, w, pc, mtd_win, x_cov, device="cuda") -> dict:
     """``dbf_channel_sharded`` (ch=4), ``mtd_cpi_sharded`` (cpi=4, with an
     inert dp=2) and ``covariance_snapshot_sharded`` (cpi=8) on 8 ranks;
     the whole results."""
@@ -99,7 +100,7 @@ def collectives(iq, w, pc, mtd_win, x_cov, device="cpu") -> dict:
             "cov": cov.cpu().numpy()}
 
 
-def ring(x_halo, halo: int, pc_cases: dict, device="cpu") -> dict:
+def ring(x_halo, halo: int, pc_cases: dict, device="cuda") -> dict:
     """The halo exchange of ``x_halo`` [rows, S] on a ring of every rank
     (each rank's halo, in cpi order along the columns), then
     ``pulse_compress_range_sharded`` with both transports for each case
@@ -130,7 +131,7 @@ def _targets_batch(n: int) -> TargetBatch:
                        snr_db=np.full((n, 1), 20.0))
 
 
-def frames(device="cpu") -> dict:
+def frames(device="cuda") -> dict:
     """The frame processors and Monte-Carlo mesh routes on 4 ranks at small
     widths, with the single-rank runs they must equal, each computed on one
     rank (rank r computes the single-rank frames j with j % 4 == r)."""

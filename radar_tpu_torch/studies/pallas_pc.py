@@ -12,10 +12,18 @@ to ``n_total_gate`` outputs: the arithmetic of
 STUDY ARTIFACT, as in the reference: it lost its integrated A/B on the TPU
 and nothing in the frame calls it; the fused noise-RDM kernels
 (``ops/noise_rdm.py``) own the path and share its banded filter matrix
-(``ops.noise_rdm._banded``). Kernel K8 (``csrc/rdm_variants.cu``,
-``band_pc_kernel`` reading the compact cube) computes it on the card;
-``pulse_compress_noise_plain`` is its plain version, which the wrapper runs
-only for CPU tensors.
+(``ops.noise_rdm._banded``). Kernel K8 computes it on the card. With
+bfloat16 operands (the TPU's default) it is two kernels of
+``csrc/band_pc_sm90.cu``: ``stage_kernel`` writes every segment's padded
+buffer, rounded once, into two bfloat16 planes [2, B*P, ld]
+(``stage_layout``), then the strip GEMM ``strip_pc_kernel`` (TMA + wgmma
+on the Toeplitz strip ``SegSpec.strip``, shared with K7 and K9 through
+``ops.noise_rdm.strip_pc``) computes all three segments in one launch.
+At float32 it is ``band_pc_kernel`` of ``csrc/rdm_variants.cu`` on the
+CUDA cores (TF32 would change the function). ``pulse_compress_noise_plain`` is its plain version, which the
+wrapper runs only for CPU tensors; ``pulse_compress_noise_strips`` is the
+plain twin of the bfloat16 kernels' schedule (same staging, same strips,
+per-block sums), for the tests.
 """
 
 from __future__ import annotations
@@ -25,9 +33,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.noise_rdm import _banded, round_mul
+from ..ops import noise_rdm as nr
+from ..ops.noise_rdm import (STRIP_BN, _banded, round_mul, strip_bf16,
+                             toeplitz_strip)
 
 launch_count = 0          # K8 launches (one per pulse_compress_noise call)
+stage_launch_count = 0    # K8's staging kernel (bf16 calls)
 
 
 class SegSpec(NamedTuple):
@@ -41,12 +52,14 @@ class SegSpec(NamedTuple):
     mr: torch.Tensor      # [W, T] real filter matrix, float32
     mi: torch.Tensor      # [W, T] imag filter matrix
     taps: int             # filter length L (rows of the band per column)
+    strip: torch.Tensor   # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
 
 
 class PallasPCPlan(NamedTuple):
     segments: tuple
     s_compact: int        # total compact-z samples (== sum of r_len)
     n_gates: int
+    stage: tuple          # K8's staged planes: ((off, width) a segment, ld)
 
 
 def make_pallas_pc_plan(precomp, tile: int = 512, *,
@@ -77,12 +90,14 @@ def make_pallas_pc_plan(precomp, tile: int = 512, *,
         m = np.pad(_banded(h, t), ((0, w_pad - w), (0, 0)))
         plane = lambda x: torch.as_tensor(
             np.ascontiguousarray(x.astype(np.float32))).to(device)
+        mr, mi = plane(m.real), plane(m.imag)
         segs.append(SegSpec(c0=c0, r_len=r_len, pad_front=pad_front,
                             pad_tail=max(xlen_needed - (pad_front + r_len), 0),
-                            j_len=j_len, tile=t, window=w_pad,
-                            mr=plane(m.real), mi=plane(m.imag), taps=lh))
+                            j_len=j_len, tile=t, window=w_pad, mr=mr, mi=mi,
+                            taps=lh, strip=strip_bf16(mr, mi, lh)))
         c0 += r_len
-    return PallasPCPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total)
+    return PallasPCPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
+                        stage=stage_layout(segs))
 
 
 def pulse_compress_noise_plain(z: torch.Tensor, plan: PallasPCPlan,
@@ -107,30 +122,112 @@ def pulse_compress_noise_plain(z: torch.Tensor, plan: PallasPCPlan,
     return torch.cat(pieces, dim=-1)
 
 
+def stage_layout(segments) -> tuple:
+    """Where K8's staging puts each segment's padded buffer (zero history,
+    samples, zeros up to a multiple of 8 columns, TMA's 16-byte row rule) in
+    its bf16 planes: ((off, width) per segment, row length ld)."""
+    cols, off = [], 0
+    for seg in segments:
+        width = -(-(seg.pad_front + seg.r_len) // 8) * 8
+        cols.append((off, width))
+        off += width
+    return tuple(cols), off
+
+
+def stage_planes_plain(z: torch.Tensor, plan: PallasPCPlan,
+                       dtype=torch.bfloat16):
+    """Plain version of K8's staging kernel: compact z [B, P, s_compact] ->
+    (xr, xi) [B*P, ld] ``dtype`` in the layout of ``stage_layout``."""
+    rows = z.shape[0] * z.shape[1]
+    cols, ld = plan.stage
+    zf = z.reshape(rows, z.shape[2])
+    xr = torch.zeros((rows, ld), dtype=dtype, device=z.device)
+    xi = torch.zeros_like(xr)
+    for seg, (off, _) in zip(plan.segments, cols):
+        a = off + seg.pad_front
+        piece = zf[:, seg.c0:seg.c0 + seg.r_len]
+        xr[:, a:a + seg.r_len] = piece.real.to(dtype)
+        xi[:, a:a + seg.r_len] = piece.imag.to(dtype)
+    return xr, xi
+
+
+def pulse_compress_noise_strips(z: torch.Tensor, plan: PallasPCPlan,
+                                mul_dtype=torch.bfloat16,
+                                bn: int = STRIP_BN) -> torch.Tensor:
+    """Plain twin of the bf16 kernels' schedule: the staged planes
+    (``stage_planes_plain``), then per segment and bn-gate block j0 the
+    product of the samples j0 .. j0+k_pad-1 of every row (zeros beyond the
+    segment's buffer, as TMA fills them) with the strip
+    (``ops.noise_rdm.toeplitz_strip`` of the rounded filter), float32 sums.
+    Same function as ``pulse_compress_noise_plain``."""
+    num_b, num_p, _ = z.shape
+    xr, xi = stage_planes_plain(z, plan, mul_dtype)
+    x = torch.complex(xr.float(), xi.float())
+    pieces = []
+    for seg, (off, width) in zip(plan.segments, plan.stage[0]):
+        col = lambda m: toeplitz_strip(round_mul(m[:seg.taps, 0], mul_dtype),
+                                       bn)
+        s = torch.complex(col(seg.mr), col(seg.mi)).to(z.device)
+        k_pad, nb = s.shape[0], -(-seg.j_len // bn)
+        xs = torch.nn.functional.pad(
+            x[:, off:off + width], (0, max((nb - 1) * bn + k_pad - width, 0)))
+        y = torch.matmul(xs.unfold(-1, k_pad, bn)[:, :nb], s)
+        pieces.append(y.reshape(x.shape[0], nb * bn)[:, :seg.j_len])
+    return torch.cat(pieces, dim=-1).reshape(num_b, num_p, plan.n_gates)
+
+
 def _pc_cuda(z: torch.Tensor, plan: PallasPCPlan, mul_dtype):
-    global launch_count
+    global launch_count, stage_launch_count
     import ctypes
 
     from .. import _build
 
-    lib = _build.load("rdm_variants")
     dev = z.device
     num_b, num_p, s_c = z.shape
-    z = z.to(torch.complex64).contiguous()
+    if z.dtype != torch.complex64 or not z.is_contiguous():
+        z = z.to(torch.complex64).contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = mul_dtype == torch.bfloat16
+    if bf16:
+        # the staging kernel first, then, while it runs, the strip GEMM's
+        # arguments and launch (the strips' type and shape are the plan's)
+        if any(seg.strip.device != dev for seg in plan.segments):
+            raise ValueError("the plan's strips must be on z's device")
+        lib = _build.load("band_pc_sm90")
+        rows = num_b * num_p
+        cols, ld = plan.stage
+        x = torch.empty((2, rows, ld), dtype=torch.bfloat16, device=dev)
+        vals = [v for seg, (off, width) in zip(plan.segments, cols)
+                for v in (seg.c0, seg.r_len, seg.pad_front, off, width)]
+        rc = lib.sp_stage(z.data_ptr(), s_c, rows, len(cols),
+                          (ctypes.c_int * len(vals))(*vals), ld,
+                          x.data_ptr(), stream)
+        _build.check(lib, rc, "sp_stage")
+        stage_launch_count += 1
+        out = torch.empty((num_b, num_p, plan.n_gates),
+                          dtype=torch.complex64, device=dev)
+        # each segment's columns of the two planes (16-byte aligned: the
+        # offsets and ld are multiples of 8)
+        xr, xi, vals, g0 = x.data_ptr(), x.data_ptr() + 2 * rows * ld, [], 0
+        for seg, (off, width) in zip(plan.segments, cols):
+            vals += [xr + 2 * off, xi + 2 * off, width, ld,
+                     seg.strip.data_ptr(), seg.strip.shape[2], seg.j_len, g0]
+            g0 += seg.j_len
+        nr.launch_strips(vals, rows, plan.n_gates, stream, out=out)
+        launch_count += 1
+        return out
+    if any(seg.mr.device != dev for seg in plan.segments):
+        raise ValueError("the plan's filters must be on z's device")
     out = torch.empty((num_b, num_p, plan.n_gates), dtype=torch.complex64,
                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("rdm_variants")
     g0 = 0
     for seg in plan.segments:
-        if seg.mr.device != dev:
-            raise ValueError("the plan's filters must be on z's device")
-        mr = round_mul(seg.mr, mul_dtype).contiguous()
-        mi = round_mul(seg.mi, mul_dtype).contiguous()
-        rc = lib.rv_band_pc(int(mul_dtype == torch.bfloat16), 1, None, None,
-                            z.data_ptr(), s_c, seg.c0, seg.r_len,
-                            seg.pad_front, 0, 0, 0, ctypes.c_float(0.0),
-                            mr.data_ptr(), mi.data_ptr(), seg.window,
-                            seg.tile, seg.taps, num_b, num_p, seg.j_len, g0,
+        rc = lib.rv_band_pc(0, 1, None, None, z.data_ptr(), s_c, seg.c0,
+                            seg.r_len, seg.pad_front, 0, 0, 0,
+                            ctypes.c_float(0.0), seg.mr.data_ptr(),
+                            seg.mi.data_ptr(), seg.window, seg.tile,
+                            seg.taps, num_b, num_p, seg.j_len, g0,
                             plan.n_gates, None, None, out.data_ptr(), stream)
         _build.check(lib, rc, "rv_band_pc")
         g0 += seg.j_len
@@ -143,7 +240,9 @@ def pulse_compress_noise(z: torch.Tensor, plan: PallasPCPlan,
     """White-noise PC: compact z [beams, pulses, s_compact] complex ->
     [beams, pulses, n_gates] complex64, with ``mul_dtype`` (float32 or
     bfloat16) operands and float32 sums and output. A CUDA ``z`` runs K8
-    (or raises); a CPU ``z`` the plain version."""
+    (or raises): at bfloat16 the staging kernel and the strip GEMM, at
+    float32 the CUDA-core banded GEMM. A CPU ``z`` runs the plain
+    version."""
     if z.dim() != 3 or z.shape[2] != plan.s_compact:
         raise ValueError(f"z must be [B, P, {plan.s_compact}], got "
                          f"{tuple(z.shape)}")

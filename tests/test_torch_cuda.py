@@ -1,9 +1,10 @@
 """PyTorch port on the card: kernels K1, K1c, K2, K3, K4, K5, K6, K7, K8,
 K9 and K10 against their plain PyTorch versions (K6 on a ring of two ranks
-sharing the card, through ``run_ranks``), the perf-config frame (each
-noise-RDM route) and the reference-stream frame through the kernels
-against the plain path on the CPU, and a small SNR sweep. Marked ``cuda``;
-each test skips without an NVIDIA GPU.
+sharing the card, through ``run_ranks``; K8 at bf16, the staging kernel
+and the strip GEMM, also at ragged shapes and with probe inputs), the
+perf-config frame (each noise-RDM route) and the reference-stream frame
+through the kernels against the plain path on the CPU, and a small SNR
+sweep. Marked ``cuda``; each test skips without an NVIDIA GPU.
 
 This file imports neither JAX nor ``radar_tpu``, so it also runs where
 JAX is not installed (the suite's conftest.py needs JAX):
@@ -342,6 +343,119 @@ def test_k8_matches_plain_on_card(cuda_device, dtype):
                                      to_device(nplan, "cpu")).permute(2, 0, 1)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-5, atol=2e-4)
+
+
+def _ragged_plan(lh, gates, device, seed=1, unit=False):
+    """A K8 plan with chosen filter lengths and segment gates (random
+    complex taps, or all ones with ``unit``), from a stand-in for
+    ``precompute``'s output (what ``make_pallas_pc_plan`` reads)."""
+    from types import SimpleNamespace
+
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    rng = np.random.default_rng(seed)
+    taps = [np.ones(n, np.complex128) if unit else
+            rng.normal(size=n) + 1j * rng.normal(size=n) for n in lh]
+    g1, g2, g3 = gates
+    pre = SimpleNamespace(gate_splits=(g1, g2, g3), n_total_gate=g1 + g2 + g3,
+                          fir_delay=lh[0] // 2, mf_narrow=taps[0],
+                          mf_medium_win=taps[1], mf_long_win=taps[2])
+    return ppc.make_pallas_pc_plan(pre, tile=128, device=device)
+
+
+def _cube(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=shape) + 1j * rng.normal(
+        size=shape)).astype(np.complex64)).to(device)
+
+
+# every ragged edge of the strip GEMM: 135 rows (not a multiple of 128),
+# gates 37 (fewer than a 128-gate block), 300 and 700 (not multiples of
+# 128), filters of 5 taps and of 90 and 300 (shorter and longer than a
+# block), segments starting at odd gates (37, 337)
+RAGGED = ((5, 90, 300), (37, 300, 700), (3, 45))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "ragged"])
+def test_k8_strip_gemm_matches_plain_on_card(cuda_device, shape):
+    """K8 at bf16 (staging kernel + strip GEMM) vs its plain version and the
+    plain twin of its schedule: RMS of the difference within 1e-4 of the
+    RMS (the same rounded operands, f32 sums in another order); each of its
+    launch counters moves once."""
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    if shape == "small":
+        plan = ppc.make_pallas_pc_plan(
+            precompute(small_test_config(channels=8, pulses=8)),
+            device=cuda_device)
+        bp = (3, 8)
+    else:
+        plan = _ragged_plan(*RAGGED[:2], cuda_device)
+        bp = RAGGED[2]
+    z = _cube(bp + (plan.s_compact,), 0, cuda_device)
+    before = (ppc.launch_count, ppc.stage_launch_count,
+              nr.strip_pc_launch_count)
+    got = ppc.pulse_compress_noise(z, plan)
+    torch.cuda.synchronize()
+    assert (ppc.launch_count, ppc.stage_launch_count,
+            nr.strip_pc_launch_count) == tuple(n + 1 for n in before)
+    ref = ppc.pulse_compress_noise_plain(z, plan)
+    twin = ppc.pulse_compress_noise_strips(z, plan)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rms(got - ref) <= 1e-4 * _rms(ref)
+    assert _rms(got - twin) <= 1e-4 * _rms(ref)
+
+
+@pytest.mark.cuda
+def test_k8_delta_and_one_tap_probes_on_card(cuda_device):
+    """Inputs that locate layout faults, held exactly (every output is one
+    bf16 product with 1, the other terms 0): a unit delta in every row
+    recovers the rounded filter at its place, and one-tap unit filters
+    recover the rounded input."""
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    plan = _ragged_plan(*RAGGED[:2], cuda_device)
+    num_b, num_p = RAGGED[2]
+    z = torch.zeros((num_b, num_p, plan.s_compact), dtype=torch.complex64,
+                    device=cuda_device)
+    pos = torch.arange(num_b * num_p, device=cuda_device) * 7 % plan.s_compact
+    z.view(-1, plan.s_compact)[torch.arange(num_b * num_p), pos] = 1.0
+    got = ppc.pulse_compress_noise(z, plan)
+    ref = ppc.pulse_compress_noise_plain(z, plan)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)
+
+    one = _ragged_plan((1, 1, 1), RAGGED[1], cuda_device, unit=True)
+    z = _cube((num_b, num_p, one.s_compact), 3, cuda_device)
+    got = ppc.pulse_compress_noise(z, one)
+    ref = ppc.pulse_compress_noise_plain(z, one)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["stacked", "allbeams"])
+def test_k7_k9_planes_pc_runs_the_strip_gemm_on_card(cuda_device, variant):
+    """At bf16 the planes-mode PC of K7 and K9 is one strip-GEMM launch and
+    the map holds 3e-4 RMS against the plain version; f32 and draw mode
+    keep their own GEMM (the strip counter stays)."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    planes = nr.philox_planes(lr.rplan, (3, 5), 5, device=cuda_device)
+    bf = torch.bfloat16
+    before = nr.strip_pc_launch_count
+    got = nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes, variant=variant,
+                       mul_dtype=bf, layout="bvg")
+    torch.cuda.synchronize()
+    assert nr.strip_pc_launch_count == before + 1
+    ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, mul_dtype=bf)
+    assert _rms(got - ref) <= 3e-4 * _rms(ref)
+    nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes, variant=variant,
+                 layout="bvg")
+    nr.noise_rdm(lr.rplan, lr.l_factor, seed=(3, 5), stacked=True,
+                 mul_dtype=bf, layout="bvg")
+    torch.cuda.synchronize()
+    assert nr.strip_pc_launch_count == before + 1
 
 
 @pytest.mark.cuda

@@ -23,7 +23,7 @@ FIELDS = ("range_m", "velocity_ms", "angle_deg", "power")
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_ranks(dryrun.frames, 4, device="cpu", timeout=300)
+    return run_ranks(dryrun.frames, 4, "cpu", device="cpu", timeout=300)
 
 
 def _merged(ranks, key):

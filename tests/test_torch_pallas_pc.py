@@ -7,10 +7,14 @@ Tolerances: the plan's integers exact and its filter planes within 1e-7;
 at float32 rtol 1e-5, atol 2e-4 (as tests/test_pallas.py: f32 sums of up
 to 700 terms in another order); at bfloat16 the RMS of the difference
 within 1e-4 of the RMS (same rounded operands, f32 sums in another order,
-no intermediate rounding). The kernel runs only on the card (tests marked
-``cuda``, in test_torch_cuda.py)."""
+no intermediate rounding). The plain twin of the bfloat16 kernels' schedule
+(staged planes, Toeplitz strips, one product per 128-gate block) is held
+the same way, and the strips exactly. The kernel runs only on the card
+(tests marked ``cuda``, in test_torch_cuda.py)."""
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,8 @@ from radar_tpu.studies.pallas_pc import (make_pallas_pc_plan as j_plan,
                                          pulse_compress_noise_pallas)
 from radar_tpu.waveform.precompute import precompute as j_precompute
 
+from radar_tpu_torch.ops.noise_rdm import (STRIP_BK, STRIP_BN, round_mul,
+                                          toeplitz_strip)
 from radar_tpu_torch.ops.pulse_compression import (compact_noise_plan,
                                                    make_matmul_plan,
                                                    pulse_compress_matmul,
@@ -105,3 +111,115 @@ def test_arguments_are_checked(setup):
         ppc.pulse_compress_noise(z[..., 1:], setup["plan"])
     with pytest.raises(ValueError):
         ppc.pulse_compress_noise(z, setup["plan"], mul_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("tile", [512, 128])
+def test_strip_reproduces_every_column_block(setup, tile, bn):
+    """The plan's banded matrices are Toeplitz (zero off the band), so the
+    strip S = M[:bn+lh-1, :bn] built from M's first column gives every
+    bn-gate column block of M: M[n0 + k, n0 + n] = S[k, n]; S is zero in
+    its padding rows."""
+    plan = ppc.make_pallas_pc_plan(setup["tpre"], tile=tile, device="cpu")
+    for seg in plan.segments:
+        lh = seg.taps
+        m = torch.complex(seg.mr, seg.mi)
+        k, n = torch.meshgrid(torch.arange(m.shape[0]),
+                              torch.arange(m.shape[1]), indexing="ij")
+        band = (k >= n) & (k < n + lh)
+        assert not bool(m[~band].abs().any())
+        assert torch.equal(m[band], m[:lh, 0][(k - n)[band]])
+        s = torch.complex(toeplitz_strip(seg.mr[:lh, 0], bn),
+                          toeplitz_strip(seg.mi[:lh, 0], bn))
+        assert s.shape[0] % STRIP_BK == 0 and s.shape[0] >= bn + lh - 1
+        assert not bool(s[bn + lh - 1:].abs().any())
+        for n0 in range(0, seg.tile, bn):
+            assert torch.equal(m[n0:n0 + bn + lh - 1, n0:n0 + bn],
+                               s[:bn + lh - 1])
+
+
+@pytest.mark.parametrize("tile", [512, 128])
+def test_cached_strip_is_the_rounded_f32_strip(setup, tile):
+    """``SegSpec.strip`` (bfloat16, k contiguous) equals ``round_mul`` of
+    the float32 strip M[:STRIP_BN+lh-1, :STRIP_BN] bit for bit."""
+    plan = ppc.make_pallas_pc_plan(setup["tpre"], tile=tile, device="cpu")
+    for seg in plan.segments:
+        band = STRIP_BN + seg.taps - 1
+        assert seg.strip.dtype == torch.bfloat16 and seg.strip.is_contiguous()
+        assert seg.strip.shape[:2] == (2, STRIP_BN)
+        for plane, m in zip(seg.strip, (seg.mr, seg.mi)):
+            got = plane.T.float()
+            assert torch.equal(got[:band], round_mul(m[:band, :STRIP_BN],
+                                                     torch.bfloat16))
+            assert not bool(got[band:].any())
+
+
+def test_stage_layout_and_planes(setup):
+    """K8's staged planes: each segment's buffer (zero history, its compact
+    samples rounded once, zeros) at an 8-aligned column offset, widths
+    multiples of 8 covering the row."""
+    plan, z = setup["plan"], torch.from_numpy(setup["z"])
+    cols, ld = plan.stage
+    assert plan.stage == ppc.stage_layout(plan.segments)
+    assert ld == sum(w for _, w in cols) and ld % 8 == 0
+    xr, xi = ppc.stage_planes_plain(z, plan)
+    assert xr.shape == (z.shape[0] * z.shape[1], ld)
+    assert xr.dtype == torch.bfloat16
+    zf = z.reshape(xr.shape[0], -1)
+    for seg, (off, width) in zip(plan.segments, cols):
+        assert off % 8 == 0 and width % 8 == 0
+        assert width - 8 < seg.pad_front + seg.r_len <= width
+        a = off + seg.pad_front
+        want = zf[:, seg.c0:seg.c0 + seg.r_len]
+        assert torch.equal(xi[:, a:a + seg.r_len], want.imag.to(xi.dtype))
+        assert torch.equal(xr[:, a:a + seg.r_len], want.real.to(xr.dtype))
+        assert not bool(xr[:, off:a].float().any())
+        assert not bool(xr[:, a + seg.r_len:off + width].float().any())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_strip_schedule_matches_jax_kernel(setup, dtype):
+    """The plain twin of the bf16 kernels' schedule (stage, then strips per
+    128-gate block) vs JAX ``pulse_compress_noise_pallas(interpret=True)``,
+    as ``test_matches_jax_kernel``."""
+    jmd, tmd = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    z = setup["z"]
+    want = np.asarray(pulse_compress_noise_pallas(
+        jnp.asarray(z), j_plan(setup["jpre"]), interpret=True,
+        mul_dtype=jmd))
+    got = ppc.pulse_compress_noise_strips(torch.from_numpy(z), setup["plan"],
+                                          mul_dtype=tmd)
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-4)
+    else:
+        assert _rms(got.numpy() - want) <= 1e-4 * _rms(want)
+
+
+def _ragged_precomp(lh, gates, seed=1):
+    """A stand-in for ``precompute``'s output with chosen filter lengths and
+    segment gates (what ``make_pallas_pc_plan`` reads)."""
+    rng = np.random.default_rng(seed)
+    taps = [rng.normal(size=n) + 1j * rng.normal(size=n) for n in lh]
+    g1, g2, g3 = gates
+    return SimpleNamespace(gate_splits=(g1, g2, g3), n_total_gate=g1 + g2 + g3,
+                           fir_delay=lh[0] // 2, mf_narrow=taps[0],
+                           mf_medium_win=taps[1], mf_long_win=taps[2])
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+def test_strip_schedule_on_ragged_edges(bn):
+    """The twin equals the plain version (f32) where every edge is ragged:
+    rows not a multiple of 128, gates not a multiple of the block, filters
+    shorter and longer than it, a segment narrower than one block."""
+    pre = _ragged_precomp((5, 90, 300), (37, 300, 700))
+    plan = ppc.make_pallas_pc_plan(pre, tile=128, device="cpu")
+    rng = np.random.default_rng(4)
+    shape = (3, 45, plan.s_compact)
+    z = torch.from_numpy((rng.normal(size=shape) + 1j * rng.normal(size=shape)
+                          ).astype(np.complex64))
+    want = ppc.pulse_compress_noise_plain(z, plan, torch.float32)
+    got = ppc.pulse_compress_noise_strips(z, plan, torch.float32, bn=bn)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-4)

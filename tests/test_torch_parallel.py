@@ -28,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def layout():
-    return run_ranks(dryrun.layout, 8, device="cpu", timeout=180)
+    return run_ranks(dryrun.layout, 8, "cpu", device="cpu", timeout=180)
 
 
 def _rand_c(rng, shape):
@@ -44,7 +44,7 @@ def collectives():
     pc = _rand_c(np.random.default_rng(2), (32, 64, 3))
     x = _rand_c(np.random.default_rng(3), (16, 256))
     win = np.asarray(precompute(small_test_config(pulses=32)).mtd_win)
-    ranks = run_ranks(dryrun.collectives, 8, iq, w, pc, win, x,
+    ranks = run_ranks(dryrun.collectives, 8, iq, w, pc, win, x, "cpu",
                       device="cpu", timeout=180)
     jax_out = {
         "dbf": np.asarray(dbf_channel_sharded(j_make_mesh(ch=4), "ch")(

@@ -11,8 +11,12 @@ at bfloat16 the RMS of the difference within 1e-4: both sides round the
 same values at the same points, but a sum taken in another order can move
 an intermediate across a bf16 rounding boundary (2^-8 on that element);
 with bf16 output planes 2e-4, and the output rounding itself exact.
-Each case makes one JAX call. The kernels themselves run only on the card
-(tests marked ``cuda``, in test_torch_cuda.py)."""
+Each case makes one JAX call. The bfloat16 strips of the plan, which the
+strip GEMM of K7 and K9 multiplies by, are held exactly, and the strip
+schedule on the planes against the plain version's banded windows (rtol
+1e-5: the same products, f32 sums in another order). The kernels
+themselves run only on the card (tests marked ``cuda``, in
+test_torch_cuda.py)."""
 
 from __future__ import annotations
 
@@ -172,3 +176,53 @@ def test_draw_mode_refuses_planes_schedules(setup, kwargs, error):
     planes."""
     with pytest.raises(error):
         nr.noise_rdm(setup["plan"], setup["lt"], seed=SEED, **kwargs)
+
+
+def test_rdm_plan_strip_is_the_rounded_toeplitz_block(setup):
+    """``RdmSegSpec.strip`` equals ``round_mul`` of the float32 strip
+    mp[:STRIP_BN+lh-1, :STRIP_BN] bit for bit (k contiguous, zero padding
+    rows), and mp is the Toeplitz band that strip describes."""
+    bf = torch.bfloat16
+    for seg in setup["plan"].segments:
+        lh = seg.taps.shape[0]
+        band = nr.STRIP_BN + lh - 1
+        assert seg.strip.dtype == bf and seg.strip.shape[:2] == (2, 128)
+        assert seg.strip.shape[2] % nr.STRIP_BK == 0
+        m = nr.round_mul(seg.mp, bf)
+        for plane, part in zip(seg.strip, (m.real, m.imag)):
+            got = plane.T.float()
+            assert torch.equal(got[:band], part[:band, :nr.STRIP_BN])
+            assert not bool(got[band:].any())
+        col = seg.mp[:lh, 0]
+        s = torch.complex(nr.toeplitz_strip(col.real),
+                          nr.toeplitz_strip(col.imag))
+        assert torch.equal(seg.mp[:band, :nr.STRIP_BN], s[:band])
+        assert not bool(seg.mp[band:].abs().any())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_strip_schedule_on_planes_equals_banded_windows(setup, dtype):
+    """The strip GEMM's schedule on the planes of ``planes_from_compact``
+    (rows flattened, each 128-gate block j0 the product of samples j0 ..
+    j0+k_pad-1, zeros past the buffer, with the strip) equals the plain
+    version's product of [W, T] windows with mp, per segment."""
+    md = DTYPES[dtype][1]
+    plan = setup["plan"]
+    planes = nr.planes_from_compact(torch.from_numpy(setup["z"]), plan, md)
+    for seg, (xr, xi) in zip(plan.segments, planes):
+        x = torch.complex(xr.float(), xi.float())
+        mp = nr.round_mul(seg.mp, md)
+        want = torch.matmul(x.unfold(-1, seg.window, seg.tile), mp)
+        want = want.reshape(*x.shape[:2], -1)[..., :seg.j_len]
+        lh = seg.taps.shape[0]
+        s = torch.complex(nr.toeplitz_strip(mp[:lh, 0].real),
+                          nr.toeplitz_strip(mp[:lh, 0].imag))
+        k_pad, bn = s.shape[0], nr.STRIP_BN
+        nb = -(-seg.j_len // bn)
+        rows = x.reshape(-1, x.shape[-1])
+        rows = torch.nn.functional.pad(
+            rows, (0, max((nb - 1) * bn + k_pad - rows.shape[1], 0)))
+        got = torch.matmul(rows.unfold(-1, k_pad, bn)[:, :nb], s)
+        got = got.reshape(*x.shape[:2], nb * bn)[..., :seg.j_len]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-4 * _rms(want.numpy()))

@@ -68,7 +68,7 @@ def ranks():
         if n == 4:
             cases["c128"] = ((1, 1, 4),) + _convolve_input() + (128,)
         out[n] = run_ranks(dryrun.ring, n, _halo_input(n), HALO, cases,
-                           device="cpu", timeout=180)[0]
+                           "cpu", device="cpu", timeout=180)[0]
     return out
 
 
