@@ -16,10 +16,11 @@ targets:
   configurations, at small widths against the CPU, and in the multi-frame
   driver ``run_multiframe``;
 - the checks of ``scripts/validate_rdm_gen.py``: K1 fed the planes that
-  kernel K1c exports equals K1 draw mode bit for bit, kernel K4 (the
-  window schedule) against K1, and the moments of K1's draws against the
-  "pallas" route's torch-drawn planes; K1c and K4 against their plain
-  versions;
+  kernel K1c exports (one launch for every segment) equals K1 draw mode
+  bit for bit, kernel K4 (the window schedule) against K1, and the moments
+  of K1's draws against the "pallas" route's torch-drawn planes; K1c and
+  K4 against their plain versions, and K1c's integer issue bound from the
+  SASS of its loop (``cuobjdump``);
 - the rank-K stream's three noise-RDM routes (``pallas_prng``, ``pallas``
   with normal and uniform rails, ``xla``) at full size and, at small
   widths, against the CPU;
@@ -43,8 +44,12 @@ targets:
   ``run_ranks``, all on one card (gloo, plain collectives staged through
   the host) or one per card on NCCL with 4 cards. ``range_rdma`` runs the
   range-sharded PC of a full frame's beams (4316 rows x 5819 samples,
-  700-tap matched filter) with kernel K6's peer-store halo ring and holds
-  it bit for bit against the plain ring; ``perf_dp_fused``/``perf_dp_xla``
+  700-tap matched filter) with kernel K6's peer-store halo ring, whose
+  push and fill kernels build each rank's overlap-save FFT input in place,
+  and holds the halo, the FFT input and the output bit for bit against
+  the plain ring (then times the push, the fill, a whole exchange and the
+  FFT input built through the [rows, halo] contract, cat and pad, one rank
+  at a time, beside copy_); ``perf_dp_fused``/``perf_dp_xla``
   run 4 perf frames at dp=4, ``stream``/``lowrank`` one frame sharded over
   (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
   perf sweep and a streaming MC at dp=4, each against its single-rank run.
@@ -110,6 +115,33 @@ def _time_pair(kernel, plain, reps: int = 5):
     tk = _event_ms(kernel, 2 * reps)
     tp += _event_ms(plain, reps)
     return statistics.median(tk), statistics.median(tp)
+
+
+def _one_event_ms(fn, busy: bool = True) -> tuple:
+    """(CUDA-event ms, host ms) of one call of ``fn``; ``busy`` puts a
+    sleep kernel ahead of the first event, so that the card is still busy
+    while the host launches ``fn`` and the events hold device time only,
+    not the host's work before the first launch."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if busy:
+        torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), host
+
+
+def _busy_event_ms(fn, reps: int = 10):
+    """(median CUDA-event ms, median host ms) of ``fn`` on a card kept
+    busy (``_one_event_ms``)."""
+    busy, host = zip(*(_one_event_ms(fn) for _ in range(reps)))
+    return statistics.median(busy), statistics.median(host)
 
 
 def _found(rows, truth, dr: float, dv: float) -> list:
@@ -262,6 +294,68 @@ def _rel_rms(a, b) -> float:
 def _bytes_ms(*tensors) -> float:
     """Least time to move each tensor once at the HBM rate."""
     return sum(t.numel() * t.element_size() for t in tensors) / PEAK_HBM * 1e3
+
+
+# Hopper's integer pipes, each 64 lanes an SM and clock: the IMAD family
+# (IMAD, IMAD.WIDE, IMAD.HI, IMAD.MOV, IMAD.X) on the FMA-heavy pipe, the
+# other integer instructions on the ALU pipe; the four schedulers of an SM
+# issue 128 lanes' instructions a clock in all.
+IMAD_OPS = ("IMAD",)
+ALU_OPS = ("IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT",
+           "MOV", "IMNMX", "IABS", "BMSK", "SGXT")
+PEAK_PIPE_PER_SM = 64
+PEAK_ISSUE_PER_SM = 128
+
+
+def _loop_sass(lib_path: str, kernel: str) -> dict:
+    """The SASS of the longest loop of ``kernel`` in the compiled library
+    (``cuobjdump -sass``): its instruction counts by opcode, the samples
+    one pass stores (two 16-byte stores, re and im, per 4 samples), and per
+    sample its FMA-heavy-pipe instructions (``IMAD_OPS``; IMAD.WIDE counted
+    once, and twice in ``imad_wide2_per_sample``), its ALU-pipe ones
+    (``ALU_OPS``) and all its instructions; ``clocks_per_sample`` is the
+    SM clocks a sample takes at the busiest of these rates (pipes at
+    ``PEAK_PIPE_PER_SM``, issue at ``PEAK_ISSUE_PER_SM``), and
+    ``clocks_per_sample_wide2`` the same with IMAD.WIDE at two slots."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    _require(len(funcs) == 1, f"one SASS function named {kernel}")
+    ins = [(int(a, 16), op, line) for a, op, line in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][A-Z0-9_.]+)([^;]*)",
+        funcs[0])]
+    loops = [(int(m.group(1), 16), a) for a, op, line in ins
+             if op.split()[-1] == "BRA" and
+             (m := re.search(r"0x([0-9a-f]+)", line)) and
+             int(m.group(1), 16) < a]
+    _require(len(loops) >= 1, f"a loop in {kernel}")
+    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
+    body = [op.split()[-1] for a, op, _ in ins if lo <= a <= hi]
+    hist = {}
+    for op in body:
+        hist[op] = hist.get(op, 0) + 1
+    count = lambda ops: sum(n for op, n in hist.items()
+                            if op.split(".")[0] in ops)
+    stores = sum(n for op, n in hist.items()
+                 if op.startswith("STG") and ".128" in op)
+    _require(stores >= 2 and stores % 2 == 0,
+             f"{kernel}'s loop stores 16-byte vectors to both planes")
+    samples = 2 * stores
+    wide = sum(n for op, n in hist.items() if op.startswith("IMAD.WIDE"))
+    imad, alu = count(IMAD_OPS) / samples, count(ALU_OPS) / samples
+    every = sum(hist.values()) / samples
+    clocks = lambda fma: max(fma / PEAK_PIPE_PER_SM, alu / PEAK_PIPE_PER_SM,
+                             every / PEAK_ISSUE_PER_SM)
+    return {"ops": hist, "samples": samples, "imad_per_sample": imad,
+            "imad_wide2_per_sample": imad + wide / samples,
+            "alu_per_sample": alu, "all_per_sample": every,
+            "clocks_per_sample": clocks(imad),
+            "clocks_per_sample_wide2": clocks(imad + wide / samples)}
 
 
 def _validate_rdm_gen(nr, lr_prng, lr_uni, lr_norm, plan, lmat, dev, counts,
@@ -582,27 +676,14 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     gemm_ms = _named_ms(split, "strip_pc_kernel")
     _require(stage_ms > 0.0 and gemm_ms > 0.0,
              "the profiler saw K8's staging kernel and strip GEMM")
-    # K8's events on a card kept busy (a sleep kernel ahead of the first
-    # event) and the host's time per call: on an idle card the events also
-    # hold the host work before the first launch
-    busy, host = [], []
-    for _ in range(10):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        t0 = time.perf_counter()
-        ppc.pulse_compress_noise(z, pplan)
-        host.append((time.perf_counter() - t0) * 1e3)
-        b.record()
-        b.synchronize()
-        busy.append(a.elapsed_time(b))
+    # K8's events on a card kept busy and the host's time per call: on an
+    # idle card the events also hold the host work before the first launch
+    busy, host = _busy_event_ms(lambda: ppc.pulse_compress_noise(z, pplan))
     rows = num_b * num_p
     walked = sum(-(-rows // 128) * 128 * -(-sg.j_len // 128) * 128
                  * sg.strip.shape[2] for sg in pplan.segments)
     rate = {"stage_ms": stage_ms, "gemm_ms": gemm_ms,
-            "busy_card_ms": statistics.median(busy),
-            "host_ms": statistics.median(host),
+            "busy_card_ms": busy, "host_ms": host,
             "gemm_tflops_band": 8.0 * walked / gemm_ms / 1e9,
             "gemm_tflops_direct": 8.0 * macs / gemm_ms / 1e9,
             "band_gflop": 8.0 * walked / 1e9,
@@ -668,11 +749,12 @@ def _multichip_rank() -> dict:
     c64 = torch.complex64
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
-                      "K6": ring.k6_launch_count}
+                      "K6": ring.k6_launch_count,
+                      "K6_fill": ring.k6_fill_count}
 
     def reset():
         nr.launch_count = ck.launch_count = ck.k3_launch_count = 0
-        k5.launch_count = ring.k6_launch_count = 0
+        k5.launch_count = ring.k6_launch_count = ring.k6_fill_count = 0
 
     truth = TargetBatch.make([3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0],
                              [10.0, 15.0])
@@ -710,18 +792,22 @@ def _multichip_rank() -> dict:
     ex = f_rd.exchange
     k6_halo = ex(xl)
     plain_halo = ring.halo_right_plain(xl, ring_mesh, halo)
-    arm = {"launches": launches, "shape": [rows, xl.shape[1], halo, 8],
+    arm = {"launches": launches, "shape": [rows, xl.shape[1], halo, 8, nfft],
            "halo_identical": bool(torch.equal(k6_halo, plain_halo)),
            "halo_max_abs_err": float((k6_halo - plain_halo).abs().max()),
            "halo_nonzero": bool(plain_halo.abs().max() > 0),
            "output_identical": bool(torch.equal(y_rd, y_pp))}
+    plain_in = ring.overlap_save_input_plain(xl, ring_mesh, halo, nfft)
+    arm["os_input_identical"] = bool(torch.equal(
+        ex.overlap_save_input(xl), plain_in))
     y = gather_along(y_rd, ring_mesh, "cpi", 1)[:, :num_s]
     if rank == 0:
         hf = torch.fft.fft(torch.as_tensor(taps).to(dev, c64), n=8192)
         ref = torch.fft.ifft(torch.fft.fft(x, n=8192) * hf)[:, :num_s]
         arm["err_over_max"] = float((y - ref).abs().max()
                                     / ref.abs().max())
-    del y, x
+    ex.check()
+    del y, x, plain_in
 
     def in_turns(fn) -> None:
         """``fn`` on one rank at a time, the others waiting at a barrier."""
@@ -731,49 +817,72 @@ def _multichip_rank() -> dict:
                 fn()
                 torch.cuda.synchronize()
 
-    def timed(fn, reps: int = 7, turns: bool = False, after_rep=None,
-              busy: bool = False, host: list | None = None) -> float:
+    def event_ms(fn, busy: bool, ts: list, host: list | None) -> None:
+        """``_one_event_ms`` of ``fn`` into ``ts`` (its host ms into
+        ``host``)."""
+        dev_ms, host_ms = _one_event_ms(fn, busy)
+        ts.append(dev_ms)
+        if host is not None:
+            host.append(host_ms)
+
+    def timed(fn, reps: int = 7, turns: bool = False, before_rep=None,
+              after_rep=None, busy: bool = False,
+              host: list | None = None) -> float:
         """Median CUDA-event ms of ``fn`` on this rank, the ranks aligned by
         a barrier: all at once, or (``turns``) one rank at a time with the
-        others idle; ``after_rep`` (untimed) ends each round, after a
-        barrier. ``busy`` puts a sleep kernel ahead of the first event, so
-        that the card is still busy while the host launches ``fn`` and the
-        events hold device time only; ``host`` collects the host ms of each
-        call of ``fn`` (its launches, when it does not wait)."""
+        others idle; ``before_rep`` and ``after_rep`` (untimed) begin and
+        end each round, behind a barrier."""
         ts = []
         for _ in range(reps):
+            if before_rep is not None:
+                ring_mesh.barrier("cpi")
+                before_rep()
             for turn in (range(world) if turns else [rank]):
                 ring_mesh.barrier("cpi")
-                if turn != rank:
-                    continue
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                if busy:
-                    torch.cuda._sleep(SLEEP_CYCLES)
-                a.record()
-                h0 = time.perf_counter()
-                fn()
-                h1 = time.perf_counter()
-                b.record()
-                b.synchronize()
-                ts.append(a.elapsed_time(b))
-                if host is not None:
-                    host.append(1e3 * (h1 - h0))
+                if turn == rank:
+                    event_ms(fn, busy, ts, host)
             if after_rep is not None:
                 ring_mesh.barrier("cpi")
                 after_rep()
         return statistics.median(ts)
 
-    def kernel_ms(fn, names=(None,), reps: int = 7, after_rep=None) -> dict:
+    def exchange_turns(call, reps: int = 3, busy: bool = False,
+                       host: list | None = None) -> float:
+        """Median event ms of ``call``, one whole exchange (a push, then a
+        receive that waits for the left neighbour's push), on this rank,
+        one rank at a time: in round q rank q pushes first, then every
+        other rank in ring order exchanges alone (its left neighbour has
+        pushed), then rank q fills. The ring's dependencies form a cycle,
+        so each round times every rank but one."""
+        ts = []
+        for q in range(reps * world):
+            q %= world
+            ring_mesh.barrier("cpi")
+            if rank == q:
+                ex.push(xl)
+                torch.cuda.synchronize()
+            for t in range(1, world):
+                ring_mesh.barrier("cpi")
+                if (q + t) % world == rank:
+                    event_ms(call, busy, ts, host)
+            ring_mesh.barrier("cpi")
+            if rank == q:
+                ex.fill(xl)
+                torch.cuda.synchronize()
+        return statistics.median(ts)
+
+    def kernel_ms(fn, names=(None,), reps: int = 7, before_rep=None,
+                  after_rep=None) -> dict:
         """Device ms per round of the kernels whose name holds each of
         ``names`` (all kernels for None), from torch.profiler, ``fn`` run
-        one rank at a time, ``after_rep`` ending each round (its kernels
-        counted too)."""
+        one rank at a time inside ``timed``'s rounds (the kernels of
+        ``before_rep`` and ``after_rep`` counted too)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            timed(fn, reps, turns=True, after_rep=after_rep)
+            timed(fn, reps, turns=True, before_rep=before_rep,
+                  after_rep=after_rep)
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         dev_t = lambda e: getattr(e, "self_device_time_total",
@@ -781,37 +890,65 @@ def _multichip_rank() -> dict:
         return {n: sum(dev_t(e) for e in evs if n is None or n in e.key)
                 / reps / 1000.0 for n in names}
 
-    # K6 in rounds: every rank pushes in its turn, then every rank pulls in
-    # its turn, so no kernel shares the card with another rank's. The
-    # library yardstick: one copy_ into the right neighbour's receive slot,
-    # on the card that holds it (ranks on separate cards: a peer copy).
-    pulls = lambda: in_turns(ex.pull)
+    # K6 one rank at a time, so no kernel shares the card with another
+    # rank's: CUDA events with the card kept busy (device time), and idle
+    # (with the host's ms a call); the push in rounds of pushes then fills,
+    # the fill in rounds of pushes then fills, a whole exchange in
+    # exchange_turns' rounds. Beside it the FFT input built through the
+    # [rows, halo] contract (push, fill, a copy of the halo, cat and the
+    # FFT's zero pad; the old pull kernel is timed in
+    # scripts/ablate_ring.py). The library yardstick: one copy_ of the
+    # halo into the right neighbour's receive slot (rows nfft apart, as the
+    # push writes them), on the card that holds it (ranks on separate
+    # cards: a peer copy), and one copy_ of the same bytes between
+    # contiguous tensors. The profiler splits the builds into kernels.
     push = lambda: ex.push(xl)
+    fill = lambda: ex.fill(xl)
+    pushes, fills = (lambda: in_turns(push)), (lambda: in_turns(fill))
+    new_build = lambda: ex.overlap_save_input(xl)
+    s_pad_cols = nfft - halo - xl.shape[1]
+    halo_build = lambda: torch.nn.functional.pad(
+        torch.cat([ex(xl), xl], -1), (0, s_pad_cols))
     peer, src = ex.peer_slot_view(), xl[:, xl.shape[1] - halo:]
-    copy = lambda: peer.copy_(src)
-    host_push, host_copy = [], []
-    k6 = kernel_ms(push, ("push_kernel", "pull_kernel"), after_rep=pulls)
+    flat_src, flat_dst = torch.empty_like(k6_halo), torch.empty_like(k6_halo)
+    copy, copy_flat = (lambda: peer.copy_(src)), (lambda: flat_dst.copy_(
+        flat_src))
+    host = {k: [] for k in ("push", "fill", "exchange", "copy")}
+    k6 = kernel_ms(push, ("push_kernel", "fill_kernel", None),
+                   after_rep=fills)
     arm["ms"] = {
-        "K6": k6["push_kernel"] + k6["pull_kernel"],
-        "K6_push": k6["push_kernel"], "K6_pull": k6["pull_kernel"],
-        "K6_push_events": timed(push, turns=True, after_rep=pulls,
-                                host=host_push),
-        "K6_push_events_busy": timed(push, turns=True, after_rep=pulls,
-                                     busy=True),
-        "K6_exchange_all_ranks": timed(lambda: ex(xl)),
-        "plain_ring": timed(lambda: ring.halo_right_plain(xl, ring_mesh,
-                                                          halo)),
-        "library_copy": kernel_ms(copy)[None],
-        "library_copy_events": timed(copy, turns=True, host=host_copy),
-        "library_copy_events_busy": timed(copy, turns=True, busy=True),
-        "pc_rdma": timed(lambda: f_rd(xl)),
-        "pc_ppermute": timed(lambda: f_pp(xl))}
-    arm["ms"]["K6_push_host"] = statistics.median(host_push)
-    arm["ms"]["library_copy_host"] = statistics.median(host_copy)
+        "K6": exchange_turns(new_build, busy=True),
+        "K6_push": timed(push, turns=True, after_rep=fills, busy=True),
+        "K6_fill": timed(fill, turns=True, before_rep=pushes, busy=True),
+        "fft_input_build_cat_pad": exchange_turns(halo_build, busy=True),
+        "K6_exchange_idle": exchange_turns(new_build, host=host["exchange"]),
+        "K6_push_idle": timed(push, turns=True, after_rep=fills,
+                              host=host["push"]),
+        "K6_fill_idle": timed(fill, turns=True, before_rep=pushes,
+                              host=host["fill"]),
+        "K6_push_profiler": k6["push_kernel"],
+        "K6_fill_profiler": k6["fill_kernel"],
+        "fft_input_build_profiler": k6[None],
+        "K6_exchange_all_ranks": timed(new_build),
+        "plain_os_input": timed(lambda: ring.overlap_save_input_plain(
+            xl, ring_mesh, halo, nfft)),
+        "library_copy": timed(copy, turns=True, busy=True),
+        "library_copy_idle": timed(copy, turns=True, host=host["copy"]),
+        "library_copy_contiguous": timed(copy_flat, turns=True, busy=True)}
+    # the copies wrote into the first rank's slot, whose halo columns K6
+    # leaves at the causal edge's zeros: zero them again
+    if (rank + 1) % world == 0:
+        peer.zero_()
+    torch.cuda.synchronize()
+    arm["ms"]["pc_rdma"] = timed(lambda: f_rd(xl))
+    arm["ms"]["pc_ppermute"] = timed(lambda: f_pp(xl))
+    for k, v in host.items():
+        arm["ms"][f"{k}_host"] = statistics.median(v)
+    ex.check()
     ring_mesh.barrier("cpi")
     f_rd.close()
     out["range_rdma"] = arm
-    del y_rd, y_pp, k6_halo, plain_halo, xl, peer, src
+    del y_rd, y_pp, k6_halo, plain_halo, xl, peer, src, flat_src, flat_dst
 
     # ---- perf_dp_fused / perf_dp_xla: a batch of 4 full frames at dp=4;
     # rank r checks frame r+1 against its own single-rank frame
@@ -938,19 +1075,25 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
           rank_s=[round(r["rank_s"], 2) for r in res])
 
     rr = [r["range_rdma"] for r in res]
-    med = lambda key: statistics.median(a["ms"][key] for a in rr)
+    # medians over the ranks that send data: the last rank's push carries
+    # none (its right neighbour's halo is the causal edge's zeros)
+    med = lambda key: statistics.median(a["ms"][key] for a in rr[:-1])
     _line("multichip", arm="range_rdma", shape=rr[0]["shape"],
           launches=[a["launches"]["K6"] for a in rr],
+          fills=[a["launches"]["K6_fill"] for a in rr],
           halo_identical=[a["halo_identical"] for a in rr],
+          os_input_identical=[a["os_input_identical"] for a in rr],
           output_identical=[a["output_identical"] for a in rr],
           err_over_max=rr[0]["err_over_max"],
           ms_per_rank={k: [round(a["ms"][k], 4) for a in rr]
                        for k in rr[0]["ms"]},
           card=repr(card), tol="halo and output identical; 1e-4 of max")
-    _require(all(a["launches"]["K6"] == 1 for a in rr),
-             "range_rdma: one K6 launch per call per rank")
+    _require(all(a["launches"]["K6"] == a["launches"]["K6_fill"] == 1
+                 for a in rr),
+             "range_rdma: one K6 push and one fill per call per rank")
     _require(all(a["halo_identical"] and a["output_identical"]
-                 for a in rr), "range_rdma: K6 == the plain ring")
+                 and a["os_input_identical"] for a in rr),
+             "range_rdma: K6 == the plain ring (halo, FFT input, output)")
     _require(all(a["halo_nonzero"] for a in rr[1:]),
              "range_rdma: ranks 1-3 received a halo")
     _require(rr[0]["err_over_max"] <= 1e-4,
@@ -1024,21 +1167,30 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
              "mc_dp: 8 K1 trials per rank (2 points x 16 trials / 4)")
     _line("multichip", wall_s=round(wall, 2), card=repr(card))
 
-    # K6 reads the halo once and writes it once: both on one card, or the
-    # write over NVLink when every rank has its own card
-    rows, _, halo, esize = rr[0]["shape"]
-    nbytes = rows * halo * esize
-    bound = (nbytes / PEAK_NVLINK if cards >= n else 2 * nbytes / PEAK_HBM)
-    # ms: the push and the pull kernel (profiler); the events beside it
-    extra = {k: med(k) for k in ("K6_push", "K6_pull", "K6_push_events",
-                                 "K6_push_events_busy", "K6_push_host",
-                                 "K6_exchange_all_ranks")}
-    return [("K6 ring halo exchange (peer stores by CUDA IPC, push + pull)",
+    # K6 on the main path: the push reads the halo once and writes it once
+    # (both on one card, or the write over NVLink when every rank has its
+    # own card), the fill reads the shard once and writes it once
+    rows, s_local, halo, esize, _ = rr[0]["shape"]
+    nbytes, shard = rows * halo * esize, rows * s_local * esize
+    push_bound = (nbytes / PEAK_NVLINK if cards >= n
+                  else 2 * nbytes / PEAK_HBM)
+    fill_bound = 2 * shard / PEAK_HBM
+    extra = {k: med(k) for k in rr[0]["ms"] if k != "K6"}
+    extra.update(push_bound_ms=push_bound * 1e3,
+                 fill_bound_ms=fill_bound * 1e3,
+                 fills=sum(a["launches"]["K6_fill"] for a in rr),
+                 ms_is="events around one exchange (push + fill), the card "
+                       "kept busy, one rank at a time; medians over the "
+                       "ranks that send data",
+                 library_is="copy_ of the halo into the peer slot (the "
+                            "push's function), the card kept busy")
+    return [("K6 ring halo exchange (peer stores by CUDA IPC into the "
+             "overlap-save FFT input: push + fill)",
              "ring.cu", "radar_tpu/parallel/pallas_ring.py:80",
              sum(a["launches"]["K6"] for a in rr),
              max(a["halo_max_abs_err"] for a in rr), med("K6"),
-             med("plain_ring"), bound * 1e3, "bytes", med("library_copy"),
-             extra)]
+             med("plain_os_input"), (push_bound + fill_bound) * 1e3, "bytes",
+             med("library_copy"), extra)]
 
 
 def main() -> int:
@@ -1327,6 +1479,8 @@ def main() -> int:
     _require(val["moments_pass"], "moments of K1 draws vs the pallas route")
     _require(all(val_launches[k] >= 1 for k in ("K1", "K1c", "K4")),
              "the validation path launched K1, K1c and K4")
+    _require(val_launches["K1c"] == 1,
+             "K1c: one launch for the three segments of one call")
 
     # K1c at full size vs its plain version, bit for bit
     ph_planes = nr.philox_planes(plan, vseed, num_b, device=dev)
@@ -1515,6 +1669,38 @@ def main() -> int:
     n_planes = sum(num_b * plan.n_pulses * sg.xlen for sg in plan.segments)
     k1c_lib_ms = statistics.median(_event_ms(
         lambda: torch.rand(2 * n_planes, device=dev), 10))
+    k1c_busy_ms, k1c_host_ms = _busy_event_ms(
+        lambda: nr.gen_noise_planes(plan, seed, num_b, device=dev))
+    k1c_lib_busy_ms, _ = _busy_event_ms(
+        lambda: torch.rand(2 * n_planes, device=dev))
+    # K1c's operations: the SM clocks a sample of its loop's SASS takes at
+    # the busiest pipe or the issue rate, over the samples this plan
+    # draws, on every SM at the SM clock nvidia-smi reads (its maximum:
+    # the least time)
+    k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
+                          "planes_kernelILb1E")
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(",")
+    sm_mhz, sm_max_mhz = (float(c) for c in clocks)
+    n_drawn = sum(num_b * plan.n_pulses * (sg.xlen - sg.pad_front)
+                  for sg in plan.segments)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = lambda clocks: (clocks * n_drawn
+                               / (sms * sm_max_mhz * 1e6) * 1e3)
+    k1c_issue_ms = issue_ms(k1c_sass["clocks_per_sample"])
+    k1c_issue_wide2_ms = issue_ms(k1c_sass["clocks_per_sample_wide2"])
+    k1c_bytes_ms = n_planes * 8 / PEAK_HBM * 1e3
+    _line("K1c_bound", card=repr(card), sass_loop=k1c_sass,
+          busy_card_ms=round(k1c_busy_ms, 5),
+          host_ms=round(k1c_host_ms, 5),
+          library_busy_card_ms=round(k1c_lib_busy_ms, 5),
+          drawn_samples=n_drawn, sm_mhz=sm_mhz, sm_max_mhz=sm_max_mhz,
+          issue_ms=round(k1c_issue_ms, 5),
+          issue_imad_wide_two_slots_ms=round(k1c_issue_wide2_ms, 5),
+          bytes_ms=round(k1c_bytes_ms, 5),
+          launches_per_call=val_launches["K1c"])
     k4_ms, k4_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg",
                              rolling=False, beams_per_step=num_b),
@@ -1602,8 +1788,15 @@ def main() -> int:
          k5_ms, k5_plain_ms, 2 * _bytes_ms(zeros), "bytes", k5_lib_ms),
         ("K1c noise-plane export (draw mode's Philox planes)", "noise_rdm.cu",
          "radar_tpu/ops/pallas_rdm.py:1052", val_launches["K1c"], k1c_err,
-         k1c_ms, k1c_plain_ms, n_planes * 8 / PEAK_HBM * 1e3, "bytes",
-         k1c_lib_ms),
+         k1c_busy_ms, k1c_plain_ms,
+         *_bound(k1c_issue_ms, k1c_bytes_ms), k1c_lib_busy_ms,
+         {"ms_is": "events around one call, the card kept busy",
+          "idle_card_ms": k1c_ms, "host_ms": k1c_host_ms,
+          "library_idle_card_ms": k1c_lib_ms,
+          "bytes_bound_ms": k1c_bytes_ms, "issue_bound_ms": k1c_issue_ms,
+          "issue_bound_imad_wide_two_slots_ms": k1c_issue_wide2_ms,
+          "clocks_per_sample": k1c_sass["clocks_per_sample"],
+          "sm_max_mhz": sm_max_mhz}),
         ("K4 noise RDM, window schedule (13 beams per block, in-block mix)",
          "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:980 (rolling=False)",
          val_launches["K4"], k4_err, k4_ms, k4_plain_ms, k1_bound,

@@ -40,7 +40,7 @@ _SIGNATURES = {
                   _I, _P, _P],
         "k4_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
                   _I, _I, _P, _P, _P],
-        "k1c_planes": [_I, _I, _I, _U, _U, _F, _I, _I, _P, _P, _P],
+        "k1c_planes": [_P, _I, _U, _U, _F, _I, _I, _P, _P],
         "k1_mix": [_P, _P, _I, _LL, _P],
         "k1_mtd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     },
@@ -70,13 +70,15 @@ _SIGNATURES = {
     },
     "ring": {
         "k6_handle_bytes": [],
-        "k6_alloc": [_I, _LL, _P, _P],
+        "k6_alloc": [_I, _LL, _P, _P, _P],
         "k6_open": [_I, _P, _P],
         "k6_close": [_P],
-        "k6_free": [_P],
-        "k6_push": [_P, _LL, _I, _LL, _P, _LL, _ULL, _LL, _P, _P],
-        "k6_pull": [_P, _LL, _P, _LL, _ULL, _I, _LL, _P],
-        "k6_status": [_P, _P, _P, _P],
+        "k6_free": [_P, _P],
+        "k6_blocks": [_I, _I, _P],
+        "k6_push": [_P, _LL, _I, _LL, _P, _LL, _LL, _I, _ULL, _LL, _P, _P,
+                    _I, _I, _P],
+        "k6_fill": [_P, _LL, _LL, _I, _P, _LL, _LL, _LL, _ULL, _LL, _P, _I,
+                    _I, _P],
     },
 }
 

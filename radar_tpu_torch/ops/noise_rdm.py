@@ -682,26 +682,51 @@ def noise_rdm_compact(z: torch.Tensor, plan: RdmPlan,
 # ------------------------------------------------------------ K1c
 
 
+def k1c_layout(plan: RdmPlan, num_b: int):
+    """K1c's one allocation: ``(table, spans, floats)``, where ``table``
+    holds per segment ``pad_front, xlen`` and the float offsets of its re
+    and im planes (each on a 256-byte boundary), ``spans`` per segment
+    ``(re offset, im offset, plane size, xlen)`` and ``floats`` the
+    allocation's length."""
+    table, spans, off = [], [], 0
+    for seg in plan.segments:
+        size = num_b * plan.n_pulses * seg.xlen
+        step = -(-size // 64) * 64
+        table += [seg.pad_front, seg.xlen, off, off + step]
+        spans.append((off, off + step, size, seg.xlen))
+        off += 2 * step
+    return table, spans, off
+
+
+_k1c_tables: dict = {}       # K1c's segment table per plane geometry
+
+
 def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device):
+    """K1c: one launch writes every segment's planes into one allocation;
+    the planes are views of it."""
     global k1c_launch_count
     import ctypes
 
     from .. import _build
 
     lib = _build.load("noise_rdm")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    out = []
-    for si, seg in enumerate(plan.segments):
-        shape = (num_b, plan.n_pulses, seg.xlen)
-        xr = torch.empty(shape, dtype=torch.float32, device=device)
-        xi = torch.empty(shape, dtype=torch.float32, device=device)
-        rc = lib.k1c_planes(seg.pad_front, seg.xlen, si, seed[0], seed[1],
-                            ctypes.c_float(U_SCALE), num_b, plan.n_pulses,
-                            xr.data_ptr(), xi.data_ptr(), stream)
-        _build.check(lib, rc, "k1c_planes")
-        out.append((xr, xi))
+    geom = (num_b, plan.n_pulses,
+            tuple((sg.pad_front, sg.xlen) for sg in plan.segments))
+    if geom not in _k1c_tables:
+        table, spans, floats = k1c_layout(plan, num_b)
+        _k1c_tables[geom] = ((ctypes.c_longlong * len(table))(*table),
+                             spans, floats)
+    table, spans, floats = _k1c_tables[geom]
+    buf = torch.empty(floats, dtype=torch.float32, device=device)
+    rc = lib.k1c_planes(
+        table, len(spans), seed[0], seed[1], ctypes.c_float(U_SCALE), num_b,
+        plan.n_pulses, buf.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(lib, rc, "k1c_planes")
     k1c_launch_count += 1
-    return out
+    plane = lambda off, xlen: buf.as_strided(
+        (num_b, plan.n_pulses, xlen), (plan.n_pulses * xlen, xlen, 1), off)
+    return [(plane(r, xlen), plane(i, xlen)) for r, i, _, xlen in spans]
 
 
 def gen_noise_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,

@@ -11,7 +11,8 @@ rank's block and ``gather_along`` puts a result together again:
   - ``pulse_compress_range_sharded``: range-sharded overlap-save fast
     convolution; each shard needs the last ``len(h) - 1`` samples of its
     left neighbour, carried by the plain ``batch_isend_irecv`` ring
-    (``"ppermute"``) or by kernel K6 (``"rdma"``, ``pallas_ring.py``);
+    (``"ppermute"``) or by kernel K6 (``"rdma"``, ``pallas_ring.py``),
+    which stores it straight into the local FFT's input;
   - ``mtd_cpi_sharded``: window, all-to-all pulses -> gates, slow-time FFT
     + fftshift, all-to-all back (the distributed-FFT transpose);
   - ``covariance_snapshot_sharded``: snapshot-sharded X X^H / K by
@@ -127,28 +128,32 @@ class RangeShardedPC:
         self._hf = {}
         self.exchange = None
 
-    def halo(self, x: torch.Tensor) -> torch.Tensor:
-        """The left neighbour's trailing ``len(h) - 1`` samples."""
-        halo = self.lh - 1
-        if self.halo_impl == "ppermute":
-            return halo_right_plain(x, self.mesh, halo, self.axis)
+    def _exchange_for(self, x: torch.Tensor):
+        """K6's exchange for ``x``'s shape and dtype (built on first use,
+        collectively), with overlap-save receive slots of ``nfft``."""
         ex = self.exchange
         if ex is None or (ex.rows, ex.s_local, ex.dtype) != (
                 x.shape[0], x.shape[1], x.dtype):
             self.close()
             self.exchange = halo_right_permute(
-                self.mesh, x.shape[0], x.shape[1], halo, self.axis, x.dtype)
-        return self.exchange(x)
+                self.mesh, x.shape[0], x.shape[1], self.lh - 1, self.axis,
+                x.dtype, nfft=self.nfft)
+        return self.exchange
 
     def __call__(self, x_local: torch.Tensor) -> torch.Tensor:
         key = (x_local.dtype, x_local.device)
         if key not in self._hf:
             h = torch.as_tensor(self.h).to(x_local.device, x_local.dtype)
             self._hf[key] = torch.fft.fft(h, n=self.nfft)
-        halo = (self.halo(x_local) if self.lh > 1
-                else x_local[:, :0])
-        return _local_overlap_save(x_local, self._hf[key], self.lh, halo,
-                                   self.nfft)
+        hf, lh = self._hf[key], self.lh
+        if self.halo_impl == "ppermute" or lh == 1:
+            halo = (halo_right_plain(x_local, self.mesh, lh - 1, self.axis)
+                    if lh > 1 else x_local[:, :0])
+            return _local_overlap_save(x_local, hf, lh, halo, self.nfft)
+        # K6 lands the halo in the FFT's input ([halo | shard | zeros])
+        x = self._exchange_for(x_local).overlap_save_input(x_local)
+        y = torch.fft.ifft(torch.fft.fft(x, dim=-1) * hf, dim=-1)
+        return y[..., lh - 1:lh - 1 + x_local.shape[-1]]
 
     def close(self) -> None:
         if self.exchange is not None:
@@ -166,9 +171,11 @@ def pulse_compress_range_sharded(mesh: Mesh, filter_taps, nfft: int,
     halo is zeros, the causal edge). ``nfft`` must cover ``S/n + len(h) -
     1`` samples.
 
-    ``halo_impl``: ``"ppermute"`` (the plain ``batch_isend_irecv`` ring) or
-    ``"rdma"`` (kernel K6 for tensors on a card; its plain version, the
-    same ring, for CPU tensors). Both give bit-identical output."""
+    ``halo_impl``: ``"ppermute"`` (the plain ``batch_isend_irecv`` ring,
+    ``cat`` and the FFT's zero padding) or ``"rdma"`` (kernel K6 for
+    tensors on a card, which lands the halo and the shard in the FFT's
+    input; its plain version, the same ring, ``cat`` and padding, for CPU
+    tensors). Both give bit-identical output."""
     return RangeShardedPC(mesh, filter_taps, nfft, axis, halo_impl)
 
 

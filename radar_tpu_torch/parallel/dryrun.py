@@ -102,14 +102,18 @@ def collectives(iq, w, pc, mtd_win, x_cov, device="cuda") -> dict:
 
 def ring(x_halo, halo: int, pc_cases: dict, device="cuda") -> dict:
     """The halo exchange of ``x_halo`` [rows, S] on a ring of every rank
-    (each rank's halo, in cpi order along the columns), then
-    ``pulse_compress_range_sharded`` with both transports for each case
-    ``name: ((dp, ch, cpi), x, taps, nfft)``; the whole outputs."""
+    (each rank's halo, in cpi order along the columns), the overlap-save
+    route's FFT inputs (``nfft`` = s_local + halo + 3, each rank's in cpi
+    order along the columns), then ``pulse_compress_range_sharded`` with
+    both transports for each case ``name: ((dp, ch, cpi), x, taps,
+    nfft)``; the whole outputs."""
     mesh = make_mesh(cpi=dist.get_world_size(), device=device)
     xl = shard_along(x_halo, mesh, "cpi", 1)
     ex = halo_right_permute(mesh, xl.shape[0], xl.shape[1], halo,
-                            dtype=xl.dtype)
-    out = {"halo": gather_along(ex(xl), mesh, "cpi", 1).cpu().numpy()}
+                            dtype=xl.dtype, nfft=xl.shape[1] + halo + 3)
+    out = {"halo": gather_along(ex(xl), mesh, "cpi", 1).cpu().numpy(),
+           "os_input": gather_along(ex.overlap_save_input(xl), mesh, "cpi",
+                                    1).cpu().numpy()}
     ex.close()
     for name, (shape, x, taps, nfft) in pc_cases.items():
         m = make_mesh(*shape, device=device)
@@ -224,39 +228,52 @@ def frames(device="cuda") -> dict:
     return out
 
 
-def k6_check(cases, calls: int = 3, device="cuda") -> dict:
-    """K6 against its plain version on a ring of every rank, on the card:
-    for each ``(rows, s_local, halo, dtype)`` case, ``calls`` exchanges of
-    fresh data (both receive slots, twice); whether each K6 halo equals the
-    plain ring's bit for bit, and K6's launches."""
+def k6_check(cases, calls: int = 6, device="cuda") -> dict:
+    """K6 against its plain versions on a ring of every rank, on the card:
+    for each ``(rows, s_local, halo, dtype, nfft)`` case, ``calls`` rounds
+    of fresh data, each an exchange through the ``[rows, halo]`` contract
+    and one through the overlap-save route (each receive slot used
+    ``calls`` times); whether each result equals the plain ring's (and its
+    ``cat`` + zero pad) bit for bit, and K6's push and fill launches."""
     from . import pallas_ring
 
     mesh = make_mesh(cpi=dist.get_world_size(), device=device)
     g = torch.Generator(device=mesh.device).manual_seed(mesh.rank)
-    out = {"equal": [], "launches": []}
-    for rows, s_local, halo, dtype in cases:
-        with halo_right_permute(mesh, rows, s_local, halo,
-                                dtype=dtype) as ex:
-            before = pallas_ring.k6_launch_count
+    out = {"equal": [], "os_equal": [], "launches": [], "fills": []}
+    for rows, s_local, halo, dtype, nfft in cases:
+        with halo_right_permute(mesh, rows, s_local, halo, dtype=dtype,
+                                nfft=nfft) as ex:
+            pushes = pallas_ring.k6_launch_count
+            fills = pallas_ring.k6_fill_count
             for _ in range(calls):
-                x = torch.randn((rows, s_local), generator=g,
-                                device=mesh.device, dtype=dtype)
+                fresh = lambda: torch.randn((rows, s_local), generator=g,
+                                            device=mesh.device, dtype=dtype)
+                x = fresh()
                 got = ex(x)
                 want = pallas_ring.halo_right_plain(x, mesh, halo)
                 out["equal"].append(bool(torch.equal(got, want)))
-            out["launches"].append(pallas_ring.k6_launch_count - before)
+                x = fresh()
+                got = ex.overlap_save_input(x)
+                want = pallas_ring.overlap_save_input_plain(x, mesh, halo,
+                                                            nfft)
+                out["os_equal"].append(bool(torch.equal(got, want)))
+            ex.check()
+            out["launches"].append(pallas_ring.k6_launch_count - pushes)
+            out["fills"].append(pallas_ring.k6_fill_count - fills)
     return out
 
 
 def k6_timeout(timeout_s: float, device="cuda") -> str:
     """Rank 0 exchanges on a ring whose other rank never does: K6's bounded
-    wait must make it raise; returns rank 0's error ("" elsewhere)."""
+    wait must make it raise (at ``check()``: the call itself does not wait
+    for the card); returns rank 0's error ("" elsewhere)."""
     mesh = make_mesh(cpi=dist.get_world_size(), device=device)
     ex = halo_right_permute(mesh, 8, 16, 4, timeout_s=timeout_s)
     message = ""
     if mesh.rank == 0:
         try:
             ex(torch.ones((8, 16), device=mesh.device))
+            ex.check()
         except RuntimeError as e:
             message = str(e)
     ex.close()

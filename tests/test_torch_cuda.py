@@ -188,6 +188,33 @@ def test_k1c_matches_philox_planes_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k1c_one_launch_at_ragged_shapes_on_card(cuda_device):
+    """K1c at ragged plane sizes (xlen not a multiple of 4, an odd number
+    of pulse rows, pad_front moved off its tile) writes every segment in
+    one launch into one allocation, bit for bit equal to the plain Philox
+    planes segment by segment."""
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    segs = tuple(sg._replace(window=sg.window + 1 + 2 * i,
+                             pad_front=sg.pad_front + 5 + i)
+                 for i, sg in enumerate(lr.rplan.segments))
+    plan = lr.rplan._replace(segments=segs, n_pulses=7)
+    assert all(sg.xlen % 4 for sg in segs)
+    for seed in ((7, 11), (0xFFFFFFFF, 3)):
+        before = nr.k1c_launch_count
+        got = nr.gen_noise_planes(plan, seed, 3, device=cuda_device)
+        want = nr.philox_planes(plan, seed, 3, device=cuda_device)
+        torch.cuda.synchronize()
+        assert nr.k1c_launch_count == before + 1
+        base = got[0][0].untyped_storage().data_ptr()
+        for (a, b), (c, d), sg in zip(got, want, segs):
+            assert a.shape == (3, 7, sg.xlen) and a.is_contiguous()
+            assert a.untyped_storage().data_ptr() == base
+            assert torch.equal(a, c) and torch.equal(b, d)
+            assert not a[..., :sg.pad_front].any()
+            assert a[..., sg.pad_front:].abs().min() > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("beams_per_step", [1, 2, 5])
 def test_k4_matches_plain_on_card(cuda_device, beams_per_step):
     """K4 (window schedule, in-block mix at 5 beams per block) vs its
@@ -460,20 +487,59 @@ def test_k7_k9_planes_pc_runs_the_strip_gemm_on_card(cuda_device, variant):
 
 @pytest.mark.cuda
 def test_k6_matches_plain_on_card(cuda_device):
-    """K6 on a ring of two ranks on the card against its plain version (the
-    batch_isend_irecv ring), bit for bit: complex64 rows whose 16-byte
-    alignment alternates, float32 with aligned rows, and float32 whose
-    source and destination rows differ in alignment (4-byte copies); three
-    calls each (both receive slots, one reused), one launch per call."""
+    """K6 on a ring of two ranks on the card against its plain versions
+    (the batch_isend_irecv ring, and its ``cat`` + zero pad for the
+    overlap-save route), bit for bit: complex64 rows whose 16-byte
+    alignment alternates, float32 with aligned rows, float32 whose source
+    and destination rows differ in alignment (4-byte copies), and complex64
+    at a full frame's row width (13 x 332 rows, 1455 samples a shard, halo
+    699, nfft 4096); six rounds of fresh data each, each an exchange through
+    the [rows, halo] contract and one through the overlap-save route (both
+    receive slots, six times each), one push and one fill launch per
+    exchange."""
     from radar_tpu_torch.parallel import dryrun
     from radar_tpu_torch.parallel.multihost import run_ranks
 
-    cases = [(37, 101, 33, torch.complex64), (64, 256, 16, torch.float32),
-             (5, 19, 6, torch.float32)]
+    cases = [(37, 101, 33, torch.complex64, 160),
+             (64, 256, 16, torch.float32, 288),
+             (5, 19, 6, torch.float32, 27),
+             (4316, 1455, 699, torch.complex64, 4096)]
     for out in run_ranks(dryrun.k6_check, 2, cases, device="cuda",
                          timeout=300):
-        assert all(out["equal"]) and len(out["equal"]) == 9
-        assert out["launches"] == [3, 3, 3]
+        assert all(out["equal"]) and len(out["equal"]) == 6 * len(cases)
+        assert all(out["os_equal"]) and len(out["os_equal"]) == 24
+        assert out["launches"] == out["fills"] == [12] * len(cases)
+
+
+@pytest.mark.cuda
+def test_k6_refuses_another_stream_and_slot_writes(cuda_device):
+    """A one-rank exchange on the card (its halo the causal edge's zeros):
+    the overlap-save input is [zeros | x | zeros]; a call under a stream
+    other than the one current when the exchange was built raises, as does
+    a fill of a tensor of another shape, and a call after a write into the
+    returned view of the receive slot (which would corrupt its zero
+    columns for every later call)."""
+    from radar_tpu_torch.parallel.mesh import make_mesh
+    from radar_tpu_torch.parallel.pallas_ring import halo_right_permute
+
+    mesh = make_mesh(device="cuda")
+    x = torch.randn((6, 20), dtype=torch.complex64, device=cuda_device)
+    with halo_right_permute(mesh, 6, 20, 5, dtype=torch.complex64,
+                            nfft=32) as ex:
+        want = torch.nn.functional.pad(x, (5, 7))
+        assert torch.equal(ex.overlap_save_input(x), want)
+        with torch.cuda.stream(torch.cuda.Stream()):
+            with pytest.raises(RuntimeError, match="stream"):
+                ex.overlap_save_input(x)
+        ex.push(x)
+        with pytest.raises(ValueError, match="the exchange takes"):
+            ex.fill(x[:, :19])
+        assert torch.equal(ex.fill(x), want)
+        assert torch.equal(ex(x), torch.zeros_like(x[:, :5]))
+        ex.overlap_save_input(x)[:, 0] = 1
+        with pytest.raises(RuntimeError, match="read-only"):
+            ex.overlap_save_input(x)
+        ex.check()
 
 
 @pytest.mark.cuda

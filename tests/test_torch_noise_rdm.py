@@ -248,6 +248,25 @@ def test_gen_noise_planes_on_cpu_is_philox_planes(setup):
         nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, layout="bvg"))
 
 
+def test_k1c_layout_is_one_aligned_allocation(setup):
+    """K1c's segment table: every plane of every segment in one allocation,
+    on its own 256-byte boundary, without overlap, in the plan's segment
+    order with its pad_front and xlen (what the one launch writes)."""
+    plan = setup["tl"].rplan
+    table, spans, floats = nr.k1c_layout(plan, 5)
+    assert len(table) == 4 * len(plan.segments) == 4 * len(spans)
+    ends = []
+    for si, (seg, (r, i, size, xlen)) in enumerate(zip(plan.segments,
+                                                       spans)):
+        assert table[4 * si:4 * si + 4] == [seg.pad_front, seg.xlen, r, i]
+        assert size == 5 * plan.n_pulses * seg.xlen and xlen == seg.xlen
+        assert r % 64 == 0 and i % 64 == 0
+        ends += [(r, r + size), (i, i + size)]
+    ends.sort()
+    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
+    assert ends[-1][1] <= floats < ends[-1][1] + 64
+
+
 def test_schedule_arguments_are_checked(setup):
     tl = setup["tl"]
     with pytest.raises(ValueError, match="rolling=False"):

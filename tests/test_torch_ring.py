@@ -23,7 +23,9 @@ from radar_tpu.parallel.pallas_ring import \
 from radar_tpu_torch.parallel import dryrun
 from radar_tpu_torch.parallel.mesh import make_mesh
 from radar_tpu_torch.parallel.multihost import run_ranks
-from radar_tpu_torch.parallel.pallas_ring import halo_right_permute
+from radar_tpu_torch.parallel.pallas_ring import (flag_scopes,
+                                                  halo_right_permute,
+                                                  overlap_save_input_plain)
 
 ROWS, HALO = 8, 5
 SIZES = (2, 4, 8)
@@ -96,6 +98,24 @@ def test_plain_halo_ring_matches_jax_interpret(ranks, n):
     np.testing.assert_array_equal(got[:, :HALO], 0.0)
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_overlap_save_input_plain_is_halo_shard_zeros(ranks, n):
+    """The overlap-save route's plain version (the image of the receiver's
+    [rows, nfft] slot) is JAX's remote-DMA halo, then the rank's own shard,
+    then zeros: the ring's halo concatenated and zero-padded."""
+    got = ranks[n]["os_input"]
+    s_local, nfft = 64, 64 + HALO + 3
+    halo = _jax_halo(n)
+    x = _halo_input(n)
+    for i in range(n):
+        block = got[:, i * nfft:(i + 1) * nfft]
+        np.testing.assert_array_equal(block[:, :HALO],
+                                      halo[:, i * HALO:(i + 1) * HALO])
+        np.testing.assert_array_equal(block[:, HALO:HALO + s_local],
+                                      x[:, i * s_local:(i + 1) * s_local])
+        np.testing.assert_array_equal(block[:, HALO + s_local:], 0.0)
+
+
 @pytest.mark.parametrize("shards,lh", PC_CASES)
 def test_rdma_equals_ppermute(ranks, shards, lh):
     """halo_impl="rdma" (K6's plain version on CPU tensors) and
@@ -155,3 +175,39 @@ def test_halo_exchange_on_one_rank():
     for dtype in (torch.bfloat16, torch.float16, torch.uint8):
         with pytest.raises(ValueError, match="4, 8 or 16 bytes"):
             halo_right_permute(mesh, 3, 10, 3, dtype=dtype)
+
+
+def test_overlap_save_input_on_one_rank():
+    """On one rank the overlap-save input is [zeros | x | zeros] (the causal
+    edge), equal to the plain helper's ``cat`` + pad and to a pad of
+    ``x``; ``nfft`` must cover halo + s_local, which it is by default."""
+    mesh = make_mesh(device="cpu")
+    x = torch.arange(30, dtype=torch.float32).reshape(3, 10) + 1j
+    ex = halo_right_permute(mesh, 3, 10, 4, dtype=torch.complex64, nfft=16)
+    got = ex.overlap_save_input(x.to(torch.complex64))
+    want = torch.nn.functional.pad(x.to(torch.complex64), (4, 2))
+    assert got.shape == (3, 16) and torch.equal(got, want)
+    assert torch.equal(got, overlap_save_input_plain(
+        x.to(torch.complex64), mesh, 4, 16))
+    with pytest.raises(ValueError, match="nfft"):
+        halo_right_permute(mesh, 3, 10, 4, nfft=13)
+    got = halo_right_permute(mesh, 3, 10, 4).overlap_save_input(
+        torch.ones(3, 10))
+    assert torch.equal(got, torch.nn.functional.pad(torch.ones(3, 10),
+                                                    (4, 0)))
+
+
+@pytest.mark.parametrize("cards", [[0, 0, 0, 0], [0, 1, 2, 3], [0, 1, 0],
+                                   [0, 0, 1, 1]])
+def test_flag_scopes_pair_across_each_link(cards):
+    """Each rank's flags with a neighbour take the system's scope exactly
+    where that neighbour sits on another card, and the two ends of every
+    link agree: rank i's push (right scope) and rank i + 1's fill (left
+    scope) pair on the same flag, also where ranks are dealt to cards
+    unevenly (three ranks on two cards: 0, 1, 0)."""
+    n = len(cards)
+    scopes = [flag_scopes(cards, i) for i in range(n)]
+    for i, (left, right) in enumerate(scopes):
+        assert right == int(cards[(i + 1) % n] != cards[i])
+        assert left == int(cards[(i - 1) % n] != cards[i])
+        assert right == scopes[(i + 1) % n][0]
