@@ -9,7 +9,11 @@ PyTorch version at the full shapes of the reference's frame (16 channels x
 pair maps). Then it drives the port's paths on the benchmark's two
 targets:
 
-- the perf-config frame, through kernels K1 (noise RDM) and K2 (CFAR);
+- the perf-config frame, through kernels K1 (noise RDM: K1c's planes, the
+  3xTF32 strip-GEMM PC, the beam mix and the 3xTF32 DFT GEMM on the tensor
+  cores) and K2 (CFAR, TMA-staged, its window compiled in), with the
+  profiler's kernel names to show it (the GEMMs and K2 run, the old
+  CUDA-core ``pc_kernel`` does not);
 - the exact reference stream, the default entry point (per-element echoes
   -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
   ``noise_impl="pallas"``) and K3 (pair sum + CFAR), in five
@@ -54,6 +58,14 @@ targets:
   (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
   perf sweep and a streaming MC at dp=4, each against its single-rank run.
 
+K1 and K2 are also timed on a card kept busy (events behind a sleep
+kernel) beside the idle card and the host's time a call; K1 is split by
+the profiler (K1c's planes, the PC GEMM's main and correction passes, the
+mix, the DFT GEMM's, the add of its passes and the signal), beside both
+its bounds (f32 on the CUDA cores, 3xTF32 on the tensor cores) and the xla
+route's cuBLAS chain in f32 (the old CUDA-core K1 is timed beside it by
+``scripts/ablate_k1.py``).
+
 The launch counters are set to 0 just before each path runs and read just
 after, to show the path went through its kernels. Kernels, plain versions,
 library calls and frames are timed with CUDA events, Monte-Carlo
@@ -77,6 +89,7 @@ import numpy as np
 
 PEAK_FP32 = 67e12     # H100 SXM FLOP/s, float32 outside the tensor cores
 PEAK_BF16 = 989e12    # H100 SXM FLOP/s, bf16 tensor cores, dense
+PEAK_TF32 = 495e12    # H100 SXM FLOP/s, TF32 tensor cores, dense
 PEAK_HBM = 3.35e12    # H100 SXM HBM bytes/s
 PEAK_NVLINK = 450e9   # H100 SXM NVLink bytes/s each way, card to card
 
@@ -268,15 +281,16 @@ def _named_ms(ms: dict, name: str) -> float:
     return sum(v for k, v in ms.items() if name in k)
 
 
-def _k1_bound_ms(plan, num_b: int, peak: float = PEAK_FP32) -> float:
+def _k1_bound_ms(plan, num_b: int, peak: float = PEAK_FP32,
+                 products: int = 1) -> float:
     """Least time of the noise RDM's work (K1, K4, K7, K9, K10) at the
     ``peak`` of its operand type: the complex MACs of the convolutions, the
-    beam mix and the DFT, 8 FLOPs each (the rank-K signal epilogue is
-    negligible)."""
+    beam mix and the DFT, 8 FLOPs each, ``products`` times (3 for K1's
+    3xTF32; the rank-K signal epilogue is negligible)."""
     conv = sum(s.j_len * s.taps.shape[0] for s in plan.segments)
     macs = num_b * plan.n_pulses * (conv + num_b * plan.n_gates
                                     + plan.n_dop * plan.n_gates)
-    return 8.0 * macs / peak * 1e3
+    return 8.0 * products * macs / peak * 1e3
 
 
 def _bound(ops_ms: float, bytes_ms: float):
@@ -1230,13 +1244,13 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
-    _build.build_all(["noise_rdm", "rdm_variants", "band_pc_sm90", "cfar",
-                      "awgn", "ring"])
+    _build.build_all(["noise_rdm", "noise_rdm_sm90", "rdm_variants",
+                      "band_pc_sm90", "cfar", "awgn", "ring"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():
         for ln in info["log"].splitlines():
-            if "Used" in ln or "spill" in ln:
+            if "Used" in ln or "spill" in ln or "wgmma" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
     # ---- 2. K1 at full perf shapes vs its plain version
@@ -1334,6 +1348,19 @@ def main() -> int:
              "frame launched K1 and K2")
     _require(bool(np.all(np.isfinite(rows))) and all(found),
              "truth targets found")
+    # the frame's kernels by name: K1's GEMMs, mix and K1c's planes, K2;
+    # the CUDA-core convolution of the old K1 no longer runs
+    frame_kernels = _kernel_ms(lambda: process(20261016, truth), reps=2)
+    names = {k: round(v, 4) for k, v in frame_kernels.items()
+             if any(n in k for n in ("gemm_kernel", "mix_planes",
+                                     "planes_kernel", "k2_kernel",
+                                     "pc_kernel"))}
+    _line("frame_kernels", kernels=names)
+    _require(all(any(n in k for k in names) for n in (
+        "pc_gemm_kernel", "dft_gemm_kernel", "mix_planes_kernel",
+        "planes_kernel", "k2_kernel")) and not any(
+        "pc_kernel" in k for k in names),
+        "the frame ran K1's GEMMs and K2, and no CUDA-core pc_kernel")
 
     # small widths: the kernel path on the card vs the plain path on the CPU
     small = small_test_config().replace(**PERF_OVERRIDES)
@@ -1711,8 +1738,64 @@ def main() -> int:
                              rolling=False, beams_per_step=1), 10))
     k1_noise_ms = statistics.median(_event_ms(
         lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg"), 10))
-    k5_lib_ms = statistics.median(_event_ms(
+    # K5's library call: torch.normal with x's rails as the mean reads x
+    # and writes x + N(0, sigma^2) on each rail, K5's function and bytes
+    # (the views launch nothing); torch.randn only draws and writes the
+    # cube, half K5's bytes
+    k5_sigma = k5._sigma(1.0)
+    k5_lib = lambda: torch.view_as_complex(
+        torch.normal(torch.view_as_real(zeros), k5_sigma))
+    y_lib = k5_lib()
+    _require(y_lib.shape == zeros.shape
+             and abs(float(torch.view_as_real(y_lib).std()) - k5_sigma)
+             <= 1e-3, "K5's library call draws x + N(0, sigma^2)")
+    del y_lib
+    k5_lib_ms = statistics.median(_event_ms(k5_lib, 10))
+    k5_randn_ms = statistics.median(_event_ms(
         lambda: torch.randn(shape, dtype=torch.complex64, device=dev), 10))
+
+    # K1 on the tensor cores: events on a busy and an idle card, host ms a
+    # call, the profiler's split, both bounds and the xla route's cuBLAS
+    # chain (f32, no TF32)
+    k1_call = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
+                                   layout="bvg")
+    k1_busy_ms, k1_host_ms = _busy_event_ms(k1_call)
+    k1_split_all = _kernel_ms(k1_call, reps=5)
+    k1_split = {name: _named_ms(k1_split_all, key) for name, key in (
+        ("K1c_planes", "planes_kernel<"), ("pc_gemm", "pc_gemm_kernel"),
+        ("pc_gemm_main", "pc_gemm_kernel<false>"),
+        ("pc_gemm_correction", "pc_gemm_kernel<true>"),
+        ("mix", "mix_planes_kernel"), ("dft_gemm", "dft_gemm_kernel"),
+        ("dft_gemm_main", "dft_gemm_kernel<false>"),
+        ("dft_gemm_correction", "dft_gemm_kernel<true>"),
+        ("add_and_signal", "add_kernel"))}
+    _require(all(v > 0.0 for v in k1_split.values()),
+             "the profiler saw K1c's planes, both GEMMs, the mix and the add")
+    k1_fp32_bound = _k1_bound_ms(plan, num_b)
+    k1_tf32_bound = _k1_bound_ms(plan, num_b, PEAK_TF32, products=3)
+    # bytes: the planes read once (planes mode's input) and the map
+    # written once
+    k1_bytes_ms = (n_planes * 8 + num_b * plan.n_dop * plan.n_gates * 8
+                   ) / PEAK_HBM * 1e3
+    lx = make_lowrank_stages(perf_config(pallas=False).replace(
+        matmul_precision="f32"), pre, device=dev)
+    z_x = lx.gen_noise(20261016)
+    sig_x = lx.signal_rdm(truth)
+    cublas_ms = statistics.median(_event_ms(
+        lambda: lx.mix_add(sig_x, lx.mtd(lx.pc(z_x))), 10))
+    del z_x, sig_x
+    _line("K1_split", card=repr(card), busy_card_ms=round(k1_busy_ms, 4),
+          idle_card_ms=round(k1_noise_ms, 4), host_ms=round(k1_host_ms, 4),
+          profile_ms={k: round(v, 4) for k, v in k1_split.items()},
+          bound_fp32_cuda_cores_ms=round(k1_fp32_bound, 4),
+          bound_3xtf32_tensor_cores_ms=round(k1_tf32_bound, 4),
+          bytes_ms=round(k1_bytes_ms, 4), cublas_chain_ms=round(cublas_ms, 4))
+    k2_call = lambda: ck.goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
+    k2_busy_ms, k2_host_ms = _busy_event_ms(k2_call, reps=20)
+    _line("K2_split", card=repr(card), busy_card_ms=round(k2_busy_ms, 5),
+          idle_card_ms=round(k2_ms, 5), host_ms=round(k2_host_ms, 5),
+          instance=ck.k2_geometry(cfg.cfar)._asdict(),
+          profile_ms=_kernel_ms(k2_call, reps=10))
 
     # Monte-Carlo throughput: host clock around a batch of 16 trials that
     # ends in the copy to the host (median of 3, after a warm-up batch)
@@ -1747,7 +1830,10 @@ def main() -> int:
                      ("K4 plain", k4_plain_ms),
                      ("K4 (1 beam per block)", k4_1_ms),
                      ("K1 noise only", k1_noise_ms),
-                     ("K5 library (torch.randn)", k5_lib_ms)):
+                     ("K5 library (torch.normal around x's rails)",
+                      k5_lib_ms),
+                     ("torch.randn of K5's cube (half its bytes)",
+                      k5_randn_ms)):
         _line("time", what=repr(name), ms=round(ms, 4), card=repr(card))
     _line("mc_rate", card=repr(card),
           sweep_trials_per_s={k: round(v, 3) for k, v in mc_rate.items()},
@@ -1774,18 +1860,33 @@ def main() -> int:
     # the ranks); bounds from this run's shapes
     k1_bound = _k1_bound_ms(plan, num_b)
     kernels = [
-        ("K1 fused noise RDM (draw mode, rank-K signal)", "noise_rdm.cu",
+        ("K1 noise RDM (draw mode, rank-K signal): K1c planes + 3xTF32 "
+         "strip-GEMM PC + mix + 3xTF32 DFT GEMM", "noise_rdm_sm90.cu",
          "radar_tpu/ops/pallas_rdm.py:980", sweeps["perf"]["K1"], k1_err,
-         k1_ms, k1_plain_ms, k1_bound, "operations", None),
-        ("K2 2D GOCA-CFAR on qvg maps", "cfar.cu",
-         "radar_tpu/ops/pallas_kernels.py:234", sweeps["perf"]["K2"], k2_err,
-         k2_ms, k2_plain_ms, _bytes_ms(maps_p, mask, rc), "bytes", None),
+         k1_busy_ms, k1_plain_ms, *_bound(k1_tf32_bound, k1_bytes_ms), None,
+         {"ms_is": "events around one call, the card kept busy",
+          "idle_card_ms": k1_noise_ms, "idle_card_ms_with_signal": k1_ms,
+          "host_ms": k1_host_ms, "profile_ms": k1_split,
+          "bound_fp32_cuda_cores_ms": k1_fp32_bound,
+          "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
+          "bytes_bound_ms": k1_bytes_ms, "cublas_chain_ms": cublas_ms}),
+        ("K2 2D GOCA-CFAR on qvg maps (TMA-staged, compiled-in window)",
+         "cfar.cu", "radar_tpu/ops/pallas_kernels.py:234",
+         sweeps["perf"]["K2"], k2_err, k2_busy_ms, k2_plain_ms,
+         _bytes_ms(maps_p[:, :num_v, ck.HALO:ck.HALO + num_g], mask, rc),
+         "bytes", None,
+         {"ms_is": "events around one call, the card kept busy",
+          "idle_card_ms": k2_ms, "host_ms": k2_host_ms}),
         ("K3 pair sum + 2D GOCA-CFAR (mask, threshold)", "cfar.cu",
          "radar_tpu/ops/pallas_kernels.py:292", ref_launches["K3"], k3_err,
          k3_ms, k3_plain_ms, _bytes_ms(mag, m3, t3), "bytes", None),
         ("K5 complex AWGN (Philox + Box-Muller)", "awgn.cu",
          "radar_tpu/ops/pallas_noise.py:106", ref_launches["K5"], k5_err,
-         k5_ms, k5_plain_ms, 2 * _bytes_ms(zeros), "bytes", k5_lib_ms),
+         k5_ms, k5_plain_ms, 2 * _bytes_ms(zeros), "bytes", k5_lib_ms,
+         {"library_call": "torch.normal(torch.view_as_real(x), sigma)",
+          "randn_only_ms": k5_randn_ms,
+          "randn_only_note": "torch.randn draws and writes the cube only: "
+                             "half K5's bytes (x read, x + n written)"}),
         ("K1c noise-plane export (draw mode's Philox planes)", "noise_rdm.cu",
          "radar_tpu/ops/pallas_rdm.py:1052", val_launches["K1c"], k1c_err,
          k1c_busy_ms, k1c_plain_ms,

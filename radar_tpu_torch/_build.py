@@ -28,7 +28,8 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # K2, K3 and K5 must match their plain versions' rounding: no FMA
 # contraction; the noise-RDM kernels are held by RMS-relative bounds and
 # may contract
-_EXTRA = {"noise_rdm": [], "rdm_variants": [], "band_pc_sm90": [],
+_EXTRA = {"noise_rdm": [], "noise_rdm_sm90": [], "rdm_variants": [],
+          "band_pc_sm90": [],
           "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": []}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -36,13 +37,17 @@ _F, _LL = ctypes.c_float, ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "noise_rdm": {
-        "k1_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
-                  _I, _P, _P],
         "k4_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
                   _I, _I, _P, _P, _P],
         "k1c_planes": [_P, _I, _U, _U, _F, _I, _I, _P, _P],
         "k1_mix": [_P, _P, _I, _LL, _P],
         "k1_mtd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    },
+    "noise_rdm_sm90": {
+        "k1_tf32_pc": [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "k1_tf32_mix": [_P, _P, _P, _P, _P, _I, _LL, _P],
+        "k1_tf32_dft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                        _P, _P, _P],
     },
     "rdm_variants": {
         "rv_band_pc": [_I, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _U, _U, _F,
@@ -61,7 +66,7 @@ _SIGNATURES = {
     },
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                    _I, _P, _P, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
         "k3_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
                     _P],
     },

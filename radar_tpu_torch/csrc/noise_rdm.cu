@@ -1,55 +1,51 @@
-// K1: fused noise range-Doppler map for NVIDIA Hopper (sm_90a).
+// K4 and K1c for NVIDIA Hopper (sm_90a), on the CUDA cores in f32.
 //
-// Replaces the TPU kernel radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas_gen
-// (rolling=True, signal=...; bodies _make_kernel_gen_rolling,
-// _draw_uniform_chunk, _mtd_store, _mix_vals) and its planes-input sibling
-// noise_rdm_pallas_planes (body _make_kernel). Per PC segment it computes
+// K4 (pc_window_kernel) replaces the TPU kernel radar_tpu/ops/pallas_rdm.py
+// ::noise_rdm_pallas_gen(rolling=False, beams_per_step=k) (pallas_call
+// :980, body _make_kernel_gen): the noise range-Doppler map
 //
 //   rdm[b] = D @ (sum_c L[b,c] * PC_seg(x_c)) + sum_k st[k,b] * dv[k] (x) pb[k]
 //
 // (the beam mix L commutes with the slow-time DFT D, so it is applied to
-// the pulse-compressed cube, before D). Launch sequence, all on the
-// caller's stream:
-//   1. pc_kernel, once per segment: white noise (Philox draws in draw mode,
-//      given planes in planes mode) -> causal convolution with the
-//      segment's matched filter -> un-mixed pc [B, P, G] (scratch).
-//   2. mix_kernel: pc[b] <- sum_c L[b,c] pc[c], in place.
+// the pulse-compressed cube, before D), the noise drawn inside the kernel
+// (Philox, or given planes), one block convolving a window of k beams in
+// turn. Launch sequence, all on the caller's stream:
+//   1. pc_window_kernel, once per segment: white noise -> causal
+//      convolution with the segment's matched filter -> pc [B, P, G]; with
+//      k = B it mixes the beams in the block;
+//   2. mix_kernel (k < B): pc[b] <- sum_c L[b,c] pc[c], in place;
 //   3. mtd_kernel: out[b] = D [V,P] @ pc[b] [P,G] + rank-K signal, written
 //      once as the [B, V, G] complex64 map.
+// K1, the rolling schedule, runs on the tensor cores in noise_rdm_sm90.cu;
+// its draw mode starts with K1c below.
 //
-// Two more kernels share this file and its staging and convolution code:
-//   K4 (pc_window_kernel) replaces noise_rdm_pallas_gen(rolling=False,
-//      beams_per_step=k), body _make_kernel_gen: the same draws and map, one
-//      block convolving a window of k beams in turn; with k = B it mixes
-//      the beams in the block, so step 2 does not run.
-//   K1c (planes_kernel) replaces gen_noise_planes_pallas: it writes the
-//      white planes draw mode draws, so planes mode can be fed the same
-//      noise. Bound by the larger of its 8 bytes written per sample (163.5
-//      MB at the full shape, 0.0488 ms at 3.35 TB/s) and its integer work:
-//      one Philox4x32-10 block per complex sample, of which it keeps 2 of
-//      4 words (the counters are draw mode's), ten rounds of two 32x32->64
-//      products (IMAD.WIDE, on the FMA-heavy pipe) and two 3-input XORs
-//      (LOP3, on the ALU pipe), the key schedule in uniform registers; at
-//      64 lanes a pipe and 128 issued an SM and clock this is ~0.031 ms,
-//      so bytes bind. One launch covers every segment, a warp a row, 4
-//      consecutive samples a lane, one 16-byte store to each plane.
+// K1c (planes_kernel) replaces gen_noise_planes_pallas (:1052): it writes
+// the white planes that K4 and K1's draw mode use (the Philox counters,
+// key and rails of stage_window), so planes mode can be fed the same
+// noise. Bound by the larger of its 8 bytes written per sample (163.5 MB
+// at the full shape, 0.0488 ms at 3.35 TB/s) and its integer work: one
+// Philox4x32-10 block per complex sample, of which it keeps 2 of 4 words,
+// ten rounds of two 32x32->64 products (IMAD.WIDE, on the FMA-heavy pipe)
+// and two 3-input XORs (LOP3, on the ALU pipe), the key schedule in
+// uniform registers; at 64 lanes a pipe and 128 issued an SM and clock
+// this is ~0.031 ms, so bytes bind. One launch covers every segment, a
+// warp a row, 4 consecutive samples a lane, one 16-byte store to each
+// plane.
 //
-// What bounds it on this card: FP32 CUDA-core FMAs. At the full perf
-// shape (13 beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
+// What bounds K4 on this card: FP32 CUDA-core FMAs. At the full perf shape
+// (13 beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
 // convolutions are 8.1e9 complex MACs and the DFT 4.9e9, 5.2e10 real FMAs
 // in all: 1.55 ms at the 67 TFLOP/s FP32 peak. Scratch: the pc cube,
 // 13 x 332 x 3404 complex64 = 117 MB (mixed in place, so one buffer).
 //
-// What the design does about it: every operand and accumulator is f32
-// (no TF32, no bf16; tensor-core wgmma and a single fused pass are later
-// work). The convolution keeps each block's noise window in shared memory
-// (8 pulse rows x (128 + taps - 1) samples, re/im planes padded one word in
+// What the design does about it: every operand and accumulator is f32.
+// The convolution keeps each block's noise window in shared memory (8
+// pulse rows x (128 + taps - 1) samples, re/im planes padded one word in
 // 32 against bank conflicts) and each lane slides a register window over
 // 4 contiguous output gates, so one shared load feeds 16 FMAs. The DFT is
 // a 64x64x16 shared-memory tiled complex GEMM with a 4x4 register tile per
-// thread. Draws are regenerated per window (counter-based, ~6.5x on the
-// long segment) instead of being stored: Philox costs far less than the
-// 117 MB round trip a stored noise cube would.
+// thread. Draws are regenerated per window (counter-based) instead of
+// being stored.
 //
 // K4's trouble spot is shared memory: a window of 13 beams x 8 pulse rows
 // of the long segment (827 samples, re/im f32) would take ~690 KB, three
@@ -167,43 +163,6 @@ __device__ __forceinline__ float2 mix_one(const float2* sl, int num_b, int b,
     }
   }
   return make_float2(yr, yi);
-}
-
-template <bool kDraw>
-__global__ void __launch_bounds__(kThreads)
-pc_kernel(const float2* __restrict__ taps, int lh, int pad_front, int j_len,
-          int g0, unsigned seg, uint2 key, float scale,
-          const float* __restrict__ xr, const float* __restrict__ xi,
-          long long x_len, int num_p, int num_g, float2* __restrict__ pc) {
-  extern __shared__ float smem[];
-  const int wl = kTile + lh - 1;            // window samples per row
-  const int wlp = padded(wl - 1) + 1;       // padded row stride (words)
-  float* sw_r = smem;
-  float* sw_i = sw_r + kRows * wlp;
-  float* th_r = sw_i + kRows * wlp;         // reversed taps: h[lh-1-k]
-  float* th_i = th_r + lh;
-
-  const int p0 = blockIdx.y * kRows;
-  const int b = blockIdx.z;
-  const int n0 = blockIdx.x * kTile;        // first buffer sample read
-
-  load_reversed_taps(taps, lh, th_r, th_i);
-  stage_window<kDraw>(sw_r, sw_i, wl, wlp, p0, b, n0, pad_front, seg, key,
-                      scale, xr, xi, x_len, num_p);
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int p = p0 + warp;
-  if (p >= num_p) return;
-  const int t0 = (threadIdx.x & 31) * kOuts;
-  float ar[kOuts], ai[kOuts];
-  conv_row(sw_r + warp * wlp, sw_i + warp * wlp, th_r, th_i, lh, t0, ar, ai);
-  float2* row = pc + ((long long)b * num_p + p) * num_g + g0;
-#pragma unroll
-  for (int o = 0; o < kOuts; ++o) {
-    const int j = n0 + t0 + o;
-    if (j < j_len) row[j] = make_float2(ar[o], ai[o]);
-  }
 }
 
 // K4: the window schedule (TPU _make_kernel_gen, rolling=False). One block
@@ -449,42 +408,11 @@ const char* radar_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One segment's convolution into pc [B, P, G] at gate offset g0. Planes
-// mode when xr/xi are given ([B, P, x_len] f32, x_len >= samples read),
-// draw mode (Philox keyed by (s0, s1), counter (n, p, b, seg)) otherwise.
-int k1_pc(const void* taps, int lh, int pad_front, int j_len, int g0,
-          int seg, unsigned s0, unsigned s1, float scale, const void* xr,
-          const void* xi, long long x_len, int num_b, int num_p, int num_g,
-          void* pc, void* stream) {
-  const int wl = kTile + lh - 1;
-  const int wlp = padded(wl - 1) + 1;
-  const size_t smem = (2 * (size_t)kRows * wlp + 2 * (size_t)lh) * sizeof(float);
-  const dim3 grid((j_len + kTile - 1) / kTile, (num_p + kRows - 1) / kRows,
-                  num_b);
-  const uint2 key = make_uint2(s0, s1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xr == nullptr) {
-    cudaFuncSetAttribute(pc_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    pc_kernel<true><<<grid, kThreads, smem, st>>>(
-        static_cast<const float2*>(taps), lh, pad_front, j_len, g0,
-        (unsigned)seg, key, scale, nullptr, nullptr, 0, num_p, num_g,
-        static_cast<float2*>(pc));
-  } else {
-    cudaFuncSetAttribute(pc_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    pc_kernel<false><<<grid, kThreads, smem, st>>>(
-        static_cast<const float2*>(taps), lh, pad_front, j_len, g0,
-        (unsigned)seg, key, scale, static_cast<const float*>(xr),
-        static_cast<const float*>(xi), x_len, num_p, num_g,
-        static_cast<float2*>(pc));
-  }
-  return (int)cudaGetLastError();
-}
-
 // K4: one segment's convolution with bps beams per block. With lmat given
 // (bps == num_b), the block writes the beam-mixed pc and k1_mix must not
-// run; without, the un-mixed pc as k1_pc does.
+// run; without, the un-mixed pc [B, P, G] at gate offset g0. Planes mode
+// when xr/xi are given ([B, P, x_len] f32), draw mode (Philox keyed by
+// (s0, s1), counter (n, p, b, seg)) otherwise.
 int k4_pc(const void* taps, int lh, int pad_front, int j_len, int g0, int seg,
           unsigned s0, unsigned s1, float scale, const void* xr,
           const void* xi, long long x_len, int num_b, int num_p, int num_g,

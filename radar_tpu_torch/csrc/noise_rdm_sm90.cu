@@ -1,0 +1,796 @@
+// K1: the fused noise range-Doppler map redesigned for NVIDIA Hopper
+// (sm_90a): pulse compression and slow-time DFT as 3xTF32 GEMMs on the
+// tensor cores.
+//
+// Replaces the TPU kernels radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas_gen
+// (rolling=True, signal=...; pallas_call :980) and its planes-input sibling
+// noise_rdm_pallas_planes (:789), as noise_rdm.cu's CUDA-core K1 did before.
+// Per PC segment the map is
+//
+//   rdm[b] = D @ (sum_c L[b,c] * PC_seg(x_c)) + sum_k st[k,b] * dv[k] (x) pb[k]
+//
+// Launch sequence, all on the caller's stream:
+//   0. (draw mode) K1c's planes_kernel (noise_rdm.cu) writes the white
+//      planes that draw mode draws, so draw mode is planes mode on them and
+//      the two agree bit for bit;
+//   1. pc_gemm_kernel<false>, <true> (the main and the correction pass, one
+//      launch each for the three segments): the
+//      causal convolution of each segment's planes as a Toeplitz-strip GEMM
+//      (band_pc_sm90.cu's schedule: Y[r, j0 + n] = sum_k X[r, j0 + k] S[k, n]
+//      with S = M[:128 + lh - 1, :128] the same strip for every 128-gate
+//      block), written transposed as the un-mixed planes pcT [B, G, P4]
+//      (P4: P rounded up to 4, TMA's 16-byte row stride);
+//   2. mix_planes_kernel: pcT[b] <- sum_c L[b,c] pcT[c] (pcT the sum of the
+//      two passes' planes), into the main pass's planes;
+//   3. dft_gemm_kernel<false>, <true>: out^T[b] [G, V] = pcT[b] [G, P] @
+//      D^T, i.e. one GEMM of M = B*G rows, N = V, K = P, written as the
+//      [B, V, G] complex64 map; add_kernel adds the correction and the
+//      rank-K signal to the main pass's.
+//
+// 3xTF32. Each f32 operand x is split into TF32 parts hi = rna(x) and
+// lo = rna(x - hi) (rna: round to nearest on the top 19 bits, ties away);
+// a product is hi*hi + hi*lo + lo*hi, each an exact TF32 product, so the
+// dropped lo*lo and the split leave a relative error near 2^-21. The
+// constant operand (the strip, D) is split once per plan
+// (ops/noise_rdm.py::strip_tf32, RdmPlan.d_tf32) into four f32 planes
+// re_hi, re_lo, im_hi, im_lo; the data operand (the planes, pcT) is split
+// in registers as it is read. The tensor cores' f32 sums are the trouble
+// spot: each wgmma rounds its sum toward zero, so the error grows with the
+// wgmmas that add into an accumulator; all three products in one put the
+// noise-only map 1.26e-5 RMS-relative from the f32 plain version on an
+// H100 (scripts/ablate_k1.py, variant one_pass), over K1's hold of 1e-5.
+// So each GEMM runs twice (4.3e-6): the main pass adds only the hi*hi
+// products (2 wgmmas a k8 step into each accumulator instead of 6), the
+// correction pass hi*lo + lo*hi (2^-11 of the product, so its own
+// rounding does not show), each into a buffer of its own, one f32 add
+// joining the two (in the mix for the PC, add_kernel for the DFT).
+//
+// The GEMM (both kernels, gemm_body). A block owns 128 M-rows x 128
+// N-columns. A producer warp keeps two stages in flight with TMA: the data
+// operand's re and im boxes [128 rows, 32 k] (128 bytes a row, 128-byte
+// swizzle) and the constant's hi planes (main pass) or all four [128 N,
+// 32 k], completion on mbarriers. Two consumer warpgroups (64 rows each)
+// read their A fragments from the swizzled stage into registers (wgmma's
+// .tf32 takes only K-major operands from shared memory, and A from
+// registers in any order), split them, and issue wgmma m64n128k8 .tf32 with
+// A from registers and B (the constant, K-major) from shared memory: 4
+// MMAs a k8 step in the main pass (the 4 real products of the complex
+// pair), 8 in the correction pass (4 of them with the data's hi straight
+// from the stage, SS), -Ai for the real part by wgmma's imm-scale-a
+// (exact). More A registers than one part's 8 a step and ptxas, budgeting
+// 168 registers a thread for 288 threads, serializes the wgmmas.
+// Accumulators: 2 x 64 f32 a thread. The epilogue goes through shared
+// memory so that each warp writes runs along M, the output's contiguous
+// axis in both modes (pcT's pulses, the map's gates).
+//   PC: A = X planes of a segment [B*P rows, xlen], columns from the
+//       block's first gate j0 (Toeplitz), B = the segment's strip.
+//   DFT: A = pcT [B*G rows, P], B = D [V rows, P] (the transposed product
+//       keeps both operands K-major with no transpose of the data).
+// Boxes past a matrix's edge read as zeros (TMA), so ragged rows, gates,
+// pulses and Doppler bins need no masks in the main loop.
+//
+// What bounds it on this card: at the full perf shape (13 beams, 332
+// pulses, 3404 gates, filters of 35/200/700 taps) the useful complex MACs
+// are 1.3e10: 0.637 ms as 3 TF32 products each at 495 TFLOP/s (1.569 ms
+// as f32 FMAs at 67 TFLOP/s on the CUDA cores). The band the PC walks in
+// 128 x 128 blocks is ~3 x 86 GFLOP, the padded DFT ~3 x 48 GFLOP. Bytes:
+// the planes read and the map written once, 0.28 GB, 0.084 ms at 3.35
+// TB/s; with the pcT and correction buffers this design also moves
+// (written, mixed, read, added), ~1.7 GB, 0.52 ms. So the tensor cores
+// bind.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+namespace {
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;   // block tile; k of a stage
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;                   // warpgroups of 64 rows
+constexpr int kThreads = 128 * kConsumers + 32; // + the producer warp
+constexpr int kMaxSeg = 3;
+constexpr int kTileA = kBM * kBK * 4;           // bytes of a data plane's box
+constexpr int kTileB = kBN * kBK * 4;           // bytes of a constant plane's box
+constexpr int kStageBytes = 2 * kTileA + 4 * kTileB;
+constexpr int kLdo = kBM + 4;                   // epilogue tile row (floats)
+constexpr int kEpiBytes = 2 * kBN * kLdo * 4;
+constexpr int kBufBytes = kStages * kStageBytes > kEpiBytes ? kStages * kStageBytes
+                                                            : kEpiBytes;
+constexpr size_t kSmem = (size_t)kBufBytes + 1024 + 2 * kStages * 8;
+constexpr unsigned long long kTimeoutNs = 4000000000ull;   // 4 s
+constexpr int kMaxB = 16;                       // beams the mix holds in registers
+
+struct Seg {
+  int blk0;             // first block of the segment
+  int nb_n;             // 128-column N blocks
+  int k_tiles;          // 32-deep k steps
+  int n_len, n_off;     // valid N columns; output offset of column 0
+  int b_rows;           // rows of each constant plane (a multiple of 128)
+  int toeplitz;         // 1: A's k columns start at the block's n0 (PC)
+};
+
+struct GemmArgs {
+  CUtensorMap a_re[kMaxSeg], a_im[kMaxSeg];   // f32 data planes [m_len, cols]
+  CUtensorMap b[kMaxSeg];                     // f32 [4 * b_rows, k] constant
+  Seg seg[kMaxSeg];
+  int n_seg, m_len, mode;                     // 0: pc_gemm, 1: dft_gemm
+  // element (m, n) lands at (m / q) * s_q + (m % q) + (n_off + n) * s_n
+  int q;
+  long long s_q, s_n;
+  float* out_re;                              // PC: pcT planes (main pass)
+  float* out_im;
+  float* corr_re;                             //     and the correction's
+  float* corr_im;
+  float2* out;                                // DFT: the map (main pass)
+  float2* corr;                               //      and the correction
+};
+
+template <typename T>
+__device__ __forceinline__ const T& pick(const T (&v)[kMaxSeg], int s) {
+  return s == 0 ? v[0] : (s == 1 ? v[1] : v[2]);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A phase that never completes is a bug: trap after kTimeoutNs instead of
+// hanging the card (no printf: a call makes ptxas serialize the wgmmas).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (now_ns() - t0 > kTimeoutNs) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile as TMA writes it with 128-byte
+// swizzle: rows of 128 bytes (32 f32), 8-row groups 1024 bytes apart; a
+// k8 slice of TF32 starts 32 bytes further into the rows.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128 f32 accumulator fragment) += kScaleA A B, A the 64 x 8 TF32
+// tile in registers (a[0..3]: rows g and g + 8 of the warp's 16, columns t
+// and t + 4, g = lane / 4, t = lane % 4), B the 8 x 128 TF32 tile of
+// descriptor db (K-major, 128-byte swizzle); kScaleA +1 or -1 (exact).
+template <int kScaleA>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, %70, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(kScaleA));
+}
+
+// The same with A the 64 x 8 tile of descriptor da in shared memory (K-major,
+// 128-byte swizzle): its f32 values enter as TF32, their low 13 bits
+// ignored.
+template <int kScaleA>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, %67, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(kScaleA));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Barrier of the consumer warpgroups only (the producer warp may have left).
+__device__ __forceinline__ void named_sync_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous MMAs that own them.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+  asm volatile(""
+               :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               :
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The split of four data values: hi = rna(x), lo = rna(x - hi).
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = tf32_rna(x[i]);
+    lo[i] = tf32_rna(x[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// Byte offset of element (row r, k) of a [rows, 32] f32 box stored with
+// 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)).
+__device__ __forceinline__ uint32_t sw128_off(int r, int k) {
+  return (uint32_t)(r * 128 + ((((k >> 2) ^ r) & 7) << 4) + ((k & 3) << 2));
+}
+
+// The GEMM of both modes; kDft: the DFT's epilogue (rank-K signal,
+// complex64 map), else the PC's (pcT planes). kCorr: the correction pass
+// (the data times the constant's lo, the data's lo times the constant's
+// hi; added to the output the main pass wrote), else the main pass (the
+// hi parts' products).
+template <bool kDft, bool kCorr>
+__device__ __forceinline__ void gemm_body(const GemmArgs& a) {
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles start on 1024-byte boundaries
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t tiles = (raw + 1023u) & ~1023u;
+  const uint32_t bars = tiles + kBufBytes;   // full, then empty
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (kStages + st); };
+
+  int s = 0;
+  while (s + 1 < a.n_seg && (int)blockIdx.x >= pick(a.seg, s + 1).blk0) ++s;
+  const Seg sg = pick(a.seg, s);
+  const int local = blockIdx.x - sg.blk0;
+  const int m0 = (local / sg.nb_n) * kBM;
+  const int n0 = (local % sg.nb_n) * kBN;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    // the producer warp: one lane issues every load
+    if (threadIdx.x == 128 * kConsumers) {
+      const CUtensorMap* mar = &pick(a.a_re, s);
+      const CUtensorMap* mai = &pick(a.a_im, s);
+      const CUtensorMap* mb = &pick(a.b, s);
+      const int a_col = sg.toeplitz ? n0 : 0;
+      const int b_row = sg.toeplitz ? 0 : n0;
+      for (int kt = 0; kt < sg.k_tiles; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) - 1) & 1);
+        const uint32_t base = tiles + st * kStageBytes;
+        // the pass's constant planes: the hi ones (0, 2) or all four
+        constexpr int kFirstPlane = 0, kPlaneStep = kCorr ? 1 : 2;
+        mbar_expect_tx(full(st), 2 * kTileA + (4 / kPlaneStep) * kTileB);
+        tma_load(base, mar, a_col + kt * kBK, m0, full(st));
+        tma_load(base + kTileA, mai, a_col + kt * kBK, m0, full(st));
+#pragma unroll
+        for (int p = kFirstPlane; p < 4; p += kPlaneStep)
+          tma_load(base + 2 * kTileA + p * kTileB, mb, kt * kBK,
+                   p * sg.b_rows + b_row, full(st));
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg computes rows m0 + 64 wg .. m0 + 64 wg + 63
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int fr = 64 * wg + 16 * warp + (lane >> 2);   // fragment row (and + 8)
+  const int ft = lane & 3;                            // fragment column (and + 4)
+  float accr[64], acci[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) accr[i] = acci[i] = 0.f;
+  fence_acc(accr);
+  fence_acc(acci);
+  for (int kt = 0; kt < sg.k_tiles; ++kt) {
+    const int st = kt % kStages;
+    mbar_wait(full(st), (kt / kStages) & 1);
+    __syncwarp();   // the wgmma instructions below are .sync.aligned
+    const uint32_t base = tiles + st * kStageBytes;
+    const unsigned char* are = smem_raw + (base - raw);
+    const unsigned char* aim = are + kTileA;
+    const uint32_t b0 = base + 2 * kTileA;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      uint32_t rh[4], rl[4], ih[4], il[4];
+      {   // A from registers: the data's hi or lo part
+        float xr[4], xi[4];
+        const int k0 = 8 * kk + ft;
+        const uint32_t o[4] = {sw128_off(fr, k0), sw128_off(fr + 8, k0),
+                               sw128_off(fr, k0 + 4), sw128_off(fr + 8, k0 + 4)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          xr[i] = *reinterpret_cast<const float*>(are + o[i]);
+          xi[i] = *reinterpret_cast<const float*>(aim + o[i]);
+        }
+        split4(xr, rh, rl);
+        split4(xi, ih, il);
+      }
+      const uint64_t dar = sw128_desc(base + wg * (kTileA / kConsumers) + 32 * kk);
+      const uint64_t dai = sw128_desc(base + kTileA + wg * (kTileA / kConsumers) + 32 * kk);
+      const uint64_t brh = sw128_desc(b0 + 32 * kk);
+      const uint64_t brl = sw128_desc(b0 + kTileB + 32 * kk);
+      const uint64_t bih = sw128_desc(b0 + 2 * kTileB + 32 * kk);
+      const uint64_t bil = sw128_desc(b0 + 3 * kTileB + 32 * kk);
+      wgmma_fence();
+      // Yr += Ar Br - Ai Bi; Yi += Ar Bi + Ai Br (-Ai: wgmma's imm-scale-a,
+      // exact). The correction pass takes the data's hi for the constant's
+      // lo straight from the stage (SS: the tensor cores drop its low 13
+      // bits instead of rounding, 2^-10 of A in a term 2^-11 of the
+      // product, so 2^-21), which keeps its A registers to the lo parts
+      if (!kCorr) {
+        wgmma_tf32<1>(accr, rh, brh);
+        wgmma_tf32<-1>(accr, ih, bih);
+        wgmma_tf32<1>(acci, rh, bih);
+        wgmma_tf32<1>(acci, ih, brh);
+      } else {
+        wgmma_tf32_ss<1>(accr, dar, brl);
+        wgmma_tf32_ss<-1>(accr, dai, bil);
+        wgmma_tf32_ss<1>(acci, dar, bil);
+        wgmma_tf32_ss<1>(acci, dai, brl);
+        wgmma_tf32<1>(accr, rl, brh);
+        wgmma_tf32<-1>(accr, il, bih);
+        wgmma_tf32<1>(acci, rl, bih);
+        wgmma_tf32<1>(acci, il, brh);
+      }
+      wgmma_commit();
+      // the A registers are rewritten at the next step: wait for these MMAs
+      // (the other warpgroup's keep the tensor cores busy meanwhile)
+      wgmma_wait0();
+      fence_acc(accr);
+      fence_acc(acci);
+    }
+    // every MMA reading this stage is done: its buffers go back
+    if ((threadIdx.x & 127) == 0) mbar_arrive(empty(st));
+  }
+
+  // Epilogue through shared memory (free once both warpgroups are done):
+  // re and im tiles [128 N][kLdo], M contiguous, then each thread writes
+  // one M row's values, consecutive threads on consecutive M (the output's
+  // contiguous axis). Register 4c + 2h + e of the fragment holds row
+  // fr + 8h, column 8c + 2 ft + e.
+  named_sync_consumers();
+  float* er = reinterpret_cast<float*>(smem_raw + (tiles - raw));
+  float* ei = er + kBN * kLdo;
+#pragma unroll
+  for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int idx = (8 * c + 2 * ft + e) * kLdo + fr + 8 * h;
+        er[idx] = accr[4 * c + 2 * h + e];
+        ei[idx] = acci[4 * c + 2 * h + e];
+      }
+  named_sync_consumers();
+  const int m = threadIdx.x & (kBM - 1);
+  const int gm = m0 + m;
+  if (gm >= a.m_len) return;
+  const int mq = gm / a.q;
+  const long long mo = (long long)mq * a.s_q + (gm - mq * a.q);
+  // each pass stores its own result (reading the main pass's output here
+  // cost the correction more than its MMAs: the epilogue does not overlap
+  // them): the mix adds the PC's two, add_kernel the DFT's
+  float* dst_re = kCorr ? a.corr_re : a.out_re;
+  float* dst_im = kCorr ? a.corr_im : a.out_im;
+  float2* dst = kCorr ? a.corr : a.out;
+  for (int n = threadIdx.x / kBM; n < kBN; n += 128 * kConsumers / kBM) {
+    const int gn = n0 + n;
+    if (gn >= sg.n_len) break;
+    const long long off = mo + (long long)(sg.n_off + gn) * a.s_n;
+    const float yr = er[n * kLdo + m], yi = ei[n * kLdo + m];
+    if (kDft) {
+      dst[off] = make_float2(yr, yi);
+    } else {
+      dst_re[off] = yr;
+      dst_im[off] = yi;
+    }
+  }
+}
+
+template <bool kCorr>
+__global__ void __launch_bounds__(kThreads, 1)
+    pc_gemm_kernel(const __grid_constant__ GemmArgs a) {
+  gemm_body<false, kCorr>(a);
+}
+
+template <bool kCorr>
+__global__ void __launch_bounds__(kThreads, 1)
+    dft_gemm_kernel(const __grid_constant__ GemmArgs a) {
+  gemm_body<true, kCorr>(a);
+}
+
+// The beam mix of the PC's two passes into pr, pi [B, n]: x = p + c (the
+// main pass's result and the correction), y[b] = sum_c L[b,c] x[c], c
+// ascending. (Four values a thread in 16-byte vectors measured slower: the
+// registers cut the blocks in flight.)
+__global__ void __launch_bounds__(256)
+mix_planes_kernel(float* __restrict__ pr, float* __restrict__ pi,
+                  const float* __restrict__ cr, const float* __restrict__ ci,
+                  const float2* __restrict__ lmat, int num_b, long long n) {
+  __shared__ float2 sl[kMaxB * kMaxB];
+  for (int i = threadIdx.x; i < num_b * num_b; i += blockDim.x) sl[i] = lmat[i];
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float xr[kMaxB], xi[kMaxB];
+#pragma unroll
+    for (int c = 0; c < kMaxB; ++c) {
+      xr[c] = c < num_b ? pr[c * n + i] + cr[c * n + i] : 0.f;
+      xi[c] = c < num_b ? pi[c * n + i] + ci[c * n + i] : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxB; ++b) {
+      if (b >= num_b) continue;
+      float yr = 0.f, yi = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMaxB; ++c) {
+        if (c < num_b) {
+          const float2 l = sl[b * num_b + c];
+          yr = fmaf(l.x, xr[c], yr);
+          yr = fmaf(-l.y, xi[c], yr);
+          yi = fmaf(l.x, xi[c], yi);
+          yi = fmaf(l.y, xr[c], yi);
+        }
+      }
+      pr[b * n + i] = yr;
+      pi[b * n + i] = yi;
+    }
+  }
+}
+
+// The map out [B, V, G] += corr (the DFT's two passes) + the rank-K
+// signal sum_k st[k,b] dv[k,v] pb[k,g]. (In the GEMM's epilogue the
+// signal's loads cost a fifth of the DFT.)
+__global__ void __launch_bounds__(256)
+add_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
+           const float2* __restrict__ dv, const float2* __restrict__ pb,
+           const float2* __restrict__ st, int num_k, int num_b, int num_v,
+           int num_g) {
+  const long long n = (long long)num_b * num_v * num_g;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float2 y = out[i], c = corr[i];
+    float yr = y.x + c.x, yi = y.y + c.y;
+    if (num_k > 0) {
+      const long long bv = i / num_g;
+      const int g = (int)(i - bv * num_g);
+      const int b = (int)(bv / num_v), v = (int)(bv - (long long)b * num_v);
+      for (int k = 0; k < num_k; ++k) {
+        const float2 a = dv[k * num_v + v], p = pb[k * num_g + g];
+        const float2 w = st[k * num_b + b];
+        const float orr = a.x * p.x - a.y * p.y, oi = a.x * p.y + a.y * p.x;
+        yr += w.x * orr - w.y * oi;
+        yi += w.x * oi + w.y * orr;
+      }
+    }
+    out[i] = make_float2(yr, yi);
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Encoded maps by (pointer, cols, rows, ld), the kMapCache latest: a call
+// needs 9 maps, and the plan's constants and the caching allocator's
+// buffers come back at the same addresses call after call. A map holds
+// only the address, shape and box, so a hit is the map encoding would give.
+constexpr int kMapCache = 64;
+struct MapEntry {
+  long long key[4];
+  CUtensorMap map;
+};
+MapEntry g_maps[kMapCache];
+int g_map_count = 0, g_map_next = 0;
+std::mutex g_map_mutex;   // ctypes calls run without the GIL
+
+// An f32 matrix [rows, cols] with row stride ld elements, read in boxes of
+// 32 columns x 128 rows with 128-byte swizzle; out-of-bounds reads are 0.
+bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
+              long long ld) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || ptr % 16 != 0 || ld % 4 != 0 || cols < 1 || rows < 1 ||
+      cols > ld)
+    return false;
+  const long long key[4] = {ptr, cols, rows, ld};
+  std::lock_guard<std::mutex> lock(g_map_mutex);
+  for (int i = 0; i < g_map_count; ++i)
+    if (memcmp(g_maps[i].key, key, sizeof key) == 0) {
+      *map = g_maps[i].map;
+      return true;
+    }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t elem[2] = {1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, reinterpret_cast<void*>(ptr),
+         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  memcpy(g_maps[g_map_next].key, key, sizeof key);
+  g_maps[g_map_next].map = *map;
+  g_map_next = (g_map_next + 1) % kMapCache;
+  if (g_map_count < kMapCache) ++g_map_count;
+  return true;
+}
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t launch_gemm(const GemmArgs& a, long long blocks,
+                        cudaStream_t stream) {
+  if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  static bool smem_set[kMaxDevices] = {};   // the attributes, once a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    const int bytes = (int)kSmem;
+    const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    err = cudaFuncSetAttribute(pc_gemm_kernel<false>, attr, bytes);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(pc_gemm_kernel<true>, attr, bytes);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(dft_gemm_kernel<false>, attr, bytes);
+    if (err == cudaSuccess) err = cudaFuncSetAttribute(dft_gemm_kernel<true>, attr, bytes);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  // the main pass, then the correction pass adding to its output
+  const unsigned grid = (unsigned)blocks;
+  if (a.mode == 0) {
+    pc_gemm_kernel<false><<<grid, kThreads, kSmem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) pc_gemm_kernel<true><<<grid, kThreads, kSmem, stream>>>(a);
+  } else {
+    dft_gemm_kernel<false><<<grid, kThreads, kSmem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err == cudaSuccess) dft_gemm_kernel<true><<<grid, kThreads, kSmem, stream>>>(a);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* radar_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// The PC over n_seg (1..3) segments in one launch. tab holds 8 values a
+// segment: the f32 planes xr, xi [rows, x_cols] (row stride x_ld, a multiple
+// of 4; 16-byte aligned), x_cols, x_ld, the strip [4, 128, k_pad] f32
+// (re_hi, re_lo, im_hi, im_lo; k contiguous, k_pad a multiple of 32), k_pad,
+// the segment's gates j_len and their offset g0. Row r = b * num_p + p,
+// gate g0 + j lands in the planes pr, pi [num_b, num_g, p4] at
+// (b * num_g + g0 + j) * p4 + p (the main pass), and in cr, ci (the
+// correction); k1_tf32_mix adds the two.
+int k1_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
+               int num_g, int p4, void* pr, void* pi, void* cr, void* ci,
+               void* stream) {
+  if (n_seg < 1 || n_seg > kMaxSeg || num_b < 1 || num_p < 1 || p4 < num_p ||
+      p4 % 4 != 0 || pr == nullptr || pi == nullptr || cr == nullptr ||
+      ci == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)num_b * num_p;
+  if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  int order[kMaxSeg] = {0, 1, 2};
+  for (int i = 0; i < n_seg; ++i)      // longest k loop first
+    for (int j = i + 1; j < n_seg; ++j)
+      if (tab[8 * order[j] + 5] > tab[8 * order[i] + 5]) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  GemmArgs a{};
+  const int nb_m = (int)((rows + kBM - 1) / kBM);
+  long long blocks = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    const long long* t = tab + 8 * order[i];
+    const long long k_pad = t[5], j_len = t[6];
+    if (k_pad < kBK || k_pad % kBK != 0 || j_len < 1 || t[7] < 0 ||
+        t[7] + j_len > num_g ||
+        !make_map(&a.a_re[i], t[0], t[2], rows, t[3]) ||
+        !make_map(&a.a_im[i], t[1], t[2], rows, t[3]) ||
+        !make_map(&a.b[i], t[4], k_pad, 4 * kBN, k_pad))
+      return (int)cudaErrorInvalidValue;
+    const int nb_n = (int)((j_len + kBN - 1) / kBN);
+    a.seg[i] = Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len,
+                   (int)t[7], kBN, 1};
+    blocks += (long long)nb_m * nb_n;
+  }
+  a.n_seg = n_seg;
+  a.m_len = (int)rows;
+  a.mode = 0;
+  a.q = num_p;
+  a.s_q = (long long)num_g * p4;
+  a.s_n = p4;
+  a.out_re = static_cast<float*>(pr);
+  a.out_im = static_cast<float*>(pi);
+  a.corr_re = static_cast<float*>(cr);
+  a.corr_im = static_cast<float*>(ci);
+  return (int)launch_gemm(a, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// The beam mix by L [B, B] (row-major complex64) of the planes pr + cr,
+// pi + ci [num_b, n] (the PC's two passes) into pr, pi.
+int k1_tf32_mix(void* pr, void* pi, const void* cr, const void* ci,
+                const void* lmat, int num_b, long long n, void* stream) {
+  if (num_b < 1 || num_b > kMaxB || n < 1) return (int)cudaErrorInvalidValue;
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  mix_planes_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(pr), static_cast<float*>(pi),
+      static_cast<const float*>(cr), static_cast<const float*>(ci),
+      static_cast<const float2*>(lmat), num_b, n);
+  return (int)cudaGetLastError();
+}
+
+// The DFT: out [B, V, G] complex64 = D @ pc[b] + sum_k st[k,b] dv[k,v]
+// pb[k,g], from the mixed planes pr, pi [B, G, p4] (pulses p < num_p) and
+// D's split planes d4 [4, v_rows, p4] f32 (v_rows a multiple of 128, rows
+// beyond num_v zero); corr [B, V, G] complex64 is scratch (the correction
+// pass's result, which add_kernel adds, with the signal, to the main
+// pass's in out).
+int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
+                int num_b, int num_v, int num_p, int num_g, int p4,
+                const void* dv, const void* pb, const void* st, int num_k,
+                void* out, void* corr, void* stream) {
+  if (num_b < 1 || num_v < 1 || v_rows < num_v || v_rows % kBN != 0 ||
+      p4 < num_p || p4 % 4 != 0 || out == nullptr || corr == nullptr ||
+      (num_k > 0 && (dv == nullptr || pb == nullptr || st == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)num_b * num_g;
+  if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  GemmArgs a{};
+  const long long ptr_r = reinterpret_cast<long long>(pr);
+  const long long ptr_i = reinterpret_cast<long long>(pi);
+  if (!make_map(&a.a_re[0], ptr_r, num_p, rows, p4) ||
+      !make_map(&a.a_im[0], ptr_i, num_p, rows, p4) ||
+      !make_map(&a.b[0], reinterpret_cast<long long>(d4), num_p,
+                4LL * v_rows, p4))
+    return (int)cudaErrorInvalidValue;
+  const int nb_n = (num_v + kBN - 1) / kBN;
+  a.seg[0] = Seg{0, nb_n, (num_p + kBK - 1) / kBK, num_v, 0, v_rows, 0};
+  a.n_seg = 1;
+  a.m_len = (int)rows;
+  a.mode = 1;
+  a.q = num_g;
+  a.s_q = (long long)num_v * num_g;
+  a.s_n = num_g;
+  a.out = static_cast<float2*>(out);
+  a.corr = static_cast<float2*>(corr);
+  const long long blocks = (rows + kBM - 1) / kBM * nb_n;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_gemm(a, blocks, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long n = rows * num_v;
+  long long add_blocks = (n + 255) / 256;
+  if (add_blocks > 132 * 16) add_blocks = 132 * 16;
+  add_kernel<<<(unsigned)add_blocks, 256, 0, s>>>(
+      a.out, a.corr, static_cast<const float2*>(dv),
+      static_cast<const float2*>(pb), static_cast<const float2*>(st), num_k,
+      num_b, num_v, num_g);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -2,7 +2,9 @@
 ``radar_tpu/ops/pallas_kernels.py:39-129, 132-318``.
 
 - K2 (``goca_cfar_qvg_pallas``, ``pad_maps_qvg``): CFAR over padded qvg
-  pair-sum maps. ``goca_cfar_qvg`` runs ``csrc/cfar.cu`` for CUDA tensors
+  pair-sum maps, each block staged by TMA, the windows of ``K2_WINDOWS``
+  compiled in (``k2_geometry``: which instantiation and which TMA boxes a
+  window takes). ``goca_cfar_qvg`` runs ``csrc/cfar.cu`` for CUDA tensors
   and the plain PyTorch version ``goca_cfar_qvg_plain``
   (``ops/cfar.py::goca_cfar_2d`` on the un-padded maps) only for CPU
   tensors. Both give the mask bit for bit and the per-(pair, gate) hit
@@ -16,6 +18,8 @@
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -28,6 +32,44 @@ _METHODS = {"GOCA": 0, "SOCA": 1, "CA": 2}
 
 launch_count = 0    # K2 launches
 k3_launch_count = 0  # K3 launches
+
+# K2's compile-time windows (guard_r, ref_r, guard_v, ref_v): the full and
+# perf configs', and small_test_config's
+K2_WINDOWS = ((10, 5, 10, 5), (10, 5, 4, 3))
+K2_GATES = 128       # gates per K2 block
+TMA_BOX = 256        # TMA's most elements a box dimension
+
+
+class K2Geometry(NamedTuple):
+    instance: int    # index into K2_WINDOWS, or len(K2_WINDOWS): generic
+    tv: int          # Doppler rows per block
+    rw: int          # row-strip box width (gates), rnc boxes side by side
+    rnc: int
+    cbh: int         # column-strip box height (rows), cnr boxes stacked
+    cnr: int
+
+
+def k2_geometry(params: CfarParams) -> K2Geometry:
+    """K2's template instantiation for ``params``' window and its TMA boxes:
+    a block stages the row strip (tv rows x 128 + 2 hrp gates, hrp the range
+    half-window rounded up to 4 so the lanes' 16-byte loads stay aligned)
+    and the column strip (tv + 2 hv rows x 128 gates). An instantiated
+    window takes 32 rows and one box each; the generic one 16 rows and, where
+    a strip is wider than TMA's 256, boxes of 128 gates or of half its
+    rows."""
+    win = (params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
+           params.ref_cells_v)
+    hr = params.guard_cells_r + params.ref_cells_r
+    hv = params.guard_cells_v + params.ref_cells_v
+    width = K2_GATES + 2 * (-(-hr // 4) * 4)
+    if win in K2_WINDOWS:
+        return K2Geometry(K2_WINDOWS.index(win), 32, width, 1, 32 + 2 * hv, 1)
+    tv = 16
+    rw, rnc = ((width, 1) if width <= TMA_BOX
+               else (K2_GATES, -(-width // K2_GATES)))
+    rows = tv + 2 * hv
+    cbh, cnr = (rows, 1) if rows <= TMA_BOX else (-(-rows // 2), 2)
+    return K2Geometry(len(K2_WINDOWS), tv, rw, rnc, cbh, cnr)
 
 
 def _check_params(params: CfarParams) -> None:
@@ -74,6 +116,22 @@ def goca_cfar_qvg_plain(maps_padded: torch.Tensor, params: CfarParams,
     return mask, mask.sum(dim=1, dtype=torch.int32)
 
 
+_k2_args: dict = {}   # k2_cfar's window and geometry arguments per params
+
+
+def _window_args(params: CfarParams) -> tuple:
+    """k2_cfar's arguments from the window to the geometry, kept per
+    ``params``."""
+    if params not in _k2_args:
+        _k2_args[params] = (
+            params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
+            params.ref_cells_v, float(np.float32(1.0 / params.ref_cells_r)),
+            float(np.float32(1.0 / params.ref_cells_v)),
+            float(np.float32(params.threshold_factor)),
+            _METHODS[params.method], *k2_geometry(params))
+    return _k2_args[params]
+
+
 def _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v):
     global launch_count
     from .. import _build
@@ -91,11 +149,7 @@ def _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v):
     rc = torch.empty((num_q, out_cols), dtype=torch.int32, device=dev)
     code = lib.k2_cfar(
         maps_padded.data_ptr(), num_q, v_pad, g_pad, num_v, num_gates, HALO,
-        params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
-        params.ref_cells_v, float(np.float32(1.0 / params.ref_cells_r)),
-        float(np.float32(1.0 / params.ref_cells_v)),
-        float(np.float32(params.threshold_factor)), _METHODS[params.method],
-        mask.data_ptr(), rc.data_ptr(),
+        *_window_args(params), mask.data_ptr(), rc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "k2_cfar")
     launch_count += 1

@@ -12,12 +12,16 @@ with x_c the white uniform noise planes of beam c, PC_seg the segment's
 causal convolution, D the MTD DFT matrix, L the 13x13 Cholesky factor of
 the DBF-output noise covariance and (dv, pb, st) the rank-K signal factors.
 
-Kernel K1 (``csrc/noise_rdm.cu``) computes this on the card, with the
-noise drawn inside the kernel (draw mode) or read from given planes
-(planes mode). Kernel K4, the schedule of the TPU's non-rolling kernel,
-computes the same map with ``beams_per_step`` beams per block; kernel K1c
-writes the planes draw mode draws (``gen_noise_planes``). K1 and K4
-compute in float32 throughout.
+Kernel K1 (``csrc/noise_rdm_sm90.cu``) computes this on the card's tensor
+cores: the PC of each segment as a strip GEMM and the DFT as a GEMM, both
+in 3xTF32 (each f32 operand split into TF32 parts hi + lo, three products
+summed in f32: ``_split_tf32``, the plan's ``strip_tf32`` and ``d_tf32``),
+the beam mix between them. It reads given planes (planes mode) or, in draw
+mode, the planes kernel K1c writes first (``gen_noise_planes``), so the
+two modes agree bit for bit. Kernel K4 (``csrc/noise_rdm.cu``), the
+schedule of the TPU's non-rolling kernel, computes the same map with
+``beams_per_step`` beams per block on the CUDA cores, drawing inside the
+kernel. K1 and K4 hold float32 accuracy.
 
 The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
 the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
@@ -65,8 +69,10 @@ VARIANTS = ("beams", "resident", "stacked", "allbeams")
 RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
 STRIP_BN = 128                        # gates of a strip-GEMM block
 STRIP_BK = 64                         # k depth of its stages (128-byte rows)
+TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
 
-launch_count = 0                      # K1 launches (one per noise_rdm call)
+launch_count = 0                      # K1 calls (PC + mix + DFT GEMMs; with
+                                      # K1c's planes first in draw mode)
 k4_launch_count = 0                   # K4 launches (rolling=False calls)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
@@ -88,6 +94,7 @@ class RdmSegSpec(NamedTuple):
     taps: torch.Tensor  # [lh] complex64 filter h (causal conv)
     mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
     strip: torch.Tensor  # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
+    strip_tf32: torch.Tensor  # [4, STRIP_BN, k_pad] f32 split (``strip_tf32``)
 
     @property
     def xlen(self) -> int:
@@ -102,6 +109,7 @@ class RdmPlan(NamedTuple):
     n_dop: int
     n_pulses: int
     d: torch.Tensor     # [V, P] complex64 MTD DFT (window+fftshift folded)
+    d_tf32: torch.Tensor  # [4, V128, P4] f32 split of D (``d_tf32``)
 
 
 def _banded(h: np.ndarray, tile: int) -> np.ndarray:
@@ -117,13 +125,14 @@ def _banded(h: np.ndarray, tile: int) -> np.ndarray:
     return m
 
 
-def toeplitz_strip(col: torch.Tensor, bn: int = STRIP_BN) -> torch.Tensor:
+def toeplitz_strip(col: torch.Tensor, bn: int = STRIP_BN,
+                   bk: int = STRIP_BK) -> torch.Tensor:
     """The strip S = M[:bn+lh-1, :bn] of a banded filter M[k, n] =
     h[n+lh-1-k], from its first column ``col`` = M[:lh, 0] (h reversed), with
-    zero rows up to a multiple of ``STRIP_BK``: [k_pad, bn]. M is Toeplitz,
-    so S gives every bn-gate block of M: M[n0 + k, n0 + n] = S[k, n]."""
+    zero rows up to a multiple of ``bk``: [k_pad, bn]. M is Toeplitz, so S
+    gives every bn-gate block of M: M[n0 + k, n0 + n] = S[k, n]."""
     lh = col.shape[0]
-    k_pad = -(-(bn + lh - 1) // STRIP_BK) * STRIP_BK
+    k_pad = -(-(bn + lh - 1) // bk) * bk
     d = (torch.arange(k_pad, device=col.device)[:, None]
          - torch.arange(bn, device=col.device)[None, :])
     return torch.where((d >= 0) & (d < lh), col[d.clamp(0, lh - 1)],
@@ -137,6 +146,46 @@ def strip_bf16(mr: torch.Tensor, mi: torch.Tensor, lh: int) -> torch.Tensor:
     bfloat16 (nearest even, as ``round_mul``)."""
     return torch.stack([toeplitz_strip(m[:lh, 0]).T for m in (mr, mi)]).to(
         torch.bfloat16).contiguous()
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (its top 19 bits) to nearest, ties away
+    from zero, as the card's ``cvt.rna.tf32.f32``: integer ops on the bits
+    (add half of the dropped 13 bits' unit, clear them)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x: torch.Tensor):
+    """(hi, lo): the TF32 parts of f32 ``x``, hi = rna(x), lo = rna(x - hi),
+    so hi + lo = x within 2^-21 |x| and hi*hi + hi*lo + lo*hi carries a
+    product to about that accuracy (3xTF32)."""
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x.to(torch.float32) - hi)
+
+
+def _split_planes(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """[4, ...] f32: re_hi, re_lo, im_hi, im_lo (K1's constant operands)."""
+    return torch.stack([*_split_tf32(re), *_split_tf32(im)]).contiguous()
+
+
+def strip_tf32(mr: torch.Tensor, mi: torch.Tensor, lh: int) -> torch.Tensor:
+    """[4, STRIP_BN, k_pad] float32: the strips of the banded-filter planes
+    ``mr``, ``mi`` [W, T] (k_pad a multiple of ``TF32_BK``), transposed so k
+    is contiguous, split into TF32 parts: re_hi, re_lo, im_hi, im_lo (K1's
+    PC operand)."""
+    return _split_planes(*(toeplitz_strip(m[:lh, 0], bk=TF32_BK).T
+                           for m in (mr, mi)))
+
+
+def d_tf32(d: torch.Tensor) -> torch.Tensor:
+    """[4, V128, P4] float32: the MTD matrix D [V, P] split into TF32 parts
+    (re_hi, re_lo, im_hi, im_lo), zero rows up to a multiple of 128 and
+    zero columns up to a multiple of 4 (K1's DFT operand)."""
+    num_v, num_p = d.shape
+    pad = (0, -num_p % 4, 0, -num_v % 128)
+    return _split_planes(*(torch.nn.functional.pad(x, pad)
+                           for x in (d.real, d.imag)))
 
 
 def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
@@ -172,13 +221,14 @@ def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
             g0=g0, tile=t, window=w_pad,
             taps=torch.as_tensor(np.ascontiguousarray(h)).to(device=device,
                                                              dtype=c64),
-            mp=mp, strip=strip_bf16(mp.real, mp.imag, lh)))
+            mp=mp, strip=strip_bf16(mp.real, mp.imag, lh),
+            strip_tf32=strip_tf32(mp.real, mp.imag, lh)))
         c0 += r_len
         g0 += j_len
-    m = np.asarray(mtd_matrix)
+    d = torch.as_tensor(np.asarray(mtd_matrix)).to(device=device, dtype=c64)
     return RdmPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
-                   n_dop=m.shape[0], n_pulses=num_pulses,
-                   d=torch.as_tensor(m).to(device=device, dtype=c64))
+                   n_dop=d.shape[0], n_pulses=num_pulses, d=d,
+                   d_tf32=d_tf32(d))
 
 
 def seed_words(frame_seed: int) -> tuple[int, int]:
@@ -340,15 +390,20 @@ def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
             xi[:, :num_p].to(dtype).contiguous())
 
 
-def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
-                    beams_per_step):
-    """K1 (``beams_per_step=None``) or K4's window schedule."""
-    global launch_count, k4_launch_count
+def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
+    """K1 (``csrc/noise_rdm_sm90.cu``): the 3xTF32 strip-GEMM PC of every
+    segment into pcT planes [B, G, P4] (a main and a correction pass, each
+    one launch for all segments), the beam mix of their sum, the 3xTF32 DFT
+    GEMM (two passes, the rank-K signal in the second) and their sum; in
+    draw mode on the planes K1c writes first, read in place. One scratch
+    allocation holds K1c's planes, the PC's planes and the DFT's
+    correction."""
+    global launch_count
     import ctypes
 
     from .. import _build
 
-    lib = _build.load("noise_rdm")
+    lib = _build.load("noise_rdm_sm90")
     dev = l_factor.device
     num_b, num_p = l_factor.shape[0], plan.n_pulses
     num_v, num_g = plan.n_dop, plan.n_gates
@@ -358,6 +413,80 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         if t.device != dev or t.dtype != torch.complex64:
             raise ValueError("K1 constants must be complex64 on the card")
     lmat = l_factor.contiguous()
+    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
+    p4 = -(-num_p // 4) * 4
+    n_pc, n_map = num_b * num_g * p4, num_b * num_v * num_g
+    k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
+    # floats: K1c's planes (draw mode, 256-byte aligned spans), then the
+    # PC's main and correction planes pcr, pci, cr, ci [B, G, P4] and the
+    # DFT's correction pass [B, V, G] complex64
+    scratch = torch.empty(k1c_floats + 4 * n_pc + 2 * n_map,
+                          dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    pcr, pci, cr, ci, corr = (base + 4 * (k1c_floats + k * n_pc)
+                              for k in range(5))
+    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    xs, kept = [], []    # per segment (xr, xi, row stride); tensors alive
+    if planes is None:
+        spans = _k1c_launch(plan, seed, num_b, scratch, stream)
+        if all(xlen % 4 == 0 for *_, xlen in spans):
+            # K1c's [B*P, xlen] rows in place (TMA: 16-byte row strides)
+            xs = [(base + 4 * r, base + 4 * i, xlen)
+                  for r, i, _, xlen in spans]
+        else:
+            planes = _k1c_views(scratch, spans, num_b, num_p)
+    if planes is not None:
+        for si, seg in enumerate(plan.segments):
+            xr, xi = (_rows16(x) for x in _kernel_planes(
+                planes, si, seg, dev, num_b, num_p, torch.float32))
+            kept.append((xr, xi))
+            xs.append((xr.data_ptr(), xi.data_ptr(), xr.shape[-1]))
+    vals = []
+    for seg, (xr, xi, ld) in zip(plan.segments, xs):
+        st = seg.strip_tf32
+        if st.device != dev or st.dtype != torch.float32 \
+                or st.shape[2] % TF32_BK:
+            raise ValueError("the plan's strip_tf32 must be float32 "
+                             f"[4, {STRIP_BN}, k * {TF32_BK}] on the card")
+        vals += [xr, xi, ld, ld, st.data_ptr(), st.shape[2], seg.j_len,
+                 seg.g0]
+    _build.check(lib, lib.k1_tf32_pc(
+        len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
+        num_p, num_g, p4, pcr, pci, cr, ci, stream), "k1_tf32_pc")
+    _build.check(lib, lib.k1_tf32_mix(pcr, pci, cr, ci, lmat.data_ptr(),
+                                      num_b, num_g * p4, stream),
+                 "k1_tf32_mix")
+    d4 = plan.d_tf32
+    if d4.device != dev or d4.shape[2] != p4:
+        raise ValueError("the plan's d_tf32 must be on the card, [4, V128, "
+                         f"{p4}]")
+    _build.check(lib, lib.k1_tf32_dft(
+        pcr, pci, d4.data_ptr(), d4.shape[1], num_b, num_v, num_p, num_g, p4,
+        *sig_ptrs, num_k, out.data_ptr(), corr, stream), "k1_tf32_dft")
+    launch_count += 1
+    return out
+
+
+def _k4_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
+             beams_per_step):
+    """K4, the window schedule (``csrc/noise_rdm.cu``, CUDA cores, f32)."""
+    global k4_launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("noise_rdm")
+    dev = l_factor.device
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    if num_b > 16:
+        raise ValueError(f"K4 mixes at most 16 beams, got {num_b}")
+    for t in (l_factor, plan.d):
+        if t.device != dev or t.dtype != torch.complex64:
+            raise ValueError("K4 constants must be complex64 on the card")
+    lmat = l_factor.contiguous()
     d = plan.d.contiguous()
     num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
     pc = torch.empty((num_b, num_p, num_g), dtype=torch.complex64,
@@ -366,11 +495,11 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     s0, s1 = seed if seed is not None else (0, 0)
-    # K4 with every beam in one window mixes in the block
+    # every beam in one window mixes in the block
     mixed = beams_per_step == num_b
     for si, seg in enumerate(plan.segments):
         if seg.tile != KERNEL_TILE:
-            raise ValueError(f"K1 needs {KERNEL_TILE}-gate tiles")
+            raise ValueError(f"K4 needs {KERNEL_TILE}-gate tiles")
         taps = seg.taps.contiguous()
         if planes is not None:
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p,
@@ -378,34 +507,26 @@ def _noise_rdm_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
             x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
         else:
             x_ptrs, x_len = (None, None), 0
-        args = (taps.data_ptr(), taps.shape[0], seg.pad_front, seg.j_len,
-                seg.g0, si, s0, s1, ctypes.c_float(U_SCALE), x_ptrs[0],
-                x_ptrs[1], x_len, num_b, num_p, num_g)
-        if beams_per_step is None:
-            rc = lib.k1_pc(*args, pc.data_ptr(), stream)
-            _build.check(lib, rc, "k1_pc")
-        else:
-            rc = lib.k4_pc(*args, beams_per_step,
-                           lmat.data_ptr() if mixed else None,
-                           pc.data_ptr(), stream)
-            _build.check(lib, rc, "k4_pc")
+        rc = lib.k4_pc(taps.data_ptr(), taps.shape[0], seg.pad_front,
+                       seg.j_len, seg.g0, si, s0, s1, ctypes.c_float(U_SCALE),
+                       x_ptrs[0], x_ptrs[1], x_len, num_b, num_p, num_g,
+                       beams_per_step, lmat.data_ptr() if mixed else None,
+                       pc.data_ptr(), stream)
+        _build.check(lib, rc, "k4_pc")
     if not mixed:
         _build.check(lib, lib.k1_mix(pc.data_ptr(), lmat.data_ptr(), num_b,
                                      num_p * num_g, stream), "k1_mix")
     _build.check(lib, lib.k1_mtd(d.data_ptr(), pc.data_ptr(), num_b, num_v,
                                  num_p, num_g, *sig_ptrs, num_k,
                                  out.data_ptr(), stream), "k1_mtd")
-    if beams_per_step is None:
-        launch_count += 1
-    else:
-        k4_launch_count += 1
+    k4_launch_count += 1
     return out
 
 
-def _rows8(x: torch.Tensor) -> torch.Tensor:
+def _rows16(x: torch.Tensor) -> torch.Tensor:
     """Contiguous [B, P, n] as [B*P, n'] rows, n' = n padded with zero
-    columns to a multiple of 8 (TMA's 16-byte row-stride rule)."""
-    pad = -x.shape[-1] % 8
+    columns to 16 bytes (TMA's row-stride rule: 8 bf16, 4 f32)."""
+    pad = -x.shape[-1] % (16 // x.element_size())
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     return x.reshape(-1, x.shape[-1])
@@ -514,7 +635,7 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         segs = []
         for si, seg in enumerate(plan.segments):
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
-            segs.append((_rows8(xr), _rows8(xi), seg.strip, seg.j_len,
+            segs.append((_rows16(xr), _rows16(xi), seg.strip, seg.j_len,
                          seg.g0))
         strip_pc(segs, num_b * num_p, num_g, outr=pcr, outi=pci)
     # K10's ring PC, and the PC at f32 or in draw mode: a launch a segment
@@ -650,9 +771,11 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
                              f"[1, {num_b}]")
     schedule = "stacked" if stacked else variant
     if l_factor.is_cuda:
-        if schedule == "beams":
-            bm = _noise_rdm_cuda(plan, l_factor, signal, seed, planes,
-                                 beams_per_step)
+        if schedule == "beams" and rolling:
+            bm = _k1_cuda(plan, l_factor, signal, seed, planes)
+        elif schedule == "beams":
+            bm = _k4_cuda(plan, l_factor, signal, seed, planes,
+                          beams_per_step)
         else:
             bm = _variant_cuda(plan, l_factor, signal, seed, planes,
                                schedule, mul_dtype, out_dtype)
@@ -705,27 +828,52 @@ def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device):
     """K1c: one launch writes every segment's planes into one allocation;
     the planes are views of it."""
     global k1c_launch_count
+    buf = torch.empty(_k1c_table(plan, num_b)[2], dtype=torch.float32,
+                      device=device)
+    spans = _k1c_launch(plan, seed, num_b, buf,
+                        torch.cuda.current_stream(device).cuda_stream)
+    k1c_launch_count += 1
+    return _k1c_views(buf, spans, num_b, plan.n_pulses)
+
+
+def _k1c_table(plan: RdmPlan, num_b: int):
+    """``k1c_layout`` with its table as a ctypes array, kept per plane
+    geometry."""
     import ctypes
 
-    from .. import _build
-
-    lib = _build.load("noise_rdm")
     geom = (num_b, plan.n_pulses,
             tuple((sg.pad_front, sg.xlen) for sg in plan.segments))
     if geom not in _k1c_tables:
         table, spans, floats = k1c_layout(plan, num_b)
         _k1c_tables[geom] = ((ctypes.c_longlong * len(table))(*table),
                              spans, floats)
-    table, spans, floats = _k1c_tables[geom]
-    buf = torch.empty(floats, dtype=torch.float32, device=device)
-    rc = lib.k1c_planes(
-        table, len(spans), seed[0], seed[1], ctypes.c_float(U_SCALE), num_b,
-        plan.n_pulses, buf.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    return _k1c_tables[geom]
+
+
+def _k1c_launch(plan: RdmPlan, seed, num_b: int, buf: torch.Tensor,
+                stream: int):
+    """K1c's launch (``k1c_planes``) into the f32 ``buf`` from its first
+    float, uncounted (K1's draw mode counts it as part of K1): the spans of
+    ``k1c_layout``."""
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("noise_rdm")
+    table, spans, floats = _k1c_table(plan, num_b)
+    if buf.dtype != torch.float32 or buf.numel() < floats:
+        raise ValueError(f"K1c writes {floats} float32 values")
+    rc = lib.k1c_planes(table, len(spans), seed[0], seed[1],
+                        ctypes.c_float(U_SCALE), num_b, plan.n_pulses,
+                        buf.data_ptr(), stream)
     _build.check(lib, rc, "k1c_planes")
-    k1c_launch_count += 1
+    return spans
+
+
+def _k1c_views(buf: torch.Tensor, spans, num_b: int, num_p: int):
+    """The (re, im) planes [B, P, xlen] of each segment in K1c's ``buf``."""
     plane = lambda off, xlen: buf.as_strided(
-        (num_b, plan.n_pulses, xlen), (plan.n_pulses * xlen, xlen, 1), off)
+        (num_b, num_p, xlen), (num_p * xlen, xlen, 1), off)
     return [(plane(r, xlen), plane(i, xlen)) for r, i, _, xlen in spans]
 
 

@@ -16,7 +16,8 @@ from radar_tpu.ops.cfar import pair_sum_maps as j_pair_sum_maps
 from radar_tpu.ops.pallas_kernels import goca_cfar_qvg_pallas
 from radar_tpu.ops.pallas_kernels import pad_maps_qvg as j_pad
 
-from radar_tpu_torch.config.params import CfarParams
+from radar_tpu_torch.config.params import (CfarParams, full_config,
+                                           small_test_config)
 from radar_tpu_torch.ops import cfar_kernel as ck
 from radar_tpu_torch.ops.cfar import (extract_detections, goca_cfar_2d,
                                       pair_sum_maps)
@@ -124,3 +125,40 @@ def test_extract_detections_matches_jax(capacity, with_counts):
     np.testing.assert_array_equal(got.pair_idx.numpy()[:n], q[order])
     np.testing.assert_array_equal(got.r_idx.numpy()[:n], g[order])
     np.testing.assert_array_equal(got.v_idx.numpy()[:n], v[order])
+
+
+@pytest.mark.parametrize("window", [
+    "full", "small", "generic", "wide_range", "wide_doppler", "widest"])
+def test_k2_instance_and_tma_boxes(window):
+    """Which K2 instantiation a window selects (the full/perf config's
+    10/5/10/5 and small_test_config's 10/5/4/3 are compiled in, any other
+    window up to HALO is the generic one) and its TMA boxes: 16-byte inner
+    dimension, at most 256 a dimension, the boxes covering the row strip
+    (128 + 2 hrp gates, hrp the range half-window rounded up to 4) and the
+    column strip (tv + 2 hv rows), in the shared memory a block has."""
+    params = {"full": full_config().cfar,
+              "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2),
+              "wide_range": CfarParams(guard_cells_r=60, ref_cells_r=68),
+              "wide_doppler": CfarParams(guard_cells_v=100, ref_cells_v=28),
+              "widest": CfarParams(guard_cells_r=100, ref_cells_r=28,
+                                   guard_cells_v=100, ref_cells_v=28)}[window]
+    geo = ck.k2_geometry(params)
+    want = {"full": 0, "small": 1}.get(window, len(ck.K2_WINDOWS))
+    assert geo.instance == want
+    hr = params.guard_cells_r + params.ref_cells_r
+    hv = params.guard_cells_v + params.ref_cells_v
+    hrp = -(-hr // 4) * 4
+    assert geo.tv == (32 if want < len(ck.K2_WINDOWS) else 16)
+    assert geo.rw * 4 % 16 == 0 and geo.rw <= ck.TMA_BOX
+    assert geo.cbh <= ck.TMA_BOX
+    assert geo.rnc * geo.rw >= ck.K2_GATES + 2 * hrp
+    assert geo.rnc == 1 or geo.rw == ck.K2_GATES
+    assert geo.cnr * geo.cbh >= geo.tv + 2 * hv
+    if want < len(ck.K2_WINDOWS):
+        assert (geo.rnc, geo.cnr) == (1, 1)
+        assert geo.rw == ck.K2_GATES + 2 * hrp
+    smem = 4 * (-(-geo.rnc * geo.tv * geo.rw // 32) * 32
+                + geo.cnr * geo.cbh * ck.K2_GATES)
+    assert smem + 128 <= 232448 - 2048

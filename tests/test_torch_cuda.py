@@ -556,3 +556,150 @@ def test_k6_timeout_raises_instead_of_hanging(cuda_device):
                     timeout=300)[0]
     assert "timed out" in msg and "rank 0" in msg and "sequence 1" in msg
     assert time.monotonic() - t0 < 120
+
+
+# K1 at ragged shapes: 5 beams x 37 pulses (rows and pulses not multiples
+# of the GEMMs' 128 and 4), gates 37/300/700 (not multiples of 128), taps
+# 5/90/300, 41 Doppler bins
+K1_RAGGED = ((5, 90, 300), (37, 300, 700), 5, 37, 41)
+
+
+def _k1_plan(device, num_v=None, lh=K1_RAGGED[0], unit=False,
+             tf32_taps=False, seed=2, lane=128):
+    """A noise-RDM plan at K1_RAGGED's gates and pulses from a stand-in for
+    ``precompute``'s output: random complex taps of lengths ``lh`` (all ones
+    with ``unit``; rounded to TF32 with ``tf32_taps``), a random MTD
+    matrix [num_v, P] (the identity when ``num_v`` is None) and gate tiles
+    a multiple of ``lane``."""
+    from types import SimpleNamespace
+
+    gates, num_p = K1_RAGGED[1], K1_RAGGED[3]
+    rng = np.random.default_rng(seed)
+    taps = []
+    for n in lh:
+        t = (np.ones(n, np.complex64) if unit else
+             (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(
+                 np.complex64))
+        if tf32_taps:
+            t = (nr._round_tf32(torch.from_numpy(t.real.copy())).numpy()
+                 + 1j * nr._round_tf32(torch.from_numpy(t.imag.copy())
+                                       ).numpy())
+        taps.append(t)
+    pre = SimpleNamespace(gate_splits=gates, n_total_gate=sum(gates),
+                          fir_delay=lh[0] // 2, mf_narrow=taps[0],
+                          mf_medium_win=taps[1], mf_long_win=taps[2])
+    mtd = (np.eye(num_p) if num_v is None else
+           (rng.normal(size=(num_v, num_p))
+            + 1j * rng.normal(size=(num_v, num_p))) / np.sqrt(num_p))
+    return nr.make_rdm_plan(pre, mtd.astype(np.complex64), num_p,
+                            lane=lane, device=device)
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_at_ragged_shapes_on_card(cuda_device):
+    """K1 (3xTF32 strip-GEMM PC, mix, DFT GEMM) at K1_RAGGED's shapes vs
+    its plain version: RMS of the difference within 1e-5 of the RMS, every
+    element within 1e-4 of it; draw mode equal to planes mode on the plain
+    Philox planes bit for bit; one K1 count a call, no K1c count."""
+    num_b, num_p, num_v = K1_RAGGED[2:]
+    plan = _k1_plan(cuda_device, num_v=num_v)
+    rng = np.random.default_rng(3)
+    c = lambda *s: torch.from_numpy((rng.normal(size=s) + 1j * rng.normal(
+        size=s)).astype(np.complex64)).to(cuda_device)
+    lmat = c(num_b, num_b) * 0.5
+    signal = (c(2, num_v), c(2, plan.n_gates), c(2, num_b))
+    seed = (7, 9)
+    planes = nr.philox_planes(plan, seed, num_b, device=cuda_device)
+    before = (nr.launch_count, nr.k1c_launch_count)
+    drawn = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg")
+    fed = nr.noise_rdm(plan, lmat, signal, planes=planes, layout="bvg")
+    torch.cuda.synchronize()
+    assert (nr.launch_count, nr.k1c_launch_count) == (before[0] + 2,
+                                                      before[1])
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    assert drawn.shape == (num_b, num_v, plan.n_gates)
+    assert torch.equal(drawn, fed)
+    err, rms = (fed - ref).abs(), _rms(ref)
+    assert _rms(err) <= 1e-5 * rms and float(err.max()) <= 1e-4 * rms
+
+
+@pytest.mark.cuda
+def test_k1_draw_mode_at_unaligned_plane_widths_on_card(cuda_device):
+    """Draw mode reads K1c's planes in place only where their rows are
+    16-byte strides; with gate tiles of 129 (lane 3) two segments' planes
+    are 514 and 1157 samples wide, so K1 pads copies of them: still equal
+    to planes mode bit for bit and within K1's hold of plain."""
+    num_b, num_p, num_v = K1_RAGGED[2:]
+    plan = _k1_plan(cuda_device, num_v=num_v, lane=3)
+    assert [seg.xlen % 4 for seg in plan.segments] == [0, 2, 1]
+    lmat = torch.eye(num_b, dtype=torch.complex64, device=cuda_device)
+    seed = (11, 13)
+    planes = nr.philox_planes(plan, seed, num_b, device=cuda_device)
+    drawn = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg")
+    fed = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(drawn, fed)
+    err, rms = (fed - ref).abs(), _rms(ref)
+    assert _rms(err) <= 1e-5 * rms and float(err.max()) <= 1e-4 * rms
+
+
+@pytest.mark.cuda
+def test_k1_delta_and_one_tap_probes_on_card(cuda_device):
+    """Inputs that locate layout faults, held exactly with D and L the
+    identity and no signal (every output one product with 1, every value
+    TF32-exact, so the splits' low parts are zero): a unit delta in every
+    (beam, pulse) row recovers the TF32-rounded filter at its place, and
+    one-tap unit filters recover TF32-exact random planes."""
+    num_b, num_p = K1_RAGGED[2:4]
+    eye = torch.eye(num_b, dtype=torch.complex64, device=cuda_device)
+    plan = _k1_plan(cuda_device, tf32_taps=True)
+    planes = []
+    for si, seg in enumerate(plan.segments):
+        x = torch.zeros((num_b, num_p, seg.xlen), device=cuda_device)
+        n = seg.pad_front + (torch.arange(num_b * num_p, device=cuda_device)
+                             * (7 + si) % seg.r_len)
+        x.view(-1, seg.xlen)[torch.arange(num_b * num_p), n] = 1.0
+        planes.append((x, torch.zeros_like(x)))
+    got = nr.noise_rdm(plan, eye, planes=planes, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, eye, planes)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)
+
+    one = _k1_plan(cuda_device, lh=(1, 1, 1), unit=True)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    planes = [tuple(nr._round_tf32(torch.randn(
+        (num_b, num_p, seg.xlen), generator=g, device=cuda_device))
+        for _ in range(2)) for seg in one.segments]
+    got = nr.noise_rdm(one, eye, planes=planes, layout="bvg")
+    ref = nr.noise_rdm_plain(one, eye, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["full", "small", "generic", "widest"])
+def test_k2_windows_match_plain_on_card(cuda_device, window):
+    """K2 at its two compiled-in windows and through its generic
+    instantiation (a narrow window, and the widest the halo takes, staged
+    in several TMA boxes), each method: mask and row counts identical to
+    the plain version's."""
+    params = {"full": CfarParams(),
+              "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2),
+              "widest": CfarParams(guard_cells_r=100, ref_cells_r=28,
+                                   guard_cells_v=100, ref_cells_v=28,
+                                   threshold_factor=3.0)}[window]
+    rng = np.random.default_rng(5)
+    maps = rng.exponential(size=(3, 300, 1500)).astype(np.float32)
+    maps[rng.integers(0, 3, 60), rng.integers(130, 170, 60),
+         rng.integers(130, 1370, 60)] += 60.0
+    tp = ck.pad_maps_qvg(torch.from_numpy(maps).to(cuda_device))
+    for method in ("GOCA", "SOCA", "CA"):
+        p = CfarParams(**{**params.__dict__, "method": method})
+        mask, rc = ck.goca_cfar_qvg(tp, p, 1500, 300)
+        mask_p, rc_p = ck.goca_cfar_qvg_plain(tp, p, 1500, 300)
+        torch.cuda.synchronize()
+        assert torch.equal(mask, mask_p) and torch.equal(rc, rc_p)
+        assert int(mask.sum()) >= 10

@@ -277,3 +277,121 @@ def test_schedule_arguments_are_checked(setup):
                          beams_per_step=bad)
     a = nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, rolling=False)
     assert torch.equal(a, nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED))
+
+
+# ------------------------------------------------ K1's 3xTF32 arithmetic
+
+
+def test_split_tf32_parts():
+    """``_split_tf32``: hi keeps the top 19 bits (its low 13 are zero),
+    rounded to nearest (ties away, as ``cvt.rna.tf32.f32``); lo is the
+    rounded remainder, and hi + lo is x within 2^-21 |x|."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(100_000), rng.standard_normal(1000) * 1e-6,
+        rng.standard_normal(1000) * 1e6]).astype(np.float32))
+    hi, lo = nr._split_tf32(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert bool((x - hi).abs().le(2.0 ** -11 * x.abs()).all())
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    # ties go away from zero: 1 + 2^-11 (a tie) rounds up in magnitude
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert nr._split_tf32(tie)[0].tolist() == [1.0 + 2.0 ** -10,
+                                              -(1.0 + 2.0 ** -10)]
+
+
+def test_plan_tf32_planes_reconstruct_strip_and_d(setup):
+    """The plan's split constants: each segment's strip_tf32 (re_hi, re_lo,
+    im_hi, im_lo) sums to the f32 Toeplitz strip of its filter within 2^-21
+    of each value, k padded to the GEMM's 32; d_tf32 to D, zero-padded to
+    128 rows and 4 columns."""
+    plan = setup["tl"].rplan
+    for seg in plan.segments:
+        lh = seg.taps.shape[0]
+        st = seg.strip_tf32
+        assert st.dtype == torch.float32 and st.shape[:2] == (4, nr.STRIP_BN)
+        assert st.shape[2] % nr.TF32_BK == 0
+        assert st.shape[2] - nr.TF32_BK < nr.STRIP_BN + lh - 1 <= st.shape[2]
+        for p, m in enumerate((seg.mp.real, seg.mp.imag)):
+            want = nr.toeplitz_strip(m[:lh, 0], bk=nr.TF32_BK).T.double()
+            got = st[2 * p].double() + st[2 * p + 1].double()
+            assert bool(((got - want).abs()
+                         <= 2.0 ** -21 * want.abs()).all())
+    d4 = plan.d_tf32
+    num_v, num_p = plan.d.shape
+    assert d4.shape == (4, -(-num_v // 128) * 128, -(-num_p // 4) * 4)
+    for p, m in enumerate((plan.d.real, plan.d.imag)):
+        got = (d4[2 * p].double() + d4[2 * p + 1].double())
+        assert bool(((got[:num_v, :num_p] - m.double()).abs()
+                     <= 2.0 ** -21 * m.double().abs()).all())
+        assert not bool(got[num_v:].any()) and not bool(got[:, num_p:].any())
+
+
+def _trunc_tf32(x):
+    """x with its low 13 bits cleared: what the tensor cores read of an f32
+    operand in shared memory."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """Complex a @ b as K1's tensor cores form it: each real plane split
+    into TF32 parts, hi*hi + hi*lo + lo*hi (exact products, f32 sums), the
+    data operand's hi read truncated in the hi*lo term."""
+    def real(x, y):
+        (xh, xl), (yh, yl) = nr._split_tf32(x), nr._split_tf32(y)
+        return xh @ yh + _trunc_tf32(x) @ yl + xl @ yh
+    return torch.complex(real(a.real, b.real) - real(a.imag, b.imag),
+                         real(a.real, b.imag) + real(a.imag, b.real))
+
+
+def _k1_tf32_emulated(plan, l_factor, planes, signal):
+    """K1's schedule in its arithmetic on the CPU: per segment the strip
+    GEMM over 128-gate blocks (the block's samples j0 .. j0 + k_pad - 1
+    times the strip), the beam mix, the DFT, the rank-K signal."""
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    pcs = []
+    for seg, (xr, xi) in zip(plan.segments, planes):
+        st = seg.strip_tf32                  # [4, 128, k_pad], split
+        k_pad, nblk = st.shape[2], -(-seg.j_len // nr.STRIP_BN)
+        x = torch.complex(xr[:, :num_p], xi[:, :num_p])
+        need = (nblk - 1) * nr.STRIP_BN + k_pad
+        x = torch.nn.functional.pad(x, (0, max(need - x.shape[-1], 0)))
+        win = x[..., :need].unfold(-1, k_pad, nr.STRIP_BN)  # [B, P, nblk, k]
+        xs = win.reshape(-1, k_pad)
+        sr, si = (st[0], st[1]), (st[2], st[3])
+        xr_, xi_ = xs.real.contiguous(), xs.imag.contiguous()
+        (ah, al), (bh, bl) = nr._split_tf32(xr_), nr._split_tf32(xi_)
+        at, bt = _trunc_tf32(xr_), _trunc_tf32(xi_)
+        # hi*hi + hi*lo + lo*hi with the strip's parts
+        prod = lambda h, t, l, s: h @ s[0].T + t @ s[1].T + l @ s[0].T
+        y = torch.complex(prod(ah, at, al, sr) - prod(bh, bt, bl, si),
+                          prod(ah, at, al, si) + prod(bh, bt, bl, sr))
+        pcs.append(y.reshape(num_b, num_p, -1)[..., :seg.j_len])
+    pc = torch.cat(pcs, dim=-1)                               # [B, P, G]
+    pc = torch.einsum("bc,cpg->bpg", l_factor, pc)
+    out = _mm3(plan.d, pc)                                    # [B, V, G]
+    dv, pb, st = signal
+    for k in range(dv.shape[0]):
+        out = out + st[k][:, None, None] * (dv[k][:, None] * pb[k][None, :])
+    return out
+
+
+def test_k1_tf32_arithmetic_matches_jax_rolling_kernel(setup, gen_planes):
+    """K1's 3xTF32 strip-GEMM schedule emulated on the CPU (TF32 parts of
+    every operand, three products each, the strip over 128-gate blocks) vs
+    JAX's interpret-mode rolling kernel with the signal fused, on the
+    planes that kernel draws: RMS within 1e-5, every element within 1e-4 of
+    the RMS (K1's hold, before the card is used)."""
+    jplan, l_np, tl = setup["jplan"], setup["l_np"], setup["tl"]
+    seed, planes = gen_planes
+    sig = tuple(jnp.asarray(f.numpy()) for f in setup["factors"])
+    want = noise_rdm_pallas_gen(seed, jplan, l_np, float(np.sqrt(1.5)),
+                                interpret=True, mul_dtype=jnp.float32,
+                                out_dtype=jnp.float32, rolling=True,
+                                signal=sig)
+    got = _k1_tf32_emulated(tl.rplan, tl.l_factor, planes, setup["factors"])
+    assert float(np.max(np.abs(np.asarray(want)))) > 0.0
+    _close(got.permute(1, 2, 0), want)
