@@ -29,7 +29,7 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # contraction; the noise-RDM kernels are held by RMS-relative bounds and
 # may contract
 _EXTRA = {"noise_rdm": [], "noise_rdm_sm90": [], "rdm_variants": [],
-          "band_pc_sm90": [],
+          "band_pc_sm90": [], "rdm_sm90": [],
           "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": []}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -53,12 +53,16 @@ _SIGNATURES = {
         "rv_band_pc": [_I, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _U, _U, _F,
                        _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                        _P],
-        "rv_ring_pc": [_I, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P, _P, _P],
-        "rv_mtd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+        "rv_ring_pc": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P, _P, _P],
+        "rv_mtd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
         "rv_mix": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
         "rv_mtd_mix": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                        _I, _P, _P],
+    },
+    "rdm_sm90": {
+        "rs_ring_pc": [_I, _P, _I, _I, _P, _P, _P],
+        "rs_dft": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     },
     "band_pc_sm90": {
         "sp_band_pc": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -67,8 +71,8 @@ _SIGNATURES = {
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-        "k3_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P,
-                    _P],
+        "k3_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     },
     "awgn": {
         "k5_awgn": [_P, _P, _LL, _U, _U, _F, _F, _P],

@@ -13,8 +13,9 @@
 //   K8  studies/pallas_pc.py::pulse_compress_noise_pallas, body
 //       _make_seg_kernel (:150): the banded PC alone, f32 out.
 // With bf16 operands, K8 and the planes-mode PC of K7 and K9 run the strip
-// GEMM of band_pc_sm90.cu (TMA + wgmma); here they run at f32, and K7's
-// draw mode at both types.
+// GEMM of band_pc_sm90.cu (TMA + wgmma), K10's PC the resident ring and the
+// DFT of K10 and K7 the wgmma GEMM of rdm_sm90.cu; here they run at f32,
+// and K7's draw-mode PC at both types.
 //
 // Per segment, with x the white planes, M the banded filter [W, T], D the
 // MTD DFT [V, P] and L the 13x13 Cholesky factor, the RDM variants compute
@@ -34,17 +35,17 @@
 // would not: it rounds f32 operands, so f32 runs on the CUDA cores).
 //
 // Launches, all on the caller's stream:
-//   K10: ring_pc_kernel per segment -> DFT GEMM -> mix_kernel;
+//   K10: ring_pc_kernel per segment (bf16: rdm_sm90.cu's ring, one launch)
+//        -> DFT GEMM (bf16: rdm_sm90.cu's dft_kernel) -> mix_kernel;
 //   K7:  banded PC GEMM per segment (bf16 planes: the strip GEMM of
-//        band_pc_sm90.cu) -> DFT GEMM -> mix_kernel;
+//        band_pc_sm90.cu) -> DFT GEMM (bf16: dft_kernel) -> mix_kernel;
 //   K9:  the same PC -> mtd_mix_kernel (DFT of all beams, rounded, mixed in
 //        the block: no mt round trip, one output write);
 //   K8:  f32: banded PC GEMM per segment on the compact cube, f32 complex
 //        out (bf16: band_pc_sm90.cu).
-// The GEMMs (band_pc_kernel, mtd_gemm_kernel) run on the CUDA cores at f32
-// and on the tensor cores at bf16 (mtd_gemm_tc_kernel; band_pc_tc_kernel
-// for K7's draw mode only, whose Philox draws are made in the GEMM's
-// loads, which TMA cannot do).
+// The GEMMs (band_pc_kernel, mtd_gemm_kernel) run on the CUDA cores at f32;
+// at bf16 K7's draw-mode PC runs on the tensor cores (band_pc_tc_kernel,
+// whose Philox draws are made in the GEMM's loads, which TMA cannot do).
 //
 // What bounds them on this card: operations. At the full perf shape (13
 // beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
@@ -58,21 +59,23 @@
 // the stacked product (re*re, im*im, re*im, im*re: its four quadrants,
 // combined once at the end as the TPU combines them): on the CUDA cores a
 // 4x4 register tile a thread, 16-deep k steps; on the tensor cores
-// mma.sync m16n8k16 fragments, 32-deep k steps (a first tensor-core
-// version: synchronous scalar staging, no cp.async/TMA, no wgmma).
+// mma.sync m16n8k16 fragments, 32-deep k steps (synchronous scalar
+// staging: K7's draw-mode PC only).
 // - K7's PC is the stacked product [2P, W] x [W, 2T] per tile; a block
 //   walks only the rows of M its columns touch (column n of M is nonzero in
 //   rows n .. n+taps-1), so the all-zero part of the band costs nothing.
 //   It takes the band in the convolution's sample order, so at f32 K7,
 //   K9 and K10 agree bit for bit, as the TPU's schedules do.
-// - K10 keeps what the TPU's resident buffer keeps: each plane sample is
-//   read from device memory about once. A block owns one beam x 8 pulse rows
-//   x a run of consecutive 128-gate tiles and slides a ring of W + 128
+// - K10 (f32) keeps what the TPU's resident buffer keeps: each plane sample
+//   is read from device memory about once. A block owns one beam x 8 pulse
+//   rows x a run of consecutive 128-gate tiles and slides a ring of W + 128
 //   samples a row through shared memory, loading only the 128 new samples
 //   of the next tile (into registers before the current tile's
 //   convolution, stored after it). K1 planes mode re-reads each sample
 //   W/T ~ 7x on the long segment. Its convolution is direct, tap by tap,
 //   on the CUDA cores (one shared load feeds 16 FMAs), not the banded GEMM.
+//   (At bf16 rdm_sm90.cu's ring feeds wgmma from a ring of 64-sample
+//   chunks.)
 // - K9: the 13 beams' [V, T] DFT tiles of the TPU's step (4.4 MB) do not
 //   fit a block (227 KB). One block per 32 Doppler rows x 32 gates forms the
 //   DFT of every beam in turn on the CUDA cores, keeps the rounded tiles as
@@ -275,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) band_pc_kernel(PcArgs a) {
 
 // ------------------------------------------- bf16 tensor-core GEMM
 
-// With bf16 operands the GEMMs run on the tensor cores: mma.sync
+// K7's draw-mode PC at bf16 runs on the tensor cores: mma.sync
 // m16n8k16, bf16 x bf16 products (exact) accumulated in f32, the MXU's
 // arithmetic. A block computes a 64 x 64 complex tile with 8 warps, each a
 // 32 x 16 tile as 2 x 2 m16n8 fragments, each with the four real
@@ -428,40 +431,6 @@ __global__ void __launch_bounds__(kThreads) band_pc_tc_kernel(PcArgs a) {
   });
 }
 
-// mtd_gemm_kernel on the tensor cores (bf16 operands).
-__global__ void __launch_bounds__(kThreads)
-mtd_gemm_tc_kernel(const float* __restrict__ dr, const float* __restrict__ di,
-                   const __nv_bfloat16* __restrict__ pcr,
-                   const __nv_bfloat16* __restrict__ pci, int num_v, int num_p,
-                   int num_g, __nv_bfloat16* __restrict__ mtr,
-                   __nv_bfloat16* __restrict__ mti) {
-  const int b = blockIdx.z;
-  const int v0 = blockIdx.y * kBM;
-  const int g0 = blockIdx.x * kBN;
-  const long long base = (long long)b * num_p * num_g;
-  TcAcc acc;
-  tc_gemm(
-      0, num_p,
-      [&](int m, int k) {
-        const long long off = (long long)(v0 + m) * num_p + k;
-        return v0 + m < num_v ? make_float2(dr[off], di[off]) : make_float2(0.f, 0.f);
-      },
-      [&](int k, int n) {
-        const long long off = base + (long long)k * num_g + g0 + n;
-        return g0 + n < num_g ? make_float2(__bfloat162float(pcr[off]),
-                                            __bfloat162float(pci[off]))
-                              : make_float2(0.f, 0.f);
-      },
-      acc);
-  tc_store(acc, [&](int m, int n, float cr, float ci) {
-    const int v = v0 + m, g = g0 + n;
-    if (v >= num_v || g >= num_g) return;
-    const long long off = ((long long)b * num_v + v) * num_g + g;
-    mtr[off] = __float2bfloat16_rn(cr);
-    mti[off] = __float2bfloat16_rn(ci);
-  });
-}
-
 // ------------------------------------------------------- K10 ring PC
 
 // K10: one block per (run of tiles, 8 pulse rows, beam). The ring holds
@@ -587,7 +556,7 @@ ring_pc_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
 // ------------------------------------------------------------ the DFT
 
 // mt[b] = D [V, P] @ pc[b] [P, G] in f32 (the TPU's mt scratch); bf16
-// runs mtd_gemm_tc_kernel.
+// runs rdm_sm90.cu's dft_kernel.
 __global__ void __launch_bounds__(kThreads)
 mtd_gemm_kernel(const float* __restrict__ dr, const float* __restrict__ di,
                 const float* __restrict__ pcr, const float* __restrict__ pci,
@@ -832,22 +801,15 @@ int launch_ring_pc(const void* xr, const void* xi, long long x_len,
   return (int)cudaGetLastError();
 }
 
-// f32 on the CUDA cores, bf16 on the tensor cores
-int launch_mtd(bool bf16, const void* dr, const void* di, const void* pcr,
+// f32 on the CUDA cores (bf16: rdm_sm90.cu's dft_kernel)
+int launch_mtd(const void* dr, const void* di, const void* pcr,
                const void* pci, int num_b, int num_v, int num_p, int num_g,
                void* mtr, void* mti, cudaStream_t st) {
   const dim3 grid((num_g + kBN - 1) / kBN, (num_v + kBM - 1) / kBM, num_b);
-  const float* d_r = static_cast<const float*>(dr);
-  const float* d_i = static_cast<const float*>(di);
-  if (bf16)
-    mtd_gemm_tc_kernel<<<grid, kThreads, 0, st>>>(
-        d_r, d_i, static_cast<const __nv_bfloat16*>(pcr),
-        static_cast<const __nv_bfloat16*>(pci), num_v, num_p, num_g,
-        static_cast<__nv_bfloat16*>(mtr), static_cast<__nv_bfloat16*>(mti));
-  else
-    mtd_gemm_kernel<<<grid, kThreads, 0, st>>>(
-        d_r, d_i, static_cast<const float*>(pcr), static_cast<const float*>(pci),
-        num_v, num_p, num_g, static_cast<float*>(mtr), static_cast<float*>(mti));
+  mtd_gemm_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(dr), static_cast<const float*>(di),
+      static_cast<const float*>(pcr), static_cast<const float*>(pci), num_v,
+      num_p, num_g, static_cast<float*>(mtr), static_cast<float*>(mti));
   return (int)cudaGetLastError();
 }
 
@@ -918,29 +880,27 @@ int rv_band_pc(int bf16, int src, const void* xr, const void* xi,
   return launch_band_pc(bf16 != 0, src, a, num_b, st);
 }
 
-// K10's PC of one segment: T planes [B, P, x_len] -> rounded T planes
-// [B, P, num_g] at g0; taps tr, ti [lh] f32 holding T values; 128-gate
-// tiles, tiles_per_run consecutive tiles a block.
-int rv_ring_pc(int bf16, const void* xr, const void* xi, long long x_len,
-               const void* tr, const void* ti, int lh, int window,
-               int tiles_per_run, int ntiles, int num_b, int num_p, int j_len,
-               int g0, int num_g, void* outr, void* outi, void* stream) {
+// K10's PC of one segment at f32 (bf16: rdm_sm90.cu's rs_ring_pc): f32
+// planes [B, P, x_len] -> f32 planes [B, P, num_g] at g0; taps tr, ti [lh];
+// 128-gate tiles, tiles_per_run consecutive tiles a block.
+int rv_ring_pc(const void* xr, const void* xi, long long x_len, const void* tr,
+               const void* ti, int lh, int window, int tiles_per_run,
+               int ntiles, int num_b, int num_p, int j_len, int g0, int num_g,
+               void* outr, void* outi, void* stream) {
   if (tiles_per_run < 1 || window % 32 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_ring_pc<__nv_bfloat16>(xr, xi, x_len, tr, ti, lh, window,
-                                              tiles_per_run, ntiles, num_b, num_p,
-                                              j_len, g0, num_g, outr, outi, st)
-              : launch_ring_pc<float>(xr, xi, x_len, tr, ti, lh, window,
-                                      tiles_per_run, ntiles, num_b, num_p, j_len,
-                                      g0, num_g, outr, outi, st);
+  return launch_ring_pc<float>(xr, xi, x_len, tr, ti, lh, window,
+                               tiles_per_run, ntiles, num_b, num_p, j_len, g0,
+                               num_g, outr, outi,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// mt [B, V, G] = D [V, P] @ pc[b], rounded T planes; D as f32 planes.
-int rv_mtd(int bf16, const void* dr, const void* di, const void* pcr,
-           const void* pci, int num_b, int num_v, int num_p, int num_g,
-           void* mtr, void* mti, void* stream) {
-  return launch_mtd(bf16 != 0, dr, di, pcr, pci, num_b, num_v, num_p, num_g,
-                    mtr, mti, static_cast<cudaStream_t>(stream));
+// mt [B, V, G] = D [V, P] @ pc[b] in f32 (bf16: rdm_sm90.cu's rs_dft); D
+// as f32 planes.
+int rv_mtd(const void* dr, const void* di, const void* pcr, const void* pci,
+           int num_b, int num_v, int num_p, int num_g, void* mtr, void* mti,
+           void* stream) {
+  return launch_mtd(dr, di, pcr, pci, num_b, num_v, num_p, num_g, mtr, mti,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // out [B, V, G] complex64 = L mt (+ sum_k st[k,b] dv[k,v] pb[k,g]); with

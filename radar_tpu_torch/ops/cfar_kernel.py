@@ -10,7 +10,9 @@
   tensors. Both give the mask bit for bit and the per-(pair, gate) hit
   counts that ``extract_detections`` consumes.
 - K3 (``goca_cfar_2d_pallas``): the adjacent-beam pair sum fused with the
-  same CFAR, on beams-major magnitudes [B, V, G]. ``goca_cfar_2d_fused``
+  same CFAR, on beams-major magnitudes [B, V, G], a block walking every
+  beam of its tile through a ring of TMA-staged beam slots
+  (``k3_geometry``: instantiation, tile and TMA boxes). ``goca_cfar_2d_fused``
   runs ``csrc/cfar.cu`` for CUDA tensors and the plain version
   ``goca_cfar_2d_fused_plain`` (``goca_cfar_2d`` of the pair sums) only
   for CPU tensors; mask and threshold agree bit for bit.
@@ -38,6 +40,9 @@ k3_launch_count = 0  # K3 launches
 K2_WINDOWS = ((10, 5, 10, 5), (10, 5, 4, 3))
 K2_GATES = 128       # gates per K2 block
 TMA_BOX = 256        # TMA's most elements a box dimension
+K3_SLOTS = 3         # beam slots of a K3 block's ring
+K3_GROUPS = 2        # groups of pairs a compiled-in window's tile walks
+MAX_SMEM = 232448 - 2048   # dynamic shared memory a block may take
 
 
 class K2Geometry(NamedTuple):
@@ -70,6 +75,56 @@ def k2_geometry(params: CfarParams) -> K2Geometry:
     rows = tv + 2 * hv
     cbh, cnr = (rows, 1) if rows <= TMA_BOX else (-(-rows // 2), 2)
     return K2Geometry(len(K2_WINDOWS), tv, rw, rnc, cbh, cnr)
+
+
+class K3Geometry(NamedTuple):
+    instance: int    # index into K2_WINDOWS, or len(K2_WINDOWS): generic
+    tv: int          # Doppler rows per block
+    gt: int          # gates per block
+    rw: int          # compiled in: the box's width (gt + 2 hrp); generic:
+    rnc: int         # the row strip's box width, rnc boxes side by side
+    cbh: int         # compiled in: the box's height (tv + 2 hv); generic:
+    cnr: int         # the column strip's box height, cnr boxes stacked
+    groups: int      # groups of pairs a tile's beams are walked in
+
+
+def k3_geometry(params: CfarParams, num_b: int) -> K3Geometry:
+    """K3's template instantiation for ``params``' window, its tile, its TMA
+    boxes and how many groups of pairs a tile's blocks walk for ``num_b``
+    beams. A compiled-in window takes a 32 x 128 tile and stages each beam
+    as one box, the tile with its whole halo ([32 + 2 hv] x [128 + 2 hrp],
+    hrp the range half-window rounded up to 4); its pairs are walked in 2
+    groups (at 13 beams 594 blocks, 4.5 waves of the 132 SMs, where one
+    group's 297 blocks left the third of 3 waves a quarter full), or in one
+    where there is only one pair. The generic one takes a 16 x 32 tile
+    (three slots of the widest window fit a block), a row strip (16 x 32 + 2
+    hrp) and a column strip (16 + 2 hv x 32), each split evenly into boxes
+    of at most TMA's 256, and one group."""
+    win = (params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
+           params.ref_cells_v)
+    hr = params.guard_cells_r + params.ref_cells_r
+    hv = params.guard_cells_v + params.ref_cells_v
+    hrp = -(-hr // 4) * 4
+    if win in K2_WINDOWS:
+        return K3Geometry(K2_WINDOWS.index(win), 32, 128, 128 + 2 * hrp, 1,
+                          32 + 2 * hv, 1, min(K3_GROUPS, num_b - 1))
+    tv, gt = 16, 32
+    width, rows = gt + 2 * hrp, tv + 2 * hv
+    rnc, cnr = -(-width // TMA_BOX), -(-rows // TMA_BOX)
+    return K3Geometry(len(K2_WINDOWS), tv, gt, -(-width // (4 * rnc)) * 4,
+                      rnc, -(-rows // cnr), cnr, 1)
+
+
+def k3_smem_bytes(geo: K3Geometry) -> int:
+    """Dynamic shared memory of a K3 block: ``K3_SLOTS`` slots (a
+    compiled-in window's box, or the generic row strip padded to 128 bytes
+    and the column strip), and 128 bytes of alignment."""
+    if geo.instance < len(K2_WINDOWS):
+        slot = geo.cbh * geo.rw
+    else:
+        slot = (-(-geo.rnc * geo.tv * geo.rw // 32) * 32
+                + geo.cnr * geo.cbh * geo.gt)
+    return 4 * K3_SLOTS * -(-slot // 32) * 32 + 128
 
 
 def _check_params(params: CfarParams) -> None:
@@ -116,20 +171,24 @@ def goca_cfar_qvg_plain(maps_padded: torch.Tensor, params: CfarParams,
     return mask, mask.sum(dim=1, dtype=torch.int32)
 
 
-_k2_args: dict = {}   # k2_cfar's window and geometry arguments per params
+_args: dict = {}   # k2_cfar's and k3_cfar's window and geometry arguments
 
 
-def _window_args(params: CfarParams) -> tuple:
-    """k2_cfar's arguments from the window to the geometry, kept per
-    ``params``."""
-    if params not in _k2_args:
-        _k2_args[params] = (
+def _window_args(params: CfarParams, num_b: int | None = None) -> tuple:
+    """k2_cfar's (no ``num_b``) or k3_cfar's (for ``num_b`` beams)
+    arguments from the window to the geometry, kept per ``params`` and
+    ``num_b``."""
+    key = (params, num_b)
+    if key not in _args:
+        geo = (k2_geometry(params) if num_b is None
+               else k3_geometry(params, num_b))
+        _args[key] = (
             params.guard_cells_r, params.ref_cells_r, params.guard_cells_v,
             params.ref_cells_v, float(np.float32(1.0 / params.ref_cells_r)),
             float(np.float32(1.0 / params.ref_cells_v)),
             float(np.float32(params.threshold_factor)),
-            _METHODS[params.method], *k2_geometry(params))
-    return _k2_args[params]
+            _METHODS[params.method], *geo)
+    return _args[key]
 
 
 def _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v):
@@ -186,17 +245,17 @@ def _goca_cfar_2d_fused_cuda(mag: torch.Tensor, params: CfarParams):
         raise ValueError("K3 takes contiguous f32 magnitudes [B >= 2, V, G]")
     lib = _build.load("cfar")
     num_b, num_v, num_g = mag.shape
+    if num_g % 4 or mag.data_ptr() % 16:
+        # TMA reads rows of 16-byte multiples from a 16-byte aligned base
+        mag = (torch.nn.functional.pad(mag, (0, -num_g % 4)) if num_g % 4
+               else mag.clone())
     mask = torch.empty((num_b - 1, num_v, num_g), dtype=torch.bool,
                        device=mag.device)
     thr = torch.empty((num_b - 1, num_v, num_g), dtype=torch.float32,
                       device=mag.device)
     code = lib.k3_cfar(
-        mag.data_ptr(), num_b, num_v, num_g, params.guard_cells_r,
-        params.ref_cells_r, params.guard_cells_v, params.ref_cells_v,
-        float(np.float32(1.0 / params.ref_cells_r)),
-        float(np.float32(1.0 / params.ref_cells_v)),
-        float(np.float32(params.threshold_factor)), _METHODS[params.method],
-        mask.data_ptr(), thr.data_ptr(),
+        mag.data_ptr(), num_b, num_v, num_g, mag.shape[2],
+        *_window_args(params, num_b), mask.data_ptr(), thr.data_ptr(),
         torch.cuda.current_stream(mag.device).cuda_stream)
     _build.check(lib, code, "k3_cfar")
     k3_launch_count += 1

@@ -34,7 +34,14 @@ after the rounded DFT; ``"resident"`` may round its output to bfloat16.
 At bfloat16 the planes-mode PC of K7 and K9 is the strip GEMM of
 ``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on the Toeplitz strip
 of each segment's filter, rounded to bfloat16 once per plan, ``strip``),
-which K8 (``studies/pallas_pc.py``) shares.
+which K8 (``studies/pallas_pc.py``) shares; K10's PC is the resident ring
+of ``csrc/rdm_sm90.cu`` (``ring_pc``: each row's samples kept in shared
+memory while its gate tiles slide along, fed to wgmma with the same
+strip), and the DFT of K10 and K7 that file's wgmma GEMM (``dft``, on the
+plan's rounded D, ``d_bf16``). The constants' rounded copies are kept on
+the plan (``strip``, ``d_bf16``, and ``taps_planes``, ``mp_planes``,
+``d_planes`` for ``csrc/rdm_variants.cu``) and L's for the latest L
+(``_rounded_l``), not made anew on every call.
 
 ``noise_rdm_plain`` is the plain PyTorch version of every schedule,
 ``philox_planes`` that of K1c; the wrappers run the kernels for CUDA
@@ -70,6 +77,8 @@ RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
 STRIP_BN = 128                        # gates of a strip-GEMM block
 STRIP_BK = 64                         # k depth of its stages (128-byte rows)
 TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
+RING_TILE = 64                        # gates of a tile of K10's bf16 ring
+RING_RUN = 10                         # most such tiles a ring block walks
 
 launch_count = 0                      # K1 calls (PC + mix + DFT GEMMs; with
                                       # K1c's planes first in draw mode)
@@ -80,6 +89,8 @@ k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
 strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
                                       # K9 planes mode and of K8)
+ring_pc_launch_count = 0              # K10's bf16 ring-PC launches
+dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7)
 
 
 class RdmSegSpec(NamedTuple):
@@ -95,6 +106,8 @@ class RdmSegSpec(NamedTuple):
     mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
     strip: torch.Tensor  # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
     strip_tf32: torch.Tensor  # [4, STRIP_BN, k_pad] f32 split (``strip_tf32``)
+    taps_planes: torch.Tensor  # [2, lh] f32 (re, im) of taps (f32 K10)
+    mp_planes: torch.Tensor    # [2, 2, W, T] f32 (``rounded_planes`` of mp)
 
     @property
     def xlen(self) -> int:
@@ -110,6 +123,8 @@ class RdmPlan(NamedTuple):
     n_pulses: int
     d: torch.Tensor     # [V, P] complex64 MTD DFT (window+fftshift folded)
     d_tf32: torch.Tensor  # [4, V128, P4] f32 split of D (``d_tf32``)
+    d_bf16: torch.Tensor  # [2, V, P8] bf16 planes of D (``d_bf16``)
+    d_planes: torch.Tensor  # [2, 2, V, P] f32 (``rounded_planes`` of D)
 
 
 def _banded(h: np.ndarray, tile: int) -> np.ndarray:
@@ -188,6 +203,28 @@ def d_tf32(d: torch.Tensor) -> torch.Tensor:
                            for x in (d.real, d.imag)))
 
 
+def d_bf16(d: torch.Tensor) -> torch.Tensor:
+    """[2, V, P8] bfloat16: the real and imaginary planes of the MTD matrix
+    D [V, P], each value rounded once to bfloat16 (nearest even, as
+    ``round_mul``), zero columns up to a multiple of 8 (TMA's 16-byte row
+    stride; the bf16 DFT GEMM's A operand)."""
+    pad = (0, -d.shape[1] % 8)
+    return torch.stack([torch.nn.functional.pad(x, pad) for x in
+                        (d.real, d.imag)]).to(torch.bfloat16).contiguous()
+
+
+_ROUNDED = {torch.float32: 0, torch.bfloat16: 1}   # index of rounded_planes
+
+
+def rounded_planes(x: torch.Tensor) -> torch.Tensor:
+    """[2, 2, ...] float32, contiguous: the (re, im) planes of complex ``x``
+    as they are and rounded to bfloat16 (``round_mul``), indexed by
+    ``_ROUNDED[mul_dtype]``: the f32 and bf16 operands of the kernels of
+    ``csrc/rdm_variants.cu``."""
+    return torch.stack([torch.stack([y.real, y.imag]) for y in
+                        (x, round_mul(x, torch.bfloat16))]).contiguous()
+
+
 def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
                   lane: int = 128, *, device) -> RdmPlan:
     """Segment geometry identical to the JAX ``make_rdm_plan`` (same
@@ -215,20 +252,23 @@ def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
         xlen = (-(-j_len // t) - 1) * t + w_pad
         mp = torch.as_tensor(np.pad(_banded(h, t), ((0, w_pad - w), (0, 0)))
                              ).to(device=device, dtype=c64)
+        taps = torch.as_tensor(np.ascontiguousarray(h)).to(device=device,
+                                                           dtype=c64)
         segs.append(RdmSegSpec(
             c0=c0, r_len=r_len, pad_front=pad_front,
             pad_tail=max(xlen - (pad_front + r_len), 0), j_len=j_len,
-            g0=g0, tile=t, window=w_pad,
-            taps=torch.as_tensor(np.ascontiguousarray(h)).to(device=device,
-                                                             dtype=c64),
-            mp=mp, strip=strip_bf16(mp.real, mp.imag, lh),
-            strip_tf32=strip_tf32(mp.real, mp.imag, lh)))
+            g0=g0, tile=t, window=w_pad, taps=taps, mp=mp,
+            strip=strip_bf16(mp.real, mp.imag, lh),
+            strip_tf32=strip_tf32(mp.real, mp.imag, lh),
+            taps_planes=torch.stack([taps.real, taps.imag]).contiguous(),
+            mp_planes=rounded_planes(mp)))
         c0 += r_len
         g0 += j_len
     d = torch.as_tensor(np.asarray(mtd_matrix)).to(device=device, dtype=c64)
     return RdmPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
                    n_dop=d.shape[0], n_pulses=num_pulses, d=d,
-                   d_tf32=d_tf32(d))
+                   d_tf32=d_tf32(d), d_bf16=d_bf16(d),
+                   d_planes=rounded_planes(d))
 
 
 def seed_words(frame_seed: int) -> tuple[int, int]:
@@ -554,14 +594,7 @@ def strip_pc(segments, rows: int, num_g: int, *, out=None, outr=None,
                          f"{want} output of {rows} x {num_g} on the card")
     vals = []
     for xr, xi, strip, j_len, g0 in segments:
-        for x in (xr, xi):
-            if (x.device != dev or x.dtype != bf or x.dim() != 2
-                    or x.shape != xr.shape or x.stride() != xr.stride()
-                    or x.shape[0] != rows or x.stride(1) != 1
-                    or x.stride(0) % 8 or x.data_ptr() % 16):
-                raise ValueError(
-                    "strip_pc samples must be bfloat16 [rows, n] with a row "
-                    "stride that is a multiple of 8, 16-byte aligned")
+        _check_samples(xr, xi, rows, dev)
         check_strip(strip, dev)
         vals += [xr.data_ptr(), xi.data_ptr(), xr.shape[1], xr.stride(0),
                  strip.data_ptr(), strip.shape[2], j_len, g0]
@@ -600,12 +633,116 @@ def launch_strips(vals, rows: int, num_g: int, stream: int, *, out=None,
     strip_pc_launch_count += 1
 
 
+_l_rounded: dict = {}   # mul dtype -> (the latest L, its version, rounded)
+
+
+def _rounded_l(l_factor: torch.Tensor, dtype) -> torch.Tensor:
+    """``round_mul(l_factor, dtype)``, contiguous, kept for the latest L of
+    each dtype while it is unchanged (the same tensor, held here, at the
+    same version)."""
+    hit = _l_rounded.get(dtype)
+    if hit is not None and hit[0] is l_factor \
+            and hit[1] == l_factor._version:
+        return hit[2]
+    val = round_mul(l_factor, dtype).contiguous()
+    _l_rounded[dtype] = (l_factor, l_factor._version, val)
+    return val
+
+
+def ring_pc(segments, rows: int, ld: int, outr, outi) -> None:
+    """Launch K10's bf16 ring PC (``csrc/rdm_sm90.cu``, ``ring_pc_kernel``)
+    over up to three segments at once. ``segments``: (xr, xi, strip, lh,
+    j_len, g0) each, as ``strip_pc``'s with the filter length ``lh``.
+    Writes gates g0 .. g0+j_len-1 of each row of the rounded bfloat16 planes
+    ``outr``, ``outi`` [rows, ld] (ld a multiple of 8)."""
+    global ring_pc_launch_count
+    import ctypes
+
+    from .. import _build
+
+    bf = torch.bfloat16
+    dev = outr.device
+    if not 1 <= len(segments) <= 3 or ld % 8 or any(
+            t.device != dev or t.dtype != bf or not t.is_contiguous()
+            or t.numel() != rows * ld or t.data_ptr() % 16
+            for t in (outr, outi)):
+        raise ValueError("ring_pc takes 1-3 segments and contiguous bfloat16 "
+                         f"planes of {rows} x {ld} (a multiple of 8)")
+    vals = []
+    for xr, xi, strip, lh, j_len, g0 in segments:
+        _check_samples(xr, xi, rows, dev)
+        check_strip(strip, dev)
+        ntiles = -(-j_len // RING_TILE)
+        per_run = -(-ntiles // -(-ntiles // RING_RUN))
+        vals += [xr.data_ptr(), xi.data_ptr(), xr.shape[1], xr.stride(0),
+                 strip.data_ptr(), strip.shape[2], lh, j_len, g0, per_run]
+    lib = _build.load("rdm_sm90")
+    rc = lib.rs_ring_pc(len(segments),
+                        (ctypes.c_longlong * len(vals))(*vals), rows, ld,
+                        outr.data_ptr(), outi.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "rs_ring_pc")
+    ring_pc_launch_count += 1
+
+
+def dft(plan: RdmPlan, pcr, pci, num_g: int, mtr, mti) -> None:
+    """Launch the bf16 DFT GEMM of K10 and K7 (``csrc/rdm_sm90.cu``,
+    ``dft_kernel``): mt[b] = D @ pc[b] with the plan's rounded D
+    (``d_bf16``), rounded to the bfloat16 planes ``mtr``, ``mti`` [B, V, G]
+    (contiguous); ``pcr``, ``pci`` bfloat16 [B, P, ld], ld a multiple of 8
+    (gates past ``num_g`` are not read)."""
+    global dft_launch_count
+    from .. import _build
+
+    bf = torch.bfloat16
+    d = plan.d_bf16
+    dev = pcr.device
+    num_b, num_p, ld = pcr.shape
+    if (d.device != dev or d.dtype != bf or d.shape[:2] != (2, plan.n_dop)
+            or d.shape[2] % 8 or not d.is_contiguous()):
+        raise ValueError("the plan's d_bf16 must be bfloat16 [2, V, P8] on "
+                         "the card")
+    if (num_p != plan.n_pulses or ld % 8 or ld < num_g or any(
+            t.device != dev or t.dtype != bf or not t.is_contiguous()
+            or t.data_ptr() % 16 for t in (pcr, pci))
+            or pci.shape != pcr.shape or any(
+                t.device != dev or t.dtype != bf or not t.is_contiguous()
+                or tuple(t.shape) != (num_b, plan.n_dop, num_g)
+                for t in (mtr, mti))):
+        raise ValueError("dft takes bfloat16 pc planes [B, P, ld] (ld a "
+                         "multiple of 8, 16-byte aligned) and contiguous "
+                         "bfloat16 mt planes [B, V, G] on the card")
+    lib = _build.load("rdm_sm90")
+    rc = lib.rs_dft(d.data_ptr(), plan.n_dop, num_p, d.shape[2],
+                    pcr.data_ptr(), pci.data_ptr(), num_b, num_g, ld,
+                    mtr.data_ptr(), mti.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "rs_dft")
+    dft_launch_count += 1
+
+
+def _check_samples(xr, xi, rows: int, dev) -> None:
+    """Raise unless xr, xi are bfloat16 [rows, n] sample views on ``dev``
+    with unit column stride and a row stride that is a multiple of 8,
+    16-byte aligned (what the TMA maps of the PC kernels read)."""
+    for x in (xr, xi):
+        if (x.device != dev or x.dtype != torch.bfloat16 or x.dim() != 2
+                or x.shape != xr.shape or x.stride() != xr.stride()
+                or x.shape[0] != rows or x.stride(1) != 1
+                or x.stride(0) % 8 or x.data_ptr() % 16):
+            raise ValueError(
+                "PC samples must be bfloat16 [rows, n] with a row stride "
+                "that is a multiple of 8, 16-byte aligned")
+
+
 def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
                   schedule: str, mul_dtype, out_dtype):
     """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
-    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic. The bf16 PC of K7
-    and K9 on planes is the strip GEMM (``strip_pc``, one launch for the
-    three segments); draw mode and f32 keep ``rv_band_pc``."""
+    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic. At bf16 on planes
+    the PC is one launch for the three segments: K10's resident ring
+    (``ring_pc``), K7's and K9's strip GEMM (``strip_pc``); at bf16 the DFT
+    of K10 and K7 is the wgmma GEMM (``dft``). Draw mode and f32 keep
+    ``csrc/rdm_variants.cu``'s kernels."""
     global k7_launch_count, k9_launch_count, k10_launch_count
     import ctypes
 
@@ -621,25 +758,30 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         if t.device != dev or t.dtype != torch.complex64:
             raise ValueError("the kernels' constants must be complex64 on "
                              "the card")
-    md, bf16 = mul_dtype, int(mul_dtype == torch.bfloat16)
-    lmat = round_mul(l_factor, md).contiguous()
-    d = round_mul(plan.d, md)
-    dr, di = d.real.contiguous(), d.imag.contiguous()
+    md, bf16 = mul_dtype, mul_dtype == torch.bfloat16
+    lmat = _rounded_l(l_factor, md)
+    rnd = _ROUNDED[md]
     num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
-    pcr = torch.empty((num_b, num_p, num_g), dtype=md, device=dev)
+    # the bf16 DFT GEMM reads pc by TMA: rows padded to 16 bytes
+    ld = -(-num_g // 8) * 8 if bf16 and schedule != "allbeams" else num_g
+    pcr = torch.empty((num_b, num_p, ld), dtype=md, device=dev)
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     s0, s1 = seed if seed is not None else (0, 0)
-    strips = bf16 and planes is not None and schedule != "resident"
-    if strips:
+    if bf16 and planes is not None:
         segs = []
         for si, seg in enumerate(plan.segments):
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
-            segs.append((_rows16(xr), _rows16(xi), seg.strip, seg.j_len,
-                         seg.g0))
-        strip_pc(segs, num_b * num_p, num_g, outr=pcr, outi=pci)
-    # K10's ring PC, and the PC at f32 or in draw mode: a launch a segment
-    for si, seg in enumerate(() if strips else plan.segments):
+            segs.append((_rows16(xr), _rows16(xi), seg.strip,
+                         seg.taps.shape[0], seg.j_len, seg.g0))
+        if schedule == "resident":
+            ring_pc(segs, num_b * num_p, ld, pcr, pci)
+        else:
+            strip_pc([(xr, xi, st, j, g0) for xr, xi, st, _, j, g0 in segs],
+                     num_b * num_p, ld, outr=pcr, outi=pci)
+    # the PC at f32 or in draw mode: a launch a segment
+    for si, seg in enumerate(() if bf16 and planes is not None
+                             else plan.segments):
         lh = seg.taps.shape[0]
         if planes is not None:
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
@@ -649,29 +791,28 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         if schedule == "resident":
             if seg.tile != KERNEL_TILE:
                 raise ValueError(f"K10 needs {KERNEL_TILE}-gate tiles")
-            taps = round_mul(seg.taps, md)
-            tr, ti = taps.real.contiguous(), taps.imag.contiguous()
+            tr, ti = seg.taps_planes       # f32 only: bf16 takes ring_pc
             ntiles = -(-seg.j_len // seg.tile)
             per_run = -(-ntiles // -(-ntiles // RESIDENT_RUN))
-            rc = lib.rv_ring_pc(bf16, *x_ptrs, x_len, tr.data_ptr(),
-                                ti.data_ptr(), lh, seg.window, per_run,
-                                ntiles, num_b, num_p, seg.j_len, seg.g0,
-                                num_g, pcr.data_ptr(), pci.data_ptr(), stream)
+            rc = lib.rv_ring_pc(*x_ptrs, x_len, tr.data_ptr(), ti.data_ptr(),
+                                lh, seg.window, per_run, ntiles, num_b, num_p,
+                                seg.j_len, seg.g0, num_g, pcr.data_ptr(),
+                                pci.data_ptr(), stream)
             _build.check(lib, rc, "rv_ring_pc")
             continue
-        mp = round_mul(seg.mp, md)
-        mr, mi = mp.real.contiguous(), mp.imag.contiguous()
-        rc = lib.rv_band_pc(bf16, 0 if planes is not None else 2, *x_ptrs,
-                            None, x_len, 0, 0, seg.pad_front, si, s0, s1,
-                            ctypes.c_float(U_SCALE), mr.data_ptr(),
+        mr, mi = seg.mp_planes[rnd]
+        rc = lib.rv_band_pc(int(bf16), 0 if planes is not None else 2,
+                            *x_ptrs, None, x_len, 0, 0, seg.pad_front, si, s0,
+                            s1, ctypes.c_float(U_SCALE), mr.data_ptr(),
                             mi.data_ptr(), seg.window, seg.tile, lh, num_b,
-                            num_p, seg.j_len, seg.g0, num_g, pcr.data_ptr(),
+                            num_p, seg.j_len, seg.g0, ld, pcr.data_ptr(),
                             pci.data_ptr(), None, stream)
         _build.check(lib, rc, "rv_band_pc")
     out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
                       device=dev)
     if schedule == "allbeams":
-        rc = lib.rv_mtd_mix(bf16, dr.data_ptr(), di.data_ptr(),
+        dr, di = plan.d_planes[rnd]
+        rc = lib.rv_mtd_mix(int(bf16), dr.data_ptr(), di.data_ptr(),
                             pcr.data_ptr(), pci.data_ptr(), lmat.data_ptr(),
                             num_b, num_v, num_p, num_g, *sig_ptrs, num_k,
                             out.data_ptr(), stream)
@@ -680,11 +821,15 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         return out
     mtr = torch.empty((num_b, num_v, num_g), dtype=md, device=dev)
     mti = torch.empty_like(mtr)
-    _build.check(lib, lib.rv_mtd(bf16, dr.data_ptr(), di.data_ptr(),
-                                 pcr.data_ptr(), pci.data_ptr(), num_b,
-                                 num_v, num_p, num_g, mtr.data_ptr(),
-                                 mti.data_ptr(), stream), "rv_mtd")
-    _build.check(lib, lib.rv_mix(bf16, mtr.data_ptr(), mti.data_ptr(),
+    if bf16:
+        dft(plan, pcr, pci, num_g, mtr, mti)
+    else:
+        dr, di = plan.d_planes[rnd]
+        _build.check(lib, lib.rv_mtd(dr.data_ptr(), di.data_ptr(),
+                                     pcr.data_ptr(), pci.data_ptr(), num_b,
+                                     num_v, num_p, num_g, mtr.data_ptr(),
+                                     mti.data_ptr(), stream), "rv_mtd")
+    _build.check(lib, lib.rv_mix(int(bf16), mtr.data_ptr(), mti.data_ptr(),
                                  lmat.data_ptr(), num_b, num_v, num_g,
                                  *sig_ptrs, num_k,
                                  int(out_dtype != torch.float32),

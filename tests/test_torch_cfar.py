@@ -162,3 +162,65 @@ def test_k2_instance_and_tma_boxes(window):
     smem = 4 * (-(-geo.rnc * geo.tv * geo.rw // 32) * 32
                 + geo.cnr * geo.cbh * ck.K2_GATES)
     assert smem + 128 <= 232448 - 2048
+
+
+@pytest.mark.parametrize("window", [
+    "full", "small", "generic", "wide_range", "wide_doppler", "widest"])
+def test_k3_instance_and_tma_boxes(window):
+    """Which K3 instantiation a window selects (the same compiled-in windows
+    as K2's; any other window up to HALO is the generic one), its tile (32
+    rows x 128 gates compiled in, 16 x 32 generic), its TMA boxes (16-byte
+    inner dimension, at most 256 a dimension, starting on 128-byte
+    boundaries; a compiled-in window's one box the tile with its whole halo,
+    the generic row and column strips covering tile gates + 2 hrp and tile
+    rows + 2 hv), its groups of pairs, and three beam slots in the shared
+    memory a block has."""
+    params = {"full": full_config().cfar,
+              "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2),
+              "wide_range": CfarParams(guard_cells_r=60, ref_cells_r=68),
+              "wide_doppler": CfarParams(guard_cells_v=100, ref_cells_v=28),
+              "widest": CfarParams(guard_cells_r=100, ref_cells_r=28,
+                                   guard_cells_v=100, ref_cells_v=28)}[window]
+    geo = ck.k3_geometry(params, 13)
+    want = {"full": 0, "small": 1}.get(window, len(ck.K2_WINDOWS))
+    assert geo.instance == want == ck.k2_geometry(params).instance
+    hr = params.guard_cells_r + params.ref_cells_r
+    hv = params.guard_cells_v + params.ref_cells_v
+    hrp = -(-hr // 4) * 4
+    fixed = want < len(ck.K2_WINDOWS)
+    assert (geo.tv, geo.gt) == ((32, 128) if fixed else (16, 32))
+    assert geo.rw % 4 == 0 and 4 <= geo.rw <= ck.TMA_BOX
+    assert geo.gt % 4 == 0 and geo.cbh <= ck.TMA_BOX
+    assert geo.rnc * geo.rw >= geo.gt + 2 * hrp
+    assert geo.cnr * geo.cbh >= geo.tv + 2 * hv
+    assert geo.tv * geo.rw % 32 == 0 and geo.cbh * geo.gt % 32 == 0
+    if fixed:
+        # one box a beam: the tile with its whole halo
+        assert (geo.rnc, geo.cnr, geo.groups) == (1, 1, ck.K3_GROUPS)
+        assert geo.rw == geo.gt + 2 * hrp and geo.cbh == geo.tv + 2 * hv
+    else:
+        assert geo.groups == 1
+    assert ck.k3_smem_bytes(geo) <= ck.MAX_SMEM
+
+
+@pytest.mark.parametrize("num_b", [2, 3, 4, 13])
+@pytest.mark.parametrize("window", ["full", "small", "generic"])
+def test_k3_groups_take_every_pair_once(window, num_b):
+    """K3's groups of pairs at any beam count >= 2: never more groups than
+    pairs (k3_cfar refuses that), and the kernel's split (per = ceil(pairs
+    / groups) pairs a group, group z from z * per) covers every pair once
+    with no group empty."""
+    params = {"full": full_config().cfar,
+              "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2)}[window]
+    geo = ck.k3_geometry(params, num_b)
+    pairs = num_b - 1
+    assert 1 <= geo.groups <= pairs
+    per = (num_b - 2 + geo.groups) // geo.groups
+    covered = [q for z in range(geo.groups)
+               for q in range(z * per, min(pairs, z * per + per))]
+    assert covered == list(range(pairs))
+    assert all(z * per < pairs for z in range(geo.groups))

@@ -703,3 +703,176 @@ def test_k2_windows_match_plain_on_card(cuda_device, window):
         torch.cuda.synchronize()
         assert torch.equal(mask, mask_p) and torch.equal(rc, rc_p)
         assert int(mask.sum()) >= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", ["full", "small", "generic", "widest",
+                                    "unaligned"])
+def test_k3_windows_match_plain_on_card(cuda_device, window):
+    """K3 (the beam walk through TMA-staged slots) at its two compiled-in
+    windows and through its generic instantiation (a narrow window, and the
+    widest the halo takes, staged in several TMA boxes), and at a gate count
+    that is not a multiple of 4 (a padded copy for TMA, per-cell stores),
+    each method: mask and threshold identical to the plain version's, one
+    K3 count a call."""
+    params = {"full": CfarParams(), "unaligned": CfarParams(),
+              "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2),
+              "widest": CfarParams(guard_cells_r=100, ref_cells_r=28,
+                                   guard_cells_v=100, ref_cells_v=28,
+                                   threshold_factor=3.0)}[window]
+    num_g = 1501 if window == "unaligned" else 1500
+    rng = np.random.default_rng(8)
+    mag = rng.exponential(size=(5, 300, num_g)).astype(np.float32)
+    mag[rng.integers(0, 5, 60), rng.integers(130, 170, 60),
+        rng.integers(130, num_g - 130, 60)] += 60.0
+    t = torch.from_numpy(mag).to(cuda_device)
+    for method in ("GOCA", "SOCA", "CA"):
+        p = CfarParams(**{**params.__dict__, "method": method})
+        before = ck.k3_launch_count
+        mask, thr = ck.goca_cfar_2d_fused(t, p)
+        mask_p, thr_p = ck.goca_cfar_2d_fused_plain(t, p)
+        torch.cuda.synchronize()
+        assert ck.k3_launch_count == before + 1
+        assert torch.equal(mask, mask_p) and torch.equal(thr, thr_p)
+        assert int(mask.sum()) >= 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_b", [2, 3])
+@pytest.mark.parametrize("window", ["full", "small", "generic"])
+def test_k3_few_beams_match_plain_on_card(cuda_device, window, num_b):
+    """K3 with one pair (2 beams, as small_test_config's) and with an odd
+    pair count (3 beams), at both compiled-in windows (which walk their
+    pairs in up to 2 groups) and through the generic instantiation: mask
+    and threshold identical to the plain version's, each method."""
+    params = {"full": CfarParams(), "small": small_test_config().cfar,
+              "generic": CfarParams(guard_cells_r=2, ref_cells_r=3,
+                                    guard_cells_v=1, ref_cells_v=2)}[window]
+    rng = np.random.default_rng(9)
+    mag = rng.exponential(size=(num_b, 300, 1500)).astype(np.float32)
+    mag[rng.integers(0, num_b, 60), rng.integers(130, 170, 60),
+        rng.integers(130, 1370, 60)] += 60.0
+    t = torch.from_numpy(mag).to(cuda_device)
+    for method in ("GOCA", "SOCA", "CA"):
+        p = CfarParams(**{**params.__dict__, "method": method})
+        mask, thr = ck.goca_cfar_2d_fused(t, p)
+        mask_p, thr_p = ck.goca_cfar_2d_fused_plain(t, p)
+        torch.cuda.synchronize()
+        assert mask.shape == (300, 1500, num_b - 1)
+        assert torch.equal(mask, mask_p) and torch.equal(thr, thr_p)
+        assert int(mask.sum()) >= 10
+
+
+def _bf16_planes(plan, num_b, num_p, seed, device):
+    """Random per-segment planes [B, P, xlen] holding bfloat16 values."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [tuple(torch.randn((num_b, num_p, seg.xlen), generator=g,
+                              device=device).to(torch.bfloat16).float()
+                  for _ in range(2)) for seg in plan.segments]
+
+
+@pytest.mark.cuda
+def test_k10_bf16_delta_and_one_tap_probes_on_card(cuda_device):
+    """Inputs that locate layout faults in K10's bf16 ring PC and the bf16
+    DFT GEMM, held exactly with D and L the identity (every output one bf16
+    product with 1): a unit delta in every (beam, pulse) row recovers the
+    rounded filter at its place, and one-tap unit filters recover the
+    rounded planes; one ring-PC and one DFT launch a call."""
+    num_b, num_p = K1_RAGGED[2:4]
+    bf = torch.bfloat16
+    eye = torch.eye(num_b, dtype=torch.complex64, device=cuda_device)
+    plan = _k1_plan(cuda_device)
+    planes = []
+    for si, seg in enumerate(plan.segments):
+        x = torch.zeros((num_b, num_p, seg.xlen), device=cuda_device)
+        n = seg.pad_front + (torch.arange(num_b * num_p, device=cuda_device)
+                             * (7 + si) % seg.r_len)
+        x.view(-1, seg.xlen)[torch.arange(num_b * num_p), n] = 1.0
+        planes.append((x, torch.zeros_like(x)))
+    before = (nr.ring_pc_launch_count, nr.dft_launch_count)
+    got = nr.noise_rdm(plan, eye, planes=planes, variant="resident",
+                       mul_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, eye, planes, mul_dtype=bf)
+    torch.cuda.synchronize()
+    assert (nr.ring_pc_launch_count, nr.dft_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)
+
+    one = _k1_plan(cuda_device, lh=(1, 1, 1), unit=True)
+    planes = _bf16_planes(one, num_b, num_p, 4, cuda_device)
+    got = nr.noise_rdm(one, eye, planes=planes, variant="resident",
+                       mul_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(one, eye, planes, mul_dtype=bf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_bf16_dft_gemm_probe_and_random_on_card(cuda_device):
+    """The bf16 DFT GEMM alone: with D = P1 + i P2 (two permutations) every
+    output is one f32 sum of two bf16 values, held exactly against the plain
+    product rounded to bf16; with a random D (41 x 37) and random planes
+    [5, 37, 1000] within 3e-4 RMS of the plain product."""
+    from types import SimpleNamespace
+
+    num_b, num_p, num_g = 5, 37, 1000
+    bf = torch.bfloat16
+    ld = -(-num_g // 8) * 8
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    pcr = torch.randn((num_b, num_p, ld), generator=g,
+                      device=cuda_device).to(bf)
+    pci = torch.randn((num_b, num_p, ld), generator=g,
+                      device=cuda_device).to(bf)
+    eye = torch.eye(num_p, device=cuda_device)
+    perm = torch.randperm(num_p, generator=g, device=cuda_device)
+    rng = np.random.default_rng(1)
+    for d in (torch.complex(eye, eye[perm]),
+              torch.from_numpy((rng.normal(size=(41, num_p)) + 1j
+                                * rng.normal(size=(41, num_p))).astype(
+                  np.complex64)).to(cuda_device)):
+        plan = SimpleNamespace(d_bf16=nr.d_bf16(d), n_dop=d.shape[0],
+                               n_pulses=num_p)
+        mtr = torch.empty((num_b, d.shape[0], num_g), dtype=bf,
+                          device=cuda_device)
+        mti = torch.empty_like(mtr)
+        before = nr.dft_launch_count
+        nr.dft(plan, pcr, pci, num_g, mtr, mti)
+        pc = torch.complex(pcr[..., :num_g].float(), pci[..., :num_g].float())
+        want = nr.round_mul(torch.matmul(nr.round_mul(d, bf), pc), bf)
+        got = torch.complex(mtr.float(), mti.float())
+        torch.cuda.synchronize()
+        assert nr.dft_launch_count == before + 1
+        if d.shape[0] == num_p:
+            assert torch.equal(got, want)
+        else:
+            assert _rms(got - want) <= 3e-4 * _rms(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["resident", "stacked"])
+def test_k10_k7_bf16_at_ragged_shapes_on_card(cuda_device, variant):
+    """K10 (ring PC) and K7 (strip GEMM) at bf16 through the bf16 DFT GEMM
+    at K1_RAGGED's shapes (135 rows, gates 37/300/700 at odd offsets, taps
+    5/90/300, 41 Doppler bins), with the rank-K signal and a random L:
+    within 3e-4 RMS of the plain version; the ring PC runs for K10 only,
+    the DFT GEMM for both."""
+    num_b, num_p, num_v = K1_RAGGED[2:]
+    plan = _k1_plan(cuda_device, num_v=num_v)
+    rng = np.random.default_rng(3)
+    c = lambda *s: torch.from_numpy((rng.normal(size=s) + 1j * rng.normal(
+        size=s)).astype(np.complex64)).to(cuda_device)
+    lmat = c(num_b, num_b) * 0.5
+    signal = (c(2, num_v), c(2, plan.n_gates), c(2, num_b))
+    planes = _bf16_planes(plan, num_b, num_p, 9, cuda_device)
+    bf = torch.bfloat16
+    before = (nr.ring_pc_launch_count, nr.dft_launch_count)
+    got = nr.noise_rdm(plan, lmat, signal, planes=planes, variant=variant,
+                       mul_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal, mul_dtype=bf)
+    torch.cuda.synchronize()
+    assert (nr.ring_pc_launch_count, nr.dft_launch_count) == (
+        before[0] + int(variant == "resident"), before[1] + 1)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rms(got - ref) <= 3e-4 * _rms(ref)

@@ -226,3 +226,85 @@ def test_strip_schedule_on_planes_equals_banded_windows(setup, dtype):
         got = got.reshape(*x.shape[:2], nb * bn)[..., :seg.j_len]
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-4 * _rms(want.numpy()))
+
+
+def test_rdm_plan_d_bf16_is_the_rounded_dft(setup):
+    """``RdmPlan.d_bf16``, the bf16 DFT GEMM's A operand made once per plan,
+    equals ``round_mul`` of D's planes bit for bit, with zero columns up to
+    a multiple of 8 pulses."""
+    plan = setup["plan"]
+    num_v, num_p = plan.d.shape
+    d16 = plan.d_bf16
+    assert d16.dtype == torch.bfloat16 and d16.is_contiguous()
+    assert d16.shape == (2, num_v, -(-num_p // 8) * 8)
+    want = nr.round_mul(plan.d, torch.bfloat16)
+    assert torch.equal(d16[0, :, :num_p].float(), want.real)
+    assert torch.equal(d16[1, :, :num_p].float(), want.imag)
+    assert not bool(d16[:, :, num_p:].float().any())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_constants_rounded_once_per_tensor(setup, dtype):
+    """The plan's rounded planes of D and mp (``d_planes``, ``mp_planes``,
+    made once per plan) at ``dtype`` equal ``round_mul`` of the constant's
+    (re, im) planes, contiguous, and ``taps_planes`` the f32 taps'; L's
+    (``_rounded_l``) equals ``round_mul`` of L, a second call returns the
+    kept copy, and after a change to L in place the copy follows it (a new
+    rounded copy at bf16; at f32 L itself)."""
+    md = DTYPES[dtype][1]
+    plan = setup["plan"]
+    consts = [(plan.d_planes, plan.d)] + [(seg.mp_planes, seg.mp)
+                                          for seg in plan.segments]
+    for planes, t in consts:
+        re, im = planes[nr._ROUNDED[md]]
+        want = nr.round_mul(t, md)
+        assert torch.equal(re, want.real) and torch.equal(im, want.imag)
+        assert re.is_contiguous() and im.is_contiguous()
+    for seg in plan.segments:     # the f32 ring's taps, as they are
+        assert torch.equal(seg.taps_planes[0], seg.taps.real)
+        assert torch.equal(seg.taps_planes[1], seg.taps.imag)
+    lt = setup["lt"].clone()
+    first = nr._rounded_l(lt, md)
+    assert torch.equal(first, nr.round_mul(lt, md)) and first.is_contiguous()
+    assert nr._rounded_l(lt, md) is first
+    lt.mul_(2.0)
+    again = nr._rounded_l(lt, md)
+    assert (again is lt) if dtype == "f32" else (again is not first)
+    assert torch.equal(again, nr.round_mul(lt, md))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ring_schedule_on_planes_equals_banded_windows(setup, dtype):
+    """K10's bf16 ring schedule on the planes of ``planes_from_compact``:
+    each 64-gate tile j0 of a row is the product of its samples j0 ..
+    j0 + 64 kt - 1 (kt = ceil((64 + lh - 1) / 64) ring chunks, zeros past
+    the buffer) with the first 64 gates of the plan's strip, the same for
+    every tile; it equals the plain version's product of [W, T] windows
+    with mp, per segment (rtol 1e-5: the same products, f32 sums in another
+    order)."""
+    md = DTYPES[dtype][1]
+    plan = setup["plan"]
+    planes = nr.planes_from_compact(torch.from_numpy(setup["z"]), plan, md)
+    bn = nr.RING_TILE
+    for seg, (xr, xi) in zip(plan.segments, planes):
+        x = torch.complex(xr.float(), xi.float())
+        mp = nr.round_mul(seg.mp, md)
+        want = torch.matmul(x.unfold(-1, seg.window, seg.tile), mp)
+        want = want.reshape(*x.shape[:2], -1)[..., :seg.j_len]
+        lh = seg.taps.shape[0]
+        kt = -(-(bn + lh - 1) // 64)
+        strip = seg.strip.float()                     # [2, 128, k_pad]
+        assert strip.shape[2] >= 64 * kt
+        s = torch.complex(strip[0, :bn, :64 * kt].T, strip[1, :bn, :64 * kt].T)
+        if dtype == "f32":
+            s = torch.complex(nr.toeplitz_strip(mp[:lh, 0].real, bn=bn),
+                              nr.toeplitz_strip(mp[:lh, 0].imag, bn=bn)
+                              )[:64 * kt]
+        nb = -(-seg.j_len // bn)
+        rows = x.reshape(-1, x.shape[-1])
+        rows = torch.nn.functional.pad(
+            rows, (0, max((nb - 1) * bn + 64 * kt - rows.shape[1], 0)))
+        got = torch.matmul(rows.unfold(-1, 64 * kt, bn)[:, :nb], s)
+        got = got.reshape(*x.shape[:2], nb * bn)[..., :seg.j_len]
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-4 * _rms(want.numpy()))
