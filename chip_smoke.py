@@ -24,10 +24,12 @@ targets:
   method, and the profiler shows ``k3_kernel`` in the reference frame;
 - the checks of ``scripts/validate_rdm_gen.py``: K1 fed the planes that
   kernel K1c exports (one launch for every segment) equals K1 draw mode
-  bit for bit, kernel K4 (the window schedule) against K1, and the moments
-  of K1's draws against the "pallas" route's torch-drawn planes; K1c and
-  K4 against their plain versions, and K1c's integer issue bound from the
-  SASS of its loop (``cuobjdump``);
+  bit for bit, kernel K4 (the window schedule: K1's GEMMs with the PC's
+  noise drawn in its blocks) against K1, and the moments of K1's draws
+  against the "pallas" route's torch-drawn planes; K1c and K4 against
+  their plain versions (K4 at 13, 1 and 2 beams a block, bit for bit
+  alike and equal to K4 planes mode on K1c's planes), and K1c's integer
+  issue bound from the SASS of its loop (``cuobjdump``);
 - the rank-K stream's three noise-RDM routes (``pallas_prng``, ``pallas``
   with normal and uniform rails, ``xla``) at full size and, at small
   widths, against the CPU;
@@ -40,11 +42,10 @@ targets:
   through ``noise_rdm_compact`` with bf16 operands on a cube holding K1c's
   planes, then holds each at f32 and bf16 against its plain version, K1
   and its own f32 map, K10 with bf16 output and K7 on its own draws (at
-  bf16 the PC of K7 and K9 is the strip GEMM of ``csrc/band_pc_sm90.cu``,
-  K10's the resident ring of ``csrc/rdm_sm90.cu`` and the DFT of K10 and
-  K7 that file's wgmma GEMM, each counted), times K10 and K7 on a busy and
-  an idle card with the host's ms a call and the profiler's split (ring
-  PC or strip GEMM, DFT, mix, the wrapper's casts and pads) and the DFT
+  bf16 their PC is the strip GEMM of ``csrc/band_pc_sm90.cu`` and their
+  DFT the wgmma GEMM of ``csrc/rdm_sm90.cu``, each counted), times each on
+  a busy and an idle card with the host's ms a call and the profiler's
+  split (strip GEMM, DFT, mix, the wrapper's casts and pads), and the DFT
   GEMM alone beside its plain version and one bf16 ``torch.matmul``;
   phase ``pc_study`` runs ``scripts/bench_pc2d.py``'s three
   chains (cuBLAS banded, flat 2D, K8) and holds K8 against its plain
@@ -66,13 +67,14 @@ targets:
   (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
   perf sweep and a streaming MC at dp=4, each against its single-rank run.
 
-K1 and K2 are also timed on a card kept busy (events behind a sleep
-kernel) beside the idle card and the host's time a call; K1 is split by
-the profiler (K1c's planes, the PC GEMM's main and correction passes, the
-mix, the DFT GEMM's, the add of its passes and the signal), beside both
-its bounds (f32 on the CUDA cores, 3xTF32 on the tensor cores) and the xla
-route's cuBLAS chain in f32 (the old CUDA-core K1 is timed beside it by
-``scripts/ablate_k1.py``).
+K1, K2 and K4 are also timed on a card kept busy (events behind a sleep
+kernel) beside the idle card and the host's time a call; K1 and K4 are
+split by the profiler (K1c's planes, the PC GEMM's main and correction
+passes, the mix, the DFT GEMM's, the add of its passes and the signal),
+beside both their bounds (f32 on the CUDA cores, 3xTF32 on the tensor
+cores) and, for K1, the xla route's cuBLAS chain in f32 (the old CUDA-core
+K1 and K4 are timed beside them by ``scripts/ablate_k1.py`` and
+``scripts/ablate_k4_k9.py``).
 
 The launch counters are set to 0 just before each path runs and read just
 after, to show the path went through its kernels. Kernels, plain versions,
@@ -82,7 +84,7 @@ raises and exits non-zero. The line before the last lists every kernel
 with its bound; the last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The SASS of the compiled libraries (``cuobjdump``) shows ``HGMMA`` in
-the ring PC and the DFT GEMM and ``UTMALDG`` in K3.
+the DFT GEMM and K4's PC and ``UTMALDG`` in K3.
 Without CUDA, or without the repository beside it, it fails at once.
 """
 
@@ -487,21 +489,20 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     for k, _, _ in VARIANTS:
         setattr(nr, f"{k.lower()}_launch_count", 0)
     nr.strip_pc_launch_count = 0
-    nr.ring_pc_launch_count = nr.dft_launch_count = 0
+    nr.dft_launch_count = 0
     y16 = {v: nr.noise_rdm_compact(z, plan, lmat, variant=v, mul_dtype=bf)
            for _, v, _ in VARIANTS}
     torch.cuda.synchronize()
     launches = counts()
     parts = {"strip_gemm": nr.strip_pc_launch_count,
-             "ring_pc": nr.ring_pc_launch_count,
              "dft_gemm": nr.dft_launch_count}
     _line("rdm_variants", path="noise_rdm_compact(variant=, mul_dtype=bf16)",
           launches=launches, part_launches=parts)
     _require(all(n >= 1 for n in launches.values()),
              "the schedules' path launched K10, K7 and K9")
-    _require(parts == {"strip_gemm": 2, "ring_pc": 1, "dft_gemm": 2},
-             "K7's and K9's bf16 PC ran the strip GEMM, K10's the ring, "
-             "and K10's and K7's DFT the wgmma GEMM")
+    _require(parts == {"strip_gemm": 3, "dft_gemm": 3},
+             "K10's, K7's and K9's bf16 PC ran the strip GEMM, their DFT "
+             "the wgmma GEMM")
 
     ref = {md: nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=md)
            for md in (f32, bf)}
@@ -567,10 +568,9 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     n_out = num_b * plan.n_dop * plan.n_gates * 8
     bound, by = _bound(_k1_bound_ms(plan, num_b, PEAK_BF16),
                        (n_in + n_out) / PEAK_HBM * 1e3)
-    split_names = (("ring_pc", "ring_pc_kernel"),
-                   ("strip_gemm", "strip_pc_kernel"),
-                   ("dft_gemm", "dft_kernel"), ("mix", "::mix_kernel<"),
-                   ("dft_and_mix", "mtd_mix_kernel"))
+    split_names = (("strip_gemm", "strip_pc_kernel"),
+                   ("dft_gemm", "dft_kernel"),
+                   ("mix", "::mix_kernel<"))
     for name, v, rep in VARIANTS:
         call = lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v,
                                             mul_dtype=bf)
@@ -593,12 +593,49 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
               profile_ms={k: round(x, 4) for k, x in split.items()},
               top_kernels=top, card=repr(card))
         rows.append((f"{name} noise RDM, variant={v!r}, bf16 operands",
-                     "rdm_sm90.cu" if v != "allbeams" else "rdm_variants.cu",
+                     "rdm_sm90.cu",
                      rep, launches[name], errs[name]["bf16_max_abs_err"],
                      busy_ms, pms, bound, by, None,
                      {"ms_is": "events around one call, the card kept busy",
                       "idle_card_ms": ms, "host_ms": host_ms,
                       "f32_idle_card_ms": ms32, "profile_ms": split}))
+    # K7 in draw mode at bf16 (stacked=True: its PC draws its own noise on
+    # mma.sync), the next kernel in the redesign queue: vs its plain version
+    # on the same draws, busy/idle/host, the profiler's split
+    draw = lambda: nr.noise_rdm(plan, lmat, seed=seed, stacked=True,
+                                mul_dtype=bf, layout="bvg")
+    ref_draw = nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=bf)
+    nr.k7_launch_count = 0
+    y_draw = draw()
+    torch.cuda.synchronize()
+    k7_draw_launches = nr.k7_launch_count
+    e_draw16 = _rel_rms(y_draw, ref_draw)
+    err_draw16 = float((y_draw - ref_draw).abs().max())
+    _require(e_draw16 <= BF16_HOLD, "K7 draw mode at bf16 vs plain")
+    del y_draw, ref_draw
+    d_ms, d_pms = _time_pair(draw, lambda: nr.noise_rdm_plain(
+        plan, lmat, nr.philox_planes(plan, seed, num_b, device=dev),
+        mul_dtype=bf))
+    d_busy, d_host = _busy_event_ms(draw)
+    d_prof = _kernel_ms(draw, reps=3)
+    d_split = {"pc": _named_ms(d_prof, "band_pc_tc_kernel"),
+               "dft_gemm": _named_ms(d_prof, "dft_kernel"),
+               "mix": _named_ms(d_prof, "::mix_kernel<")}
+    d_bound, d_by = _bound(_k1_bound_ms(plan, num_b, PEAK_BF16),
+                           n_out / PEAK_HBM * 1e3)
+    _line("time", what=repr("K7 draw mode (stacked=True, bf16) / plain"),
+          busy_card_ms=round(d_busy, 4), idle_card_ms=round(d_ms, 4),
+          host_ms=round(d_host, 4), plain_ms=round(d_pms, 4),
+          rms_err_over_rms=e_draw16, profile_ms=d_split,
+          bound_ms=round(d_bound, 4), card=repr(card))
+    rows.append(("K7 noise RDM, draw mode (stacked=True), bf16 operands: "
+                 "mma.sync PC drawing its own noise, wgmma DFT, mix",
+                 "rdm_variants.cu", "radar_tpu/ops/pallas_rdm.py:980 "
+                 "(rolling=True, stacked=True)", k7_draw_launches,
+                 err_draw16, d_busy, d_pms, d_bound, d_by, None,
+                 {"ms_is": "events around one call, the card kept busy",
+                  "idle_card_ms": d_ms, "host_ms": d_host,
+                  "profile_ms": d_split}))
     rows.append(_dft_gemm(nr, plan, planes_c, parts["dft_gemm"], card))
     k1p_ms, k1p_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, planes=planes, layout="bvg"),
@@ -609,8 +646,8 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
 
 
 def _dft_gemm(nr, plan, planes, launches: int, card) -> tuple:
-    """The bf16 DFT GEMM of K10 and K7 alone at full size, on the pc planes
-    K10's ring PC makes of ``planes``: held against its plain version
+    """The bf16 DFT GEMM of K10, K7 and K9 alone at full size, on the pc
+    planes the strip GEMM makes of ``planes``: held against its plain version
     (D @ pc in f32, rounded) and one bf16 ``torch.matmul`` of the stacked
     real form [[Dr, -Di], [Di, Dr]] @ [pr; pi] (the library yardstick;
     its operands stacked before the timing); busy-card events, host ms.
@@ -624,9 +661,7 @@ def _dft_gemm(nr, plan, planes, launches: int, card) -> tuple:
     dev = planes[0][0].device
     pcr = torch.empty((num_b, num_p, ld), dtype=bf, device=dev)
     pci = torch.empty_like(pcr)
-    segs = [(nr._rows16(xr), nr._rows16(xi), seg.strip, seg.taps.shape[0],
-             seg.j_len, seg.g0) for seg, (xr, xi) in zip(plan.segments, planes)]
-    nr.ring_pc(segs, num_b * num_p, ld, pcr, pci)
+    _strip_pc_planes(nr, plan, planes, pcr, pci)
     mtr = torch.empty((num_b, num_v, num_g), dtype=bf, device=dev)
     mti = torch.empty_like(mtr)
     call = lambda: nr.dft(plan, pcr, pci, num_g, mtr, mti)
@@ -662,14 +697,22 @@ def _dft_gemm(nr, plan, planes, launches: int, card) -> tuple:
           library_ms=round(lib_ms, 4), ops_bound_ms=round(ops_ms, 4),
           bytes_bound_ms=round(bytes_ms, 4), bound_by=by,
           tflops=round(8.0 * macs / prof / 1e9, 2), tol=f"<={BF16_HOLD}")
-    return ("bf16 DFT GEMM of K10 and K7 (wgmma, B = pc MN-major by TMA)",
-            "rdm_sm90.cu", "radar_tpu/ops/pallas_rdm.py:789 (the DFT of "
-            "_make_kernel_resident; also :627)", launches,
+    return ("bf16 DFT GEMM of K10, K7 and K9 (wgmma, B = pc MN-major by "
+            "TMA)", "rdm_sm90.cu", "radar_tpu/ops/pallas_rdm.py:789 (the DFT "
+            "of _make_kernel_resident; also :627, :1088)", launches,
             float((got - want).abs().max()), busy_ms, pms, bound, by, lib_ms,
             {"ms_is": "events around one call, the card kept busy",
              "idle_card_ms": ms, "host_ms": host_ms, "profile_ms": prof,
              "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
              "library_call": "torch.matmul of the stacked real form, bf16"})
+
+
+def _strip_pc_planes(nr, plan, planes, pcr, pci) -> None:
+    """The bf16 pc planes [B, P, ld] of ``planes`` by the strip GEMM."""
+    num_b, num_p = planes[0][0].shape[:2]
+    nr.strip_pc([(nr._rows16(xr), nr._rows16(xi), seg.strip, seg.j_len,
+                  seg.g0) for seg, (xr, xi) in zip(plan.segments, planes)],
+                num_b * num_p, pcr.shape[-1], outr=pcr, outi=pci)
 
 
 def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
@@ -1358,15 +1401,16 @@ def main() -> int:
         for ln in info["log"].splitlines():
             if "Used" in ln or "spill" in ln or "wgmma" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
-    # what the redesigned kernels compiled to: wgmma (HGMMA) in K10's ring
-    # PC and the bf16 DFT GEMM, TMA loads (UTMALDG) in every K3 instance
+    # what the redesigned kernels compiled to: wgmma (HGMMA) in the bf16
+    # DFT GEMM (K10's, K7's and K9's) and K4's PC (its instances), TMA loads
+    # (UTMALDG) in every K3 instance
     sass = {f"{k} {op}": _sass_has(_build._library_path(lib)[1], k, op)
-            for lib, k, op in (("rdm_sm90", "ring_pc_kernel", "HGMMA"),
-                               ("rdm_sm90", "dft_kernel", "HGMMA"),
+            for lib, k, op in (("rdm_sm90", "dft_kernel", "HGMMA"),
+                               ("noise_rdm_sm90", "k4_pc_kernel", "HGMMA"),
                                ("cfar", "k3_kernel", "UTMALDG"))}
     _line("sass", functions_holding_opcode=sass)
     _require(all(v and all(v) for v in sass.values()),
-             "HGMMA in the ring PC and the DFT GEMM, UTMALDG in K3")
+             "HGMMA in the DFT GEMM and K4's PC, UTMALDG in K3")
 
     # ---- 2. K1 at full perf shapes vs its plain version
     cfg = perf_config()
@@ -1675,25 +1719,40 @@ def main() -> int:
     ref_noise = nr.noise_rdm_plain(plan, lmat, ph_planes)
     rms_n = float(ref_noise.abs().pow(2).mean().sqrt())
     k1_noise = nr.noise_rdm(plan, lmat, seed=vseed, layout="bvg")
-    k4 = {}
-    for bps in (num_b, 1):
+    # K4: draws made in the PC's blocks; every beams_per_step gives the
+    # same map, and draw mode equals planes mode on K1c's planes bit for bit
+    k4, first = {}, None
+    for bps in (num_b, 1, 2):
         y4 = nr.noise_rdm(plan, lmat, seed=vseed, layout="bvg",
                           rolling=False, beams_per_step=bps)
         torch.cuda.synchronize()
         d4 = (y4 - ref_noise).abs()
+        first = y4 if first is None else first
         k4[bps] = {"max_abs_err": float(d4.max()),
                    "rms_err_over_rms": float(d4.pow(2).mean().sqrt()) / rms_n,
                    "vs_K1_over_max": float((y4 - k1_noise).abs().max())
-                   / float(k1_noise.abs().max())}
+                   / float(k1_noise.abs().max()),
+                   "identical_to_first": bool(torch.equal(y4, first))}
         _require(k4[bps]["rms_err_over_rms"] <= 1e-5, f"K4({bps}) rms error")
         _require(bool((d4 <= 1e-4 * rms_n + 1e-5 * ref_noise.abs()).all()),
                  f"K4({bps}) element error")
         _require(k4[bps]["vs_K1_over_max"] <= 2.0 ** -7, f"K4({bps}) vs K1")
-    _line("K4", beams_per_step=k4,
+        _require(k4[bps]["identical_to_first"],
+                 f"K4({bps}) == K4({num_b}) bit for bit")
+    before = nr.k4_pc_launch_count
+    y4p = nr.noise_rdm(plan, lmat, planes=k1c_planes, layout="bvg",
+                       rolling=False, beams_per_step=num_b)
+    torch.cuda.synchronize()
+    k4_planes_same = bool(torch.equal(y4p, first))
+    _line("K4", beams_per_step=k4, planes_mode_identical=k4_planes_same,
+          pc_launches=nr.k4_pc_launch_count - before,
           tol="rms(err)<=1e-5*rms, |err|<=1e-4*rms+1e-5*|ref|; "
-              "vs K1 <= 2^-7 max|y|")
+              "vs K1 <= 2^-7 max|y|; draws == K1c planes, every "
+              "beams_per_step: bit for bit")
+    _require(k4_planes_same and nr.k4_pc_launch_count - before == 1,
+             "K4 draw mode == K4 planes mode on K1c's planes, one PC launch")
     k4_err = k4[num_b]["max_abs_err"]
-    del ph_planes, k1c_planes, ref_noise, k1_noise, y4, d4
+    del ph_planes, k1c_planes, ref_noise, k1_noise, y4, d4, y4p, first
 
     # ---- 13. the rank-K stream's three routes at full size
     route_cfgs = {"pallas_prng": cfg,
@@ -1894,6 +1953,25 @@ def main() -> int:
     k4_1_ms = statistics.median(_event_ms(
         lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg",
                              rolling=False, beams_per_step=1), 10))
+    # K4 on a busy card and the host's ms a call, at each beams_per_step,
+    # and the profiler's split at 1
+    k4_call = lambda bps: (lambda: nr.noise_rdm(
+        plan, lmat, seed=seed, layout="bvg", rolling=False,
+        beams_per_step=bps))
+    k4_busy = {bps: _busy_event_ms(k4_call(bps)) for bps in (num_b, 1, 2)}
+    k4_split_all = _kernel_ms(k4_call(1), reps=5)
+    k4_split = {name: _named_ms(k4_split_all, key) for name, key in (
+        ("pc_both_passes", "k4_pc_kernel<true>"),
+        ("mix", "mix_planes_kernel"), ("dft_gemm", "dft_gemm_kernel"),
+        ("add", "add_kernel"))}
+    _require(k4_split["pc_both_passes"] > 0.0,
+             "the profiler saw K4's drawing PC")
+    _line("K4_split", card=repr(card),
+          busy_card_ms={b: round(v[0], 4) for b, v in k4_busy.items()},
+          host_ms={b: round(v[1], 4) for b, v in k4_busy.items()},
+          idle_card_ms={num_b: round(k4_ms, 4), 1: round(k4_1_ms, 4)},
+          profile_ms_bps1={k: round(v, 4) for k, v in k4_split.items()},
+          top_kernels=_busy_top(k4_split_all)[1])
     k1_noise_ms = statistics.median(_event_ms(
         lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg"), 10))
     # K5's library call: torch.normal with x's rails as the mean reads x
@@ -1984,9 +2062,9 @@ def main() -> int:
                      ("run_multiframe, per frame", mf_ms),
                      ("K1c", k1c_ms), ("K1c plain", k1c_plain_ms),
                      ("K1c library (torch.rand of the planes)", k1c_lib_ms),
-                     ("K4 (13 beams per block)", k4_ms),
+                     ("K4 (13 beams a block)", k4_ms),
                      ("K4 plain", k4_plain_ms),
-                     ("K4 (1 beam per block)", k4_1_ms),
+                     ("K4 (1 beam a block)", k4_1_ms),
                      ("K1 noise only", k1_noise_ms),
                      ("K5 library (torch.normal around x's rails)",
                       k5_lib_ms),
@@ -2021,6 +2099,8 @@ def main() -> int:
     # studies) and K6 from one range-sharded PC on 4 ranks (the sum over
     # the ranks); bounds from this run's shapes
     k1_bound = _k1_bound_ms(plan, num_b)
+    # K4 reads nothing: the map written once
+    k4_bytes_ms = num_b * plan.n_dop * plan.n_gates * 8 / PEAK_HBM * 1e3
     kernels = [
         ("K1 noise RDM (draw mode, rank-K signal): K1c planes + 3xTF32 "
          "strip-GEMM PC + mix + 3xTF32 DFT GEMM", "noise_rdm_sm90.cu",
@@ -2064,10 +2144,20 @@ def main() -> int:
           "issue_bound_imad_wide_two_slots_ms": k1c_issue_wide2_ms,
           "clocks_per_sample": k1c_sass["clocks_per_sample"],
           "sm_max_mhz": sm_max_mhz}),
-        ("K4 noise RDM, window schedule (13 beams per block, in-block mix)",
-         "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:980 (rolling=False)",
-         val_launches["K4"], k4_err, k4_ms, k4_plain_ms, k1_bound,
-         "operations", None)] + study_rows
+        ("K4 noise RDM, window schedule: K1's 3xTF32 GEMMs, the PC's data "
+         "drawn in its blocks (13 beams walked a block)",
+         "noise_rdm_sm90.cu", "radar_tpu/ops/pallas_rdm.py:980 "
+         "(rolling=False)", val_launches["K4"], k4_err, k4_busy[num_b][0],
+         k4_plain_ms, *_bound(k1_tf32_bound, k4_bytes_ms), None,
+         {"ms_is": "events around one call, the card kept busy",
+          "idle_card_ms": k4_ms, "host_ms": k4_busy[num_b][1],
+          "busy_card_ms_1_beam_a_block": k4_busy[1][0],
+          "idle_card_ms_1_beam_a_block": k4_1_ms,
+          "busy_card_ms_2_beams_a_block": k4_busy[2][0],
+          "profile_ms_1_beam_a_block": k4_split,
+          "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
+          "bound_fp32_cuda_cores_ms": k1_bound,
+          "bytes_bound_ms": k4_bytes_ms})] + study_rows
     # a row may end with a dict of extra keys
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

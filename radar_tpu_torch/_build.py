@@ -37,14 +37,12 @@ _F, _LL = ctypes.c_float, ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "noise_rdm": {
-        "k4_pc": [_P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _LL, _I, _I,
-                  _I, _I, _P, _P, _P],
         "k1c_planes": [_P, _I, _U, _U, _F, _I, _I, _P, _P],
-        "k1_mix": [_P, _P, _I, _LL, _P],
-        "k1_mtd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     },
     "noise_rdm_sm90": {
         "k1_tf32_pc": [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "k4_tf32_pc": [_I, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _P,
+                       _P, _P],
         "k1_tf32_mix": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "k1_tf32_dft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                         _P, _P, _P],
@@ -57,11 +55,10 @@ _SIGNATURES = {
                        _I, _P, _P, _P],
         "rv_mtd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
         "rv_mix": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-        "rv_mtd_mix": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                       _I, _P, _P],
+        "rv_mtd_mix": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
+                       _P, _P],
     },
     "rdm_sm90": {
-        "rs_ring_pc": [_I, _P, _I, _I, _P, _P, _P],
         "rs_dft": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     },
     "band_pc_sm90": {

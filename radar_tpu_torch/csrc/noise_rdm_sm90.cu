@@ -1,10 +1,16 @@
-// K1: the fused noise range-Doppler map redesigned for NVIDIA Hopper
+// K1 and K4: the fused noise range-Doppler map redesigned for NVIDIA Hopper
 // (sm_90a): pulse compression and slow-time DFT as 3xTF32 GEMMs on the
 // tensor cores.
 //
-// Replaces the TPU kernels radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas_gen
-// (rolling=True, signal=...; pallas_call :980) and its planes-input sibling
-// noise_rdm_pallas_planes (:789), as noise_rdm.cu's CUDA-core K1 did before.
+// K1 replaces the TPU kernels radar_tpu/ops/pallas_rdm.py::
+// noise_rdm_pallas_gen (rolling=True, signal=...; pallas_call :980) and its
+// planes-input sibling noise_rdm_pallas_planes (:789), as noise_rdm.cu's
+// CUDA-core K1 did before. K4 (k4_pc_kernel, below) replaces the same
+// function with rolling=False (body _make_kernel_gen :269), whose TPU
+// kernel draws each window itself and keeps no noise cube in HBM: K1's
+// strip GEMM with its data stage drawn in the block (Philox, K1c's keying)
+// by a producer warpgroup instead of loaded from K1c's planes, the same
+// consumers, mix and DFT.
 // Per PC segment the map is
 //
 //   rdm[b] = D @ (sum_c L[b,c] * PC_seg(x_c)) + sum_k st[k,b] * dv[k] (x) pb[k]
@@ -77,7 +83,11 @@
 // the planes read and the map written once, 0.28 GB, 0.084 ms at 3.35
 // TB/s; with the pcT and correction buffers this design also moves
 // (written, mixed, read, added), ~1.7 GB, 0.52 ms. So the tensor cores
-// bind.
+// bind. K4 has no input to read: its draws are integer work, one Philox
+// block a sample and use, (128 + lh - 1)/128 uses a sample (6.5 on the
+// 700-tap segment), for both passes at once, issued by the producer
+// warpgroup beside the consumers' asynchronous MMAs (measured: about as
+// long as the MMAs of a stage, PERF.md).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -85,6 +95,8 @@
 #include <string.h>
 
 #include <mutex>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -313,6 +325,85 @@ __device__ __forceinline__ uint32_t sw128_off(int r, int k) {
   return (uint32_t)(r * 128 + ((((k >> 2) ^ r) & 7) << 4) + ((k & 3) << 2));
 }
 
+// The constant's planes a pass loads: the hi ones (0, 2) in the main pass,
+// all four in the correction pass.
+__host__ __device__ constexpr int plane_step(bool corr) { return corr ? 1 : 2; }
+
+// The constant's planes of stage kt to b0, the stage's constant part
+// (rows b_row on in each plane of b_rows rows).
+template <bool kCorr>
+__device__ __forceinline__ void load_constant(uint32_t b0, const CUtensorMap* mb,
+                                              int kt, int b_rows, int b_row,
+                                              uint32_t bar) {
+#pragma unroll
+  for (int p = 0; p < 4; p += plane_step(kCorr))
+    tma_load(b0 + p * kTileB, mb, kt * kBK, p * b_rows + b_row, bar);
+}
+
+// The MMAs of one stage (kBK deep) of a consumer warpgroup into accr,
+// acci: the stage at `base` holds the data's re and im boxes [kRows][kBK]
+// (are: its generic address), then the constant's planes; the warpgroup's
+// 64 rows start at row0; fr, ft the thread's fragment row and column.
+// kCorr: the correction pass's products, else the main pass's.
+template <bool kCorr, int kRows>
+__device__ __forceinline__ void mma_stage(float (&accr)[64], float (&acci)[64],
+                                          uint32_t base, const unsigned char* are,
+                                          int row0, int fr, int ft) {
+  constexpr int kTile = kRows * kBK * 4;
+  const unsigned char* aim = are + kTile;
+  const uint32_t b0 = base + 2 * kTile;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+    uint32_t rh[4], rl[4], ih[4], il[4];
+    {   // A from registers: the data's hi or lo part
+      float xr[4], xi[4];
+      const int k0 = 8 * kk + ft;
+      const uint32_t o[4] = {sw128_off(fr, k0), sw128_off(fr + 8, k0),
+                             sw128_off(fr, k0 + 4), sw128_off(fr + 8, k0 + 4)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xr[i] = *reinterpret_cast<const float*>(are + o[i]);
+        xi[i] = *reinterpret_cast<const float*>(aim + o[i]);
+      }
+      split4(xr, rh, rl);
+      split4(xi, ih, il);
+    }
+    const uint64_t dar = sw128_desc(base + row0 * kBK * 4 + 32 * kk);
+    const uint64_t dai = sw128_desc(base + kTile + row0 * kBK * 4 + 32 * kk);
+    const uint64_t brh = sw128_desc(b0 + 32 * kk);
+    const uint64_t brl = sw128_desc(b0 + kTileB + 32 * kk);
+    const uint64_t bih = sw128_desc(b0 + 2 * kTileB + 32 * kk);
+    const uint64_t bil = sw128_desc(b0 + 3 * kTileB + 32 * kk);
+    wgmma_fence();
+    // Yr += Ar Br - Ai Bi; Yi += Ar Bi + Ai Br (-Ai: wgmma's imm-scale-a,
+    // exact). The correction pass takes the data's hi for the constant's
+    // lo straight from the stage (SS: the tensor cores drop its low 13
+    // bits instead of rounding, 2^-10 of A in a term 2^-11 of the
+    // product, so 2^-21), which keeps its A registers to the lo parts
+    if (!kCorr) {
+      wgmma_tf32<1>(accr, rh, brh);
+      wgmma_tf32<-1>(accr, ih, bih);
+      wgmma_tf32<1>(acci, rh, bih);
+      wgmma_tf32<1>(acci, ih, brh);
+    } else {
+      wgmma_tf32_ss<1>(accr, dar, brl);
+      wgmma_tf32_ss<-1>(accr, dai, bil);
+      wgmma_tf32_ss<1>(acci, dar, bil);
+      wgmma_tf32_ss<1>(acci, dai, brl);
+      wgmma_tf32<1>(accr, rl, brh);
+      wgmma_tf32<-1>(accr, il, bih);
+      wgmma_tf32<1>(acci, rl, bih);
+      wgmma_tf32<1>(acci, il, brh);
+    }
+    wgmma_commit();
+    // the A registers are rewritten at the next step: wait for these MMAs
+    // (the other warpgroup's keep the tensor cores busy meanwhile)
+    wgmma_wait0();
+    fence_acc(accr);
+    fence_acc(acci);
+  }
+}
+
 // The GEMM of both modes; kDft: the DFT's epilogue (rank-K signal,
 // complex64 map), else the PC's (pcT planes). kCorr: the correction pass
 // (the data times the constant's lo, the data's lo times the constant's
@@ -356,15 +447,11 @@ __device__ __forceinline__ void gemm_body(const GemmArgs& a) {
         const int st = kt % kStages;
         if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) - 1) & 1);
         const uint32_t base = tiles + st * kStageBytes;
-        // the pass's constant planes: the hi ones (0, 2) or all four
-        constexpr int kFirstPlane = 0, kPlaneStep = kCorr ? 1 : 2;
-        mbar_expect_tx(full(st), 2 * kTileA + (4 / kPlaneStep) * kTileB);
+        mbar_expect_tx(full(st), 2 * kTileA + (4 / plane_step(kCorr)) * kTileB);
         tma_load(base, mar, a_col + kt * kBK, m0, full(st));
         tma_load(base + kTileA, mai, a_col + kt * kBK, m0, full(st));
-#pragma unroll
-        for (int p = kFirstPlane; p < 4; p += kPlaneStep)
-          tma_load(base + 2 * kTileA + p * kTileB, mb, kt * kBK,
-                   p * sg.b_rows + b_row, full(st));
+        load_constant<kCorr>(base + 2 * kTileA, mb, kt, sg.b_rows, b_row,
+                             full(st));
       }
     }
     return;
@@ -385,59 +472,8 @@ __device__ __forceinline__ void gemm_body(const GemmArgs& a) {
     mbar_wait(full(st), (kt / kStages) & 1);
     __syncwarp();   // the wgmma instructions below are .sync.aligned
     const uint32_t base = tiles + st * kStageBytes;
-    const unsigned char* are = smem_raw + (base - raw);
-    const unsigned char* aim = are + kTileA;
-    const uint32_t b0 = base + 2 * kTileA;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {
-      uint32_t rh[4], rl[4], ih[4], il[4];
-      {   // A from registers: the data's hi or lo part
-        float xr[4], xi[4];
-        const int k0 = 8 * kk + ft;
-        const uint32_t o[4] = {sw128_off(fr, k0), sw128_off(fr + 8, k0),
-                               sw128_off(fr, k0 + 4), sw128_off(fr + 8, k0 + 4)};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          xr[i] = *reinterpret_cast<const float*>(are + o[i]);
-          xi[i] = *reinterpret_cast<const float*>(aim + o[i]);
-        }
-        split4(xr, rh, rl);
-        split4(xi, ih, il);
-      }
-      const uint64_t dar = sw128_desc(base + wg * (kTileA / kConsumers) + 32 * kk);
-      const uint64_t dai = sw128_desc(base + kTileA + wg * (kTileA / kConsumers) + 32 * kk);
-      const uint64_t brh = sw128_desc(b0 + 32 * kk);
-      const uint64_t brl = sw128_desc(b0 + kTileB + 32 * kk);
-      const uint64_t bih = sw128_desc(b0 + 2 * kTileB + 32 * kk);
-      const uint64_t bil = sw128_desc(b0 + 3 * kTileB + 32 * kk);
-      wgmma_fence();
-      // Yr += Ar Br - Ai Bi; Yi += Ar Bi + Ai Br (-Ai: wgmma's imm-scale-a,
-      // exact). The correction pass takes the data's hi for the constant's
-      // lo straight from the stage (SS: the tensor cores drop its low 13
-      // bits instead of rounding, 2^-10 of A in a term 2^-11 of the
-      // product, so 2^-21), which keeps its A registers to the lo parts
-      if (!kCorr) {
-        wgmma_tf32<1>(accr, rh, brh);
-        wgmma_tf32<-1>(accr, ih, bih);
-        wgmma_tf32<1>(acci, rh, bih);
-        wgmma_tf32<1>(acci, ih, brh);
-      } else {
-        wgmma_tf32_ss<1>(accr, dar, brl);
-        wgmma_tf32_ss<-1>(accr, dai, bil);
-        wgmma_tf32_ss<1>(acci, dar, bil);
-        wgmma_tf32_ss<1>(acci, dai, brl);
-        wgmma_tf32<1>(accr, rl, brh);
-        wgmma_tf32<-1>(accr, il, bih);
-        wgmma_tf32<1>(acci, rl, bih);
-        wgmma_tf32<1>(acci, il, brh);
-      }
-      wgmma_commit();
-      // the A registers are rewritten at the next step: wait for these MMAs
-      // (the other warpgroup's keep the tensor cores busy meanwhile)
-      wgmma_wait0();
-      fence_acc(accr);
-      fence_acc(acci);
-    }
+    mma_stage<kCorr, kBM>(accr, acci, base, smem_raw + (base - raw), 64 * wg,
+                          fr, ft);
     // every MMA reading this stage is done: its buffers go back
     if ((threadIdx.x & 127) == 0) mbar_arrive(empty(st));
   }
@@ -496,6 +532,281 @@ template <bool kCorr>
 __global__ void __launch_bounds__(kThreads, 1)
     dft_gemm_kernel(const __grid_constant__ GemmArgs a) {
   gemm_body<true, kCorr>(a);
+}
+
+// ------------------------------------------------------------------ K4
+
+// K4's PC: K1's strip GEMM (K1's stage layout and consumer code) on a
+// block that owns a 128-gate tile, a 64-pulse tile and a group of bps
+// beams, which it walks: for each beam of the group the k loop of the
+// strip, then the rows' stores straight from the accumulators (pcT's pulses
+// are contiguous, so a warp's store covers four 32-byte runs), while the
+// producer already fills the next beam's stages. Its two consumer
+// warpgroups run the two passes on the same 64 rows, the main pass (hi*hi)
+// and the correction (hi*lo + lo*hi), so each sample is drawn once for
+// both (two launches of a pass each, as K1's, drew everything twice, and
+// the draws held them). The producer is two warpgroups (one drawing warp a
+// scheduler could not keep up with the MMAs: PERF.md): in draw mode their
+// 256 threads make the data's stage themselves (kDraw), Philox draws keyed
+// as K1c's (counter (n, p, b, seg), rails, zeros before pad_front and past
+// the segment's samples), written with st.shared into the
+// 128-byte-swizzled [64 rows][32 k] layout TMA writes, then
+// fence.proxy.async (wgmma reads through the async proxy) and an arrive on
+// the stage's full barrier (257 arrivals: the 256 draws and the expect_tx
+// of the constant's TMA loads); in planes mode one thread loads the given
+// planes by TMA, as K1. The consumers read the same bits either way, so
+// draw mode equals planes mode on K1c's planes bit for bit, and both equal
+// K1 (the same products in the same order for every row).
+constexpr int kK4Rows = 64;                          // pulses of a block
+constexpr int kK4TileA = kK4Rows * kBK * 4;          // a data plane's box
+constexpr int kK4StageBytes = 2 * kK4TileA + 4 * kTileB;
+constexpr size_t kK4Smem = (size_t)kStages * kK4StageBytes + 1024 + 2 * kStages * 8;
+constexpr int kK4Producers = 256;                    // two producer warpgroups
+constexpr int kK4Threads = 128 * kConsumers + kK4Producers;
+// setmaxnreg: the producers give registers to the consumers (256 x 88 +
+// 256 x 168 = 512 x 128, the entry budget of 512 threads; 168 is K1's)
+constexpr int kProducerRegs = 88, kConsumerRegs = 168;
+constexpr int kDrawLanes = 8;   // Philox chains a producer thread runs at once
+
+struct K4Seg {
+  int blk0;             // first block of the segment
+  int nb_n;             // 128-gate tiles
+  int k_tiles;          // 32-deep k steps of the strip
+  int j_len, g0;        // output gates and their offset
+  int pad_front;        // zero samples before the draws
+  int x_cols;           // samples of a row (zeros past them)
+  int seg_id;           // the segment's index in the plan (Philox counter)
+};
+
+struct K4Args {
+  CUtensorMap a_re[kMaxSeg], a_im[kMaxSeg];   // planes mode: f32 [B*P, x_cols]
+  CUtensorMap b[kMaxSeg];                     // f32 [4 * 128, k_pad] strip
+  K4Seg seg[kMaxSeg];
+  int n_seg, num_b, num_p, num_g, p4, bps, p_tiles;
+  uint2 key;
+  float scale;
+  float* out_re;        // pcT planes [B, G, p4] (main pass)
+  float* out_im;
+  float* corr_re;       // and the correction pass's
+  float* corr_im;
+};
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// A pipeline position: a stage and the parity of its current round.
+struct Slot {
+  int i = 0, phase = 0;
+  __device__ __forceinline__ void next() {
+    if (++i == kStages) {
+      i = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Philox4x32-10 (philox.cuh) on kDrawLanes counters at once with one key
+// schedule: words 0 and 1 of each block into w0, w1 (independent chains
+// side by side).
+__device__ __forceinline__ void philox_lanes(const unsigned (&n)[kDrawLanes],
+                                             unsigned p, unsigned b, unsigned seg,
+                                             uint2 k, unsigned (&w0)[kDrawLanes],
+                                             unsigned (&w1)[kDrawLanes]) {
+  unsigned c0[kDrawLanes], c1[kDrawLanes], c2[kDrawLanes], c3[kDrawLanes];
+#pragma unroll
+  for (int i = 0; i < kDrawLanes; ++i) {
+    c0[i] = n[i];
+    c1[i] = p;
+    c2[i] = b;
+    c3[i] = seg;
+  }
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+#pragma unroll
+    for (int i = 0; i < kDrawLanes; ++i) {
+      const unsigned lo0 = 0xD2511F53u * c0[i];
+      const unsigned hi0 = __umulhi(0xD2511F53u, c0[i]);
+      const unsigned lo1 = 0xCD9E8D57u * c2[i];
+      const unsigned hi1 = __umulhi(0xCD9E8D57u, c2[i]);
+      c0[i] = hi1 ^ c1[i] ^ k.x;
+      c1[i] = lo1;
+      c2[i] = hi0 ^ c3[i] ^ k.y;
+      c3[i] = lo0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kDrawLanes; ++i) {
+    w0[i] = c0[i];
+    w1[i] = c1[i];
+  }
+}
+
+// Producer thread t of kK4Producers draws its part of the data's stage: 8
+// consecutive samples (two 16-byte chunks of a row) a step, rows p0 .. p0
+// + 63 of beam b, samples n0 .. n0 + 31; zeros past the pulses, before
+// pad_front and past the row's samples.
+__device__ __forceinline__ void draw_stage(unsigned char* are, int t, int p0,
+                                           int b, int n0, const K4Seg& sg,
+                                           const K4Args& a) {
+  const int ch = 2 * (t & 3);   // the thread's first chunk of 8
+#pragma unroll 1
+  for (int r = t >> 2; r < kK4Rows; r += kK4Producers / 4) {
+    const int p = p0 + r;
+    float v[2][kDrawLanes];
+    if (p < a.num_p) {
+      unsigned n[kDrawLanes], w0[kDrawLanes], w1[kDrawLanes];
+#pragma unroll
+      for (int e = 0; e < kDrawLanes; ++e) n[e] = (unsigned)(n0 + 4 * ch + e);
+      philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w0,
+                   w1);
+#pragma unroll
+      for (int e = 0; e < kDrawLanes; ++e) {
+        const bool keep = (int)n[e] >= sg.pad_front && (int)n[e] < sg.x_cols;
+        v[0][e] = keep ? uniform_rail(w0[e], a.scale) : 0.f;
+        v[1][e] = keep ? uniform_rail(w1[e], a.scale) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kDrawLanes; ++e) v[0][e] = v[1][e] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint32_t o = sw128_off(r, 4 * (ch + q));
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+        *reinterpret_cast<float4*>(are + pl * kK4TileA + o) =
+            make_float4(v[pl][4 * q], v[pl][4 * q + 1], v[pl][4 * q + 2],
+                        v[pl][4 * q + 3]);
+    }
+  }
+}
+
+// The k loop of a beam's 64 rows (pass kCorr) and its stores: register
+// 4c + 2h + e holds pulse p0 + fr + 8h, gate n0 + 8c + 2ft + e.
+template <bool kCorr>
+__device__ __forceinline__ void k4_beam(const K4Args& a, const K4Seg& sg,
+                                        uint32_t tiles, uint32_t bars,
+                                        const unsigned char* smem_raw,
+                                        uint32_t raw, Slot& sl, int b, int p0,
+                                        int n0, int fr, int ft) {
+  float accr[64], acci[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) accr[i] = acci[i] = 0.f;
+  fence_acc(accr);
+  fence_acc(acci);
+  for (int kt = 0; kt < sg.k_tiles; ++kt, sl.next()) {
+    mbar_wait(bars + 8u * sl.i, sl.phase);
+    __syncwarp();   // the wgmma instructions below are .sync.aligned
+    const uint32_t base = tiles + sl.i * kK4StageBytes;
+    mma_stage<kCorr, kK4Rows>(accr, acci, base, smem_raw + (base - raw), 0,
+                              fr, ft);
+    if ((threadIdx.x & 127) == 0) mbar_arrive(bars + 8u * (kStages + sl.i));
+  }
+  float* dst_re = kCorr ? a.corr_re : a.out_re;
+  float* dst_im = kCorr ? a.corr_im : a.out_im;
+  const long long row = (long long)b * a.num_g + sg.g0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + fr + 8 * h;
+    if (p >= a.num_p) continue;
+#pragma unroll
+    for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = n0 + 8 * c + 2 * ft + e;
+        if (j < sg.j_len) {
+          const long long off = (row + j) * a.p4 + p;
+          dst_re[off] = accr[4 * c + 2 * h + e];
+          dst_im[off] = acci[4 * c + 2 * h + e];
+        }
+      }
+  }
+}
+
+template <bool kDraw>
+__global__ void __launch_bounds__(kK4Threads, 1)
+    k4_pc_kernel(const __grid_constant__ K4Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t tiles = (raw + 1023u) & ~1023u;
+  const uint32_t bars = tiles + kStages * kK4StageBytes;   // full, then empty
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (kStages + st); };
+
+  int s = 0;
+  while (s + 1 < a.n_seg && (int)blockIdx.x >= pick(a.seg, s + 1).blk0) ++s;
+  const K4Seg sg = pick(a.seg, s);
+  const int local = blockIdx.x - sg.blk0;
+  const int n0 = (local % sg.nb_n) * kBN;
+  const int rest = local / sg.nb_n;
+  const int p0 = (rest % a.p_tiles) * kK4Rows;
+  const int b0 = (rest / a.p_tiles) * a.bps;
+  const int b1 = min(b0 + a.bps, a.num_b);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), kDraw ? kK4Producers + 1 : 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    const int t = threadIdx.x - 128 * kConsumers;
+    if (!kDraw && t != 0) return;
+    const CUtensorMap* mar = &pick(a.a_re, s);
+    const CUtensorMap* mai = &pick(a.a_im, s);
+    const CUtensorMap* mb = &pick(a.b, s);
+    Slot sl;
+    int n = 0;
+    for (int b = b0; b < b1; ++b)
+      for (int kt = 0; kt < sg.k_tiles; ++kt, ++n, sl.next()) {
+        if (n >= kStages) mbar_wait(empty(sl.i), sl.phase ^ 1);
+        const uint32_t base = tiles + sl.i * kK4StageBytes;
+        if (t == 0) {
+          mbar_expect_tx(full(sl.i), (kDraw ? 0 : 2 * kK4TileA) + 4 * kTileB);
+          if (!kDraw) {
+            tma_load(base, mar, n0 + kt * kBK, b * a.num_p + p0, full(sl.i));
+            tma_load(base + kK4TileA, mai, n0 + kt * kBK, b * a.num_p + p0,
+                     full(sl.i));
+          }
+          load_constant<true>(base + 2 * kK4TileA, mb, kt, kBN, 0, full(sl.i));
+        }
+        if (kDraw) {
+          draw_stage(smem_raw + (base - raw), t, p0, b, n0 + kt * kBK, sg, a);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_arrive(full(sl.i));
+        }
+      }
+    return;
+  }
+
+  // the consumers: warpgroup 0 the main pass, 1 the correction, on the
+  // block's 64 rows
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int fr = 16 * warp + (lane >> 2);   // fragment row (and + 8)
+  const int ft = lane & 3;                  // fragment column (and + 4)
+  Slot sl;
+  for (int b = b0; b < b1; ++b) {
+    if (wg == 0)
+      k4_beam<false>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
+    else
+      k4_beam<true>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
+  }
 }
 
 // The beam mix of the PC's two passes into pr, pi [B, n]: x = p + c (the
@@ -589,13 +900,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Encoded maps by (pointer, cols, rows, ld), the kMapCache latest: a call
+// Encoded maps by (pointer, cols, rows, ld, box rows), the kMapCache
+// latest: a call
 // needs 9 maps, and the plan's constants and the caching allocator's
 // buffers come back at the same addresses call after call. A map holds
 // only the address, shape and box, so a hit is the map encoding would give.
 constexpr int kMapCache = 64;
 struct MapEntry {
-  long long key[4];
+  long long key[5];
   CUtensorMap map;
 };
 MapEntry g_maps[kMapCache];
@@ -603,14 +915,15 @@ int g_map_count = 0, g_map_next = 0;
 std::mutex g_map_mutex;   // ctypes calls run without the GIL
 
 // An f32 matrix [rows, cols] with row stride ld elements, read in boxes of
-// 32 columns x 128 rows with 128-byte swizzle; out-of-bounds reads are 0.
+// 32 columns x box_rows rows with 128-byte swizzle; out-of-bounds reads are
+// 0.
 bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
-              long long ld) {
+              long long ld, int box_rows = kBM) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr || ptr % 16 != 0 || ld % 4 != 0 || cols < 1 || rows < 1 ||
       cols > ld)
     return false;
-  const long long key[4] = {ptr, cols, rows, ld};
+  const long long key[5] = {ptr, cols, rows, ld, box_rows};
   std::lock_guard<std::mutex> lock(g_map_mutex);
   for (int i = 0; i < g_map_count; ++i)
     if (memcmp(g_maps[i].key, key, sizeof key) == 0) {
@@ -619,7 +932,7 @@ bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
     }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t box[2] = {kBK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, reinterpret_cast<void*>(ptr),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -729,6 +1042,88 @@ int k1_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
   a.corr_re = static_cast<float*>(cr);
   a.corr_im = static_cast<float*>(ci);
   return (int)launch_gemm(a, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// K4's PC over n_seg (1..3) segments, the main and the correction pass in
+// one launch. tab holds 10 values a segment: the f32 planes xr,
+// xi [num_b * num_p, x_cols] (row stride x_ld, a multiple of 4; 16-byte
+// aligned), or 0, 0 in draw mode (every segment alike), x_cols (draw mode:
+// the segment's samples a row), x_ld, the strip [4, 128, k_pad] f32 (as
+// k1_tf32_pc's), k_pad, the segment's gates j_len, their offset g0, its
+// pad_front and its index in the plan (the Philox counter's fourth word).
+// A block walks bps beams; draws are keyed by (s0, s1). The outputs as
+// k1_tf32_pc's: pr, pi the main pass, cr, ci the correction.
+int k4_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
+               int num_g, int p4, int bps, unsigned s0, unsigned s1,
+               float scale, void* pr, void* pi, void* cr, void* ci,
+               void* stream) {
+  if (n_seg < 1 || n_seg > kMaxSeg || num_b < 1 || num_p < 1 || bps < 1 ||
+      bps > num_b || p4 < num_p || p4 % 4 != 0 || pr == nullptr ||
+      pi == nullptr || cr == nullptr || ci == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)num_b * num_p;
+  if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const bool draw = tab[0] == 0;
+  int order[kMaxSeg] = {0, 1, 2};
+  for (int i = 0; i < n_seg; ++i)      // longest k loop first
+    for (int j = i + 1; j < n_seg; ++j)
+      if (tab[10 * order[j] + 5] > tab[10 * order[i] + 5]) {
+        const int t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+      }
+  K4Args a{};
+  a.p_tiles = (num_p + kK4Rows - 1) / kK4Rows;
+  const long long groups = (num_b + bps - 1) / bps;
+  long long blocks = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    const long long* t = tab + 10 * order[i];
+    const long long k_pad = t[5], j_len = t[6];
+    if (k_pad < kBK || k_pad % kBK != 0 || j_len < 1 || t[7] < 0 ||
+        t[7] + j_len > num_g || t[2] < 1 || t[8] < 0 || t[9] < 0 ||
+        (draw ? (t[0] != 0 || t[1] != 0)
+              : (!make_map(&a.a_re[i], t[0], t[2], rows, t[3], kK4Rows) ||
+                 !make_map(&a.a_im[i], t[1], t[2], rows, t[3], kK4Rows))) ||
+        !make_map(&a.b[i], t[4], k_pad, 4 * kBN, k_pad))
+      return (int)cudaErrorInvalidValue;
+    const int nb_n = (int)((j_len + kBN - 1) / kBN);
+    a.seg[i] = K4Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len,
+                     (int)t[7], (int)t[8], (int)t[2], (int)t[9]};
+    blocks += (long long)nb_n * a.p_tiles * groups;
+  }
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.n_seg = n_seg;
+  a.num_b = num_b;
+  a.num_p = num_p;
+  a.num_g = num_g;
+  a.p4 = p4;
+  a.bps = bps;
+  a.key = make_uint2(s0, s1);
+  a.scale = scale;
+  a.out_re = static_cast<float*>(pr);
+  a.out_im = static_cast<float*>(pi);
+  a.corr_re = static_cast<float*>(cr);
+  a.corr_im = static_cast<float*>(ci);
+  static bool smem_set[kMaxDevices] = {};   // the attributes, once a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    err = cudaFuncSetAttribute(k4_pc_kernel<true>, attr, (int)kK4Smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(k4_pc_kernel<false>, attr, (int)kK4Smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  const unsigned grid = (unsigned)blocks;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (draw)
+    k4_pc_kernel<true><<<grid, kK4Threads, kK4Smem, st>>>(a);
+  else
+    k4_pc_kernel<false><<<grid, kK4Threads, kK4Smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // The beam mix by L [B, B] (row-major complex64) of the planes pr + cr,

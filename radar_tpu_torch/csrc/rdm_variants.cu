@@ -12,10 +12,10 @@
 //       (:1088);
 //   K8  studies/pallas_pc.py::pulse_compress_noise_pallas, body
 //       _make_seg_kernel (:150): the banded PC alone, f32 out.
-// With bf16 operands, K8 and the planes-mode PC of K7 and K9 run the strip
-// GEMM of band_pc_sm90.cu (TMA + wgmma), K10's PC the resident ring and the
-// DFT of K10 and K7 the wgmma GEMM of rdm_sm90.cu; here they run at f32,
-// and K7's draw-mode PC at both types.
+// With bf16 operands, K8 and the planes-mode PC of K7, K9 and K10 run the
+// strip GEMM of band_pc_sm90.cu (TMA + wgmma), and their DFT the wgmma
+// GEMM of rdm_sm90.cu (K9's then mix_kernel); here they run at f32, and
+// K7's draw-mode PC at both types.
 //
 // Per segment, with x the white planes, M the banded filter [W, T], D the
 // MTD DFT [V, P] and L the 13x13 Cholesky factor, the RDM variants compute
@@ -35,12 +35,13 @@
 // would not: it rounds f32 operands, so f32 runs on the CUDA cores).
 //
 // Launches, all on the caller's stream:
-//   K10: ring_pc_kernel per segment (bf16: rdm_sm90.cu's ring, one launch)
+//   K10: ring_pc_kernel per segment (bf16: the strip GEMM, one launch)
 //        -> DFT GEMM (bf16: rdm_sm90.cu's dft_kernel) -> mix_kernel;
 //   K7:  banded PC GEMM per segment (bf16 planes: the strip GEMM of
 //        band_pc_sm90.cu) -> DFT GEMM (bf16: dft_kernel) -> mix_kernel;
 //   K9:  the same PC -> mtd_mix_kernel (DFT of all beams, rounded, mixed in
-//        the block: no mt round trip, one output write);
+//        the block: no mt round trip, one output write; bf16: K7's DFT GEMM
+//        and mix_kernel, which measured faster than one wgmma kernel);
 //   K8:  f32: banded PC GEMM per segment on the compact cube, f32 complex
 //        out (bf16: band_pc_sm90.cu).
 // The GEMMs (band_pc_kernel, mtd_gemm_kernel) run on the CUDA cores at f32;
@@ -74,13 +75,12 @@
 //   convolution, stored after it). K1 planes mode re-reads each sample
 //   W/T ~ 7x on the long segment. Its convolution is direct, tap by tap,
 //   on the CUDA cores (one shared load feeds 16 FMAs), not the banded GEMM.
-//   (At bf16 rdm_sm90.cu's ring feeds wgmma from a ring of 64-sample
-//   chunks.)
+//   (At bf16 K10's PC is the strip GEMM of band_pc_sm90.cu.)
 // - K9: the 13 beams' [V, T] DFT tiles of the TPU's step (4.4 MB) do not
 //   fit a block (227 KB). One block per 32 Doppler rows x 32 gates forms the
-//   DFT of every beam in turn on the CUDA cores, keeps the rounded tiles as
-//   T in shared memory (53 KB at bf16, 106 KB at f32), mixes them and
-//   writes the map once.
+//   DFT of every beam in turn on the CUDA cores, keeps the tiles in shared
+//   memory (106 KB at f32), mixes them and writes the map once (at f32
+//   only; bf16 runs K7's DFT GEMM and mix).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -880,7 +880,7 @@ int rv_band_pc(int bf16, int src, const void* xr, const void* xi,
   return launch_band_pc(bf16 != 0, src, a, num_b, st);
 }
 
-// K10's PC of one segment at f32 (bf16: rdm_sm90.cu's rs_ring_pc): f32
+// K10's PC of one segment at f32 (bf16: band_pc_sm90.cu's strip GEMM): f32
 // planes [B, P, x_len] -> f32 planes [B, P, num_g] at g0; taps tr, ti [lh];
 // 128-gate tiles, tiles_per_run consecutive tiles a block.
 int rv_ring_pc(const void* xr, const void* xi, long long x_len, const void* tr,
@@ -917,18 +917,16 @@ int rv_mix(int bf16, const void* mtr, const void* mti, const void* lmat,
                                   round_out, out, st);
 }
 
-// K9's tail: out [B, V, G] complex64 = L (D @ pc[c], rounded) (+ signal).
-int rv_mtd_mix(int bf16, const void* dr, const void* di, const void* pcr,
+// K9's tail at f32: out [B, V, G] complex64 = L (D @ pc[c]) (+ signal)
+// (bf16: rs_dft, then rv_mix).
+int rv_mtd_mix(const void* dr, const void* di, const void* pcr,
                const void* pci, const void* lmat, int num_b, int num_v,
                int num_p, int num_g, const void* dv, const void* pb,
                const void* st_, int num_k, void* out, void* stream) {
   if (num_b > kMaxB) return (int)cudaErrorInvalidValue;
-  const Signal s = make_signal(dv, pb, st_, num_k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_mtd_mix<__nv_bfloat16>(dr, di, pcr, pci, lmat, num_b,
-                                              num_v, num_p, num_g, s, out, st)
-              : launch_mtd_mix<float>(dr, di, pcr, pci, lmat, num_b, num_v,
-                                      num_p, num_g, s, out, st);
+  return launch_mtd_mix<float>(dr, di, pcr, pci, lmat, num_b, num_v, num_p,
+                               num_g, make_signal(dv, pb, st_, num_k), out,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

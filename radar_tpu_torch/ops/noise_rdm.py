@@ -18,10 +18,11 @@ in 3xTF32 (each f32 operand split into TF32 parts hi + lo, three products
 summed in f32: ``_split_tf32``, the plan's ``strip_tf32`` and ``d_tf32``),
 the beam mix between them. It reads given planes (planes mode) or, in draw
 mode, the planes kernel K1c writes first (``gen_noise_planes``), so the
-two modes agree bit for bit. Kernel K4 (``csrc/noise_rdm.cu``), the
-schedule of the TPU's non-rolling kernel, computes the same map with
-``beams_per_step`` beams per block on the CUDA cores, drawing inside the
-kernel. K1 and K4 hold float32 accuracy.
+two modes agree bit for bit. Kernel K4 (the same source), the schedule of
+the TPU's non-rolling kernel, computes the same map through K1's GEMMs with
+its data drawn inside the PC's blocks, no noise cube in device memory,
+``beams_per_step`` beams walked by a block. K1 and K4 hold float32
+accuracy.
 
 The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
 the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
@@ -31,15 +32,13 @@ mode) and K9 (``"allbeams"``), in ``csrc/rdm_variants.cu``. They round to
 ``mul_dtype`` (nearest even) the planes, the filter, D and L, the PC result
 and the DFT result, accumulate every product in float32, and mix the beams
 after the rounded DFT; ``"resident"`` may round its output to bfloat16.
-At bfloat16 the planes-mode PC of K7 and K9 is the strip GEMM of
+At bfloat16 the planes-mode PC of K10, K7 and K9 is the strip GEMM of
 ``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on the Toeplitz strip
 of each segment's filter, rounded to bfloat16 once per plan, ``strip``),
-which K8 (``studies/pallas_pc.py``) shares; K10's PC is the resident ring
-of ``csrc/rdm_sm90.cu`` (``ring_pc``: each row's samples kept in shared
-memory while its gate tiles slide along, fed to wgmma with the same
-strip), and the DFT of K10 and K7 that file's wgmma GEMM (``dft``, on the
-plan's rounded D, ``d_bf16``). The constants' rounded copies are kept on
-the plan (``strip``, ``d_bf16``, and ``taps_planes``, ``mp_planes``,
+which K8 (``studies/pallas_pc.py``) shares; the DFT of K10 and K7 is the
+wgmma GEMM of ``csrc/rdm_sm90.cu`` (``dft``, on the plan's rounded D,
+``d_bf16``), which K9's shares; then the mix. The constants' rounded
+copies are kept on the plan (``strip``, ``d_bf16``, and ``taps_planes``, ``mp_planes``,
 ``d_planes`` for ``csrc/rdm_variants.cu``) and L's for the latest L
 (``_rounded_l``), not made anew on every call.
 
@@ -77,20 +76,18 @@ RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
 STRIP_BN = 128                        # gates of a strip-GEMM block
 STRIP_BK = 64                         # k depth of its stages (128-byte rows)
 TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
-RING_TILE = 64                        # gates of a tile of K10's bf16 ring
-RING_RUN = 10                         # most such tiles a ring block walks
 
 launch_count = 0                      # K1 calls (PC + mix + DFT GEMMs; with
                                       # K1c's planes first in draw mode)
-k4_launch_count = 0                   # K4 launches (rolling=False calls)
+k4_launch_count = 0                   # K4 calls (rolling=False)
+k4_pc_launch_count = 0                # K4's PC launches (its drawing GEMM)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
 k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
 strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
-                                      # K9 planes mode and of K8)
-ring_pc_launch_count = 0              # K10's bf16 ring-PC launches
-dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7)
+                                      # K10, K9 planes mode and of K8)
+dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7, K9)
 
 
 class RdmSegSpec(NamedTuple):
@@ -430,6 +427,67 @@ def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
             xi[:, :num_p].to(dtype).contiguous())
 
 
+def _k1_setup(plan: RdmPlan, l_factor, signal, name: str, k1c_floats: int):
+    """The checks and buffers K1 and K4 share: (lib, L, signal arguments,
+    p4, the scratch tensor with ``k1c_floats`` floats of K1c's planes
+    first, then the PC's main and correction planes pcr, pci, cr, ci [B, G,
+    P4] and the DFT's correction pass [B, V, G] complex64, their pointers,
+    the output map [B, V, G], the stream)."""
+    from .. import _build
+
+    lib = _build.load("noise_rdm_sm90")
+    dev = l_factor.device
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    if num_b > 16:
+        raise ValueError(f"{name} mixes at most 16 beams, got {num_b}")
+    for t in (l_factor, plan.d):
+        if t.device != dev or t.dtype != torch.complex64:
+            raise ValueError(f"{name} constants must be complex64 on the card")
+    sig = _signal_args(signal, dev, num_b, num_v, num_g)
+    p4 = -(-num_p // 4) * 4
+    n_pc, n_map = num_b * num_g * p4, num_b * num_v * num_g
+    scratch = torch.empty(k1c_floats + 4 * n_pc + 2 * n_map,
+                          dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    ptrs = tuple(base + 4 * (k1c_floats + k * n_pc) for k in range(5))
+    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (lib, l_factor.contiguous(), sig, p4, scratch, ptrs, out, stream)
+
+
+def _check_strip_tf32(seg: RdmSegSpec, dev) -> torch.Tensor:
+    st = seg.strip_tf32
+    if st.device != dev or st.dtype != torch.float32 or st.shape[2] % TF32_BK:
+        raise ValueError("the plan's strip_tf32 must be float32 "
+                         f"[4, {STRIP_BN}, k * {TF32_BK}] on the card")
+    return st
+
+
+def _k1_mix_dft(lib, plan: RdmPlan, lmat, sig, p4: int, ptrs, out,
+                stream) -> None:
+    """K1's tail on the PC's planes (K4's too): the beam mix of the main
+    and the correction pass, the 3xTF32 DFT GEMM (two passes, the rank-K
+    signal in the second) and their sum into ``out``."""
+    from .. import _build
+
+    num_b, num_p = lmat.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    pcr, pci, cr, ci, corr = ptrs
+    num_k, sig_ptrs, _keep = sig
+    _build.check(lib, lib.k1_tf32_mix(pcr, pci, cr, ci, lmat.data_ptr(),
+                                      num_b, num_g * p4, stream),
+                 "k1_tf32_mix")
+    d4 = plan.d_tf32
+    if d4.device != lmat.device or d4.shape[2] != p4:
+        raise ValueError("the plan's d_tf32 must be on the card, [4, V128, "
+                         f"{p4}]")
+    _build.check(lib, lib.k1_tf32_dft(
+        pcr, pci, d4.data_ptr(), d4.shape[1], num_b, num_v, num_p, num_g, p4,
+        *sig_ptrs, num_k, out.data_ptr(), corr, stream), "k1_tf32_dft")
+
+
 def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
     """K1 (``csrc/noise_rdm_sm90.cu``): the 3xTF32 strip-GEMM PC of every
     segment into pcT planes [B, G, P4] (a main and a correction pass, each
@@ -443,31 +501,11 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
 
     from .. import _build
 
-    lib = _build.load("noise_rdm_sm90")
-    dev = l_factor.device
-    num_b, num_p = l_factor.shape[0], plan.n_pulses
-    num_v, num_g = plan.n_dop, plan.n_gates
-    if num_b > 16:
-        raise ValueError(f"K1 mixes at most 16 beams, got {num_b}")
-    for t in (l_factor, plan.d):
-        if t.device != dev or t.dtype != torch.complex64:
-            raise ValueError("K1 constants must be complex64 on the card")
-    lmat = l_factor.contiguous()
-    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
-    p4 = -(-num_p // 4) * 4
-    n_pc, n_map = num_b * num_g * p4, num_b * num_v * num_g
+    num_b, num_p, num_g = l_factor.shape[0], plan.n_pulses, plan.n_gates
     k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
-    # floats: K1c's planes (draw mode, 256-byte aligned spans), then the
-    # PC's main and correction planes pcr, pci, cr, ci [B, G, P4] and the
-    # DFT's correction pass [B, V, G] complex64
-    scratch = torch.empty(k1c_floats + 4 * n_pc + 2 * n_map,
-                          dtype=torch.float32, device=dev)
-    base = scratch.data_ptr()
-    pcr, pci, cr, ci, corr = (base + 4 * (k1c_floats + k * n_pc)
-                              for k in range(5))
-    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
+        plan, l_factor, signal, "K1", k1c_floats)
+    dev, base = lmat.device, scratch.data_ptr()
     xs, kept = [], []    # per segment (xr, xi, row stride); tensors alive
     if planes is None:
         spans = _k1c_launch(plan, seed, num_b, scratch, stream)
@@ -478,87 +516,74 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
         else:
             planes = _k1c_views(scratch, spans, num_b, num_p)
     if planes is not None:
-        for si, seg in enumerate(plan.segments):
-            xr, xi = (_rows16(x) for x in _kernel_planes(
-                planes, si, seg, dev, num_b, num_p, torch.float32))
-            kept.append((xr, xi))
-            xs.append((xr.data_ptr(), xi.data_ptr(), xr.shape[-1]))
+        xs, kept = _tf32_rows(planes, plan, dev, num_b, num_p)
     vals = []
     for seg, (xr, xi, ld) in zip(plan.segments, xs):
-        st = seg.strip_tf32
-        if st.device != dev or st.dtype != torch.float32 \
-                or st.shape[2] % TF32_BK:
-            raise ValueError("the plan's strip_tf32 must be float32 "
-                             f"[4, {STRIP_BN}, k * {TF32_BK}] on the card")
+        st = _check_strip_tf32(seg, dev)
         vals += [xr, xi, ld, ld, st.data_ptr(), st.shape[2], seg.j_len,
                  seg.g0]
     _build.check(lib, lib.k1_tf32_pc(
         len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
-        num_p, num_g, p4, pcr, pci, cr, ci, stream), "k1_tf32_pc")
-    _build.check(lib, lib.k1_tf32_mix(pcr, pci, cr, ci, lmat.data_ptr(),
-                                      num_b, num_g * p4, stream),
-                 "k1_tf32_mix")
-    d4 = plan.d_tf32
-    if d4.device != dev or d4.shape[2] != p4:
-        raise ValueError("the plan's d_tf32 must be on the card, [4, V128, "
-                         f"{p4}]")
-    _build.check(lib, lib.k1_tf32_dft(
-        pcr, pci, d4.data_ptr(), d4.shape[1], num_b, num_v, num_p, num_g, p4,
-        *sig_ptrs, num_k, out.data_ptr(), corr, stream), "k1_tf32_dft")
+        num_p, num_g, p4, *ptrs[:4], stream), "k1_tf32_pc")
+    _k1_mix_dft(lib, plan, lmat, sig, p4, ptrs, out, stream)
     launch_count += 1
     return out
 
 
+def _tf32_rows(planes, plan: RdmPlan, dev, num_b: int, num_p: int):
+    """Each segment's given planes as f32 [B*P, n] rows padded to 16 bytes:
+    ([(xr pointer, xi pointer, n)], the tensors to keep alive)."""
+    xs, kept = [], []
+    for si, seg in enumerate(plan.segments):
+        xr, xi = (_rows16(x) for x in _kernel_planes(
+            planes, si, seg, dev, num_b, num_p, torch.float32))
+        kept.append((xr, xi))
+        xs.append((xr.data_ptr(), xi.data_ptr(), xr.shape[-1]))
+    return xs, kept
+
+
+def k4_table(plan: RdmPlan, xs=None) -> list:
+    """K4's segment table for ``k4_tf32_pc``, 10 integers a segment: the
+    planes' pointers, their columns and row stride (``xs``: per segment
+    (xr, xi, columns), planes mode) or 0, 0, xlen, xlen (draw mode), the
+    strip's pointer and k_pad, j_len, g0, pad_front and the segment's
+    index (the Philox counter's fourth word)."""
+    vals = []
+    for si, seg in enumerate(plan.segments):
+        xr, xi, cols = xs[si] if xs is not None else (0, 0, seg.xlen)
+        st = seg.strip_tf32
+        vals += [xr, xi, cols, cols, st.data_ptr(), st.shape[2], seg.j_len,
+                 seg.g0, seg.pad_front, si]
+    return vals
+
+
 def _k4_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
              beams_per_step):
-    """K4, the window schedule (``csrc/noise_rdm.cu``, CUDA cores, f32)."""
-    global k4_launch_count
+    """K4 (``csrc/noise_rdm_sm90.cu``, ``k4_pc_kernel``): K1's 3xTF32
+    strip-GEMM PC, both passes in one launch on each stage, the data's stage
+    drawn in the block (draw mode; in planes mode loaded by TMA),
+    ``beams_per_step`` beams walked a block, then K1's mix and DFT GEMM."""
+    global k4_launch_count, k4_pc_launch_count
     import ctypes
 
     from .. import _build
 
-    lib = _build.load("noise_rdm")
-    dev = l_factor.device
-    num_b, num_p = l_factor.shape[0], plan.n_pulses
-    num_v, num_g = plan.n_dop, plan.n_gates
-    if num_b > 16:
-        raise ValueError(f"K4 mixes at most 16 beams, got {num_b}")
-    for t in (l_factor, plan.d):
-        if t.device != dev or t.dtype != torch.complex64:
-            raise ValueError("K4 constants must be complex64 on the card")
-    lmat = l_factor.contiguous()
-    d = plan.d.contiguous()
-    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
-    pc = torch.empty((num_b, num_p, num_g), dtype=torch.complex64,
-                     device=dev)
-    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    num_b, num_p, num_g = l_factor.shape[0], plan.n_pulses, plan.n_gates
+    lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
+        plan, l_factor, signal, "K4", 0)
+    dev = lmat.device
+    for seg in plan.segments:
+        _check_strip_tf32(seg, dev)
+    xs, kept = (None, ()) if planes is None else _tf32_rows(
+        planes, plan, dev, num_b, num_p)
+    vals = k4_table(plan, xs)
     s0, s1 = seed if seed is not None else (0, 0)
-    # every beam in one window mixes in the block
-    mixed = beams_per_step == num_b
-    for si, seg in enumerate(plan.segments):
-        if seg.tile != KERNEL_TILE:
-            raise ValueError(f"K4 needs {KERNEL_TILE}-gate tiles")
-        taps = seg.taps.contiguous()
-        if planes is not None:
-            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p,
-                                    torch.float32)
-            x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
-        else:
-            x_ptrs, x_len = (None, None), 0
-        rc = lib.k4_pc(taps.data_ptr(), taps.shape[0], seg.pad_front,
-                       seg.j_len, seg.g0, si, s0, s1, ctypes.c_float(U_SCALE),
-                       x_ptrs[0], x_ptrs[1], x_len, num_b, num_p, num_g,
-                       beams_per_step, lmat.data_ptr() if mixed else None,
-                       pc.data_ptr(), stream)
-        _build.check(lib, rc, "k4_pc")
-    if not mixed:
-        _build.check(lib, lib.k1_mix(pc.data_ptr(), lmat.data_ptr(), num_b,
-                                     num_p * num_g, stream), "k1_mix")
-    _build.check(lib, lib.k1_mtd(d.data_ptr(), pc.data_ptr(), num_b, num_v,
-                                 num_p, num_g, *sig_ptrs, num_k,
-                                 out.data_ptr(), stream), "k1_mtd")
+    _build.check(lib, lib.k4_tf32_pc(
+        len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
+        num_p, num_g, p4, beams_per_step, s0, s1, ctypes.c_float(U_SCALE),
+        *ptrs[:4], stream), "k4_tf32_pc")
+    k4_pc_launch_count += 1
+    _k1_mix_dft(lib, plan, lmat, sig, p4, ptrs, out, stream)
     k4_launch_count += 1
     return out
 
@@ -649,42 +674,6 @@ def _rounded_l(l_factor: torch.Tensor, dtype) -> torch.Tensor:
     return val
 
 
-def ring_pc(segments, rows: int, ld: int, outr, outi) -> None:
-    """Launch K10's bf16 ring PC (``csrc/rdm_sm90.cu``, ``ring_pc_kernel``)
-    over up to three segments at once. ``segments``: (xr, xi, strip, lh,
-    j_len, g0) each, as ``strip_pc``'s with the filter length ``lh``.
-    Writes gates g0 .. g0+j_len-1 of each row of the rounded bfloat16 planes
-    ``outr``, ``outi`` [rows, ld] (ld a multiple of 8)."""
-    global ring_pc_launch_count
-    import ctypes
-
-    from .. import _build
-
-    bf = torch.bfloat16
-    dev = outr.device
-    if not 1 <= len(segments) <= 3 or ld % 8 or any(
-            t.device != dev or t.dtype != bf or not t.is_contiguous()
-            or t.numel() != rows * ld or t.data_ptr() % 16
-            for t in (outr, outi)):
-        raise ValueError("ring_pc takes 1-3 segments and contiguous bfloat16 "
-                         f"planes of {rows} x {ld} (a multiple of 8)")
-    vals = []
-    for xr, xi, strip, lh, j_len, g0 in segments:
-        _check_samples(xr, xi, rows, dev)
-        check_strip(strip, dev)
-        ntiles = -(-j_len // RING_TILE)
-        per_run = -(-ntiles // -(-ntiles // RING_RUN))
-        vals += [xr.data_ptr(), xi.data_ptr(), xr.shape[1], xr.stride(0),
-                 strip.data_ptr(), strip.shape[2], lh, j_len, g0, per_run]
-    lib = _build.load("rdm_sm90")
-    rc = lib.rs_ring_pc(len(segments),
-                        (ctypes.c_longlong * len(vals))(*vals), rows, ld,
-                        outr.data_ptr(), outi.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "rs_ring_pc")
-    ring_pc_launch_count += 1
-
-
 def dft(plan: RdmPlan, pcr, pci, num_g: int, mtr, mti) -> None:
     """Launch the bf16 DFT GEMM of K10 and K7 (``csrc/rdm_sm90.cu``,
     ``dft_kernel``): mt[b] = D @ pc[b] with the plan's rounded D
@@ -739,10 +728,10 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
                   schedule: str, mul_dtype, out_dtype):
     """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
     or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic. At bf16 on planes
-    the PC is one launch for the three segments: K10's resident ring
-    (``ring_pc``), K7's and K9's strip GEMM (``strip_pc``); at bf16 the DFT
-    of K10 and K7 is the wgmma GEMM (``dft``). Draw mode and f32 keep
-    ``csrc/rdm_variants.cu``'s kernels."""
+    the PC is the strip GEMM (``strip_pc``, one launch for the three
+    segments); at bf16 the DFT is the wgmma GEMM (``dft``), then the mix.
+    Draw mode and f32 keep ``csrc/rdm_variants.cu``'s kernels (K9's at f32
+    its fused DFT + mix)."""
     global k7_launch_count, k9_launch_count, k10_launch_count
     import ctypes
 
@@ -762,8 +751,8 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
     lmat = _rounded_l(l_factor, md)
     rnd = _ROUNDED[md]
     num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
-    # the bf16 DFT GEMM reads pc by TMA: rows padded to 16 bytes
-    ld = -(-num_g // 8) * 8 if bf16 and schedule != "allbeams" else num_g
+    # the bf16 DFT GEMMs read pc by TMA: rows padded to 16 bytes
+    ld = -(-num_g // 8) * 8 if bf16 else num_g
     pcr = torch.empty((num_b, num_p, ld), dtype=md, device=dev)
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -772,13 +761,9 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         segs = []
         for si, seg in enumerate(plan.segments):
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
-            segs.append((_rows16(xr), _rows16(xi), seg.strip,
-                         seg.taps.shape[0], seg.j_len, seg.g0))
-        if schedule == "resident":
-            ring_pc(segs, num_b * num_p, ld, pcr, pci)
-        else:
-            strip_pc([(xr, xi, st, j, g0) for xr, xi, st, _, j, g0 in segs],
-                     num_b * num_p, ld, outr=pcr, outi=pci)
+            segs.append((_rows16(xr), _rows16(xi), seg.strip, seg.j_len,
+                         seg.g0))
+        strip_pc(segs, num_b * num_p, ld, outr=pcr, outi=pci)
     # the PC at f32 or in draw mode: a launch a segment
     for si, seg in enumerate(() if bf16 and planes is not None
                              else plan.segments):
@@ -791,7 +776,7 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         if schedule == "resident":
             if seg.tile != KERNEL_TILE:
                 raise ValueError(f"K10 needs {KERNEL_TILE}-gate tiles")
-            tr, ti = seg.taps_planes       # f32 only: bf16 takes ring_pc
+            tr, ti = seg.taps_planes       # f32 only: bf16 takes strip_pc
             ntiles = -(-seg.j_len // seg.tile)
             per_run = -(-ntiles // -(-ntiles // RESIDENT_RUN))
             rc = lib.rv_ring_pc(*x_ptrs, x_len, tr.data_ptr(), ti.data_ptr(),
@@ -810,13 +795,12 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         _build.check(lib, rc, "rv_band_pc")
     out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
                       device=dev)
-    if schedule == "allbeams":
+    if schedule == "allbeams" and not bf16:
         dr, di = plan.d_planes[rnd]
-        rc = lib.rv_mtd_mix(int(bf16), dr.data_ptr(), di.data_ptr(),
-                            pcr.data_ptr(), pci.data_ptr(), lmat.data_ptr(),
-                            num_b, num_v, num_p, num_g, *sig_ptrs, num_k,
-                            out.data_ptr(), stream)
-        _build.check(lib, rc, "rv_mtd_mix")
+        _build.check(lib, lib.rv_mtd_mix(
+            dr.data_ptr(), di.data_ptr(), pcr.data_ptr(), pci.data_ptr(),
+            lmat.data_ptr(), num_b, num_v, num_p, num_g, *sig_ptrs, num_k,
+            out.data_ptr(), stream), "rv_mtd_mix")
         k9_launch_count += 1
         return out
     mtr = torch.empty((num_b, num_v, num_g), dtype=md, device=dev)
@@ -836,6 +820,8 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
                                  out.data_ptr(), stream), "rv_mix")
     if schedule == "resident":
         k10_launch_count += 1
+    elif schedule == "allbeams":
+        k9_launch_count += 1
     else:
         k7_launch_count += 1
     return out

@@ -8,9 +8,10 @@ bench.py's two targets).
 The old K1 ran on the CUDA cores in f32: per segment ``pc_kernel`` (Philox
 draws or given planes staged in shared memory, a register-window causal
 convolution, the un-mixed pc [B, P, G] complex64), then ``k1_mix`` and the
-tiled DFT ``k1_mtd`` of ``radar_tpu_torch/csrc/noise_rdm.cu``. Its
-convolution kernel lives only here (``OLD_PC``), appended to a copy of
-that source built into ``build/ablate_k1/``. The new K1 is the port's
+tiled DFT ``k1_mtd`` of the first K4. Its convolution kernel lives only
+here (``OLD_PC``), appended with the first K4's source (kept in
+``scripts/ablate_k4_k9.py``) to a copy of
+``radar_tpu_torch/csrc/noise_rdm.cu`` built into ``build/ablate_k1/``. The new K1 is the port's
 ``noise_rdm`` (``csrc/noise_rdm_sm90.cu``: K1c's planes in draw mode, the
 3xTF32 strip-GEMM PC, the planar mix, the 3xTF32 DFT GEMM). Both run in
 draw mode through the entry point ``noise_rdm`` (the old one in place of
@@ -138,25 +139,25 @@ OLD_PC_SIGNATURE = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p, ctypes.c_void_p]
 
 
-PASS0 = """        wgmma_tf32<1>(accr, rh, brh);
-        wgmma_tf32<-1>(accr, ih, bih);
-        wgmma_tf32<1>(acci, rh, bih);
-        wgmma_tf32<1>(acci, ih, brh);
+PASS0 = """      wgmma_tf32<1>(accr, rh, brh);
+      wgmma_tf32<-1>(accr, ih, bih);
+      wgmma_tf32<1>(acci, rh, bih);
+      wgmma_tf32<1>(acci, ih, brh);
 """
 # the correction pass's products with the constant's lo: the data's hi
 # straight from the stage (SS)
-CORR_SS = """        wgmma_tf32_ss<1>(accr, dar, brl);
-        wgmma_tf32_ss<-1>(accr, dai, bil);
-        wgmma_tf32_ss<1>(acci, dar, bil);
-        wgmma_tf32_ss<1>(acci, dai, brl);
+CORR_SS = """      wgmma_tf32_ss<1>(accr, dar, brl);
+      wgmma_tf32_ss<-1>(accr, dai, bil);
+      wgmma_tf32_ss<1>(acci, dar, bil);
+      wgmma_tf32_ss<1>(acci, dai, brl);
 """
 CORR_RS = CORR_SS.replace("_ss", "").replace("dar", "rh").replace("dai", "ih")
-CORR_LO = """        wgmma_tf32<1>(accr, rl, brh);
-        wgmma_tf32<-1>(accr, il, bih);
-        wgmma_tf32<1>(acci, rl, bih);
-        wgmma_tf32<1>(acci, il, brh);
+CORR_LO = """      wgmma_tf32<1>(accr, rl, brh);
+      wgmma_tf32<-1>(accr, il, bih);
+      wgmma_tf32<1>(acci, rl, bih);
+      wgmma_tf32<1>(acci, il, brh);
 """
-PLANES = "constexpr int kFirstPlane = 0, kPlaneStep = kCorr ? 1 : 2;"
+PLANES = "constexpr int plane_step(bool corr) { return corr ? 1 : 2; }"
 # without the correction passes: their launches, and the mix's and the
 # add's reads of their results
 SKIP = tuple((f"if (err == cudaSuccess) {k}_gemm_kernel<true>",
@@ -167,7 +168,7 @@ SKIP = tuple((f"if (err == cudaSuccess) {k}_gemm_kernel<true>",
 VARIANTS = {
     "hi_hi_only": SKIP,
     "corr_rs": ((CORR_SS, CORR_RS),),
-    "one_pass": ((PLANES, "constexpr int kFirstPlane = 0, kPlaneStep = 1;"),
+    "one_pass": ((PLANES, "constexpr int plane_step(bool corr) { return 1; }"),
                  (PASS0, PASS0 + CORR_RS + CORR_LO)) + SKIP,
     # the correction pass without its SS products or without its products
     # with the data's lo (timing only)
@@ -273,14 +274,21 @@ def variants(plan, lmat, seed, reps: int = 10) -> dict:
 
 
 def build_old(build_dir: str) -> ctypes.CDLL:
-    """noise_rdm.cu with OLD_PC appended, built and loaded."""
+    """noise_rdm.cu with the first K4's source (its window staging,
+    convolution, mix and tiled DFT, from scripts/ablate_k4_k9.py) and
+    OLD_PC appended, built and loaded."""
+    from ablate_k4_k9 import OLD_K4, OLD_K4_SIGNATURES
+
     from radar_tpu_torch import _build
 
     with open(os.path.join(_build._CSRC, "noise_rdm.cu")) as f:
-        so = _compile({"old_k1": f.read() + OLD_PC}, build_dir)["old_k1"]
+        so = _compile({"old_k1": f.read() + OLD_K4 + OLD_PC},
+                      build_dir)["old_k1"]
     lib = _load(so, "noise_rdm")
-    lib.k1_pc.argtypes = OLD_PC_SIGNATURE
-    lib.k1_pc.restype = ctypes.c_int
+    for fn, argtypes in {**OLD_K4_SIGNATURES,
+                         "k1_pc": OLD_PC_SIGNATURE}.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

@@ -217,23 +217,25 @@ def test_k1c_one_launch_at_ragged_shapes_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("beams_per_step", [1, 2, 5])
 def test_k4_matches_plain_on_card(cuda_device, beams_per_step):
-    """K4 (window schedule, in-block mix at 5 beams per block) vs its
-    plain version (RMS of the difference within 1e-5 of the RMS) and vs
-    K1 on the same seed (the same f32 arithmetic: identical)."""
+    """K4 (K1's 3xTF32 GEMMs, the PC's data drawn in the block, 1, 2 and
+    all 5 beams walked a block) vs its plain version (RMS of the difference
+    within 1e-5 of the RMS) and within 2^-7 of the largest value of K1 on
+    the same seed; one K4 call and one K4 PC launch."""
     lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
     factors = lr.signal_factors(TargetBatch.make(*TARGETS))
     seed = (3, 5)
     ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor,
                              nr.philox_planes(lr.rplan, seed, 5,
                                               device=cuda_device), factors)
-    before = nr.k4_launch_count
+    before = (nr.k4_launch_count, nr.k4_pc_launch_count)
     got = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=seed,
                        layout="bvg", rolling=False,
                        beams_per_step=beams_per_step)
     k1 = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=seed,
                       layout="bvg")
     torch.cuda.synchronize()
-    assert nr.k4_launch_count == before + 1
+    assert (nr.k4_launch_count, nr.k4_pc_launch_count) == (before[0] + 1,
+                                                           before[1] + 1)
     rms = lambda x: float(x.abs().pow(2).mean().sqrt())
     assert rms(got - ref) <= 1e-5 * rms(ref)
     assert float((got - k1).abs().max()) <= 2.0 ** -7 * float(k1.abs().max())
@@ -565,15 +567,16 @@ K1_RAGGED = ((5, 90, 300), (37, 300, 700), 5, 37, 41)
 
 
 def _k1_plan(device, num_v=None, lh=K1_RAGGED[0], unit=False,
-             tf32_taps=False, seed=2, lane=128):
-    """A noise-RDM plan at K1_RAGGED's gates and pulses from a stand-in for
+             tf32_taps=False, seed=2, lane=128, num_p=K1_RAGGED[3]):
+    """A noise-RDM plan at K1_RAGGED's gates and ``num_p`` pulses (K1_RAGGED's
+    by default) from a stand-in for
     ``precompute``'s output: random complex taps of lengths ``lh`` (all ones
     with ``unit``; rounded to TF32 with ``tf32_taps``), a random MTD
     matrix [num_v, P] (the identity when ``num_v`` is None) and gate tiles
     a multiple of ``lane``."""
     from types import SimpleNamespace
 
-    gates, num_p = K1_RAGGED[1], K1_RAGGED[3]
+    gates = K1_RAGGED[1]
     rng = np.random.default_rng(seed)
     taps = []
     for n in lh:
@@ -775,11 +778,11 @@ def _bf16_planes(plan, num_b, num_p, seed, device):
 
 @pytest.mark.cuda
 def test_k10_bf16_delta_and_one_tap_probes_on_card(cuda_device):
-    """Inputs that locate layout faults in K10's bf16 ring PC and the bf16
-    DFT GEMM, held exactly with D and L the identity (every output one bf16
-    product with 1): a unit delta in every (beam, pulse) row recovers the
-    rounded filter at its place, and one-tap unit filters recover the
-    rounded planes; one ring-PC and one DFT launch a call."""
+    """Inputs that locate layout faults in K10's bf16 PC (the strip GEMM)
+    and the bf16 DFT GEMM, held exactly with D and L the identity (every
+    output one bf16 product with 1): a unit delta in every (beam, pulse) row
+    recovers the rounded filter at its place, and one-tap unit filters
+    recover the rounded planes; one strip-GEMM and one DFT launch a call."""
     num_b, num_p = K1_RAGGED[2:4]
     bf = torch.bfloat16
     eye = torch.eye(num_b, dtype=torch.complex64, device=cuda_device)
@@ -791,12 +794,12 @@ def test_k10_bf16_delta_and_one_tap_probes_on_card(cuda_device):
                              * (7 + si) % seg.r_len)
         x.view(-1, seg.xlen)[torch.arange(num_b * num_p), n] = 1.0
         planes.append((x, torch.zeros_like(x)))
-    before = (nr.ring_pc_launch_count, nr.dft_launch_count)
+    before = (nr.strip_pc_launch_count, nr.dft_launch_count)
     got = nr.noise_rdm(plan, eye, planes=planes, variant="resident",
                        mul_dtype=bf, layout="bvg")
     ref = nr.noise_rdm_plain(plan, eye, planes, mul_dtype=bf)
     torch.cuda.synchronize()
-    assert (nr.ring_pc_launch_count, nr.dft_launch_count) == (
+    assert (nr.strip_pc_launch_count, nr.dft_launch_count) == (
         before[0] + 1, before[1] + 1)
     assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)
 
@@ -853,11 +856,11 @@ def test_bf16_dft_gemm_probe_and_random_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["resident", "stacked"])
 def test_k10_k7_bf16_at_ragged_shapes_on_card(cuda_device, variant):
-    """K10 (ring PC) and K7 (strip GEMM) at bf16 through the bf16 DFT GEMM
-    at K1_RAGGED's shapes (135 rows, gates 37/300/700 at odd offsets, taps
+    """K10 and K7 at bf16 (the strip-GEMM PC) through the bf16 DFT GEMM at
+    K1_RAGGED's shapes (135 rows, gates 37/300/700 at odd offsets, taps
     5/90/300, 41 Doppler bins), with the rank-K signal and a random L:
-    within 3e-4 RMS of the plain version; the ring PC runs for K10 only,
-    the DFT GEMM for both."""
+    within 3e-4 RMS of the plain version; one strip-GEMM and one DFT launch
+    for each."""
     num_b, num_p, num_v = K1_RAGGED[2:]
     plan = _k1_plan(cuda_device, num_v=num_v)
     rng = np.random.default_rng(3)
@@ -867,12 +870,85 @@ def test_k10_k7_bf16_at_ragged_shapes_on_card(cuda_device, variant):
     signal = (c(2, num_v), c(2, plan.n_gates), c(2, num_b))
     planes = _bf16_planes(plan, num_b, num_p, 9, cuda_device)
     bf = torch.bfloat16
-    before = (nr.ring_pc_launch_count, nr.dft_launch_count)
+    before = (nr.strip_pc_launch_count, nr.dft_launch_count)
     got = nr.noise_rdm(plan, lmat, signal, planes=planes, variant=variant,
                        mul_dtype=bf, layout="bvg")
     ref = nr.noise_rdm_plain(plan, lmat, planes, signal, mul_dtype=bf)
     torch.cuda.synchronize()
-    assert (nr.ring_pc_launch_count, nr.dft_launch_count) == (
-        before[0] + int(variant == "resident"), before[1] + 1)
+    assert (nr.strip_pc_launch_count, nr.dft_launch_count) == (
+        before[0] + 1, before[1] + 1)
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
     assert _rms(got - ref) <= 3e-4 * _rms(ref)
+
+
+def _ragged_inputs(device, num_b, num_v=K1_RAGGED[4], seed=3,
+                   num_p=K1_RAGGED[3]):
+    """K1_RAGGED's plan with ``num_v`` Doppler bins and ``num_p`` pulses, a
+    random L [B, B] and rank-2 signal factors for ``num_b`` beams."""
+    plan = _k1_plan(device, num_v=num_v, num_p=num_p)
+    rng = np.random.default_rng(seed)
+    c = lambda *s: torch.from_numpy((rng.normal(size=s) + 1j * rng.normal(
+        size=s)).astype(np.complex64)).to(device)
+    return plan, c(num_b, num_b) * 0.5, (c(2, num_v), c(2, plan.n_gates),
+                                        c(2, num_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beams_per_step", [1, 2, 5, 13])
+def test_k4_beams_per_step_and_planes_mode_on_card(cuda_device,
+                                                   beams_per_step):
+    """K4 at 13 beams on K1_RAGGED's plan (37 pulses, gates 37/300/700 at
+    odd offsets, 41 Doppler bins), with the signal: every beams_per_step
+    gives the same map bit for bit (a row's sums do not depend on the block
+    that walks it), draw mode equals planes mode on K1c's planes bit for bit
+    (the producers' swizzled stage holds what TMA loads), both within 1e-5
+    RMS of the plain version and 2^-7 of K1's largest value."""
+    num_b = 13
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b)
+    seed = (21, 4)
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=cuda_device)
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    call = lambda k, **kw: nr.noise_rdm(plan, lmat, signal, layout="bvg",
+                                        rolling=False, beams_per_step=k, **kw)
+    before = nr.k4_pc_launch_count
+    drawn = call(beams_per_step, seed=seed)
+    fed = call(beams_per_step, planes=planes)
+    one = call(1, seed=seed)
+    k1 = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg")
+    torch.cuda.synchronize()
+    assert nr.k4_pc_launch_count == before + 3
+    assert torch.equal(drawn, fed) and torch.equal(drawn, one)
+    assert _rms(drawn - ref) <= 1e-5 * _rms(ref)
+    assert float((drawn - k1).abs().max()) <= 2.0 ** -7 * float(
+        k1.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_p", [K1_RAGGED[3], 512])
+@pytest.mark.parametrize("with_signal", [False, True])
+@pytest.mark.parametrize("num_b", [2, 3, 13])
+def test_k9_bf16_tail_matches_plain_on_card(cuda_device, num_b, with_signal,
+                                            num_p):
+    """K9 at bf16 (strip-GEMM PC, then the wgmma DFT GEMM and the mix) at
+    2, 3 and 13 beams, on K1_RAGGED's plan with 70 Doppler bins and 1037
+    gates (ragged tiles), at 37 and 512 pulses, with and without the rank-K
+    signal: within 3e-4 RMS of the plain version (bf16: the tensor cores'
+    f32 sums flip a few bf16 roundings); one strip-GEMM and one DFT launch
+    a call."""
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b, num_v=70,
+                                        num_p=num_p)
+    signal = signal if with_signal else None
+    planes = _bf16_planes(plan, num_b, num_p, 5, cuda_device)
+    bf = torch.bfloat16
+    before = (nr.strip_pc_launch_count, nr.dft_launch_count,
+              nr.k9_launch_count)
+    got = nr.noise_rdm(plan, lmat, signal, planes=planes, variant="allbeams",
+                       mul_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal, mul_dtype=bf)
+    torch.cuda.synchronize()
+    assert (nr.strip_pc_launch_count, nr.dft_launch_count,
+            nr.k9_launch_count) == tuple(b + 1 for b in before)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rms(got - ref) <= 3e-4 * _rms(ref)
+
+

@@ -395,3 +395,28 @@ def test_k1_tf32_arithmetic_matches_jax_rolling_kernel(setup, gen_planes):
     got = _k1_tf32_emulated(tl.rplan, tl.l_factor, planes, setup["factors"])
     assert float(np.max(np.abs(np.asarray(want)))) > 0.0
     _close(got.permute(1, 2, 0), want)
+
+
+# --------------------------------------------------- K4's launch table
+
+
+def test_k4_launch_table_and_blocks(setup):
+    """K4's segment table: draw mode passes no planes and each segment's
+    xlen as its columns, planes mode the given pointers; every segment its
+    strip, gates, pad_front and plan index (the Philox counter's fourth
+    word). (Its blocks, a 128-gate tile x 64 pulses x group of
+    beams_per_step beams, are counted by the library from this table.)"""
+    plan = setup["tl"].rplan
+    draw = nr.k4_table(plan)
+    fed = nr.k4_table(plan, [(8 * i + 16, 8 * i + 32, 999)
+                             for i in range(len(plan.segments))])
+    assert len(draw) == len(fed) == 10 * len(plan.segments)
+    for si, seg in enumerate(plan.segments):
+        d, f = draw[10 * si:10 * si + 10], fed[10 * si:10 * si + 10]
+        assert d[:4] == [0, 0, seg.xlen, seg.xlen]
+        assert f[:4] == [8 * si + 16, 8 * si + 32, 999, 999]
+        assert d[4:] == f[4:] == [seg.strip_tf32.data_ptr(),
+                                  seg.strip_tf32.shape[2], seg.j_len, seg.g0,
+                                  seg.pad_front, si]
+        assert d[5] % nr.TF32_BK == 0 and d[5] >= nr.STRIP_BN + \
+            seg.taps.shape[0] - 1

@@ -275,7 +275,8 @@ def test_constants_rounded_once_per_tensor(setup, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_ring_schedule_on_planes_equals_banded_windows(setup, dtype):
-    """K10's bf16 ring schedule on the planes of ``planes_from_compact``:
+    """The bf16 ring schedule (K10's first bf16 PC, kept by
+    ``scripts/ablate_k3_k10.py``) on the planes of ``planes_from_compact``:
     each 64-gate tile j0 of a row is the product of its samples j0 ..
     j0 + 64 kt - 1 (kt = ceil((64 + lh - 1) / 64) ring chunks, zeros past
     the buffer) with the first 64 gates of the plan's strip, the same for
@@ -285,7 +286,7 @@ def test_ring_schedule_on_planes_equals_banded_windows(setup, dtype):
     md = DTYPES[dtype][1]
     plan = setup["plan"]
     planes = nr.planes_from_compact(torch.from_numpy(setup["z"]), plan, md)
-    bn = nr.RING_TILE
+    bn = 64                    # a ring tile's gates
     for seg, (xr, xi) in zip(plan.segments, planes):
         x = torch.complex(xr.float(), xi.float())
         mp = nr.round_mul(seg.mp, md)
