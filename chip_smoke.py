@@ -40,18 +40,23 @@ targets:
 - the noise-RDM kernel studies: phase ``rdm_variants`` runs the planes
   kernel's schedules K10 (resident), K7 (stacked) and K9 (all beams)
   through ``noise_rdm_compact`` with bf16 operands on a cube holding K1c's
-  planes, then holds each at f32 and bf16 against its plain version, K1
-  and its own f32 map, K10 with bf16 output and K7 on its own draws (at
-  bf16 their PC is the strip GEMM of ``csrc/band_pc_sm90.cu`` and their
-  DFT the wgmma GEMM of ``csrc/rdm_sm90.cu``, each counted), times each on
-  a busy and an idle card with the host's ms a call and the profiler's
-  split (strip GEMM, DFT, mix, the wrapper's casts and pads), and the DFT
-  GEMM alone beside its plain version and one bf16 ``torch.matmul``;
+  planes (their PC the strip GEMM of ``csrc/band_pc_sm90.cu``, their DFT
+  the wgmma GEMM of ``csrc/rdm_sm90.cu``, each counted), then at f32 with
+  K7's draw mode (K1's 3xTF32 PC, K4's in draw mode, and DFT GEMM of
+  ``csrc/noise_rdm_sm90.cu``, each counted); holds each at f32 and bf16
+  against its plain version, K1 and its own f32 map (the f32 three bit
+  for bit alike), K10 with bf16 output at both multiply types and K7 on
+  its own draws (bit for bit at f32); times each at both types on a busy
+  and an idle card with the host's ms a call and the profiler's split
+  (PC, join, DFT, mix, the wrapper's casts and pads; at f32 none of the
+  retired CUDA-core kernels may show), beside both bounds at f32, and the
+  DFT GEMM alone beside its plain version and one bf16 ``torch.matmul``;
   phase ``pc_study`` runs ``scripts/bench_pc2d.py``'s three
   chains (cuBLAS banded, flat 2D, K8) and holds K8 against its plain
   version and the banded-matmul PC, then splits K8 at bf16 into its
   staging kernel and strip GEMM (profiler) with the GEMM's TFLOP/s over
-  the band it walks and over the convolution's own MACs;
+  the band it walks and over the convolution's own MACs, and times K8 at
+  f32 (CUDA cores);
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -503,6 +508,29 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     _require(parts == {"strip_gemm": 3, "dft_gemm": 3},
              "K10's, K7's and K9's bf16 PC ran the strip GEMM, their DFT "
              "the wgmma GEMM")
+    # the f32 path: each schedule once through noise_rdm_compact, and K7's
+    # draw mode, on K1's 3xTF32 GEMMs (the planes' PC k1_tf32_pc, the draw
+    # mode's k4_tf32_pc, every DFT k1_tf32_dft)
+    for k, _, _ in VARIANTS:
+        setattr(nr, f"{k.lower()}_launch_count", 0)
+    nr.tf32_pc_launch_count = nr.k4_pc_launch_count = 0
+    nr.tf32_dft_launch_count = 0
+    for _, v, _ in VARIANTS:
+        nr.noise_rdm_compact(z, plan, lmat, variant=v)
+    nr.noise_rdm(plan, lmat, seed=seed, stacked=True, layout="bvg")
+    torch.cuda.synchronize()
+    launches32 = counts()
+    parts32 = {"tf32_pc": nr.tf32_pc_launch_count,
+               "tf32_pc_drawn": nr.k4_pc_launch_count,
+               "tf32_dft": nr.tf32_dft_launch_count}
+    _line("rdm_variants", path="noise_rdm_compact(variant=) and "
+          "noise_rdm(seed=, stacked=True), f32", launches=launches32,
+          part_launches=parts32)
+    _require(launches32 == {"K10": 1, "K7": 2, "K9": 1}
+             and parts32 == {"tf32_pc": 3, "tf32_pc_drawn": 1,
+                             "tf32_dft": 4},
+             "each f32 schedule call ran K1's 3xTF32 PC (K4's in draw "
+             "mode) and DFT GEMM once")
 
     ref = {md: nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=md)
            for md in (f32, bf)}
@@ -520,6 +548,7 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
              "f32_vs_plain": _rel_rms(y32, ref[f32]),
              "bf16_vs_plain": _rel_rms(y, ref[bf]),
              "f32_vs_K1": _rel_rms(y32, k1),
+             "f32_max_abs_err": float((y32 - ref[f32]).abs().max()),
              "bf16_vs_own_f32": _rel_rms(y, y32),
              "compact_equals_planes": bool(torch.equal(
                  y16[v].permute(2, 0, 1), y)),
@@ -541,6 +570,10 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
         del y32, y
     out16 = nr.noise_rdm(plan, lmat, planes=planes16, variant="resident",
                          mul_dtype=bf, out_dtype=bf, layout="bvg")
+    # f32 multiplies, bf16 output: the mix-after epilogue rounds last, so
+    # the map is the f32-output map rounded, exactly
+    out16_32 = nr.noise_rdm(plan, lmat, planes=planes, variant="resident",
+                            out_dtype=bf, layout="bvg")
     ref_out16 = nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=bf,
                                    out_dtype=bf)
     drawn = nr.noise_rdm(plan, lmat, seed=seed, stacked=True, layout="bvg")
@@ -549,15 +582,20 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     torch.cuda.synchronize()
     e_out = _rel_rms(out16, ref_out16)
     e_draw = _rel_rms(drawn, fed)
+    out32_rounded = bool(torch.equal(out16_32, nr.round_mul(first[0], bf)))
     _line("rdm_variants", resident_bf16_out_vs_plain=e_out,
           out_rounded=bool(torch.equal(out16, nr.round_mul(out16, bf))),
+          f32_mul_bf16_out_is_f32_map_rounded=out32_rounded,
           stacked_draws_vs_planes=e_draw,
           stacked_draws_identical=bool(torch.equal(drawn, fed)),
-          tol=f"bf16 out <={BF16_OUT_HOLD}; draws vs K1c planes <=1e-5")
+          tol=f"bf16 out <={BF16_OUT_HOLD}; f32 draws == K7 on K1c's "
+              "planes; f32 with bf16 out == the f32 map rounded")
     _require(e_out <= BF16_OUT_HOLD and torch.equal(out16, nr.round_mul(out16, bf)),
              "K10 with bf16 output planes")
-    _require(e_draw <= 1e-5, "K7 draw mode == K7 on K1c's planes")
-    del ref, k1, out16, ref_out16, drawn, fed, y16, first
+    _require(out32_rounded, "K10 f32 with bf16 output == its f32 map rounded")
+    _require(bool(torch.equal(drawn, fed)) and e_draw == 0.0,
+             "K7 draw mode == K7 on K1c's planes, bit for bit")
+    del ref, k1, out16, ref_out16, drawn, fed, y16, first, out16_32
 
     # times at bf16 (the TPU's default), kernel vs plain on the same cube:
     # idle-card events in turns with the plain version, busy-card events
@@ -578,18 +616,16 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
             call, lambda: nr.noise_rdm_plain(plan, lmat, planes_c,
                                              mul_dtype=bf))
         busy_ms, host_ms = _busy_event_ms(call)
-        ms32 = statistics.median(_event_ms(
-            lambda: nr.noise_rdm_compact(z, plan, lmat, variant=v), 5))
         prof = _kernel_ms(call, reps=3)
         busy, top = _busy_top(prof)
         split = {k: _named_ms(prof, key) for k, key in split_names}
         split = {k: ms_ for k, ms_ in split.items() if ms_ > 0.0}
         # the rest: the wrapper's casts and pads (planes_from_compact)
         split["wrapper"] = busy - sum(split.values())
-        _line("time", what=repr(f"{name} ({v}, bf16) / plain / f32"),
+        _line("time", what=repr(f"{name} ({v}, bf16) / plain"),
               busy_card_ms=round(busy_ms, 4), idle_card_ms=round(ms, 4),
               host_ms=round(host_ms, 4), plain_ms=round(pms, 4),
-              f32_ms=round(ms32, 4), device_busy_ms=round(busy, 4),
+              device_busy_ms=round(busy, 4),
               profile_ms={k: round(x, 4) for k, x in split.items()},
               top_kernels=top, card=repr(card))
         rows.append((f"{name} noise RDM, variant={v!r}, bf16 operands",
@@ -598,7 +634,11 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
                      busy_ms, pms, bound, by, None,
                      {"ms_is": "events around one call, the card kept busy",
                       "idle_card_ms": ms, "host_ms": host_ms,
-                      "f32_idle_card_ms": ms32, "profile_ms": split}))
+                      "profile_ms": split}))
+    drawn32 = parts32["tf32_pc_drawn"]
+    rows += _f32_schedules(nr, plan, lmat, z, seed, errs, {
+        **launches32, "K7": launches32["K7"] - drawn32,
+        "K7 draw mode": drawn32}, card)
     # K7 in draw mode at bf16 (stacked=True: its PC draws its own noise on
     # mma.sync), the next kernel in the redesign queue: vs its plain version
     # on the same draws, busy/idle/host, the profiler's split
@@ -642,6 +682,97 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
         lambda: nr.noise_rdm_plain(plan, lmat, planes))
     _line("time", what=repr("K1 planes mode / plain"), ms=round(k1p_ms, 4),
           plain_ms=round(k1p_plain_ms, 4), card=repr(card))
+    return rows
+
+
+# the f32 schedules' kernels by the profiler's names, and the CUDA-core
+# kernels they ran before (now only in scripts/ablate_f32_schedules.py)
+F32_SPLIT = (("pc_gemm", "pc_gemm_kernel"), ("pc_drawn", "k4_pc_kernel"),
+             ("join", "join_kernel"), ("dft_gemm", "dft_gemm_kernel"),
+             ("mix_after", "mix_after_kernel"))
+F32_RETIRED = ("band_pc_kernel", "ring_pc_kernel", "mtd_gemm_kernel",
+               "mtd_mix_kernel")
+
+
+def _f32_schedules(nr, plan, lmat, z, seed, errs, launches, card) -> list:
+    """The f32 schedules K10, K7 and K9 (``noise_rdm_compact`` on the cube
+    ``z``) and K7's draw mode on K1's 3xTF32 GEMMs: busy-card and
+    idle-card events, host ms a call, the plain version's time, the
+    profiler's split (PC GEMM, join, DFT GEMM, mix-after epilogue, the
+    wrapper's casts and pads), which must hold none of the retired
+    CUDA-core kernels, and both bounds (3xTF32 on the tensor cores, FP32
+    on the CUDA cores). Returns the kernels-line rows."""
+    import torch
+
+    num_b = lmat.shape[0]
+    planes_c = nr.planes_from_compact(z, plan)
+    drawn = nr.philox_planes(plan, seed, num_b, device=z.device)
+    n_out = num_b * plan.n_dop * plan.n_gates * 8
+    tf32_ms = _k1_bound_ms(plan, num_b, PEAK_TF32, products=3)
+    fp32_ms = _k1_bound_ms(plan, num_b)
+    # the join reads the PC's four pcT planes [B, G, P4] f32 and writes
+    # two; the mix-after reads the DFT's two maps and writes one
+    p4 = -(-plan.n_pulses // 4) * 4
+    join_ms = 6 * num_b * plan.n_gates * p4 * 4 / PEAK_HBM * 1e3
+    mix_after_ms = 3 * n_out / PEAK_HBM * 1e3
+    cases = [(name, f"variant={v!r}", rep,
+              lambda v=v: nr.noise_rdm_compact(z, plan, lmat, variant=v),
+              planes_c, z.numel() * z.element_size(), "pc_gemm")
+             for name, v, rep in VARIANTS]
+    cases.append(("K7 draw mode", "draw mode (stacked=True)",
+                  "radar_tpu/ops/pallas_rdm.py:980 (rolling=True, "
+                  "stacked=True)",
+                  lambda: nr.noise_rdm(plan, lmat, seed=seed, stacked=True,
+                                       layout="bvg"), drawn, 0, "pc_drawn"))
+    rows = []
+    for name, what, rep, call, planes, n_in, pc_part in cases:
+        if name in errs:
+            err = errs[name]["f32_max_abs_err"]
+        else:
+            y, ref = call(), nr.noise_rdm_plain(plan, lmat, planes)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            _require(_rel_rms(y, ref) <= 1e-5, f"{name} (f32) vs plain")
+            del y, ref
+        ms, pms = _time_pair(call, lambda: nr.noise_rdm_plain(plan, lmat,
+                                                              planes))
+        busy_ms, host_ms = _busy_event_ms(call)
+        prof = _kernel_ms(call, reps=3)
+        busy, top = _busy_top(prof)
+        split = {k: _named_ms(prof, key) for k, key in F32_SPLIT}
+        split = {k: ms_ for k, ms_ in split.items() if ms_ > 0.0}
+        split["wrapper"] = busy - sum(split.values())
+        retired = [k[:60] for k in prof if any(r in k for r in F32_RETIRED)]
+        _line("time", what=repr(f"{name} ({what}, f32) / plain"),
+              busy_card_ms=round(busy_ms, 4), idle_card_ms=round(ms, 4),
+              host_ms=round(host_ms, 4), plain_ms=round(pms, 4),
+              device_busy_ms=round(busy, 4),
+              profile_ms={k: round(x, 4) for k, x in split.items()},
+              retired_kernels_seen=retired, top_kernels=top,
+              bound_3xtf32_ms=round(tf32_ms, 4),
+              bound_fp32_ms=round(fp32_ms, 4),
+              join_bytes_bound_ms=round(join_ms, 4),
+              mix_after_bytes_bound_ms=round(mix_after_ms, 4),
+              card=repr(card))
+        _require(not retired and all(
+            k in split for k in (pc_part, "join", "dft_gemm", "mix_after")),
+            f"{name} (f32) ran K1's 3xTF32 GEMMs, the join and the "
+            "mix-after epilogue, and no retired CUDA-core kernel")
+        bytes_ms = (n_in + n_out) / PEAK_HBM * 1e3
+        bound, by = _bound(tf32_ms, bytes_ms)
+        rows.append((f"{name} noise RDM, {what}, f32: K1's 3xTF32 "
+                     f"{'drawing PC (K4)' if pc_part == 'pc_drawn' else 'PC'}"
+                     " and DFT GEMMs, the mix after the DFT",
+                     "noise_rdm_sm90.cu", rep, launches[name], err, busy_ms,
+                     pms, bound, by, None,
+                     {"ms_is": "events around one call, the card kept busy",
+                      "idle_card_ms": ms, "host_ms": host_ms,
+                      "profile_ms": split,
+                      "bound_3xtf32_tensor_cores_ms": tf32_ms,
+                      "bound_fp32_cuda_cores_ms": fp32_ms,
+                      "bytes_bound_ms": bytes_ms,
+                      "join_bytes_bound_ms": join_ms,
+                      "mix_after_bytes_bound_ms": mix_after_ms}))
     return rows
 
 
@@ -827,9 +958,21 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
           card=repr(card))
     macs = num_b * num_p * sum(sg.j_len * sg.taps for sg in pplan.segments)
     # z read once, the complex64 PC written once
-    bound, by = _bound(8.0 * macs / PEAK_BF16 * 1e3,
-                       (z.numel() + num_b * num_p * pplan.n_gates) * 8
-                       / PEAK_HBM * 1e3)
+    k8_bytes_ms = ((z.numel() + num_b * num_p * pplan.n_gates) * 8
+                   / PEAK_HBM * 1e3)
+    bound, by = _bound(8.0 * macs / PEAK_BF16 * 1e3, k8_bytes_ms)
+    # K8 at f32 (band_pc_kernel on the CUDA cores): busy and idle card,
+    # host ms, plain, its bound at the FP32 CUDA-core rate
+    k8_32 = lambda: ppc.pulse_compress_noise(z, pplan, mul_dtype=f32)
+    k8_32_ms, k8_32_plain_ms = _time_pair(
+        k8_32, lambda: ppc.pulse_compress_noise_plain(z, pplan,
+                                                      mul_dtype=f32))
+    k8_32_busy, k8_32_host = _busy_event_ms(k8_32)
+    bound32, by32 = _bound(8.0 * macs / PEAK_FP32 * 1e3, k8_bytes_ms)
+    _line("time", what=repr("K8 (f32, CUDA cores) / plain"),
+          busy_card_ms=round(k8_32_busy, 4), idle_card_ms=round(k8_32_ms, 4),
+          host_ms=round(k8_32_host, 4), plain_ms=round(k8_32_plain_ms, 4),
+          bound_ms=round(bound32, 4), bound_by=by32, card=repr(card))
 
     # K8's two kernels (profiler) and the strip GEMM's rate over the band
     # it walks (128-row x 128-gate blocks, k to the strip's padded depth)
@@ -850,14 +993,18 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
             "gemm_tflops_band": 8.0 * walked / gemm_ms / 1e9,
             "gemm_tflops_direct": 8.0 * macs / gemm_ms / 1e9,
             "band_gflop": 8.0 * walked / 1e9,
-            "direct_gflop": 8.0 * macs / 1e9}
+            "direct_gflop": 8.0 * macs / 1e9,
+            "f32_busy_card_ms": k8_32_busy, "f32_idle_card_ms": k8_32_ms,
+            "f32_host_ms": k8_32_host, "f32_plain_ms": k8_32_plain_ms,
+            "f32_bound_ms": bound32}
     _line("pc_study", K8_split={k: round(v, 4) for k, v in rate.items()},
           other_ms=round(sum(split.values()) - stage_ms - gemm_ms, 4),
           bound_ms=round(bound, 4), bound_by=by, card=repr(card))
     return [("K8 banded PC of white noise (study), bf16 operands: staging "
              "+ strip GEMM", "band_pc_sm90.cu",
              "radar_tpu/studies/pallas_pc.py:150", launches, errs["bf16"][1],
-             k8_ms, k8_plain_ms, bound, by, lib_ms, rate)]
+             k8_ms, k8_plain_ms, bound, by, lib_ms,
+             {**rate, "f32_bound_by": by32})]
 
 
 MULTICHIP_RANKS = 4

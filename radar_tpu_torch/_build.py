@@ -45,18 +45,12 @@ _SIGNATURES = {
                        _P, _P],
         "k1_tf32_mix": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "k1_tf32_dft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                        _P, _P, _P],
+                        _P, _I, _P, _P, _P],
     },
     "rdm_variants": {
-        "rv_band_pc": [_I, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _U, _U, _F,
-                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P],
-        "rv_ring_pc": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _P, _P, _P],
-        "rv_mtd": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-        "rv_mix": [_I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
-        "rv_mtd_mix": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
-                       _P, _P],
+        "rv_band_pc": [_I, _P, _LL, _I, _I, _I, _I, _U, _U, _F, _P, _P, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "rv_mix": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
     },
     "rdm_sm90": {
         "rs_dft": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],

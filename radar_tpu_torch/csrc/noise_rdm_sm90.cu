@@ -1,6 +1,6 @@
-// K1 and K4: the fused noise range-Doppler map redesigned for NVIDIA Hopper
-// (sm_90a): pulse compression and slow-time DFT as 3xTF32 GEMMs on the
-// tensor cores.
+// K1 and K4, and the f32 schedules K10, K7 and K9: the fused noise
+// range-Doppler map redesigned for NVIDIA Hopper (sm_90a): pulse
+// compression and slow-time DFT as 3xTF32 GEMMs on the tensor cores.
 //
 // K1 replaces the TPU kernels radar_tpu/ops/pallas_rdm.py::
 // noise_rdm_pallas_gen (rolling=True, signal=...; pallas_call :980) and its
@@ -33,6 +33,20 @@
 //      [B, V, G] complex64 map; add_kernel adds the correction and the
 //      rank-K signal to the main pass's.
 //
+// The planes kernel's other schedules at f32 (ops/noise_rdm.py::
+// _variant_tf32: K10 variant="resident", noise_rdm_pallas_planes's body
+// _make_kernel_resident :482; K7 "stacked", _call_stacked :627, and its
+// draw mode, the stacked=True products of _make_kernel_gen_rolling :980;
+// K9 "allbeams", _call_allbeams :1088) compute the same map with the beam
+// mix AFTER the DFT, the TPU's order for them. They take these GEMMs in
+// one sequence, so they agree bit for bit, as the TPU's schedules do at
+// f32: step 1 (in draw mode K4's PC at one beam a block), then join_kernel
+// (pcT <- the sum of the two passes, no mix), step 3's GEMMs on the
+// un-mixed pcT, and mix_after_kernel in place of add_kernel (the DFT's two
+// passes added, the beams mixed by L, the rank-K signal added and, for K10
+// and K7's draw mode with out_dtype=bf16, the result rounded). Their bf16
+// paths run band_pc_sm90.cu, rdm_sm90.cu and rdm_variants.cu.
+//
 // 3xTF32. Each f32 operand x is split into TF32 parts hi = rna(x) and
 // lo = rna(x - hi) (rna: round to nearest on the top 19 bits, ties away);
 // a product is hi*hi + hi*lo + lo*hi, each an exact TF32 product, so the
@@ -49,7 +63,8 @@
 // products (2 wgmmas a k8 step into each accumulator instead of 6), the
 // correction pass hi*lo + lo*hi (2^-11 of the product, so its own
 // rounding does not show), each into a buffer of its own, one f32 add
-// joining the two (in the mix for the PC, add_kernel for the DFT).
+// joining the two (in the mix or join_kernel for the PC, add_kernel or
+// mix_after_kernel for the DFT).
 //
 // The GEMM (both kernels, gemm_body). A block owns 128 M-rows x 128
 // N-columns. A producer warp keeps two stages in flight with TMA: the data
@@ -77,8 +92,9 @@
 //
 // What bounds it on this card: at the full perf shape (13 beams, 332
 // pulses, 3404 gates, filters of 35/200/700 taps) the useful complex MACs
-// are 1.3e10: 0.637 ms as 3 TF32 products each at 495 TFLOP/s (1.569 ms
-// as f32 FMAs at 67 TFLOP/s on the CUDA cores). The band the PC walks in
+// are 1.3e10 (the same for the f32 schedules, which mix after the DFT):
+// 0.637 ms as 3 TF32 products each at 495 TFLOP/s (1.569 ms as f32 FMAs
+// at 67 TFLOP/s on the CUDA cores). The band the PC walks in
 // 128 x 128 blocks is ~3 x 86 GFLOP, the padded DFT ~3 x 48 GFLOP. Bytes:
 // the planes read and the map written once, 0.28 GB, 0.084 ms at 3.35
 // TB/s; with the pcT and correction buffers this design also moves
@@ -90,6 +106,7 @@
 // long as the MMAs of a stage, PERF.md).
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -849,6 +866,26 @@ mix_planes_kernel(float* __restrict__ pr, float* __restrict__ pi,
   }
 }
 
+// The join of the PC's two passes without a mix (the f32 schedules mix
+// after the DFT): pr += cr, pi += ci over n4 float4s of each plane. Bound
+// by bytes (four planes read, two written: 0.105 ms at the perf shape), so
+// 16-byte accesses and nothing else.
+__global__ void __launch_bounds__(256)
+join_kernel(float4* __restrict__ pr, float4* __restrict__ pi,
+            const float4* __restrict__ cr, const float4* __restrict__ ci,
+            long long n4) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += stride) {
+    float4 y = pr[i];
+    const float4 c = cr[i];
+    pr[i] = make_float4(y.x + c.x, y.y + c.y, y.z + c.z, y.w + c.w);
+    y = pi[i];
+    const float4 d = ci[i];
+    pi[i] = make_float4(y.x + d.x, y.y + d.y, y.z + d.z, y.w + d.w);
+  }
+}
+
 // The map out [B, V, G] += corr (the DFT's two passes) + the rank-K
 // signal sum_k st[k,b] dv[k,v] pb[k,g]. (In the GEMM's epilogue the
 // signal's loads cost a fifth of the DFT.)
@@ -876,6 +913,65 @@ add_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
       }
     }
     out[i] = make_float2(yr, yi);
+  }
+}
+
+// The f32 schedules' epilogue (the mix AFTER the DFT), in place on the map
+// out [B, V, G]: x[c] = out[c] + corr[c] (the DFT's two passes), y[b] =
+// sum_c L[b,c] x[c] as the TPU's two real contractions (L's real and
+// imaginary parts, combined once), plus the rank-K signal, rounded to bf16
+// (nearest even) with round_out. A thread reads a (v, g) of every beam
+// before it writes any. Bound by bytes (two maps read, one written: 0.105
+// ms at the perf shape). (In the DFT GEMM's epilogue the mix would need
+// every beam's tile in one block.)
+__global__ void __launch_bounds__(256)
+mix_after_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
+                 const float2* __restrict__ lmat, const float2* __restrict__ dv,
+                 const float2* __restrict__ pb, const float2* __restrict__ st,
+                 int num_k, int num_b, int num_v, int num_g, int round_out) {
+  __shared__ float2 sl[kMaxB * kMaxB];
+  for (int i = threadIdx.x; i < num_b * num_b; i += blockDim.x) sl[i] = lmat[i];
+  __syncthreads();
+  const long long pg = (long long)num_v * num_g;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < pg;
+       i += stride) {
+    float2 x[kMaxB];
+#pragma unroll
+    for (int c = 0; c < kMaxB; ++c) {
+      x[c] = make_float2(0.f, 0.f);
+      if (c < num_b) {
+        const float2 y = out[c * pg + i], e = corr[c * pg + i];
+        x[c] = make_float2(y.x + e.x, y.y + e.y);
+      }
+    }
+    const int v = (int)(i / num_g), g = (int)(i - (long long)v * num_g);
+    for (int b = 0; b < num_b; ++b) {
+      float rr = 0.f, ii = 0.f, ri = 0.f, ir = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMaxB; ++c) {
+        if (c < num_b) {
+          const float2 l = sl[b * num_b + c];
+          rr = fmaf(l.x, x[c].x, rr);
+          ii = fmaf(l.y, x[c].y, ii);
+          ri = fmaf(l.x, x[c].y, ri);
+          ir = fmaf(l.y, x[c].x, ir);
+        }
+      }
+      float yr = rr - ii, yi = ri + ir;
+      for (int k = 0; k < num_k; ++k) {
+        const float2 a = dv[k * num_v + v], p = pb[k * num_g + g];
+        const float2 w = st[k * num_b + b];
+        const float orr = a.x * p.x - a.y * p.y, oi = a.x * p.y + a.y * p.x;
+        yr += w.x * orr - w.y * oi;
+        yi += w.x * oi + w.y * orr;
+      }
+      if (round_out) {
+        yr = __bfloat162float(__float2bfloat16_rn(yr));
+        yi = __bfloat162float(__float2bfloat16_rn(yi));
+      }
+      out[b * pg + i] = make_float2(yr, yi);
+    }
   }
 }
 
@@ -1127,13 +1223,30 @@ int k4_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
 }
 
 // The beam mix by L [B, B] (row-major complex64) of the planes pr + cr,
-// pi + ci [num_b, n] (the PC's two passes) into pr, pi.
+// pi + ci [num_b, n] (the PC's two passes) into pr, pi; with lmat null
+// their join alone, pr += cr, pi += ci (n a multiple of 4, the planes
+// 16-byte aligned).
 int k1_tf32_mix(void* pr, void* pi, const void* cr, const void* ci,
                 const void* lmat, int num_b, long long n, void* stream) {
   if (num_b < 1 || num_b > kMaxB || n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lmat == nullptr) {
+    const uintptr_t any = reinterpret_cast<uintptr_t>(pr) |
+                          reinterpret_cast<uintptr_t>(pi) |
+                          reinterpret_cast<uintptr_t>(cr) |
+                          reinterpret_cast<uintptr_t>(ci);
+    if (n % 4 != 0 || any % 16 != 0) return (int)cudaErrorInvalidValue;
+    const long long n4 = num_b * n / 4;
+    long long blocks = (n4 + 255) / 256;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    join_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+        static_cast<float4*>(pr), static_cast<float4*>(pi),
+        static_cast<const float4*>(cr), static_cast<const float4*>(ci), n4);
+    return (int)cudaGetLastError();
+  }
   long long blocks = (n + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
-  mix_planes_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  mix_planes_kernel<<<(unsigned)blocks, 256, 0, s>>>(
       static_cast<float*>(pr), static_cast<float*>(pi),
       static_cast<const float*>(cr), static_cast<const float*>(ci),
       static_cast<const float2*>(lmat), num_b, n);
@@ -1145,14 +1258,18 @@ int k1_tf32_mix(void* pr, void* pi, const void* cr, const void* ci,
 // D's split planes d4 [4, v_rows, p4] f32 (v_rows a multiple of 128, rows
 // beyond num_v zero); corr [B, V, G] complex64 is scratch (the correction
 // pass's result, which add_kernel adds, with the signal, to the main
-// pass's in out).
+// pass's in out). With lmat [B, B] (the f32 schedules: pr, pi joined, not
+// mixed) out = sum_c L[b,c] (D @ pc[c]) + the signal instead
+// (mix_after_kernel), rounded to bf16 values with round_out.
 int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
                 int num_b, int num_v, int num_p, int num_g, int p4,
                 const void* dv, const void* pb, const void* st, int num_k,
-                void* out, void* corr, void* stream) {
+                const void* lmat, int round_out, void* out, void* corr,
+                void* stream) {
   if (num_b < 1 || num_v < 1 || v_rows < num_v || v_rows % kBN != 0 ||
       p4 < num_p || p4 % 4 != 0 || out == nullptr || corr == nullptr ||
-      (num_k > 0 && (dv == nullptr || pb == nullptr || st == nullptr)))
+      (num_k > 0 && (dv == nullptr || pb == nullptr || st == nullptr)) ||
+      (lmat != nullptr && num_b > kMaxB) || (lmat == nullptr && round_out))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)num_b * num_g;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -1178,13 +1295,19 @@ int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_gemm(a, blocks, s);
   if (err != cudaSuccess) return (int)err;
-  const long long n = rows * num_v;
-  long long add_blocks = (n + 255) / 256;
-  if (add_blocks > 132 * 16) add_blocks = 132 * 16;
-  add_kernel<<<(unsigned)add_blocks, 256, 0, s>>>(
-      a.out, a.corr, static_cast<const float2*>(dv),
-      static_cast<const float2*>(pb), static_cast<const float2*>(st), num_k,
-      num_b, num_v, num_g);
+  const long long n = lmat != nullptr ? (long long)num_v * num_g : rows * num_v;
+  long long blocks_e = (n + 255) / 256;
+  if (blocks_e > 132 * 16) blocks_e = 132 * 16;
+  if (lmat != nullptr)
+    mix_after_kernel<<<(unsigned)blocks_e, 256, 0, s>>>(
+        a.out, a.corr, static_cast<const float2*>(lmat),
+        static_cast<const float2*>(dv), static_cast<const float2*>(pb),
+        static_cast<const float2*>(st), num_k, num_b, num_v, num_g, round_out);
+  else
+    add_kernel<<<(unsigned)blocks_e, 256, 0, s>>>(
+        a.out, a.corr, static_cast<const float2*>(dv),
+        static_cast<const float2*>(pb), static_cast<const float2*>(st), num_k,
+        num_b, num_v, num_g);
   return (int)cudaGetLastError();
 }
 

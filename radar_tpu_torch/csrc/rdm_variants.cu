@@ -1,4 +1,5 @@
-// K7, K8, K9, K10: the noise-RDM kernel studies for NVIDIA Hopper (sm_90a).
+// K7, K8, K9, K10: the parts of the noise-RDM kernel studies for NVIDIA
+// Hopper (sm_90a) that live here.
 //
 // Replace the TPU kernels behind radar_tpu/ops/pallas_rdm.py::
 // noise_rdm_pallas(z, plan, L, mul_dtype=, variant=) and the banded-PC
@@ -12,10 +13,6 @@
 //       (:1088);
 //   K8  studies/pallas_pc.py::pulse_compress_noise_pallas, body
 //       _make_seg_kernel (:150): the banded PC alone, f32 out.
-// With bf16 operands, K8 and the planes-mode PC of K7, K9 and K10 run the
-// strip GEMM of band_pc_sm90.cu (TMA + wgmma), and their DFT the wgmma
-// GEMM of rdm_sm90.cu (K9's then mix_kernel); here they run at f32, and
-// K7's draw-mode PC at both types.
 //
 // Per segment, with x the white planes, M the banded filter [W, T], D the
 // MTD DFT [V, P] and L the 13x13 Cholesky factor, the RDM variants compute
@@ -23,64 +20,41 @@
 //   rdm[b] = sum_c L[b,c] * D @ PC_seg(x_c)   (+ the rank-K signal)
 //
 // in the TPU's arithmetic for a multiply type T (float, or bf16 as the TPU
-// runs it): every operand is a T value (the wrapper rounds the constants,
+// runs it), the beam mix AFTER the DFT. What runs where:
+//   f32 (K10, K7, K9 and K7's draw mode): K1's 3xTF32 tensor-core GEMMs of
+//       noise_rdm_sm90.cu (strip-GEMM PC, DFT GEMM, then its mix-after
+//       epilogue), one sequence for the three schedules;
+//   bf16 planes (K10, K7, K9): the strip GEMM of band_pc_sm90.cu, the
+//       wgmma DFT GEMM of rdm_sm90.cu, then mix_kernel (here);
+//   bf16 draw mode (K7, stacked=True): band_pc_tc_kernel (here), whose
+//       Philox draws are made in the GEMM's loads (TMA cannot draw), then
+//       the DFT GEMM and mix_kernel;
+//   K8: bf16 the staging kernel and strip GEMM of band_pc_sm90.cu; f32
+//       band_pc_kernel (here) on the compact cube, on the CUDA cores.
+// At bf16 every operand is a bf16 value (the wrapper rounds the constants,
 // the kernels round what they draw or read), products accumulate in f32,
-// the PC result and the MTD result are rounded to T, and the beam mix comes
-// AFTER the rounded DFT (K1 mixes before the DFT, which is exact only in
-// f32) and accumulates in f32. Rounding is to nearest even
-// (__float2bfloat16_rn), as torch's .to(torch.bfloat16) and JAX's astype;
-// storing an intermediate as T is its rounding, so pc and mt live in device
-// memory as T planes. A bf16 x bf16 product is exact in f32, so the kernels
-// compute what the TPU's MXU computes up to the order of the f32 sums (TF32
-// would not: it rounds f32 operands, so f32 runs on the CUDA cores).
-//
-// Launches, all on the caller's stream:
-//   K10: ring_pc_kernel per segment (bf16: the strip GEMM, one launch)
-//        -> DFT GEMM (bf16: rdm_sm90.cu's dft_kernel) -> mix_kernel;
-//   K7:  banded PC GEMM per segment (bf16 planes: the strip GEMM of
-//        band_pc_sm90.cu) -> DFT GEMM (bf16: dft_kernel) -> mix_kernel;
-//   K9:  the same PC -> mtd_mix_kernel (DFT of all beams, rounded, mixed in
-//        the block: no mt round trip, one output write; bf16: K7's DFT GEMM
-//        and mix_kernel, which measured faster than one wgmma kernel);
-//   K8:  f32: banded PC GEMM per segment on the compact cube, f32 complex
-//        out (bf16: band_pc_sm90.cu).
-// The GEMMs (band_pc_kernel, mtd_gemm_kernel) run on the CUDA cores at f32;
-// at bf16 K7's draw-mode PC runs on the tensor cores (band_pc_tc_kernel,
-// whose Philox draws are made in the GEMM's loads, which TMA cannot do).
+// and the PC and MTD results are rounded to bf16; rounding is to nearest
+// even (__float2bfloat16_rn), as torch's .to(torch.bfloat16) and JAX's
+// astype; storing an intermediate as bf16 is its rounding. A bf16 x bf16
+// product is exact in f32, so the tensor cores compute what the TPU's MXU
+// computes up to the order of the f32 sums.
 //
 // What bounds them on this card: operations. At the full perf shape (13
 // beams, 332 pulses, 3404 gates, filters of 35/200/700 taps) the
-// convolutions are 8.1e9 complex MACs and the DFT 4.9e9: at f32, 1.55 ms
-// at the 67 TFLOP/s CUDA-core peak; with bf16 operands the tensor cores
-// could take it in 0.1 ms, where the bf16 planes and the f32 map are 0.2 GB
-// (0.06 ms at 3.35 TB/s).
+// convolutions are 8.1e9 complex MACs: with bf16 operands the tensor cores
+// could take them in 0.07 ms; K8's f32 PC 0.97 ms at the 67 TFLOP/s
+// CUDA-core peak. The mix reads the bf16 mt planes and writes the f32 map
+// once: bytes.
 //
-// What the designs do about it. The products run as shared-memory tiled
-// complex GEMMs with 64x64 output tiles and the four real accumulators of
-// the stacked product (re*re, im*im, re*im, im*re: its four quadrants,
-// combined once at the end as the TPU combines them): on the CUDA cores a
-// 4x4 register tile a thread, 16-deep k steps; on the tensor cores
-// mma.sync m16n8k16 fragments, 32-deep k steps (synchronous scalar
-// staging: K7's draw-mode PC only).
-// - K7's PC is the stacked product [2P, W] x [W, 2T] per tile; a block
-//   walks only the rows of M its columns touch (column n of M is nonzero in
-//   rows n .. n+taps-1), so the all-zero part of the band costs nothing.
-//   It takes the band in the convolution's sample order, so at f32 K7,
-//   K9 and K10 agree bit for bit, as the TPU's schedules do.
-// - K10 (f32) keeps what the TPU's resident buffer keeps: each plane sample
-//   is read from device memory about once. A block owns one beam x 8 pulse
-//   rows x a run of consecutive 128-gate tiles and slides a ring of W + 128
-//   samples a row through shared memory, loading only the 128 new samples
-//   of the next tile (into registers before the current tile's
-//   convolution, stored after it). K1 planes mode re-reads each sample
-//   W/T ~ 7x on the long segment. Its convolution is direct, tap by tap,
-//   on the CUDA cores (one shared load feeds 16 FMAs), not the banded GEMM.
-//   (At bf16 K10's PC is the strip GEMM of band_pc_sm90.cu.)
-// - K9: the 13 beams' [V, T] DFT tiles of the TPU's step (4.4 MB) do not
-//   fit a block (227 KB). One block per 32 Doppler rows x 32 gates forms the
-//   DFT of every beam in turn on the CUDA cores, keeps the tiles in shared
-//   memory (106 KB at f32), mixes them and writes the map once (at f32
-//   only; bf16 runs K7's DFT GEMM and mix).
+// What the designs do about it. band_pc_tc_kernel: a 64x64 complex tile a
+// block on mma.sync m16n8k16 fragments, 32-deep k steps, the four real
+// accumulators of the stacked product (re*re, im*im, re*im, im*re: its
+// four quadrants, combined once at the end as the TPU combines them),
+// synchronous scalar staging; a block walks only the rows of M its columns
+// touch (column n of M is nonzero in rows n .. n+taps-1), so the all-zero
+// part of the band costs nothing. band_pc_kernel: the same tiling on the
+// CUDA cores, a 4x4 register tile a thread, 16-deep k steps. mix_kernel: a
+// thread owns one (v, g) of every beam, L in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,9 +67,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxB = 16;     // beams a mix holds in registers
 constexpr int kBM = 64, kBN = 64, kBK = 16;   // GEMM block tile
-constexpr int kTile = 128;    // K10 gate tile
-constexpr int kRows = 8;      // K10 pulse rows per block (one warp each)
-constexpr int kOuts = 4;      // K10 contiguous gates per lane
 
 template <typename T>
 struct Num;
@@ -119,8 +90,6 @@ template <typename T>
 __device__ __forceinline__ float rnd(float x) {
   return Num<T>::f32(Num<T>::from(x));
 }
-
-__host__ __device__ __forceinline__ int padded(int e) { return e + (e >> 5); }
 
 // The four real accumulators of a kTM x kTN register tile of a complex
 // product: rr = sum ar*br, ii = sum ai*bi, ri = sum ar*bi, ir = sum ai*br.
@@ -166,11 +135,9 @@ struct Acc {
 
 // ------------------------------------------------------------ banded PC
 
-enum Src { kPlanes = 0, kCompact = 1, kDraw = 2 };
+enum Src { kCompact = 1, kDraw = 2 };
 
 struct PcArgs {
-  const void* xr;        // kPlanes: T planes [B, P, x_len]
-  const void* xi;
   const float2* z;       // kCompact: complex64 [B, P, x_len] (s_compact)
   long long x_len;
   int c0, r_len, pad_front;     // compact slice; zero causal history
@@ -181,9 +148,9 @@ struct PcArgs {
   const float* mi;
   int window, tile, lh;
   int num_p, j_len, g0, num_g;
-  void* outr;            // rounded T planes [B, P, num_g], or
+  void* outr;            // kDraw: rounded bf16 planes [B, P, num_g]
   void* outi;
-  float2* out;           // complex64 [B, P, num_g] (K8)
+  float2* out;           // kCompact: complex64 [B, P, num_g] (K8)
 };
 
 // Sample n of the segment buffer of (beam b, pulse p) as T values.
@@ -191,12 +158,6 @@ template <typename T, int kSrc>
 __device__ __forceinline__ float2 load_sample(const PcArgs& a, int b, int p,
                                               int n) {
   const long long row = (long long)b * a.num_p + p;
-  if (kSrc == kPlanes) {
-    const T* xr = static_cast<const T*>(a.xr);
-    const T* xi = static_cast<const T*>(a.xi);
-    const long long off = row * a.x_len + n;
-    return make_float2(Num<T>::f32(xr[off]), Num<T>::f32(xi[off]));
-  }
   if (kSrc == kCompact) {
     if (n < a.pad_front || n >= a.pad_front + a.r_len) return make_float2(0.f, 0.f);
     const float2 v = a.z[row * a.x_len + a.c0 + (n - a.pad_front)];
@@ -209,11 +170,10 @@ __device__ __forceinline__ float2 load_sample(const PcArgs& a, int b, int p,
                      rnd<T>(uniform_rail(w.y, a.scale)));
 }
 
-// One 64-pulse x 64-gate block of the f32 PC of beam blockIdx.z: the
-// stacked product of the window of its tile with the columns n0 .. n0+63
-// of M, over M's rows n0 .. n0+63+lh-2 only (the rest of those columns is
-// 0). bf16 runs band_pc_tc_kernel in draw mode, else band_pc_sm90.cu.
-template <int kSrc, bool kRoundOut>
+// One 64-pulse x 64-gate block of K8's f32 PC of beam blockIdx.z on the
+// compact cube: the stacked product of the window of its tile with the
+// columns n0 .. n0+63 of M, over M's rows n0 .. n0+63+lh-2 only (the rest
+// of those columns is 0), complex64 out. bf16 runs band_pc_sm90.cu.
 __global__ void __launch_bounds__(kThreads) band_pc_kernel(PcArgs a) {
   __shared__ float ar_s[kBK * (kBM + 1)], ai_s[kBK * (kBM + 1)];
   __shared__ float br_s[kBK * kBN], bi_s[kBK * kBN];
@@ -234,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) band_pc_kernel(PcArgs a) {
       const int m = e / kBK, kk = e % kBK;
       const int p = m0 + m, k = k0 + kk;
       float2 v = make_float2(0.f, 0.f);
-      if (p < a.num_p && k < k_hi) v = load_sample<float, kSrc>(a, b, p, col0 + k);
+      if (p < a.num_p && k < k_hi) v = load_sample<float, kCompact>(a, b, p, col0 + k);
       ar_s[kk * (kBM + 1) + m] = v.x;
       ai_s[kk * (kBM + 1) + m] = v.y;
     }
@@ -263,15 +223,9 @@ __global__ void __launch_bounds__(kThreads) band_pc_kernel(PcArgs a) {
     for (int j = 0; j < 4; ++j) {
       const int jg = col0 + n0 + tx + 16 * j;
       if (jg >= a.j_len) continue;
-      const float cr = acc.rr[i][j] - acc.ii[i][j];
-      const float ci = acc.ri[i][j] + acc.ir[i][j];
       const long long off = ((long long)b * a.num_p + p) * a.num_g + a.g0 + jg;
-      if (kRoundOut) {
-        static_cast<float*>(a.outr)[off] = cr;
-        static_cast<float*>(a.outi)[off] = ci;
-      } else {
-        a.out[off] = make_float2(cr, ci);
-      }
+      a.out[off] = make_float2(acc.rr[i][j] - acc.ii[i][j],
+                               acc.ri[i][j] + acc.ir[i][j]);
     }
   }
 }
@@ -396,8 +350,9 @@ __device__ __forceinline__ void tc_store(const TcAcc& c, Store store) {
               c.rr[mi][ni][e] - c.ii[mi][ni][e], c.ri[mi][ni][e] + c.ir[mi][ni][e]);
 }
 
-// band_pc_kernel on the tensor cores (bf16 operands), for draw mode.
-template <int kSrc, bool kRoundOut>
+// K7's draw-mode PC at bf16: a 64-pulse x 64-gate block of beam
+// blockIdx.z as band_pc_kernel's, its samples drawn (K1's Philox keying)
+// and its products on the tensor cores, rounded bf16 planes out.
 __global__ void __launch_bounds__(kThreads) band_pc_tc_kernel(PcArgs a) {
   using T = __nv_bfloat16;
   const int b = blockIdx.z;
@@ -410,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) band_pc_tc_kernel(PcArgs a) {
   tc_gemm(
       n0, min(a.window, n0 + kBN + a.lh - 1),
       [&](int m, int k) {
-        return m0 + m < a.num_p ? load_sample<T, kSrc>(a, b, m0 + m, col0 + k)
+        return m0 + m < a.num_p ? load_sample<T, kDraw>(a, b, m0 + m, col0 + k)
                                 : make_float2(0.f, 0.f);
       },
       [&](int k, int n) {
@@ -422,192 +377,9 @@ __global__ void __launch_bounds__(kThreads) band_pc_tc_kernel(PcArgs a) {
     const int p = m0 + m, jg = col0 + n0 + n;
     if (p >= a.num_p || jg >= a.j_len) return;
     const long long off = ((long long)b * a.num_p + p) * a.num_g + a.g0 + jg;
-    if (kRoundOut) {
-      static_cast<T*>(a.outr)[off] = __float2bfloat16_rn(cr);
-      static_cast<T*>(a.outi)[off] = __float2bfloat16_rn(ci);
-    } else {
-      a.out[off] = make_float2(cr, ci);
-    }
+    static_cast<T*>(a.outr)[off] = __float2bfloat16_rn(cr);
+    static_cast<T*>(a.outi)[off] = __float2bfloat16_rn(ci);
   });
-}
-
-// ------------------------------------------------------- K10 ring PC
-
-// K10: one block per (run of tiles, 8 pulse rows, beam). The ring holds
-// samples [s0 + r*128, s0 + r*128 + W) of each row at step r, sample i in
-// slot (i - s0) mod C, C = W + 128; the next tile's 128 new samples go to
-// the 128 free slots.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ring_pc_kernel(const T* __restrict__ xr, const T* __restrict__ xi,
-               long long x_len, const float* __restrict__ taps_r,
-               const float* __restrict__ taps_i, int lh, int window,
-               int tiles_per_run, int ntiles, int num_p, int j_len, int g0,
-               int num_g, T* __restrict__ outr, T* __restrict__ outi) {
-  extern __shared__ float smem[];
-  const int ring = window + kTile;
-  const int rp = padded(ring - 1) + 1;      // padded row stride (words)
-  float* sr = smem;
-  float* si = sr + kRows * rp;
-  float* th_r = si + kRows * rp;            // reversed taps: h[lh-1-k]
-  float* th_i = th_r + lh;
-
-  const int t_first = blockIdx.x * tiles_per_run;
-  const int t_last = min(ntiles, t_first + tiles_per_run);
-  const int p0 = blockIdx.y * kRows;
-  const int b = blockIdx.z;
-  const long long s0 = (long long)t_first * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int t0 = (threadIdx.x & 31) * kOuts;
-
-  for (int k = threadIdx.x; k < lh; k += kThreads) {
-    th_r[k] = taps_r[lh - 1 - k];
-    th_i[k] = taps_i[lh - 1 - k];
-  }
-  auto sample = [&](int r, long long n, float& vr, float& vi) {
-    vr = vi = 0.f;
-    const int p = p0 + r;
-    if (p < num_p && n < x_len) {
-      const long long off = ((long long)b * num_p + p) * x_len + n;
-      vr = Num<T>::f32(xr[off]);
-      vi = Num<T>::f32(xi[off]);
-    }
-  };
-  for (int idx = threadIdx.x; idx < kRows * window; idx += kThreads) {
-    const int r = idx / window, e = idx - r * window;
-    float vr, vi;
-    sample(r, s0 + e, vr, vi);
-    sr[r * rp + padded(e)] = vr;
-    si[r * rp + padded(e)] = vi;
-  }
-  __syncthreads();
-
-  constexpr int kPer = kRows * kTile / kThreads;   // prefetched samples a thread
-  for (int t = t_first; t < t_last; ++t) {
-    const int rel = (t - t_first) * kTile;         // window start, ring-relative
-    const bool next = t + 1 < t_last;
-    float nr[kPer], ni[kPer];
-    if (next) {
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int idx = threadIdx.x + kThreads * q;
-        sample(idx / kTile, s0 + rel + window + idx % kTile, nr[q], ni[q]);
-      }
-    }
-    const int p = p0 + warp;
-    if (p < num_p) {
-      const float* wr = sr + warp * rp;
-      const float* wi = si + warp * rp;
-      float rr[kOuts], ii[kOuts], ri[kOuts], ir[kOuts];
-      float xr_[kOuts], xi_[kOuts];               // xr_[o] = w[t0+k+o]
-      int pos = (rel + t0) % ring;
-#pragma unroll
-      for (int o = 0; o < kOuts; ++o) {
-        rr[o] = ii[o] = ri[o] = ir[o] = 0.f;
-        if (o < kOuts - 1) {
-          xr_[o] = wr[padded(pos)];
-          xi_[o] = wi[padded(pos)];
-          pos = pos + 1 == ring ? 0 : pos + 1;
-        }
-      }
-#pragma unroll 4
-      for (int k = 0; k < lh; ++k) {
-        xr_[kOuts - 1] = wr[padded(pos)];
-        xi_[kOuts - 1] = wi[padded(pos)];
-        pos = pos + 1 == ring ? 0 : pos + 1;
-        const float hr = th_r[k], hi = th_i[k];
-#pragma unroll
-        for (int o = 0; o < kOuts; ++o) {
-          rr[o] = fmaf(xr_[o], hr, rr[o]);
-          ii[o] = fmaf(xi_[o], hi, ii[o]);
-          ri[o] = fmaf(xr_[o], hi, ri[o]);
-          ir[o] = fmaf(xi_[o], hr, ir[o]);
-        }
-#pragma unroll
-        for (int o = 0; o < kOuts - 1; ++o) {
-          xr_[o] = xr_[o + 1];
-          xi_[o] = xi_[o + 1];
-        }
-      }
-      const long long row = ((long long)b * num_p + p) * num_g + g0;
-#pragma unroll
-      for (int o = 0; o < kOuts; ++o) {
-        const int j = t * kTile + t0 + o;
-        if (j < j_len) {
-          outr[row + j] = Num<T>::from(rr[o] - ii[o]);
-          outi[row + j] = Num<T>::from(ri[o] + ir[o]);
-        }
-      }
-    }
-    if (next) {
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int idx = threadIdx.x + kThreads * q;
-        const int r = idx / kTile;
-        const int slot = (rel + window + idx % kTile) % ring;
-        sr[r * rp + padded(slot)] = nr[q];
-        si[r * rp + padded(slot)] = ni[q];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------------------------ the DFT
-
-// mt[b] = D [V, P] @ pc[b] [P, G] in f32 (the TPU's mt scratch); bf16
-// runs rdm_sm90.cu's dft_kernel.
-__global__ void __launch_bounds__(kThreads)
-mtd_gemm_kernel(const float* __restrict__ dr, const float* __restrict__ di,
-                const float* __restrict__ pcr, const float* __restrict__ pci,
-                int num_v, int num_p, int num_g, float* __restrict__ mtr,
-                float* __restrict__ mti) {
-  __shared__ float ar_s[kBK * (kBM + 1)], ai_s[kBK * (kBM + 1)];
-  __shared__ float br_s[kBK * kBN], bi_s[kBK * kBN];
-  const int b = blockIdx.z;
-  const int v0 = blockIdx.y * kBM;
-  const int g0 = blockIdx.x * kBN;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long long base = (long long)b * num_p * num_g;
-  Acc<4, 4> acc;
-  acc.zero();
-  for (int k0 = 0; k0 < num_p; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-      const int e = threadIdx.x + kThreads * i;
-      const int m = e / kBK, kk = e % kBK;
-      const int v = v0 + m, p = k0 + kk;
-      const bool in = v < num_v && p < num_p;
-      ar_s[kk * (kBM + 1) + m] = in ? dr[(long long)v * num_p + p] : 0.f;
-      ai_s[kk * (kBM + 1) + m] = in ? di[(long long)v * num_p + p] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
-      const int e = threadIdx.x + kThreads * i;
-      const int kk = e / kBN, n = e % kBN;
-      const int p = k0 + kk, g = g0 + n;
-      const bool in = p < num_p && g < num_g;
-      const long long off = base + (long long)p * num_g + g;
-      br_s[kk * kBN + n] = in ? pcr[off] : 0.f;
-      bi_s[kk * kBN + n] = in ? pci[off] : 0.f;
-    }
-    __syncthreads();
-    acc.step(ar_s, ai_s, kBM + 1, br_s, bi_s, kBN, tx, ty);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int v = v0 + ty + 16 * i;
-    if (v >= num_v) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int g = g0 + tx + 16 * j;
-      if (g >= num_g) continue;
-      const long long off = ((long long)b * num_v + v) * num_g + g;
-      mtr[off] = acc.rr[i][j] - acc.ii[i][j];
-      mti[off] = acc.ri[i][j] + acc.ir[i][j];
-    }
-  }
 }
 
 // ------------------------------------------------------------ the mix
@@ -677,139 +449,17 @@ mix_kernel(const T* __restrict__ mtr, const T* __restrict__ mti,
   }
 }
 
-// K9's tail: one block per 32 Doppler rows x 32 gates forms every beam's
-// DFT tile in turn (a 2x2 register tile a thread), keeps it rounded to T in
-// shared memory, then mixes the beams and writes the map once.
-constexpr int kVT = 32, kGT = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-mtd_mix_kernel(const float* __restrict__ dr, const float* __restrict__ di,
-               const T* __restrict__ pcr, const T* __restrict__ pci,
-               const float2* __restrict__ lmat, int num_b, int num_v,
-               int num_p, int num_g, Signal s, float2* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char mt_raw[];
-  T* mt_r = reinterpret_cast<T*>(mt_raw);           // [B][32][32]
-  T* mt_i = mt_r + num_b * kVT * kGT;
-  __shared__ float ar_s[kBK * (kVT + 1)], ai_s[kBK * (kVT + 1)];
-  __shared__ float br_s[kBK * kGT], bi_s[kBK * kGT];
-  __shared__ float2 sl[kMaxB * kMaxB];
-  const int v0 = blockIdx.y * kVT;
-  const int g0 = blockIdx.x * kGT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int i = threadIdx.x; i < num_b * num_b; i += kThreads) sl[i] = lmat[i];
-
-  for (int c = 0; c < num_b; ++c) {
-    const long long base = (long long)c * num_p * num_g;
-    Acc<2, 2> acc;
-    acc.zero();
-    for (int k0 = 0; k0 < num_p; k0 += kBK) {
-      for (int e = threadIdx.x; e < kVT * kBK; e += kThreads) {
-        const int m = e / kBK, kk = e % kBK;
-        const int v = v0 + m, p = k0 + kk;
-        const bool in = v < num_v && p < num_p;
-        ar_s[kk * (kVT + 1) + m] = in ? dr[(long long)v * num_p + p] : 0.f;
-        ai_s[kk * (kVT + 1) + m] = in ? di[(long long)v * num_p + p] : 0.f;
-      }
-      for (int e = threadIdx.x; e < kBK * kGT; e += kThreads) {
-        const int kk = e / kGT, n = e % kGT;
-        const int p = k0 + kk, g = g0 + n;
-        const bool in = p < num_p && g < num_g;
-        const long long off = base + (long long)p * num_g + g;
-        br_s[kk * kGT + n] = in ? Num<T>::f32(pcr[off]) : 0.f;
-        bi_s[kk * kGT + n] = in ? Num<T>::f32(pci[off]) : 0.f;
-      }
-      __syncthreads();
-      acc.step(ar_s, ai_s, kVT + 1, br_s, bi_s, kGT, tx, ty);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int e = (c * kVT + ty + 16 * i) * kGT + tx + 16 * j;
-        mt_r[e] = Num<T>::from(acc.rr[i][j] - acc.ii[i][j]);
-        mt_i[e] = Num<T>::from(acc.ri[i][j] + acc.ir[i][j]);
-      }
-  }
-  __syncthreads();
-
-  const long long pg = (long long)num_v * num_g;
-  for (int e = threadIdx.x; e < kVT * kGT; e += kThreads) {
-    const int vl = e / kGT, gl = e - vl * kGT;
-    const int v = v0 + vl, g = g0 + gl;
-    if (v >= num_v || g >= num_g) continue;
-    float2 x[kMaxB];
-#pragma unroll
-    for (int c = 0; c < kMaxB; ++c)
-      x[c] = c < num_b ? make_float2(Num<T>::f32(mt_r[c * kVT * kGT + e]),
-                                     Num<T>::f32(mt_i[c * kVT * kGT + e]))
-                       : make_float2(0.f, 0.f);
-    const long long off = (long long)v * num_g + g;
-    for (int b = 0; b < num_b; ++b)
-      out[b * pg + off] = mix_out(sl, num_b, b, x, v, g, num_v, num_g, s, false);
-  }
-}
-
-constexpr int kMaxSmem = 232448;
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-// f32 on the CUDA cores; bf16 (draw mode only: planes and the compact cube
-// run the strip GEMM of band_pc_sm90.cu) on the tensor cores
-int launch_band_pc(bool bf16, int src, const PcArgs& a, int num_b,
-                   cudaStream_t st) {
+// K7's draw mode at bf16 on the tensor cores, K8 at f32 (the compact
+// cube) on the CUDA cores
+int launch_band_pc(int src, const PcArgs& a, int num_b, cudaStream_t st) {
   const dim3 grid(((a.j_len + a.tile - 1) / a.tile) * (a.tile / kBN),
                   (a.num_p + kBM - 1) / kBM, num_b);
-  if (bf16) {
-    if (src != kDraw) return (int)cudaErrorInvalidValue;
-    band_pc_tc_kernel<kDraw, true><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    if (src == kPlanes)
-      band_pc_kernel<kPlanes, true><<<grid, kThreads, 0, st>>>(a);
-    else if (src == kDraw)
-      band_pc_kernel<kDraw, true><<<grid, kThreads, 0, st>>>(a);
-    else
-      band_pc_kernel<kCompact, false><<<grid, kThreads, 0, st>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_ring_pc(const void* xr, const void* xi, long long x_len,
-                   const void* tr, const void* ti, int lh, int window,
-                   int tiles_per_run, int ntiles, int num_b, int num_p,
-                   int j_len, int g0, int num_g, void* outr, void* outi,
-                   cudaStream_t st) {
-  const int ring = window + kTile;
-  const size_t smem =
-      (2 * (size_t)kRows * (padded(ring - 1) + 1) + 2 * (size_t)lh) * sizeof(float);
-  cudaError_t err = allow_smem(ring_pc_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((ntiles + tiles_per_run - 1) / tiles_per_run,
-                  (num_p + kRows - 1) / kRows, num_b);
-  ring_pc_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(xr), static_cast<const T*>(xi), x_len,
-      static_cast<const float*>(tr), static_cast<const float*>(ti), lh, window,
-      tiles_per_run, ntiles, num_p, j_len, g0, num_g, static_cast<T*>(outr),
-      static_cast<T*>(outi));
-  return (int)cudaGetLastError();
-}
-
-// f32 on the CUDA cores (bf16: rdm_sm90.cu's dft_kernel)
-int launch_mtd(const void* dr, const void* di, const void* pcr,
-               const void* pci, int num_b, int num_v, int num_p, int num_g,
-               void* mtr, void* mti, cudaStream_t st) {
-  const dim3 grid((num_g + kBN - 1) / kBN, (num_v + kBM - 1) / kBM, num_b);
-  mtd_gemm_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const float*>(dr), static_cast<const float*>(di),
-      static_cast<const float*>(pcr), static_cast<const float*>(pci), num_v,
-      num_p, num_g, static_cast<float*>(mtr), static_cast<float*>(mti));
+  if (src == kDraw)
+    band_pc_tc_kernel<<<grid, kThreads, 0, st>>>(a);
+  else if (src == kCompact)
+    band_pc_kernel<<<grid, kThreads, 0, st>>>(a);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -822,22 +472,6 @@ int launch_mix(const void* mtr, const void* mti, const void* lmat, int num_b,
   mix_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
       static_cast<const T*>(mtr), static_cast<const T*>(mti),
       static_cast<const float2*>(lmat), num_b, num_v, num_g, s, round_out,
-      static_cast<float2*>(out));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_mtd_mix(const void* dr, const void* di, const void* pcr,
-                   const void* pci, const void* lmat, int num_b, int num_v,
-                   int num_p, int num_g, Signal s, void* out, cudaStream_t st) {
-  const size_t smem = 2 * (size_t)num_b * kVT * kGT * sizeof(T);
-  cudaError_t err = allow_smem(mtd_mix_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((num_g + kGT - 1) / kGT, (num_v + kVT - 1) / kVT);
-  mtd_mix_kernel<T><<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(dr), static_cast<const float*>(di),
-      static_cast<const T*>(pcr), static_cast<const T*>(pci),
-      static_cast<const float2*>(lmat), num_b, num_v, num_p, num_g, s,
       static_cast<float2*>(out));
   return (int)cudaGetLastError();
 }
@@ -855,78 +489,41 @@ const char* radar_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Banded PC of one segment (K7's and K9's PC stage, K8). bf16: operands are
-// bf16 values, src 2 only. src 0: T planes xr, xi [B, P, x_len] -> rounded T planes
-// outr, outi [B, P, num_g] at gate offset g0; src 2: the same from Philox
-// draws (K1's counters, key (s0, s1)); src 1: the compact complex64 cube z
-// [B, P, x_len], segment slice c0 .. c0+r_len after pad_front zeros ->
-// complex64 out [B, P, num_g], not rounded (K8). mr, mi: the banded filter
-// [window, tile] as f32 holding T values.
-int rv_band_pc(int bf16, int src, const void* xr, const void* xi,
-               const void* z, long long x_len, int c0, int r_len,
+// Banded PC of one segment, src 1 or 2. src 1 (K8, f32): the compact
+// complex64 cube z [B, P, x_len], segment slice c0 .. c0+r_len after
+// pad_front zeros -> complex64 out [B, P, num_g] at gate offset g0. src 2
+// (K7's draw mode, bf16): Philox draws (K1's counters, key (s0, s1),
+// segment index seg, zeros before pad_front) rounded to bf16 -> rounded
+// bf16 planes outr, outi [B, P, num_g] at g0. mr, mi: the banded filter
+// [window, tile] as f32 (holding bf16 values for src 2).
+int rv_band_pc(int src, const void* z, long long x_len, int c0, int r_len,
                int pad_front, int seg, unsigned s0, unsigned s1, float scale,
                const void* mr, const void* mi, int window, int tile, int lh,
                int num_b, int num_p, int j_len, int g0, int num_g, void* outr,
                void* outi, void* out, void* stream) {
-  if (tile % kBN != 0 || src < 0 || src > 2 ||
-      (src == kCompact ? out == nullptr : outr == nullptr))
+  if (tile % kBN != 0 ||
+      !(src == kCompact ? z != nullptr && out != nullptr
+                        : src == kDraw && outr != nullptr && outi != nullptr))
     return (int)cudaErrorInvalidValue;
-  PcArgs a{xr, xi, static_cast<const float2*>(z), x_len, c0, r_len,
-           pad_front, (unsigned)seg, make_uint2(s0, s1), scale,
+  PcArgs a{static_cast<const float2*>(z), x_len, c0, r_len, pad_front,
+           (unsigned)seg, make_uint2(s0, s1), scale,
            static_cast<const float*>(mr), static_cast<const float*>(mi),
            window, tile, lh, num_p, j_len, g0, num_g, outr, outi,
            static_cast<float2*>(out)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_band_pc(bf16 != 0, src, a, num_b, st);
+  return launch_band_pc(src, a, num_b, static_cast<cudaStream_t>(stream));
 }
 
-// K10's PC of one segment at f32 (bf16: band_pc_sm90.cu's strip GEMM): f32
-// planes [B, P, x_len] -> f32 planes [B, P, num_g] at g0; taps tr, ti [lh];
-// 128-gate tiles, tiles_per_run consecutive tiles a block.
-int rv_ring_pc(const void* xr, const void* xi, long long x_len, const void* tr,
-               const void* ti, int lh, int window, int tiles_per_run,
-               int ntiles, int num_b, int num_p, int j_len, int g0, int num_g,
-               void* outr, void* outi, void* stream) {
-  if (tiles_per_run < 1 || window % 32 != 0) return (int)cudaErrorInvalidValue;
-  return launch_ring_pc<float>(xr, xi, x_len, tr, ti, lh, window,
-                               tiles_per_run, ntiles, num_b, num_p, j_len, g0,
-                               num_g, outr, outi,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// mt [B, V, G] = D [V, P] @ pc[b] in f32 (bf16: rdm_sm90.cu's rs_dft); D
-// as f32 planes.
-int rv_mtd(const void* dr, const void* di, const void* pcr, const void* pci,
-           int num_b, int num_v, int num_p, int num_g, void* mtr, void* mti,
+// The bf16 schedules' mix: out [B, V, G] complex64 = L mt (+ sum_k st[k,b]
+// dv[k,v] pb[k,g]) of the bf16 planes mtr, mti [B, V, G]; with round_out
+// the output values are rounded to bf16.
+int rv_mix(const void* mtr, const void* mti, const void* lmat, int num_b,
+           int num_v, int num_g, const void* dv, const void* pb,
+           const void* st_, int num_k, int round_out, void* out,
            void* stream) {
-  return launch_mtd(dr, di, pcr, pci, num_b, num_v, num_p, num_g, mtr, mti,
-                    static_cast<cudaStream_t>(stream));
-}
-
-// out [B, V, G] complex64 = L mt (+ sum_k st[k,b] dv[k,v] pb[k,g]); with
-// round_out the output values are rounded to bf16.
-int rv_mix(int bf16, const void* mtr, const void* mti, const void* lmat,
-           int num_b, int num_v, int num_g, const void* dv, const void* pb,
-           const void* st_, int num_k, int round_out, void* out, void* stream) {
   if (num_b > kMaxB) return (int)cudaErrorInvalidValue;
-  const Signal s = make_signal(dv, pb, st_, num_k);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_mix<__nv_bfloat16>(mtr, mti, lmat, num_b, num_v, num_g, s,
-                                          round_out, out, st)
-              : launch_mix<float>(mtr, mti, lmat, num_b, num_v, num_g, s,
-                                  round_out, out, st);
-}
-
-// K9's tail at f32: out [B, V, G] complex64 = L (D @ pc[c]) (+ signal)
-// (bf16: rs_dft, then rv_mix).
-int rv_mtd_mix(const void* dr, const void* di, const void* pcr,
-               const void* pci, const void* lmat, int num_b, int num_v,
-               int num_p, int num_g, const void* dv, const void* pb,
-               const void* st_, int num_k, void* out, void* stream) {
-  if (num_b > kMaxB) return (int)cudaErrorInvalidValue;
-  return launch_mtd_mix<float>(dr, di, pcr, pci, lmat, num_b, num_v, num_p,
-                               num_g, make_signal(dv, pb, st_, num_k), out,
-                               static_cast<cudaStream_t>(stream));
+  return launch_mix<__nv_bfloat16>(mtr, mti, lmat, num_b, num_v, num_g,
+                                   make_signal(dv, pb, st_, num_k), round_out,
+                                   out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -28,18 +28,21 @@ The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
 the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
 ``mul_dtype`` (float32, or bfloat16 as the TPU's perf path runs): kernels
 K10 (``"resident"``), K7 (``"stacked"``, and ``stacked=True`` in draw
-mode) and K9 (``"allbeams"``), in ``csrc/rdm_variants.cu``. They round to
-``mul_dtype`` (nearest even) the planes, the filter, D and L, the PC result
-and the DFT result, accumulate every product in float32, and mix the beams
-after the rounded DFT; ``"resident"`` may round its output to bfloat16.
-At bfloat16 the planes-mode PC of K10, K7 and K9 is the strip GEMM of
-``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on the Toeplitz strip
-of each segment's filter, rounded to bfloat16 once per plan, ``strip``),
-which K8 (``studies/pallas_pc.py``) shares; the DFT of K10 and K7 is the
-wgmma GEMM of ``csrc/rdm_sm90.cu`` (``dft``, on the plan's rounded D,
-``d_bf16``), which K9's shares; then the mix. The constants' rounded
-copies are kept on the plan (``strip``, ``d_bf16``, and ``taps_planes``, ``mp_planes``,
-``d_planes`` for ``csrc/rdm_variants.cu``) and L's for the latest L
+mode) and K9 (``"allbeams"``). They mix the beams after the DFT;
+``"resident"`` and ``stacked=True`` may round their output to bfloat16.
+At float32 the three take one sequence of K1's 3xTF32 GEMMs
+(``_variant_tf32``: K1's strip-GEMM PC, or K4's drawing PC in draw mode,
+its passes joined, K1's DFT GEMM, then an epilogue that mixes, adds the
+signal and rounds), so they agree bit for bit. At bfloat16 they round
+(nearest even) the planes, the filter, D and L, the PC result and the DFT
+result, and accumulate every product in float32: the planes-mode PC is
+the strip GEMM of ``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on
+the Toeplitz strip of each segment's filter, rounded to bfloat16 once per
+plan, ``strip``), which K8 (``studies/pallas_pc.py``) shares, K7's
+draw-mode PC ``csrc/rdm_variants.cu``'s tensor-core kernel (on the plan's
+rounded filter, ``mp_bf16``); the DFT is the wgmma GEMM of
+``csrc/rdm_sm90.cu`` (``dft``, on the plan's rounded D, ``d_bf16``); then
+``csrc/rdm_variants.cu``'s mix. L's rounded copy is kept for the latest L
 (``_rounded_l``), not made anew on every call.
 
 ``noise_rdm_plain`` is the plain PyTorch version of every schedule,
@@ -69,10 +72,8 @@ import torch
 A_UNIF = float(np.sqrt(1.5))          # unit rail variance: a^2/3 = 1/2
 # (k + 0.5 - 2^23) * U_SCALE maps a 24-bit integer to U[-a, a)
 U_SCALE = float(np.float32(2.0 * A_UNIF * 2.0 ** -24))
-KERNEL_TILE = 128                     # output gates per block in K1
 
 VARIANTS = ("beams", "resident", "stacked", "allbeams")
-RESIDENT_RUN = 5                      # most 128-gate tiles a K10 block owns
 STRIP_BN = 128                        # gates of a strip-GEMM block
 STRIP_BK = 64                         # k depth of its stages (128-byte rows)
 TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
@@ -80,7 +81,8 @@ TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
 launch_count = 0                      # K1 calls (PC + mix + DFT GEMMs; with
                                       # K1c's planes first in draw mode)
 k4_launch_count = 0                   # K4 calls (rolling=False)
-k4_pc_launch_count = 0                # K4's PC launches (its drawing GEMM)
+k4_pc_launch_count = 0                # K4's PC launches (its drawing GEMM;
+                                      # K7's f32 draw mode too)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
 k9_launch_count = 0                   # K9 launches ("allbeams")
@@ -88,6 +90,10 @@ k10_launch_count = 0                  # K10 launches ("resident")
 strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
                                       # K10, K9 planes mode and of K8)
 dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7, K9)
+tf32_pc_launch_count = 0              # K1's 3xTF32 PC launches (K1 and the
+                                      # f32 planes schedules K10, K7, K9)
+tf32_dft_launch_count = 0             # K1's 3xTF32 DFT launches (K1, K4
+                                      # and the f32 schedules)
 
 
 class RdmSegSpec(NamedTuple):
@@ -103,8 +109,7 @@ class RdmSegSpec(NamedTuple):
     mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
     strip: torch.Tensor  # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
     strip_tf32: torch.Tensor  # [4, STRIP_BN, k_pad] f32 split (``strip_tf32``)
-    taps_planes: torch.Tensor  # [2, lh] f32 (re, im) of taps (f32 K10)
-    mp_planes: torch.Tensor    # [2, 2, W, T] f32 (``rounded_planes`` of mp)
+    mp_bf16: torch.Tensor      # [2, W, T] f32 (re, im) of mp rounded to bf16
 
     @property
     def xlen(self) -> int:
@@ -121,7 +126,6 @@ class RdmPlan(NamedTuple):
     d: torch.Tensor     # [V, P] complex64 MTD DFT (window+fftshift folded)
     d_tf32: torch.Tensor  # [4, V128, P4] f32 split of D (``d_tf32``)
     d_bf16: torch.Tensor  # [2, V, P8] bf16 planes of D (``d_bf16``)
-    d_planes: torch.Tensor  # [2, 2, V, P] f32 (``rounded_planes`` of D)
 
 
 def _banded(h: np.ndarray, tile: int) -> np.ndarray:
@@ -210,16 +214,12 @@ def d_bf16(d: torch.Tensor) -> torch.Tensor:
                         (d.real, d.imag)]).to(torch.bfloat16).contiguous()
 
 
-_ROUNDED = {torch.float32: 0, torch.bfloat16: 1}   # index of rounded_planes
-
-
-def rounded_planes(x: torch.Tensor) -> torch.Tensor:
-    """[2, 2, ...] float32, contiguous: the (re, im) planes of complex ``x``
-    as they are and rounded to bfloat16 (``round_mul``), indexed by
-    ``_ROUNDED[mul_dtype]``: the f32 and bf16 operands of the kernels of
-    ``csrc/rdm_variants.cu``."""
-    return torch.stack([torch.stack([y.real, y.imag]) for y in
-                        (x, round_mul(x, torch.bfloat16))]).contiguous()
+def bf16_planes(x: torch.Tensor) -> torch.Tensor:
+    """[2, ...] float32, contiguous: the (re, im) planes of complex ``x``
+    rounded to bfloat16 (``round_mul``), the filter operand of K7's bf16
+    draw-mode PC (``csrc/rdm_variants.cu``)."""
+    y = round_mul(x, torch.bfloat16)
+    return torch.stack([y.real, y.imag]).contiguous()
 
 
 def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
@@ -257,15 +257,13 @@ def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
             g0=g0, tile=t, window=w_pad, taps=taps, mp=mp,
             strip=strip_bf16(mp.real, mp.imag, lh),
             strip_tf32=strip_tf32(mp.real, mp.imag, lh),
-            taps_planes=torch.stack([taps.real, taps.imag]).contiguous(),
-            mp_planes=rounded_planes(mp)))
+            mp_bf16=bf16_planes(mp)))
         c0 += r_len
         g0 += j_len
     d = torch.as_tensor(np.asarray(mtd_matrix)).to(device=device, dtype=c64)
     return RdmPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
                    n_dop=d.shape[0], n_pulses=num_pulses, d=d,
-                   d_tf32=d_tf32(d), d_bf16=d_bf16(d),
-                   d_planes=rounded_planes(d))
+                   d_tf32=d_tf32(d), d_bf16=d_bf16(d))
 
 
 def seed_words(frame_seed: int) -> tuple[int, int]:
@@ -428,11 +426,11 @@ def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
 
 
 def _k1_setup(plan: RdmPlan, l_factor, signal, name: str, k1c_floats: int):
-    """The checks and buffers K1 and K4 share: (lib, L, signal arguments,
-    p4, the scratch tensor with ``k1c_floats`` floats of K1c's planes
-    first, then the PC's main and correction planes pcr, pci, cr, ci [B, G,
-    P4] and the DFT's correction pass [B, V, G] complex64, their pointers,
-    the output map [B, V, G], the stream)."""
+    """The checks and buffers K1, K4 and the f32 schedules share: (lib, L,
+    signal arguments, p4, the scratch tensor with ``k1c_floats`` floats of
+    K1c's planes first, then the PC's main and correction planes pcr, pci,
+    cr, ci [B, G, P4] and the DFT's correction pass [B, V, G] complex64,
+    their pointers, the output map [B, V, G], the stream)."""
     from .. import _build
 
     lib = _build.load("noise_rdm_sm90")
@@ -465,27 +463,33 @@ def _check_strip_tf32(seg: RdmSegSpec, dev) -> torch.Tensor:
     return st
 
 
-def _k1_mix_dft(lib, plan: RdmPlan, lmat, sig, p4: int, ptrs, out,
-                stream) -> None:
-    """K1's tail on the PC's planes (K4's too): the beam mix of the main
-    and the correction pass, the 3xTF32 DFT GEMM (two passes, the rank-K
-    signal in the second) and their sum into ``out``."""
+def _tf32_tail(lib, plan: RdmPlan, lmat, sig, p4: int, ptrs, out, stream,
+               *, mix_after: bool = False, round_out: bool = False) -> None:
+    """The 3xTF32 tail on the PC's two passes. K1's and K4's: the beam mix
+    of their sum, the DFT GEMM (two passes) and the sum of its passes with
+    the rank-K signal into ``out``. ``mix_after`` (K10, K7 and K9 at f32):
+    the passes joined un-mixed, the DFT GEMM, then one epilogue that sums
+    its passes, mixes the beams, adds the signal and, with ``round_out``,
+    rounds to bfloat16 values."""
+    global tf32_dft_launch_count
     from .. import _build
 
     num_b, num_p = lmat.shape[0], plan.n_pulses
     num_v, num_g = plan.n_dop, plan.n_gates
     pcr, pci, cr, ci, corr = ptrs
     num_k, sig_ptrs, _keep = sig
-    _build.check(lib, lib.k1_tf32_mix(pcr, pci, cr, ci, lmat.data_ptr(),
-                                      num_b, num_g * p4, stream),
-                 "k1_tf32_mix")
+    _build.check(lib, lib.k1_tf32_mix(
+        pcr, pci, cr, ci, None if mix_after else lmat.data_ptr(), num_b,
+        num_g * p4, stream), "k1_tf32_mix")
     d4 = plan.d_tf32
     if d4.device != lmat.device or d4.shape[2] != p4:
         raise ValueError("the plan's d_tf32 must be on the card, [4, V128, "
                          f"{p4}]")
     _build.check(lib, lib.k1_tf32_dft(
         pcr, pci, d4.data_ptr(), d4.shape[1], num_b, num_v, num_p, num_g, p4,
-        *sig_ptrs, num_k, out.data_ptr(), corr, stream), "k1_tf32_dft")
+        *sig_ptrs, num_k, lmat.data_ptr() if mix_after else None,
+        int(round_out), out.data_ptr(), corr, stream), "k1_tf32_dft")
+    tf32_dft_launch_count += 1
 
 
 def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
@@ -497,11 +501,7 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
     allocation holds K1c's planes, the PC's planes and the DFT's
     correction."""
     global launch_count
-    import ctypes
-
-    from .. import _build
-
-    num_b, num_p, num_g = l_factor.shape[0], plan.n_pulses, plan.n_gates
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
     k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
     lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
         plan, l_factor, signal, "K1", k1c_floats)
@@ -517,6 +517,23 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
             planes = _k1c_views(scratch, spans, num_b, num_p)
     if planes is not None:
         xs, kept = _tf32_rows(planes, plan, dev, num_b, num_p)
+    _tf32_pc(lib, plan, xs, num_b, p4, ptrs, dev, stream)
+    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream)
+    launch_count += 1
+    return out
+
+
+def _tf32_pc(lib, plan: RdmPlan, xs, num_b: int, p4: int, ptrs, dev,
+             stream) -> None:
+    """K1's 3xTF32 strip-GEMM PC (``k1_tf32_pc``, a main and a correction
+    pass, each one launch for all segments) of the planes ``xs`` (per
+    segment: xr and xi pointers, row stride) into the pcT planes of
+    ``ptrs``."""
+    global tf32_pc_launch_count
+    import ctypes
+
+    from .. import _build
+
     vals = []
     for seg, (xr, xi, ld) in zip(plan.segments, xs):
         st = _check_strip_tf32(seg, dev)
@@ -524,10 +541,8 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
                  seg.g0]
     _build.check(lib, lib.k1_tf32_pc(
         len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
-        num_p, num_g, p4, *ptrs[:4], stream), "k1_tf32_pc")
-    _k1_mix_dft(lib, plan, lmat, sig, p4, ptrs, out, stream)
-    launch_count += 1
-    return out
+        plan.n_pulses, plan.n_gates, p4, *ptrs[:4], stream), "k1_tf32_pc")
+    tf32_pc_launch_count += 1
 
 
 def _tf32_rows(planes, plan: RdmPlan, dev, num_b: int, num_p: int):
@@ -563,29 +578,39 @@ def _k4_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
     strip-GEMM PC, both passes in one launch on each stage, the data's stage
     drawn in the block (draw mode; in planes mode loaded by TMA),
     ``beams_per_step`` beams walked a block, then K1's mix and DFT GEMM."""
-    global k4_launch_count, k4_pc_launch_count
+    global k4_launch_count
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
+        plan, l_factor, signal, "K4", 0)
+    xs, kept = (None, ()) if planes is None else _tf32_rows(
+        planes, plan, lmat.device, num_b, num_p)
+    _k4_pc(lib, plan, xs, seed, num_b, p4, beams_per_step, ptrs,
+           lmat.device, stream)
+    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream)
+    k4_launch_count += 1
+    return out
+
+
+def _k4_pc(lib, plan: RdmPlan, xs, seed, num_b: int, p4: int,
+           beams_per_step: int, ptrs, dev, stream) -> None:
+    """K4's PC (``k4_tf32_pc``): K1's 3xTF32 strip GEMM, both passes in one
+    launch, on the planes ``xs`` (``k4_table``) or, with ``xs`` None, on
+    stages drawn in the block for ``seed``; into the pcT planes of
+    ``ptrs``."""
+    global k4_pc_launch_count
     import ctypes
 
     from .. import _build
 
-    num_b, num_p, num_g = l_factor.shape[0], plan.n_pulses, plan.n_gates
-    lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
-        plan, l_factor, signal, "K4", 0)
-    dev = lmat.device
     for seg in plan.segments:
         _check_strip_tf32(seg, dev)
-    xs, kept = (None, ()) if planes is None else _tf32_rows(
-        planes, plan, dev, num_b, num_p)
     vals = k4_table(plan, xs)
     s0, s1 = seed if seed is not None else (0, 0)
     _build.check(lib, lib.k4_tf32_pc(
         len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
-        num_p, num_g, p4, beams_per_step, s0, s1, ctypes.c_float(U_SCALE),
-        *ptrs[:4], stream), "k4_tf32_pc")
+        plan.n_pulses, plan.n_gates, p4, beams_per_step, s0, s1,
+        ctypes.c_float(U_SCALE), *ptrs[:4], stream), "k4_tf32_pc")
     k4_pc_launch_count += 1
-    _k1_mix_dft(lib, plan, lmat, sig, p4, ptrs, out, stream)
-    k4_launch_count += 1
-    return out
 
 
 def _rows16(x: torch.Tensor) -> torch.Tensor:
@@ -724,15 +749,49 @@ def _check_samples(xr, xi, rows: int, dev) -> None:
                 "that is a multiple of 8, 16-byte aligned")
 
 
-def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
-                  schedule: str, mul_dtype, out_dtype):
-    """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
-    or K9 (``"allbeams"``) in ``mul_dtype`` arithmetic. At bf16 on planes
-    the PC is the strip GEMM (``strip_pc``, one launch for the three
-    segments); at bf16 the DFT is the wgmma GEMM (``dft``), then the mix.
-    Draw mode and f32 keep ``csrc/rdm_variants.cu``'s kernels (K9's at f32
-    its fused DFT + mix)."""
+def _count_schedule(schedule: str) -> None:
+    """One launch of K10, K7 or K9 (``schedule``), either multiply type."""
     global k7_launch_count, k9_launch_count, k10_launch_count
+    if schedule == "resident":
+        k10_launch_count += 1
+    elif schedule == "allbeams":
+        k9_launch_count += 1
+    else:
+        k7_launch_count += 1
+
+
+def _variant_tf32(plan: RdmPlan, l_factor, signal, seed, planes,
+                  schedule: str, out_dtype):
+    """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
+    or K9 (``"allbeams"``) at float32, on K1's 3xTF32 tensor-core GEMMs
+    (``csrc/noise_rdm_sm90.cu``): K1's strip-GEMM PC of the planes (in draw
+    mode K4's, its stages drawn in the block at one beam a block; both give
+    K1's PC bit for bit), the two passes joined without a mix, K1's DFT
+    GEMM, then the mix after the DFT, the rank-K signal and the rounding to
+    ``out_dtype`` in one epilogue. The three schedules run the same
+    launches, so they agree bit for bit, as the TPU's do at float32."""
+    num_b, num_p = l_factor.shape[0], plan.n_pulses
+    lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
+        plan, l_factor, signal, f"the {schedule} schedule", 0)
+    dev = lmat.device
+    if planes is None:
+        _k4_pc(lib, plan, None, seed, num_b, p4, 1, ptrs, dev, stream)
+    else:
+        xs, kept = _tf32_rows(planes, plan, dev, num_b, num_p)
+        _tf32_pc(lib, plan, xs, num_b, p4, ptrs, dev, stream)
+    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream, mix_after=True,
+               round_out=out_dtype != torch.float32)
+    _count_schedule(schedule)
+    return out
+
+
+def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
+                  schedule: str, out_dtype):
+    """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
+    or K9 (``"allbeams"``) with bfloat16 operands: the PC (on planes the
+    strip GEMM, ``strip_pc``, one launch for the three segments; in draw
+    mode ``csrc/rdm_variants.cu``'s tensor-core PC, a launch a segment),
+    the wgmma DFT GEMM (``dft``), then the mix."""
     import ctypes
 
     from .. import _build
@@ -747,83 +806,43 @@ def _variant_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         if t.device != dev or t.dtype != torch.complex64:
             raise ValueError("the kernels' constants must be complex64 on "
                              "the card")
-    md, bf16 = mul_dtype, mul_dtype == torch.bfloat16
-    lmat = _rounded_l(l_factor, md)
-    rnd = _ROUNDED[md]
+    bf = torch.bfloat16
+    lmat = _rounded_l(l_factor, bf)
     num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
-    # the bf16 DFT GEMMs read pc by TMA: rows padded to 16 bytes
-    ld = -(-num_g // 8) * 8 if bf16 else num_g
-    pcr = torch.empty((num_b, num_p, ld), dtype=md, device=dev)
+    # the DFT GEMM reads pc by TMA: rows padded to 16 bytes
+    ld = -(-num_g // 8) * 8
+    pcr = torch.empty((num_b, num_p, ld), dtype=bf, device=dev)
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    s0, s1 = seed if seed is not None else (0, 0)
-    if bf16 and planes is not None:
+    if planes is not None:
         segs = []
         for si, seg in enumerate(plan.segments):
-            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
+            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, bf)
             segs.append((_rows16(xr), _rows16(xi), seg.strip, seg.j_len,
                          seg.g0))
         strip_pc(segs, num_b * num_p, ld, outr=pcr, outi=pci)
-    # the PC at f32 or in draw mode: a launch a segment
-    for si, seg in enumerate(() if bf16 and planes is not None
-                             else plan.segments):
-        lh = seg.taps.shape[0]
-        if planes is not None:
-            xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, md)
-            x_ptrs, x_len = (xr.data_ptr(), xi.data_ptr()), xr.shape[2]
-        else:
-            x_ptrs, x_len = (None, None), 0
-        if schedule == "resident":
-            if seg.tile != KERNEL_TILE:
-                raise ValueError(f"K10 needs {KERNEL_TILE}-gate tiles")
-            tr, ti = seg.taps_planes       # f32 only: bf16 takes strip_pc
-            ntiles = -(-seg.j_len // seg.tile)
-            per_run = -(-ntiles // -(-ntiles // RESIDENT_RUN))
-            rc = lib.rv_ring_pc(*x_ptrs, x_len, tr.data_ptr(), ti.data_ptr(),
-                                lh, seg.window, per_run, ntiles, num_b, num_p,
-                                seg.j_len, seg.g0, num_g, pcr.data_ptr(),
-                                pci.data_ptr(), stream)
-            _build.check(lib, rc, "rv_ring_pc")
-            continue
-        mr, mi = seg.mp_planes[rnd]
-        rc = lib.rv_band_pc(int(bf16), 0 if planes is not None else 2,
-                            *x_ptrs, None, x_len, 0, 0, seg.pad_front, si, s0,
-                            s1, ctypes.c_float(U_SCALE), mr.data_ptr(),
-                            mi.data_ptr(), seg.window, seg.tile, lh, num_b,
-                            num_p, seg.j_len, seg.g0, ld, pcr.data_ptr(),
-                            pci.data_ptr(), None, stream)
-        _build.check(lib, rc, "rv_band_pc")
+    else:
+        s0, s1 = seed
+        for si, seg in enumerate(plan.segments):
+            mr, mi = seg.mp_bf16
+            rc = lib.rv_band_pc(2, None, 0, 0, 0, seg.pad_front, si, s0, s1,
+                                ctypes.c_float(U_SCALE), mr.data_ptr(),
+                                mi.data_ptr(), seg.window, seg.tile,
+                                seg.taps.shape[0], num_b, num_p, seg.j_len,
+                                seg.g0, ld, pcr.data_ptr(), pci.data_ptr(),
+                                None, stream)
+            _build.check(lib, rc, "rv_band_pc")
     out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
                       device=dev)
-    if schedule == "allbeams" and not bf16:
-        dr, di = plan.d_planes[rnd]
-        _build.check(lib, lib.rv_mtd_mix(
-            dr.data_ptr(), di.data_ptr(), pcr.data_ptr(), pci.data_ptr(),
-            lmat.data_ptr(), num_b, num_v, num_p, num_g, *sig_ptrs, num_k,
-            out.data_ptr(), stream), "rv_mtd_mix")
-        k9_launch_count += 1
-        return out
-    mtr = torch.empty((num_b, num_v, num_g), dtype=md, device=dev)
+    mtr = torch.empty((num_b, num_v, num_g), dtype=bf, device=dev)
     mti = torch.empty_like(mtr)
-    if bf16:
-        dft(plan, pcr, pci, num_g, mtr, mti)
-    else:
-        dr, di = plan.d_planes[rnd]
-        _build.check(lib, lib.rv_mtd(dr.data_ptr(), di.data_ptr(),
-                                     pcr.data_ptr(), pci.data_ptr(), num_b,
-                                     num_v, num_p, num_g, mtr.data_ptr(),
-                                     mti.data_ptr(), stream), "rv_mtd")
-    _build.check(lib, lib.rv_mix(int(bf16), mtr.data_ptr(), mti.data_ptr(),
+    dft(plan, pcr, pci, num_g, mtr, mti)
+    _build.check(lib, lib.rv_mix(mtr.data_ptr(), mti.data_ptr(),
                                  lmat.data_ptr(), num_b, num_v, num_g,
                                  *sig_ptrs, num_k,
                                  int(out_dtype != torch.float32),
                                  out.data_ptr(), stream), "rv_mix")
-    if schedule == "resident":
-        k10_launch_count += 1
-    elif schedule == "allbeams":
-        k9_launch_count += 1
-    else:
-        k7_launch_count += 1
+    _count_schedule(schedule)
     return out
 
 
@@ -908,8 +927,10 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
             bm = _k4_cuda(plan, l_factor, signal, seed, planes,
                           beams_per_step)
         else:
-            bm = _variant_cuda(plan, l_factor, signal, seed, planes,
-                               schedule, mul_dtype, out_dtype)
+            variant_cuda = (_variant_tf32 if mul_dtype == torch.float32
+                            else _variant_bf16)
+            bm = variant_cuda(plan, l_factor, signal, seed, planes, schedule,
+                              out_dtype)
     else:
         if planes is None:
             planes = philox_planes(plan, seed, num_b, device=l_factor.device)

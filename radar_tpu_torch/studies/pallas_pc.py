@@ -20,7 +20,7 @@ buffer, rounded once, into two bfloat16 planes [2, B*P, ld]
 on the Toeplitz strip ``SegSpec.strip``, shared with K7 and K9 through
 ``ops.noise_rdm.strip_pc``) computes all three segments in one launch.
 At float32 it is ``band_pc_kernel`` of ``csrc/rdm_variants.cu`` on the
-CUDA cores (TF32 would change the function). ``pulse_compress_noise_plain`` is its plain version, which the
+CUDA cores. ``pulse_compress_noise_plain`` is its plain version, which the
 wrapper runs only for CPU tensors; ``pulse_compress_noise_strips`` is the
 plain twin of the bfloat16 kernels' schedule (same staging, same strips,
 per-block sums), for the tests.
@@ -223,11 +223,10 @@ def _pc_cuda(z: torch.Tensor, plan: PallasPCPlan, mul_dtype):
     lib = _build.load("rdm_variants")
     g0 = 0
     for seg in plan.segments:
-        rc = lib.rv_band_pc(0, 1, None, None, z.data_ptr(), s_c, seg.c0,
-                            seg.r_len, seg.pad_front, 0, 0, 0,
-                            ctypes.c_float(0.0), seg.mr.data_ptr(),
-                            seg.mi.data_ptr(), seg.window, seg.tile,
-                            seg.taps, num_b, num_p, seg.j_len, g0,
+        rc = lib.rv_band_pc(1, z.data_ptr(), s_c, seg.c0, seg.r_len,
+                            seg.pad_front, 0, 0, 0, ctypes.c_float(0.0),
+                            seg.mr.data_ptr(), seg.mi.data_ptr(), seg.window,
+                            seg.tile, seg.taps, num_b, num_p, seg.j_len, g0,
                             plan.n_gates, None, None, out.data_ptr(), stream)
         _build.check(lib, rc, "rv_band_pc")
         g0 += seg.j_len

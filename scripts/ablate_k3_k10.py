@@ -977,7 +977,8 @@ def dft(libs, plan, planes, reps: int) -> dict:
     # the old kernel reads [B, P, G] planes and D as f32 planes
     pr_g = pcr[..., :num_g].contiguous()
     pi_g = pci[..., :num_g].contiguous()
-    dr, di = plan.d_planes[1]
+    d16 = nr.round_mul(plan.d, bf)
+    dr, di = d16.real.contiguous(), d16.imag.contiguous()
     mt = [torch.empty((num_b, num_v, num_g), dtype=bf, device="cuda")
           for _ in range(4)]
     lib = libs["dft_old"]

@@ -20,7 +20,9 @@ is held against the plain version (RMS of the difference over the RMS).
 
 K9 at bf16 (a compact white cube holding K1c's planes): ``old`` is the
 CUDA-core tail (``mtd_mix_kernel<__nv_bfloat16>``, reachable only here
-through ``OLD_K9``, appended to a copy of ``csrc/rdm_variants.cu``) after
+through ``OLD_K9``, appended with ``scripts/ablate_f32_schedules.py``'s
+``OLD_F32``, which keeps the kernel, to a copy of
+``csrc/rdm_variants.cu``) after
 the strip GEMM's PC, as K9 ran before; ``new`` the port's
 ``noise_rdm_compact(variant="allbeams", mul_dtype=bf16)`` (the strip GEMM,
 then K7's wgmma DFT GEMM and mix). Then the tails alone on the same pc
@@ -426,7 +428,7 @@ OLD_K4_SIGNATURES = {
 }
 
 # K9's tail at bf16 on the CUDA cores: the bf16 instance of
-# rdm_variants.cu's mtd_mix_kernel (a block per 32 Doppler rows x 32 gates
+# ablate_f32_schedules.py's mtd_mix_kernel (a block per 32 Doppler rows x 32 gates
 # forms every beam's DFT tile in turn, keeps it rounded in shared memory,
 # mixes; pc read with row stride num_g)
 OLD_K9 = r"""
@@ -973,13 +975,16 @@ K9_VARIANTS = {"fused": (),
 
 def build(build_dir: str):
     """The copies of noise_rdm.cu (the old K4 appended) and of
-    rdm_variants.cu (the old bf16 tail's entry appended), one nvcc each, at
-    once; (old K4 library, old K9 library)."""
+    rdm_variants.cu (the old f32 kernels and the old bf16 tail's entry
+    appended), one nvcc each, at once; (old K4 library, old K9 library)."""
+    from ablate_f32_schedules import OLD_F32
+
     from radar_tpu_torch import _build
 
     src = lambda name: open(os.path.join(_build._CSRC, name + ".cu")).read()
     sos = _compile({"k4_old": src("noise_rdm") + OLD_K4,
-                    "k9_old": src("rdm_variants") + OLD_K9}, build_dir)
+                    "k9_old": src("rdm_variants") + OLD_F32 + OLD_K9},
+                   build_dir)
     k4 = _load(sos["k4_old"], "noise_rdm")
     for fn, argtypes in OLD_K4_SIGNATURES.items():
         getattr(k4, fn).argtypes = argtypes
@@ -1180,7 +1185,8 @@ def k9(lib, plan, lmat, planes, reps: int, fused: dict) -> dict:
         z[:, :, seg.c0:seg.c0 + seg.r_len] = torch.complex(xr[..., sl],
                                                            xi[..., sl])
     l16 = nr._rounded_l(lmat, bf)
-    dr, di = plan.d_planes[1]
+    d16 = nr.round_mul(plan.d, bf)
+    dr, di = d16.real.contiguous(), d16.imag.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def strip_planes(ld):
@@ -1230,7 +1236,7 @@ def k9(lib, plan, lmat, planes, reps: int, fused: dict) -> dict:
 
     def port():
         nr.dft(plan, pcr, pci, num_g, mtr, mti)
-        _build.check(rv, rv.rv_mix(1, mtr.data_ptr(), mti.data_ptr(),
+        _build.check(rv, rv.rv_mix(mtr.data_ptr(), mti.data_ptr(),
                                    l16.data_ptr(), num_b, num_v, num_g, None,
                                    None, None, 0, 0, out.data_ptr(), stream),
                      "rv_mix")

@@ -952,3 +952,147 @@ def test_k9_bf16_tail_matches_plain_on_card(cuda_device, num_b, with_signal,
     assert _rms(got - ref) <= 3e-4 * _rms(ref)
 
 
+
+
+# ------------------------- the f32 schedules on K1's 3xTF32 tensor-core GEMMs
+
+F32_SCHEDULES = ("resident", "stacked", "allbeams")
+
+
+def _f32_schedules_alike(plan, lmat, signal, planes):
+    """K10, K7 and K9 at f32 on ``planes``: asserts one 3xTF32 PC and one
+    DFT launch a call and the three maps equal bit for bit (one sequence
+    of launches); returns the map."""
+    before = (nr.tf32_pc_launch_count, nr.tf32_dft_launch_count)
+    got = [nr.noise_rdm(plan, lmat, signal, planes=planes, variant=v,
+                        layout="bvg") for v in F32_SCHEDULES]
+    torch.cuda.synchronize()
+    assert (nr.tf32_pc_launch_count, nr.tf32_dft_launch_count) == (
+        before[0] + 3, before[1] + 3)
+    assert all(torch.equal(got[0], y) for y in got[1:])
+    assert bool(torch.isfinite(torch.view_as_real(got[0])).all())
+    return got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_signal", [False, True])
+@pytest.mark.parametrize("num_b", [1, 2, 13])
+def test_f32_schedules_alike_at_ragged_shapes_on_card(cuda_device, num_b,
+                                                      with_signal):
+    """K10, K7 and K9 at f32 (K1's 3xTF32 PC, the join, K1's DFT GEMM, the
+    mix after it) at K1_RAGGED's shapes (37 pulses, gates 37/300/700, 41
+    Doppler bins) with 1, 2 and 13 beams, with and without the rank-K
+    signal: bit for bit alike, within 1e-5 RMS of the plain version and of
+    K1 (which mixes before the DFT; both ~4e-6 from plain)."""
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b)
+    signal = signal if with_signal else None
+    planes = nr.philox_planes(plan, (5, 6), num_b, device=cuda_device)
+    got = _f32_schedules_alike(plan, lmat, signal, planes)
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    k1 = nr.noise_rdm(plan, lmat, signal, planes=planes, layout="bvg")
+    torch.cuda.synchronize()
+    assert _rms(got - ref) <= 1e-5 * _rms(ref)
+    assert _rms(got - k1) <= 1e-5 * _rms(k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_signal", [False, True])
+def test_f32_schedules_alike_at_full_size_on_card(cuda_device, with_signal):
+    """The same at the perf config's full shape (13 beams, 332 pulses, 3404
+    gates, 332 Doppler bins) on K1c's planes, with and without the signal of
+    the benchmark's two targets."""
+    from radar_tpu_torch.config.params import perf_config
+
+    cfg = perf_config()
+    lr = make_lowrank_stages(cfg, precompute(cfg), device=cuda_device)
+    plan, lmat = lr.rplan, lr.l_factor
+    signal = lr.signal_factors(TargetBatch.make(
+        [3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0], [10.0, 15.0])) \
+        if with_signal else None
+    planes = nr.gen_noise_planes(plan, (8, 9), lmat.shape[0],
+                                 device=cuda_device)
+    got = _f32_schedules_alike(plan, lmat, signal, planes)
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    k1 = nr.noise_rdm(plan, lmat, signal, planes=planes, layout="bvg")
+    torch.cuda.synchronize()
+    assert _rms(got - ref) <= 1e-5 * _rms(ref)
+    assert _rms(got - k1) <= 1e-5 * _rms(k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_b", [2, 13])
+def test_f32_draw_mode_equals_planes_mode_on_card(cuda_device, num_b):
+    """K7's draw mode at f32 (``stacked=True``: K4's PC, its stages drawn
+    in the block at one beam a block) equals K7 at f32 on K1c's planes bit
+    for bit at K1_RAGGED's shapes with the signal (K4's PC is K1's, bit for
+    bit); with bf16 output it is that map rounded, exactly; one drawing PC
+    launch, no planes-mode PC launch."""
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b)
+    seed = (12, 34)
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=cuda_device)
+    before = (nr.k4_pc_launch_count, nr.tf32_pc_launch_count)
+    drawn = nr.noise_rdm(plan, lmat, signal, seed=seed, stacked=True,
+                         layout="bvg")
+    torch.cuda.synchronize()
+    assert (nr.k4_pc_launch_count, nr.tf32_pc_launch_count) == (
+        before[0] + 1, before[1])
+    fed = nr.noise_rdm(plan, lmat, signal, planes=planes, variant="stacked",
+                       layout="bvg")
+    bf = torch.bfloat16
+    drawn16 = nr.noise_rdm(plan, lmat, signal, seed=seed, stacked=True,
+                           out_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    torch.cuda.synchronize()
+    assert torch.equal(drawn, fed)
+    assert torch.equal(drawn16, nr.round_mul(drawn, bf))
+    assert _rms(drawn - ref) <= 1e-5 * _rms(ref)
+
+
+@pytest.mark.cuda
+def test_k1_equals_k4_planes_mode_on_card(cuda_device):
+    """K1's map (mix before the DFT, then the add of the DFT's passes and
+    the signal) is K4's in planes mode bit for bit, with the signal, at
+    K1_RAGGED's shapes: the tail both share with the f32 schedules' route
+    keeps its mode (the join and the mix after the DFT run only for
+    them)."""
+    num_b = 13
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b, seed=7)
+    planes = nr.gen_noise_planes(plan, (3, 3), num_b, device=cuda_device)
+    k1 = nr.noise_rdm(plan, lmat, signal, planes=planes, layout="bvg")
+    k4 = nr.noise_rdm(plan, lmat, signal, planes=planes, layout="bvg",
+                      rolling=False, beams_per_step=1)
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k4)
+    assert _rms(k1 - ref) <= 1e-5 * _rms(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_b", [2, 13])
+def test_f32_join_and_mix_after_exact_probe_on_card(cuda_device, num_b):
+    """Inputs whose every sum is exact in f32: one-tap unit filters, D the
+    identity, L, the signal factors and the planes integers, the planes
+    plus odd multiples of 2^-12 (so each value's TF32 lo part is nonzero
+    and the correction passes carry it: a missing or misplaced join or a
+    dropped DFT correction shows). The f32 schedules equal the plain
+    version exactly, and with bf16 output its rounding exactly."""
+    num_p = K1_RAGGED[3]
+    plan = _k1_plan(cuda_device, lh=(1, 1, 1), unit=True)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    ints = lambda *s: torch.randint(-3, 4, s, generator=g,
+                                    device=cuda_device).float()
+    cint = lambda *s: torch.complex(ints(*s), ints(*s))
+    planes = [tuple(ints(num_b, num_p, seg.xlen)
+                    + (2 * ints(num_b, num_p, seg.xlen) + 1) * 2.0 ** -12
+                    for _ in range(2)) for seg in plan.segments]
+    lmat = cint(num_b, num_b)
+    signal = (cint(2, plan.n_dop), cint(2, plan.n_gates), cint(2, num_b))
+    got = _f32_schedules_alike(plan, lmat, signal, planes)
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal)
+    bf = torch.bfloat16
+    got16 = nr.noise_rdm(plan, lmat, signal, planes=planes,
+                         variant="resident", out_dtype=bf, layout="bvg")
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0.0
+    assert torch.equal(got, ref)
+    assert torch.equal(got16, nr.round_mul(ref, bf))

@@ -23,6 +23,7 @@ from radar_tpu.ops.dbf import dbf_weights_effective_np as j_weff
 from radar_tpu.ops.mtd import make_mtd_matrix as j_mtd_matrix
 from radar_tpu.ops.pallas_rdm import (gen_noise_planes_pallas,
                                       make_rdm_plan as j_rdm_plan,
+                                      noise_rdm_pallas,
                                       noise_rdm_pallas_gen,
                                       noise_rdm_pallas_planes,
                                       segment_buffer_len)
@@ -347,11 +348,12 @@ def _mm3(a, b):
                          real(a.real, b.imag) + real(a.imag, b.real))
 
 
-def _k1_tf32_emulated(plan, l_factor, planes, signal):
-    """K1's schedule in its arithmetic on the CPU: per segment the strip
-    GEMM over 128-gate blocks (the block's samples j0 .. j0 + k_pad - 1
-    times the strip), the beam mix, the DFT, the rank-K signal."""
-    num_b, num_p = l_factor.shape[0], plan.n_pulses
+def _tf32_pc_emulated(plan, planes):
+    """K1's strip-GEMM PC in its arithmetic on the CPU: per segment the
+    strip GEMM over 128-gate blocks (the block's samples j0 .. j0 + k_pad -
+    1 times the strip), hi*hi + hi*lo + lo*hi with the strip's TF32 parts:
+    pc [B, P, G]."""
+    num_b, num_p = planes[0][0].shape[0], plan.n_pulses
     pcs = []
     for seg, (xr, xi) in zip(plan.segments, planes):
         st = seg.strip_tf32                  # [4, 128, k_pad], split
@@ -370,13 +372,30 @@ def _k1_tf32_emulated(plan, l_factor, planes, signal):
         y = torch.complex(prod(ah, at, al, sr) - prod(bh, bt, bl, si),
                           prod(ah, at, al, si) + prod(bh, bt, bl, sr))
         pcs.append(y.reshape(num_b, num_p, -1)[..., :seg.j_len])
-    pc = torch.cat(pcs, dim=-1)                               # [B, P, G]
-    pc = torch.einsum("bc,cpg->bpg", l_factor, pc)
-    out = _mm3(plan.d, pc)                                    # [B, V, G]
+    return torch.cat(pcs, dim=-1)
+
+
+def _add_signal(out, signal):
     dv, pb, st = signal
     for k in range(dv.shape[0]):
         out = out + st[k][:, None, None] * (dv[k][:, None] * pb[k][None, :])
     return out
+
+
+def _k1_tf32_emulated(plan, l_factor, planes, signal):
+    """K1's schedule in its arithmetic on the CPU: the strip-GEMM PC, the
+    beam mix, the DFT, the rank-K signal."""
+    pc = torch.einsum("bc,cpg->bpg", l_factor, _tf32_pc_emulated(plan, planes))
+    return _add_signal(_mm3(plan.d, pc), signal)                # [B, V, G]
+
+
+def _schedules_tf32_emulated(plan, l_factor, planes, signal=None):
+    """The f32 schedules' arithmetic (K10, K7, K9 and K7's draw mode, on
+    K1's GEMMs) on the CPU: the strip-GEMM PC, the DFT of the un-mixed PC,
+    then the beam mix after it, then the rank-K signal."""
+    mt = _mm3(plan.d, _tf32_pc_emulated(plan, planes))          # [B, V, G]
+    out = torch.einsum("bc,cvg->bvg", l_factor, mt)
+    return out if signal is None else _add_signal(out, signal)
 
 
 def test_k1_tf32_arithmetic_matches_jax_rolling_kernel(setup, gen_planes):
@@ -393,6 +412,58 @@ def test_k1_tf32_arithmetic_matches_jax_rolling_kernel(setup, gen_planes):
                                 out_dtype=jnp.float32, rolling=True,
                                 signal=sig)
     got = _k1_tf32_emulated(tl.rplan, tl.l_factor, planes, setup["factors"])
+    assert float(np.max(np.abs(np.asarray(want)))) > 0.0
+    _close(got.permute(1, 2, 0), want)
+
+
+# ------------------------------- the f32 schedules on K1's 3xTF32 GEMMs
+
+
+@pytest.fixture(scope="module")
+def white_cube(setup):
+    """A compact white cube [B, P, s_compact] complex64 from a numpy seed."""
+    plan = setup["tl"].rplan
+    rng = np.random.default_rng(23)
+    shape = (setup["l_np"].shape[0], plan.n_pulses, plan.s_compact)
+    return ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+            * np.sqrt(0.5)).astype(np.complex64)
+
+
+@pytest.mark.parametrize("variant", ["resident", "stacked", "allbeams"])
+def test_f32_schedule_tf32_arithmetic_matches_jax_planes_kernel(
+        setup, white_cube, variant):
+    """K10, K7 and K9 at f32 as they run on the card (K1's 3xTF32 strip
+    GEMM, the DFT GEMM on the un-mixed PC, the mix after it) emulated on the
+    CPU vs JAX's interpret-mode ``noise_rdm_pallas(mul_dtype=float32,
+    variant=)`` on the same compact cube: RMS within 1e-5, every element
+    within 1e-4 of the RMS."""
+    tl = setup["tl"]
+    want = noise_rdm_pallas(jnp.asarray(white_cube), setup["jplan"],
+                            setup["l_np"], interpret=True,
+                            mul_dtype=jnp.float32, variant=variant)
+    planes = nr.planes_from_compact(torch.from_numpy(white_cube), tl.rplan)
+    got = _schedules_tf32_emulated(tl.rplan, tl.l_factor, planes)
+    assert float(np.max(np.abs(np.asarray(want)))) > 0.0
+    _close(got.permute(1, 2, 0), want)
+
+
+def test_f32_draw_mode_tf32_arithmetic_matches_jax_stacked_kernel(
+        setup, gen_planes):
+    """K7's draw mode at f32 (``stacked=True``) in its card arithmetic
+    (K4's drawn PC, which equals K1's, then the DFT GEMM and the mix after
+    it, the rank-K signal) emulated on the CPU vs JAX's interpret-mode
+    rolling kernel with ``stacked=True`` and the signal fused, on the
+    planes that kernel draws: RMS within 1e-5, every element within 1e-4 of
+    the RMS."""
+    jplan, l_np, tl = setup["jplan"], setup["l_np"], setup["tl"]
+    seed, planes = gen_planes
+    sig = tuple(jnp.asarray(f.numpy()) for f in setup["factors"])
+    want = noise_rdm_pallas_gen(seed, jplan, l_np, float(np.sqrt(1.5)),
+                                interpret=True, mul_dtype=jnp.float32,
+                                out_dtype=jnp.float32, rolling=True,
+                                stacked=True, signal=sig)
+    got = _schedules_tf32_emulated(tl.rplan, tl.l_factor, planes,
+                                   setup["factors"])
     assert float(np.max(np.abs(np.asarray(want)))) > 0.0
     _close(got.permute(1, 2, 0), want)
 

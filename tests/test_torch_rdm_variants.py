@@ -245,24 +245,19 @@ def test_rdm_plan_d_bf16_is_the_rounded_dft(setup):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_constants_rounded_once_per_tensor(setup, dtype):
-    """The plan's rounded planes of D and mp (``d_planes``, ``mp_planes``,
-    made once per plan) at ``dtype`` equal ``round_mul`` of the constant's
-    (re, im) planes, contiguous, and ``taps_planes`` the f32 taps'; L's
-    (``_rounded_l``) equals ``round_mul`` of L, a second call returns the
-    kept copy, and after a change to L in place the copy follows it (a new
-    rounded copy at bf16; at f32 L itself)."""
+    """The plan's bf16-rounded planes of mp (``mp_bf16``, the filter of
+    K7's bf16 draw-mode PC, made once per plan) equal ``round_mul`` of mp's
+    (re, im) planes, contiguous; L's (``_rounded_l``) at ``dtype`` equals
+    ``round_mul`` of L, a second call returns the kept copy, and after a
+    change to L in place the copy follows it (a new rounded copy at bf16;
+    at f32 L itself)."""
     md = DTYPES[dtype][1]
     plan = setup["plan"]
-    consts = [(plan.d_planes, plan.d)] + [(seg.mp_planes, seg.mp)
-                                          for seg in plan.segments]
-    for planes, t in consts:
-        re, im = planes[nr._ROUNDED[md]]
-        want = nr.round_mul(t, md)
+    for seg in plan.segments:
+        re, im = seg.mp_bf16
+        want = nr.round_mul(seg.mp, torch.bfloat16)
         assert torch.equal(re, want.real) and torch.equal(im, want.imag)
-        assert re.is_contiguous() and im.is_contiguous()
-    for seg in plan.segments:     # the f32 ring's taps, as they are
-        assert torch.equal(seg.taps_planes[0], seg.taps.real)
-        assert torch.equal(seg.taps_planes[1], seg.taps.imag)
+        assert seg.mp_bf16.is_contiguous()
     lt = setup["lt"].clone()
     first = nr._rounded_l(lt, md)
     assert torch.equal(first, nr.round_mul(lt, md)) and first.is_contiguous()
