@@ -46,17 +46,26 @@ targets:
   ``csrc/noise_rdm_sm90.cu``, each counted); holds each at f32 and bf16
   against its plain version, K1 and its own f32 map (the f32 three bit
   for bit alike), K10 with bf16 output at both multiply types and K7 on
-  its own draws (bit for bit at f32); times each at both types on a busy
-  and an idle card with the host's ms a call and the profiler's split
-  (PC, join, DFT, mix, the wrapper's casts and pads; at f32 none of the
-  retired CUDA-core kernels may show), beside both bounds at f32, and the
+  its own draws (bit for bit at f32), and K7's bf16 draw mode (the strip
+  GEMM whose producer warpgroups draw its stages, counted) bit for bit
+  against its bf16 planes mode on K1c's planes, bounded by the larger of
+  its bf16 operations and the draws the function needs (each sample once
+  at K1c's SASS cost), its own draws' issue time (the producers' loop
+  SASS) printed as a diagnostic; times each at both types on a busy and
+  an idle card with the host's ms a call and the profiler's split (each
+  kernel's mean over the launches the profiler recorded, times its
+  launches a call; PC, join, DFT, mix, the wrapper's casts and pads; at
+  f32 none of the retired CUDA-core kernels may show), beside both bounds
+  at f32, and the
   DFT GEMM alone beside its plain version and one bf16 ``torch.matmul``;
   phase ``pc_study`` runs ``scripts/bench_pc2d.py``'s three
   chains (cuBLAS banded, flat 2D, K8) and holds K8 against its plain
   version and the banded-matmul PC, then splits K8 at bf16 into its
   staging kernel and strip GEMM (profiler) with the GEMM's TFLOP/s over
-  the band it walks and over the convolution's own MACs, and times K8 at
-  f32 (CUDA cores);
+  the band it walks and over the convolution's own MACs, and runs K8 at
+  f32 (f32 staging, then K1's 3xTF32 strip GEMM with both passes in one
+  launch, counted), split and timed beside both its bounds and three f32
+  ``torch.matmul`` calls;
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -89,7 +98,8 @@ raises and exits non-zero. The line before the last lists every kernel
 with its bound; the last line is the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 The SASS of the compiled libraries (``cuobjdump``) shows ``HGMMA`` in
-the DFT GEMM and K4's PC and ``UTMALDG`` in K3.
+the DFT GEMM, K4's and K8's PC and both strip GEMMs, and ``UTMALDG`` in
+K3.
 Without CUDA, or without the repository beside it, it fails at once.
 """
 
@@ -261,8 +271,14 @@ def _reference_stages(cfg, pre, truth, dev, reps: int = 5) -> dict:
     return {name: statistics.median(t[1:]) for name, t in times.items()}
 
 
-def _kernel_ms(fn, reps: int = 5) -> dict:
-    """Device ms per call of ``fn`` by kernel name, from torch.profiler."""
+def _kernel_profile(fn, reps: int = 5) -> dict:
+    """{kernel name: (device ms per call, launches a call the profiler
+    recorded)} of ``fn`` from torch.profiler. A kernel's ms a call is its
+    mean over the launches recorded times its launches a call (the
+    recorded ones over ``reps``, rounded): in this script's process the
+    profiler has missed the first launches of a window (K4's PC, mix and
+    DFT recorded 4 calls of 5; the drawing strip GEMM 2 of 3), and the sum
+    over ``reps`` then read low."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -278,8 +294,18 @@ def _kernel_ms(fn, reps: int = 5) -> dict:
     # kernel rows only: an operator's row repeats its kernels' device time
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0))
-    return {e.key: dev_t(e) / reps / 1000.0 for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_t(e) > 0}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and dev_t(e) > 0:
+            seen = e.count / reps
+            calls = round(seen) if seen >= 0.5 else seen
+            out[e.key] = (dev_t(e) / e.count / 1000.0 * calls, seen)
+    return out
+
+
+def _kernel_ms(fn, reps: int = 5) -> dict:
+    """Device ms per call of ``fn`` by kernel name (``_kernel_profile``)."""
+    return {k: ms for k, (ms, _) in _kernel_profile(fn, reps).items()}
 
 
 def _busy_top(ms: dict):
@@ -339,16 +365,19 @@ PEAK_PIPE_PER_SM = 64
 PEAK_ISSUE_PER_SM = 128
 
 
-def _loop_sass(lib_path: str, kernel: str) -> dict:
+def _loop_sass(lib_path: str, kernel: str, store: str = "STG",
+               per_store: int = 2, innermost: bool = False) -> dict:
     """The SASS of the longest loop of ``kernel`` in the compiled library
-    (``cuobjdump -sass``): its instruction counts by opcode, the samples
-    one pass stores (two 16-byte stores, re and im, per 4 samples), and per
-    sample its FMA-heavy-pipe instructions (``IMAD_OPS``; IMAD.WIDE counted
-    once, and twice in ``imad_wide2_per_sample``), its ALU-pipe ones
-    (``ALU_OPS``) and all its instructions; ``clocks_per_sample`` is the
-    SM clocks a sample takes at the busiest of these rates (pipes at
-    ``PEAK_PIPE_PER_SM``, issue at ``PEAK_ISSUE_PER_SM``), and
-    ``clocks_per_sample_wide2`` the same with IMAD.WIDE at two slots."""
+    (``cuobjdump -sass``; with ``innermost``, the shortest loop holding the
+    16-byte ``store``s): its instruction counts by opcode, the samples one
+    pass stores (``per_store`` samples a 16-byte ``store``: 2 for f32 re
+    and im planes, 4 for bf16), and per sample its FMA-heavy-pipe
+    instructions (``IMAD_OPS``; IMAD.WIDE counted once, and twice in
+    ``imad_wide2_per_sample``), its ALU-pipe ones (``ALU_OPS``) and all its
+    instructions; ``clocks_per_sample`` is the SM clocks a sample takes at
+    the busiest of these rates (pipes at ``PEAK_PIPE_PER_SM``, issue at
+    ``PEAK_ISSUE_PER_SM``), and ``clocks_per_sample_wide2`` the same with
+    IMAD.WIDE at two slots."""
     import re
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -366,18 +395,25 @@ def _loop_sass(lib_path: str, kernel: str) -> dict:
              (m := re.search(r"0x([0-9a-f]+)", line)) and
              int(m.group(1), 16) < a]
     _require(len(loops) >= 1, f"a loop in {kernel}")
-    lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
+    stores_in = lambda lo, hi: sum(
+        1 for a, op, _ in ins if lo <= a <= hi
+        and op.split()[-1].startswith(store) and ".128" in op)
+    if innermost:
+        loops = [ab for ab in loops if stores_in(*ab) >= 2]
+        _require(len(loops) >= 1, f"a loop of {kernel} storing {store}")
+        lo, hi = min(loops, key=lambda ab: ab[1] - ab[0])
+    else:
+        lo, hi = max(loops, key=lambda ab: ab[1] - ab[0])
     body = [op.split()[-1] for a, op, _ in ins if lo <= a <= hi]
     hist = {}
     for op in body:
         hist[op] = hist.get(op, 0) + 1
     count = lambda ops: sum(n for op, n in hist.items()
                             if op.split(".")[0] in ops)
-    stores = sum(n for op, n in hist.items()
-                 if op.startswith("STG") and ".128" in op)
+    stores = stores_in(lo, hi)
     _require(stores >= 2 and stores % 2 == 0,
              f"{kernel}'s loop stores 16-byte vectors to both planes")
-    samples = 2 * stores
+    samples = per_store * stores
     wide = sum(n for op, n in hist.items() if op.startswith("IMAD.WIDE"))
     imad, alu = count(IMAD_OPS) / samples, count(ALU_OPS) / samples
     every = sum(hist.values()) / samples
@@ -639,43 +675,7 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     rows += _f32_schedules(nr, plan, lmat, z, seed, errs, {
         **launches32, "K7": launches32["K7"] - drawn32,
         "K7 draw mode": drawn32}, card)
-    # K7 in draw mode at bf16 (stacked=True: its PC draws its own noise on
-    # mma.sync), the next kernel in the redesign queue: vs its plain version
-    # on the same draws, busy/idle/host, the profiler's split
-    draw = lambda: nr.noise_rdm(plan, lmat, seed=seed, stacked=True,
-                                mul_dtype=bf, layout="bvg")
-    ref_draw = nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=bf)
-    nr.k7_launch_count = 0
-    y_draw = draw()
-    torch.cuda.synchronize()
-    k7_draw_launches = nr.k7_launch_count
-    e_draw16 = _rel_rms(y_draw, ref_draw)
-    err_draw16 = float((y_draw - ref_draw).abs().max())
-    _require(e_draw16 <= BF16_HOLD, "K7 draw mode at bf16 vs plain")
-    del y_draw, ref_draw
-    d_ms, d_pms = _time_pair(draw, lambda: nr.noise_rdm_plain(
-        plan, lmat, nr.philox_planes(plan, seed, num_b, device=dev),
-        mul_dtype=bf))
-    d_busy, d_host = _busy_event_ms(draw)
-    d_prof = _kernel_ms(draw, reps=3)
-    d_split = {"pc": _named_ms(d_prof, "band_pc_tc_kernel"),
-               "dft_gemm": _named_ms(d_prof, "dft_kernel"),
-               "mix": _named_ms(d_prof, "::mix_kernel<")}
-    d_bound, d_by = _bound(_k1_bound_ms(plan, num_b, PEAK_BF16),
-                           n_out / PEAK_HBM * 1e3)
-    _line("time", what=repr("K7 draw mode (stacked=True, bf16) / plain"),
-          busy_card_ms=round(d_busy, 4), idle_card_ms=round(d_ms, 4),
-          host_ms=round(d_host, 4), plain_ms=round(d_pms, 4),
-          rms_err_over_rms=e_draw16, profile_ms=d_split,
-          bound_ms=round(d_bound, 4), card=repr(card))
-    rows.append(("K7 noise RDM, draw mode (stacked=True), bf16 operands: "
-                 "mma.sync PC drawing its own noise, wgmma DFT, mix",
-                 "rdm_variants.cu", "radar_tpu/ops/pallas_rdm.py:980 "
-                 "(rolling=True, stacked=True)", k7_draw_launches,
-                 err_draw16, d_busy, d_pms, d_bound, d_by, None,
-                 {"ms_is": "events around one call, the card kept busy",
-                  "idle_card_ms": d_ms, "host_ms": d_host,
-                  "profile_ms": d_split}))
+    rows.append(_k7_draw_bf16(nr, plan, lmat, planes, seed, n_out, card))
     rows.append(_dft_gemm(nr, plan, planes_c, parts["dft_gemm"], card))
     k1p_ms, k1p_plain_ms = _time_pair(
         lambda: nr.noise_rdm(plan, lmat, planes=planes, layout="bvg"),
@@ -683,6 +683,129 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     _line("time", what=repr("K1 planes mode / plain"), ms=round(k1p_ms, 4),
           plain_ms=round(k1p_plain_ms, 4), card=repr(card))
     return rows
+
+
+def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
+    """K7 in draw mode at bf16 (stacked=True: the strip GEMM whose two
+    producer warpgroups draw its data's stages, then the wgmma DFT GEMM and
+    the mix): one strip-GEMM launch in draw mode, equal bit for bit to K7's
+    bf16 planes mode on K1c's ``planes``, vs its plain version on the same
+    draws; busy/idle/host, the profiler's split with the launches it
+    recorded, and its bound: the larger of the bf16 operations, the bytes,
+    and the draws the function needs (each sample once, as K1c and the
+    TPU's rolling kernel draw it, at K1c's SASS cost a sample). The
+    design's own draws (each sample once for every 128-gate block whose
+    window holds it, at the producers' loop SASS cost) are printed beside
+    it as a diagnostic, not as a bound. Returns its kernels-line row."""
+    import torch
+
+    from radar_tpu_torch import _build
+
+    bf = torch.bfloat16
+    num_b = lmat.shape[0]
+    draw = lambda: nr.noise_rdm(plan, lmat, seed=seed, stacked=True,
+                                mul_dtype=bf, layout="bvg")
+    ref_draw = nr.noise_rdm_plain(plan, lmat, planes, mul_dtype=bf)
+    fed = nr.noise_rdm(plan, lmat, planes=planes, variant="stacked",
+                       mul_dtype=bf, layout="bvg")
+    nr.k7_launch_count = nr.strip_pc_draw_launch_count = 0
+    nr.strip_pc_launch_count = 0
+    y_draw = draw()
+    torch.cuda.synchronize()
+    launches = {"K7": nr.k7_launch_count,
+                "strip_gemm_drawn": nr.strip_pc_draw_launch_count,
+                "strip_gemm_planes": nr.strip_pc_launch_count}
+    e_draw16 = _rel_rms(y_draw, ref_draw)
+    err_draw16 = float((y_draw - ref_draw).abs().max())
+    same = bool(torch.equal(y_draw, fed))
+    _line("rdm_variants", path="noise_rdm(seed=, stacked=True, "
+          "mul_dtype=bf16)", launches=launches, rms_err_over_rms=e_draw16,
+          equals_bf16_planes_mode_on_K1c_planes=same,
+          tol=f"<={BF16_HOLD} (rms rel); == planes mode bit for bit")
+    _require(launches == {"K7": 1, "strip_gemm_drawn": 1,
+                          "strip_gemm_planes": 0},
+             "K7's bf16 draw mode ran the strip GEMM's draw mode once")
+    _require(e_draw16 <= BF16_HOLD, "K7 draw mode at bf16 vs plain")
+    _require(same, "K7 draw mode at bf16 == K7 bf16 planes mode on K1c's "
+             "planes, bit for bit")
+    del y_draw, ref_draw, fed
+    d_ms, d_pms = _time_pair(draw, lambda: nr.noise_rdm_plain(
+        plan, lmat, nr.philox_planes(plan, seed, num_b, device=lmat.device),
+        mul_dtype=bf))
+    d_busy, d_host = _busy_event_ms(draw)
+    d_prof = _kernel_profile(draw, reps=10)
+    parts = (("pc_strip_gemm_drawn", "strip_pc_kernel<true>"),
+             ("dft_gemm", "dft_kernel"), ("mix", "::mix_kernel<"))
+    d_split = {part: sum(v[0] for k, v in d_prof.items() if key in k)
+               for part, key in parts}
+    d_seen = {part: sum(v[1] for k, v in d_prof.items() if key in k)
+              for part, key in parts}
+    retired = [k[:60] for k in d_prof if "band_pc_tc_kernel" in k]
+    _require(d_split["pc_strip_gemm_drawn"] > 0.0 and not retired,
+             "the profiler saw the drawing strip GEMM and no mma.sync PC")
+    # the draws the function needs: each sample once, at K1c's SASS cost a
+    # sample (its loop's busiest pipe or issue); the design's draws: the
+    # producers' loop SASS (4 bf16 samples a 16-byte shared store, re and
+    # im) times the samples it draws, each once for every 128-gate block
+    # whose window holds it
+    k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
+                          "planes_kernelILb1E")
+    sass = _loop_sass(_build._library_path("band_pc_sm90")[1],
+                      "strip_pc_kernelILb1E", store="STS", per_store=4,
+                      innermost=True)
+    rows_ = num_b * plan.n_pulses
+    samples = rows_ * sum(sg.r_len for sg in plan.segments)
+    drawn = rows_ * sum(-(-sg.j_len // nr.STRIP_BN) * sg.strip.shape[2]
+                        for sg in plan.segments)
+    _, sm_max_mhz = _sm_clocks()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ms = lambda clocks, n: clocks * n / (sms * sm_max_mhz * 1e6) * 1e3
+    draws_ms = issue_ms(k1c_sass["clocks_per_sample"], samples)
+    design_ms = issue_ms(sass["clocks_per_sample"], drawn)
+    ops_ms = _k1_bound_ms(plan, num_b, PEAK_BF16)
+    bytes_ms = n_out / PEAK_HBM * 1e3
+    d_bound, d_by = _bound(max(ops_ms, draws_ms), bytes_ms)
+    _line("time", what=repr("K7 draw mode (stacked=True, bf16) / plain"),
+          busy_card_ms=round(d_busy, 4), idle_card_ms=round(d_ms, 4),
+          host_ms=round(d_host, 4), plain_ms=round(d_pms, 4),
+          rms_err_over_rms=e_draw16, profile_ms=d_split,
+          profile_launches_recorded_a_call=d_seen,
+          bound_ms=round(d_bound, 4), ops_bound_ms=round(ops_ms, 4),
+          draws_bound_ms=round(draws_ms, 4), samples_needed=samples,
+          k1c_clocks_per_sample=k1c_sass["clocks_per_sample"],
+          bytes_bound_ms=round(bytes_ms, 4),
+          design_draws_issue_ms=round(design_ms, 4), design_draws=drawn,
+          draw_loop_sass=sass, card=repr(card))
+    return ("K7 noise RDM, draw mode (stacked=True), bf16 operands: the "
+            "strip GEMM with two drawing producer warpgroups (TMA strip, "
+            "wgmma), wgmma DFT, mix", "band_pc_sm90.cu",
+            "radar_tpu/ops/pallas_rdm.py:980 (rolling=True, stacked=True)",
+            launches["K7"], err_draw16, d_busy, d_pms, d_bound, d_by, None,
+            {"ms_is": "events around one call, the card kept busy",
+             "idle_card_ms": d_ms, "host_ms": d_host, "profile_ms": d_split,
+             "ops_bound_ms": ops_ms, "draws_bound_ms": draws_ms,
+             "draws_bound_note": "the samples the function needs, each "
+                                 "once, at K1c's SASS cost a sample (the "
+                                 "busiest pipe or issue), over every SM at "
+                                 "its top clock",
+             "samples_needed": samples,
+             "design_draws_issue_ms": design_ms,
+             "design_draws_note": "diagnostic, not a bound: the samples "
+                                  "this design draws (each once for every "
+                                  "128-gate block whose window holds it) "
+                                  "at its producers' loop SASS cost",
+             "design_draws": drawn,
+             "design_draw_clocks_per_sample": sass["clocks_per_sample"],
+             "bytes_bound_ms": bytes_ms})
+
+
+def _sm_clocks():
+    """(SM clock, its maximum) in MHz, as nvidia-smi reads them."""
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0].split(",")
+    return tuple(float(c) for c in clocks)
 
 
 # the f32 schedules' kernels by the profiler's names, and the CUDA-core
@@ -850,8 +973,8 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     """Phase ``pc_study``: ``scripts/bench_pc2d.py``'s three chains at full
     size (white z -> PC -> MTD with bf16 operands -> mix): the cuBLAS banded
     chain over the compact noise plan, the flat 2D chain, and K8. Holds K8
-    against its plain version and the f32 banded-matmul PC. Returns the
-    kernels-line row of K8."""
+    against its plain version and the f32 banded-matmul PC at both multiply
+    types. Returns the kernels-line rows of K8 at bf16 and at f32."""
     import torch
 
     from radar_tpu_torch.ops.mtd import make_mtd_matrix
@@ -934,19 +1057,7 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     _line("pc_study", K8_vs_plain=errs,
           tol="f32 <=1e-5, bf16 <=1e-4, f32 vs matmul <=1e-5 (rms rel)")
 
-    # the library yardstick: one bf16 torch.matmul per segment of the
-    # stacked windows [B, nt, 2P, W] with [Mr | Mi] [W, 2T]
-    lib_in = []
-    for seg in pplan.segments:
-        nt = -(-seg.j_len // seg.tile)
-        pad = lambda x: torch.nn.functional.pad(
-            x[:, :, seg.c0:seg.c0 + seg.r_len], (seg.pad_front, seg.pad_tail))
-        win = lambda x: pad(x).unfold(-1, seg.window, seg.tile)[:, :, :nt]
-        x2 = torch.cat([win(z.real), win(z.imag)], dim=1).to(bf)
-        lib_in.append((x2.permute(0, 2, 1, 3).contiguous(),
-                       torch.cat([seg.mr, seg.mi], dim=1).to(bf)))
-    lib_ms = statistics.median(_event_ms(
-        lambda: [torch.matmul(x, m) for x, m in lib_in], 10))
+    lib_ms = _library_ms(z, pplan, bf)
     k8_ms, k8_plain_ms = _time_pair(
         lambda: ppc.pulse_compress_noise(z, pplan),
         lambda: ppc.pulse_compress_noise_plain(z, pplan))
@@ -961,18 +1072,7 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     k8_bytes_ms = ((z.numel() + num_b * num_p * pplan.n_gates) * 8
                    / PEAK_HBM * 1e3)
     bound, by = _bound(8.0 * macs / PEAK_BF16 * 1e3, k8_bytes_ms)
-    # K8 at f32 (band_pc_kernel on the CUDA cores): busy and idle card,
-    # host ms, plain, its bound at the FP32 CUDA-core rate
-    k8_32 = lambda: ppc.pulse_compress_noise(z, pplan, mul_dtype=f32)
-    k8_32_ms, k8_32_plain_ms = _time_pair(
-        k8_32, lambda: ppc.pulse_compress_noise_plain(z, pplan,
-                                                      mul_dtype=f32))
-    k8_32_busy, k8_32_host = _busy_event_ms(k8_32)
-    bound32, by32 = _bound(8.0 * macs / PEAK_FP32 * 1e3, k8_bytes_ms)
-    _line("time", what=repr("K8 (f32, CUDA cores) / plain"),
-          busy_card_ms=round(k8_32_busy, 4), idle_card_ms=round(k8_32_ms, 4),
-          host_ms=round(k8_32_host, 4), plain_ms=round(k8_32_plain_ms, 4),
-          bound_ms=round(bound32, 4), bound_by=by32, card=repr(card))
+    row32 = _k8_f32(ppc, pplan, z, macs, k8_bytes_ms, card)
 
     # K8's two kernels (profiler) and the strip GEMM's rate over the band
     # it walks (128-row x 128-gate blocks, k to the strip's padded depth)
@@ -993,18 +1093,91 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
             "gemm_tflops_band": 8.0 * walked / gemm_ms / 1e9,
             "gemm_tflops_direct": 8.0 * macs / gemm_ms / 1e9,
             "band_gflop": 8.0 * walked / 1e9,
-            "direct_gflop": 8.0 * macs / 1e9,
-            "f32_busy_card_ms": k8_32_busy, "f32_idle_card_ms": k8_32_ms,
-            "f32_host_ms": k8_32_host, "f32_plain_ms": k8_32_plain_ms,
-            "f32_bound_ms": bound32}
+            "direct_gflop": 8.0 * macs / 1e9}
     _line("pc_study", K8_split={k: round(v, 4) for k, v in rate.items()},
           other_ms=round(sum(split.values()) - stage_ms - gemm_ms, 4),
           bound_ms=round(bound, 4), bound_by=by, card=repr(card))
     return [("K8 banded PC of white noise (study), bf16 operands: staging "
              "+ strip GEMM", "band_pc_sm90.cu",
              "radar_tpu/studies/pallas_pc.py:150", launches, errs["bf16"][1],
-             k8_ms, k8_plain_ms, bound, by, lib_ms,
-             {**rate, "f32_bound_by": by32})]
+             k8_ms, k8_plain_ms, bound, by, lib_ms, rate), row32]
+
+
+def _library_ms(z, pplan, dtype) -> float:
+    """K8's library yardstick: ms of one ``dtype`` torch.matmul per segment
+    of the stacked windows [B, nt, 2P, W] with [Mr | Mi] [W, 2T] (the
+    operands made before the timing)."""
+    import torch
+
+    lib_in = []
+    for seg in pplan.segments:
+        nt = -(-seg.j_len // seg.tile)
+        pad = lambda x: torch.nn.functional.pad(
+            x[:, :, seg.c0:seg.c0 + seg.r_len], (seg.pad_front, seg.pad_tail))
+        win = lambda x: pad(x).unfold(-1, seg.window, seg.tile)[:, :, :nt]
+        x2 = torch.cat([win(z.real), win(z.imag)], dim=1).to(dtype)
+        lib_in.append((x2.permute(0, 2, 1, 3).contiguous(),
+                       torch.cat([seg.mr, seg.mi], dim=1).to(dtype)))
+    return statistics.median(_event_ms(
+        lambda: [torch.matmul(x, m) for x, m in lib_in], 10))
+
+
+def _k8_f32(ppc, pplan, z, macs: int, bytes_ms: float, card) -> tuple:
+    """K8 at f32 (the staging kernel's f32 planes, then K1's 3xTF32 strip
+    GEMM with both passes in one launch, ``k8_pc_kernel``) at full size:
+    one staging and one GEMM launch a call, busy and idle card, host ms,
+    the plain version, the profiler's split (staging, GEMM), both bounds
+    (3xTF32 on the tensor cores, FP32 on the CUDA cores) and the library
+    yardstick (one f32 ``torch.matmul`` a segment of the windows with [Mr
+    | Mi], full f32). Returns its kernels-line row."""
+    import torch
+
+    f32 = torch.float32
+    call = lambda: ppc.pulse_compress_noise(z, pplan, mul_dtype=f32)
+    ppc.launch_count = ppc.stage_launch_count = ppc.tf32_pc_launch_count = 0
+    got = call()
+    torch.cuda.synchronize()
+    launches = (ppc.launch_count, ppc.stage_launch_count,
+                ppc.tf32_pc_launch_count)
+    ref = ppc.pulse_compress_noise_plain(z, pplan, mul_dtype=f32)
+    err = float((got - ref).abs().max())
+    del got, ref
+    _require(launches == (1, 1, 1), "K8 at f32 ran its staging kernel and "
+             "the 3xTF32 strip GEMM once")
+    ms, plain_ms = _time_pair(call, lambda: ppc.pulse_compress_noise_plain(
+        z, pplan, mul_dtype=f32))
+    busy, host = _busy_event_ms(call)
+    prof = _kernel_ms(call, reps=5)
+    split = {"stage": _named_ms(prof, "stage_kernel"),
+             "gemm_3xtf32": _named_ms(prof, "k8_pc_kernel")}
+    retired = [k[:60] for k in prof if "band_pc_kernel" in k]
+    _require(all(v > 0.0 for v in split.values()) and not retired,
+             "the profiler saw K8's f32 staging and 3xTF32 GEMM, no "
+             "CUDA-core PC")
+    lib_ms = _library_ms(z, pplan, f32)
+    tf32_ms = 24.0 * macs / PEAK_TF32 * 1e3
+    fp32_ms = 8.0 * macs / PEAK_FP32 * 1e3
+    bound, by = _bound(tf32_ms, bytes_ms)
+    _line("time", what=repr("K8 (f32: staging + 3xTF32 strip GEMM) / plain "
+                            "/ library (3 f32 torch.matmul calls)"),
+          busy_card_ms=round(busy, 4), idle_card_ms=round(ms, 4),
+          host_ms=round(host, 4), plain_ms=round(plain_ms, 4),
+          library_ms=round(lib_ms, 4),
+          profile_ms={k: round(v, 4) for k, v in split.items()},
+          bound_3xtf32_ms=round(tf32_ms, 4), bound_fp32_ms=round(fp32_ms, 4),
+          bytes_bound_ms=round(bytes_ms, 4), launches=launches,
+          card=repr(card))
+    return ("K8 banded PC of white noise (study), f32 operands: f32 staging "
+            "+ K1's 3xTF32 strip GEMM, both passes in one launch",
+            "noise_rdm_sm90.cu", "radar_tpu/studies/pallas_pc.py:150 "
+            "(mul_dtype=f32)", launches[0], err, busy, plain_ms, bound, by,
+            lib_ms,
+            {"ms_is": "events around one call, the card kept busy",
+             "idle_card_ms": ms, "host_ms": host, "profile_ms": split,
+             "bound_3xtf32_tensor_cores_ms": tf32_ms,
+             "bound_fp32_cuda_cores_ms": fp32_ms, "bytes_bound_ms": bytes_ms,
+             "library_call": "3 f32 torch.matmul calls (one a segment) of "
+                             "the stacked windows with [Mr | Mi]"})
 
 
 MULTICHIP_RANKS = 4
@@ -1554,10 +1727,13 @@ def main() -> int:
     sass = {f"{k} {op}": _sass_has(_build._library_path(lib)[1], k, op)
             for lib, k, op in (("rdm_sm90", "dft_kernel", "HGMMA"),
                                ("noise_rdm_sm90", "k4_pc_kernel", "HGMMA"),
+                               ("noise_rdm_sm90", "k8_pc_kernel", "HGMMA"),
+                               ("band_pc_sm90", "strip_pc_kernel", "HGMMA"),
                                ("cfar", "k3_kernel", "UTMALDG"))}
     _line("sass", functions_holding_opcode=sass)
     _require(all(v and all(v) for v in sass.values()),
-             "HGMMA in the DFT GEMM and K4's PC, UTMALDG in K3")
+             "HGMMA in the DFT GEMM, K4's and K8's PC and both strip GEMMs, "
+             "UTMALDG in K3")
 
     # ---- 2. K1 at full perf shapes vs its plain version
     cfg = perf_config()
@@ -2070,11 +2246,7 @@ def main() -> int:
     # the least time)
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
                           "planes_kernelILb1E")
-    clocks = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0].split(",")
-    sm_mhz, sm_max_mhz = (float(c) for c in clocks)
+    sm_mhz, sm_max_mhz = _sm_clocks()
     n_drawn = sum(num_b * plan.n_pulses * (sg.xlen - sg.pad_front)
                   for sg in plan.segments)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2106,11 +2278,14 @@ def main() -> int:
         plan, lmat, seed=seed, layout="bvg", rolling=False,
         beams_per_step=bps))
     k4_busy = {bps: _busy_event_ms(k4_call(bps)) for bps in (num_b, 1, 2)}
-    k4_split_all = _kernel_ms(k4_call(1), reps=5)
-    k4_split = {name: _named_ms(k4_split_all, key) for name, key in (
-        ("pc_both_passes", "k4_pc_kernel<true>"),
-        ("mix", "mix_planes_kernel"), ("dft_gemm", "dft_gemm_kernel"),
-        ("add", "add_kernel"))}
+    k4_prof = _kernel_profile(k4_call(1), reps=5)
+    k4_parts = (("pc_both_passes", "k4_pc_kernel<true>"),
+                ("mix", "mix_planes_kernel"), ("dft_gemm", "dft_gemm_kernel"),
+                ("add", "add_kernel"))
+    k4_split = {name: sum(v[0] for k, v in k4_prof.items() if key in k)
+                for name, key in k4_parts}
+    k4_seen = {name: sum(v[1] for k, v in k4_prof.items() if key in k)
+               for name, key in k4_parts}
     _require(k4_split["pc_both_passes"] > 0.0,
              "the profiler saw K4's drawing PC")
     _line("K4_split", card=repr(card),
@@ -2118,7 +2293,8 @@ def main() -> int:
           host_ms={b: round(v[1], 4) for b, v in k4_busy.items()},
           idle_card_ms={num_b: round(k4_ms, 4), 1: round(k4_1_ms, 4)},
           profile_ms_bps1={k: round(v, 4) for k, v in k4_split.items()},
-          top_kernels=_busy_top(k4_split_all)[1])
+          profile_launches_recorded_a_call=k4_seen,
+          top_kernels=_busy_top({k: v[0] for k, v in k4_prof.items()})[1])
     k1_noise_ms = statistics.median(_event_ms(
         lambda: nr.noise_rdm(plan, lmat, seed=seed, layout="bvg"), 10))
     # K5's library call: torch.normal with x's rails as the mean reads x

@@ -43,13 +43,12 @@ _SIGNATURES = {
         "k1_tf32_pc": [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "k4_tf32_pc": [_I, _P, _I, _I, _I, _I, _I, _U, _U, _F, _P, _P, _P,
                        _P, _P],
+        "k8_tf32_pc": [_I, _P, _I, _I, _P, _P],
         "k1_tf32_mix": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "k1_tf32_dft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                         _P, _I, _P, _P, _P],
     },
     "rdm_variants": {
-        "rv_band_pc": [_I, _P, _LL, _I, _I, _I, _I, _U, _U, _F, _P, _P, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
         "rv_mix": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
     },
     "rdm_sm90": {
@@ -57,7 +56,8 @@ _SIGNATURES = {
     },
     "band_pc_sm90": {
         "sp_band_pc": [_I, _P, _I, _I, _I, _P, _P, _P, _P],
-        "sp_stage": [_P, _LL, _I, _I, _P, _I, _P, _P],
+        "sp_band_pc_draw": [_I, _P, _I, _I, _I, _U, _U, _F, _P, _P, _P],
+        "sp_stage": [_P, _LL, _I, _I, _P, _I, _P, _I, _P],
     },
     "cfar": {
         "k2_cfar": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,

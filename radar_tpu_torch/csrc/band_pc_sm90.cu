@@ -1,12 +1,16 @@
 // K8's banded bf16 pulse compression redesigned for NVIDIA Hopper (sm_90a),
-// shared with the planes-mode PC of K7 and K9 at bf16.
+// shared with the bf16 PC of K10, K7 (planes and draw mode) and K9, and
+// K8's staging at f32.
 //
-// Replaces, with rdm_variants.cu (which keeps the f32 GEMMs and draw mode):
+// Replaces:
 //   K8: radar_tpu/studies/pallas_pc.py::pulse_compress_noise_pallas, body
 //       _make_seg_kernel (pallas_call :150): the banded PC of a compact
-//       white cube, complex64 out;
+//       white cube, complex64 out (at f32 this file stages the cube and K1's
+//       3xTF32 strip GEMM in noise_rdm_sm90.cu, k8_pc_kernel, multiplies);
 //   the bf16 PC stage of K7 (radar_tpu/ops/pallas_rdm.py::_call_stacked,
-//       :627) and K9 (_call_allbeams, :1088): rounded bf16 planes out.
+//       :627, and the stacked=True products of the rolling draw kernel
+//       _make_kernel_gen_rolling, pallas_call :980) and K9 (_call_allbeams,
+//       :1088): rounded bf16 planes out.
 //
 // The function. Per segment, the causal convolution of the padded segment
 // buffer x (pad_front zeros of history, the samples, zeros) is the banded
@@ -20,10 +24,12 @@
 // rows at full width, 4352 in 128-row blocks) and the strip, rounded to bf16
 // once per plan, is read by every block from L2.
 //
-// stage_kernel (K8 only): compact complex64 z [B, P, s_compact] -> the bf16
+// stage_kernel (K8 only): compact complex64 z [B, P, s_compact] -> the
 //   planes [2, B*P, ld], every segment's buffer side by side (zero history,
-//   samples, zeros to a multiple of 8 columns), each sample rounded once to
-//   nearest even as round_mul does. Bound by bytes.
+//   samples, zeros to a multiple of 8 columns): bf16, each sample rounded
+//   once to nearest even as round_mul does, or f32 for K8's 3xTF32 GEMM
+//   (the same layout: 8-column widths keep f32 rows 16-byte aligned too).
+//   Bound by bytes.
 // strip_pc_kernel: the strip GEMM. A block owns 128 rows x 128 gates of one
 //   segment. A producer warp keeps kStages stages in flight with TMA (the Xr
 //   and Xi boxes [128 rows, 64 samples] at column j0 + k0, the strip's Sr
@@ -52,15 +58,32 @@
 // convolution's own MACs are 65 GFLOP); K8 as a whole by bytes (z read and
 // Y written, 0.27 GB, 0.08 ms at 3.35 TB/s).
 //
-// Draw mode (noise_rdm(seed=, stacked=True): Philox draws made inside the
-// GEMM's loads) keeps band_pc_tc_kernel in rdm_variants.cu: TMA cannot load
-// numbers that are not in memory. The next step for this GEMM is a producer
-// that draws instead of loading.
+// Draw mode (strip_pc_kernel<true>: K7's PC in noise_rdm(seed=,
+// stacked=True, mul_dtype=bf16), whose noise is not in memory): the
+// producer warp gives way to two drawing producer warpgroups (setmaxnreg:
+// 88 registers for them, 168 for the consumers) that make each stage's Xr
+// and Xi boxes themselves, Philox draws keyed as K1c's, rounded to bf16, in
+// the 128-byte swizzle TMA writes, then fence.proxy.async and an arrive on
+// the stage's full barrier (257 arrivals: 256 draws and thread 0's
+// expect_tx of the strip's two TMA boxes); K4's producer pattern
+// (noise_rdm_sm90.cu). The consumers are the planes mode's, so draw mode
+// equals planes mode on K1c's planes bit for bit. One launch covers the
+// three segments. What holds it: its draws, not its MMAs. Each sample is
+// drawn once for every 128-gate block whose window holds it (83.4 M draws
+// at full width for 18.6 M samples), 66 instructions each in the SASS of
+// the producers' loop (chip_smoke.py reads it): 0.165 ms of issue on an
+// H100's 132 SMs at 1980 MHz, beside the bf16 band's 0.087 ms of MMAs. The
+// function itself needs each sample drawn once (K1c's 51 instructions a
+// sample: ~0.03 ms), as the TPU's rolling kernel draws it, once, into a
+// circular buffer of 128-sample chunks; this kernel reuses no draw.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -68,6 +91,15 @@ constexpr int kBM = 128, kBN = 128, kBK = 64;   // block tile; k depth a stage
 constexpr int kStages = 3;
 constexpr int kConsumers = 2;                   // warpgroups of 64 rows
 constexpr int kThreads = 128 * kConsumers + 32; // + the producer warp
+// draw mode: two drawing producer warpgroups, which give registers to the
+// consumers (setmaxnreg: 256 x 88 + 256 x 168 = 512 x 128, the entry
+// budget of 512 threads; the consumers need 154)
+constexpr int kDrawers = 256;
+constexpr int kDrawThreads = 128 * kConsumers + kDrawers;
+constexpr int kProducerRegs = 88, kConsumerRegs = 168;
+constexpr int kDrawLanes = 4;                   // Philox chains a drawing thread runs
+                                                // at once (4 measured faster than 8)
+constexpr int kDrawRows = kBM / (kDrawers / 8); // rows a drawing thread fills a stage
 constexpr int kMaxSeg = 3;
 constexpr int kTileA = kBM * kBK * 2;           // bytes of an X plane's box
 constexpr int kTileB = kBN * kBK * 2;           // bytes of a strip plane's box
@@ -80,6 +112,9 @@ struct Seg {
   int nb_n;             // 128-gate column blocks
   int k_tiles;          // 64-deep k steps of the band
   int j_len, g0;        // output gates and their offset
+  int pad_front;        // draw mode: zero samples before the draws,
+  int x_cols;           //   zeros from sample x_cols on,
+  int seg_id;           //   the segment's index (Philox counter word 3)
 };
 
 struct StripArgs {
@@ -87,6 +122,9 @@ struct StripArgs {
   CUtensorMap sr[kMaxSeg], si[kMaxSeg];   // bf16 strip planes [128, k_pad]
   Seg seg[kMaxSeg];
   int n_seg, rows, num_g, round_out;
+  int num_p;                              // draw mode: row = b * num_p + p
+  uint2 key;                              //   Philox key
+  float scale;                            //   uniform_rail's scale
   __nv_bfloat16* outr;                    // round_out: bf16 [rows, num_g]
   __nv_bfloat16* outi;
   float2* out;                            // else complex64 [rows, num_g]
@@ -139,12 +177,17 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
 // Wait for the phase of parity `parity` of the barrier to complete; a wait
 // longer than kTimeoutNs is a bug (a phase that never completes), so it
 // traps: the launch fails with an error instead of hanging the card. (No
-// printf: any call in the kernel makes ptxas serialize the wgmma pipeline.)
+// printf: any call in the kernel makes ptxas serialize the wgmma pipeline.
+// The trap after the loop, not in it: in the loop it made ptxas spill the
+// draw-mode consumers' accumulators, 616 bytes a thread.)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
   if (mbar_try_wait(bar, parity)) return;
   const unsigned long long t0 = now_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (now_ns() - t0 > kTimeoutNs) __trap();
+  for (;;) {
+    if (mbar_try_wait(bar, parity)) return;
+    if (now_ns() - t0 > kTimeoutNs) break;
+  }
+  __trap();
 }
 
 // TMA: the 2D box at (c0 = column, c1 = row) of `map` into shared `dst`,
@@ -229,7 +272,72 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
                : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// Draw mode: drawing thread t makes its share of a stage's Xr and Xi boxes
+// [128 rows][64 samples] bf16 at samples n0 .. n0 + 63: chunk ch = t % 8
+// (8 consecutive samples, 16 bytes of a row) of the kDrawRows rows
+// t / 8 + 32 i, each sample a Philox draw keyed as K1c's (counter (n, p, b,
+// seg), rails by uniform_rail, zeros before pad_front, from x_cols on and
+// past the last row) rounded to bf16 (nearest even), stored in the
+// 128-byte swizzle TMA writes (16-byte chunk c of row r at chunk c ^ (r %
+// 8)). (b0, p0) is the beam and pulse of the thread's first row.
+__device__ __forceinline__ void draw_stage(unsigned char* xr, int t, int m0,
+                                           int b0, int p0, int n0, const Seg& sg,
+                                           const StripArgs& a) {
+  const int ch = t & 7;
+  int b = b0, p = p0;
+#pragma unroll 1
+  for (int i = 0; i < kDrawRows; ++i) {
+    const int r = (t >> 3) + (kDrawers / 8) * i;
+    if (i > 0) {   // the next row of this thread: kDrawers / 8 rows on
+      p += kDrawers / 8;
+      while (p >= a.num_p) {
+        p -= a.num_p;
+        ++b;
+      }
+    }
+    uint32_t pr[4] = {}, pi[4] = {};   // the chunk's 8 samples, bf16 pairs
+    if (m0 + r < a.rows) {
+#pragma unroll
+      for (int h = 0; h < 8; h += kDrawLanes) {
+        const int nb = n0 + 8 * ch + h;   // the first sample of these lanes
+        unsigned n[kDrawLanes], w0[kDrawLanes], w1[kDrawLanes];
+#pragma unroll
+        for (int e = 0; e < kDrawLanes; ++e) n[e] = (unsigned)(nb + e);
+        philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w0,
+                     w1);
+#pragma unroll
+        for (int e = 0; e < kDrawLanes; e += 2) {
+          float v[2][2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const bool keep = nb + e + q >= sg.pad_front && nb + e + q < sg.x_cols;
+            v[0][q] = keep ? uniform_rail(w0[e + q], a.scale) : 0.f;
+            v[1][q] = keep ? uniform_rail(w1[e + q], a.scale) : 0.f;
+          }
+          __nv_bfloat162 hr = __floats2bfloat162_rn(v[0][0], v[0][1]);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(v[1][0], v[1][1]);
+          pr[(h + e) / 2] = *reinterpret_cast<uint32_t*>(&hr);
+          pi[(h + e) / 2] = *reinterpret_cast<uint32_t*>(&hi);
+        }
+      }
+    }
+    const uint32_t o = r * 128 + (((ch ^ r) & 7) << 4);
+    *reinterpret_cast<uint4*>(xr + o) = make_uint4(pr[0], pr[1], pr[2], pr[3]);
+    *reinterpret_cast<uint4*>(xr + kTileA + o) = make_uint4(pi[0], pi[1], pi[2], pi[3]);
+  }
+}
+
+template <bool kDraw>
+__global__ void __launch_bounds__(kDraw ? kDrawThreads : kThreads, 1)
     strip_pc_kernel(const __grid_constant__ StripArgs a) {
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles start on 1024-byte boundaries
@@ -248,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < kStages; ++st) {
-      mbar_init(full(st), 1);
+      mbar_init(full(st), kDraw ? kDrawers + 1 : 1);
       mbar_init(empty(st), kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -256,27 +364,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   if (threadIdx.x >= 128 * kConsumers) {
-    // the producer warp: one lane issues every load
-    if (threadIdx.x == 128 * kConsumers) {
-      const CUtensorMap* mxr = &pick(a.xr, s);
-      const CUtensorMap* mxi = &pick(a.xi, s);
-      const CUtensorMap* msr = &pick(a.sr, s);
-      const CUtensorMap* msi = &pick(a.si, s);
-      for (int kt = 0; kt < sg.k_tiles; ++kt) {
-        const int st = kt % kStages;
-        if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) - 1) & 1);
-        const uint32_t base = tiles + st * kStageBytes;
-        mbar_expect_tx(full(st), kStageBytes);
-        tma_load(base, mxr, j0 + kt * kBK, m0, full(st));
-        tma_load(base + kTileA, mxi, j0 + kt * kBK, m0, full(st));
+    // the producers: in planes mode one lane of a warp issues every load;
+    // in draw mode two warpgroups draw the data's boxes (then a proxy fence
+    // and an arrive each: kDrawers + 1 arrivals with thread 0's expect_tx)
+    // and thread 0 loads the strip's boxes by TMA
+    if constexpr (kDraw) setmaxnreg_dec<kProducerRegs>();
+    const int t = threadIdx.x - 128 * kConsumers;
+    if (!kDraw && t != 0) return;
+    const CUtensorMap* mxr = &pick(a.xr, s);
+    const CUtensorMap* mxi = &pick(a.xi, s);
+    const CUtensorMap* msr = &pick(a.sr, s);
+    const CUtensorMap* msi = &pick(a.si, s);
+    int b0 = 0, p0 = 0;   // the beam and pulse of this thread's first row
+    if (kDraw) {
+      const int row = m0 + (t >> 3);
+      b0 = row / a.num_p;
+      p0 = row - b0 * a.num_p;
+    }
+    for (int kt = 0; kt < sg.k_tiles; ++kt) {
+      const int st = kt % kStages;
+      if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) - 1) & 1);
+      const uint32_t base = tiles + st * kStageBytes;
+      if (t == 0) {
+        mbar_expect_tx(full(st), kDraw ? 2 * kTileB : kStageBytes);
+        if (!kDraw) {
+          tma_load(base, mxr, j0 + kt * kBK, m0, full(st));
+          tma_load(base + kTileA, mxi, j0 + kt * kBK, m0, full(st));
+        }
         tma_load(base + 2 * kTileA, msr, kt * kBK, 0, full(st));
         tma_load(base + 2 * kTileA + kTileB, msi, kt * kBK, 0, full(st));
+      }
+      if (kDraw) {
+        draw_stage(smem_raw + (base - raw), t, m0, b0, p0, j0 + kt * kBK, sg, a);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full(st));
       }
     }
     return;
   }
 
   // the consumers: warpgroup wg computes rows m0 + 64 wg .. m0 + 64 wg + 63
+  if constexpr (kDraw) setmaxnreg_inc<kConsumerRegs>();
   const int wg = threadIdx.x >> 7;
   float accr[64], acci[64];
 #pragma unroll
@@ -322,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 256 contiguous bytes (K8) or 64 bytes of each bf16 plane (K7, K9).
   // Register 4c + 2h + e of lane l in warp w of the m64nNk16 fragment holds
   // row 16 w + l/4 + 8 h, column 8 c + 2 (l % 4) + e.
-  constexpr int kLdo = 2 * kBN * 4 + 64;   // tile row stride, bytes
+  constexpr int kTileRowBytes = 2 * kBN * 4 + 64;   // a tile row, bytes
   named_sync_consumers();
   unsigned char* out_t = smem_raw + (tiles - raw);
   {
@@ -332,7 +460,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int c = 0; c < kBN / 8; ++c)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float4*>(out_t + (r0 + 8 * h) * kLdo +
+        *reinterpret_cast<float4*>(out_t + (r0 + 8 * h) * kTileRowBytes +
                                    (8 * c + 2 * (lane & 3)) * 8) =
             make_float4(accr[4 * c + 2 * h], acci[4 * c + 2 * h],
                         accr[4 * c + 2 * h + 1], acci[4 * c + 2 * h + 1]);
@@ -344,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = threadIdx.x / kBN; r < kBM; r += 128 * kConsumers / kBN) {
     const int row = m0 + r;
     if (row >= a.rows) break;
-    const float2 v = *reinterpret_cast<const float2*>(out_t + r * kLdo + n * 8);
+    const float2 v = *reinterpret_cast<const float2*>(out_t + r * kTileRowBytes + n * 8);
     const long long off = (long long)row * a.num_g + sg.g0 + j;
     if (a.round_out) {
       a.outr[off] = __float2bfloat16_rn(v.x);
@@ -368,11 +496,28 @@ struct StageArgs {
   long long s_c;
 };
 
+// 8 values of a plane to p (16-byte aligned): one 16-byte store of bf16
+// (each rounded once, nearest even), two of f32.
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+    w[q] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // One thread per 8 consecutive columns of a row: 8 complex samples (or
-// zeros) -> two 16-byte stores of bf16.
+// zeros) -> 16 or 32 bytes of each plane.
+template <typename T>
 __global__ void __launch_bounds__(256)
     stage_kernel(const float2* __restrict__ z, const __grid_constant__ StageArgs a,
-                 __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi) {
+                 T* __restrict__ xr, T* __restrict__ xi) {
   const int groups = a.ld >> 3;
   const int total = a.rows * groups;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
@@ -384,23 +529,17 @@ __global__ void __launch_bounds__(256)
     const StageSeg sg = pick(a.seg, s);
     const float2* zr = z + (long long)r * a.s_c + sg.c0;
     const int n0 = c - sg.off - sg.pad_front;
-    uint32_t pr[4], pi[4];
+    float vr[8], vi[8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float2 v[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 2 * q + e;
-        v[e] = (n >= 0 && n < sg.r_len) ? zr[n] : make_float2(0.f, 0.f);
-      }
-      __nv_bfloat162 hr = __floats2bfloat162_rn(v[0].x, v[1].x);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v[0].y, v[1].y);
-      pr[q] = *reinterpret_cast<uint32_t*>(&hr);
-      pi[q] = *reinterpret_cast<uint32_t*>(&hi);
+    for (int e = 0; e < 8; ++e) {
+      const int n = n0 + e;
+      const float2 v = (n >= 0 && n < sg.r_len) ? zr[n] : make_float2(0.f, 0.f);
+      vr[e] = v.x;
+      vi[e] = v.y;
     }
     const long long o = (long long)r * a.ld + c;
-    *reinterpret_cast<uint4*>(xr + o) = make_uint4(pr[0], pr[1], pr[2], pr[3]);
-    *reinterpret_cast<uint4*>(xi + o) = make_uint4(pi[0], pi[1], pi[2], pi[3]);
+    store8(xr + o, vr);
+    store8(xi + o, vi);
   }
 }
 
@@ -425,6 +564,19 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The strip GEMM's launch on `blocks` blocks, the shared-memory attribute
+// set once a device and instantiation.
+template <bool kDraw>
+int launch_strip(const StripArgs& a, long long blocks, cudaStream_t stream) {
+  if (blocks < 1 || blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  static bool smem_set[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(strip_pc_kernel<kDraw>, (int)kSmem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  strip_pc_kernel<kDraw><<<(unsigned)blocks, kDraw ? kDrawThreads : kThreads, kSmem,
+                           stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // A bf16 matrix [rows, cols] with row stride ld elements, read in boxes of
 // 64 columns x 128 rows with 128-byte swizzle; out-of-bounds reads are 0.
 bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
@@ -443,9 +595,10 @@ bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K8's staging kernel on planes xr, xi (tab as sp_stage's).
+// K8's staging kernel on planes xr, xi of T (tab as sp_stage's).
+template <typename T>
 int launch_stage(const void* z, long long s_c, int rows, int n_seg,
-                 const int* tab, int ld, void* xr, void* xi, void* stream) {
+                 const int* tab, int ld, T* xr, T* xi, void* stream) {
   if (n_seg < 1 || n_seg > kMaxSeg || rows < 1 || ld < 8 || ld % 8 != 0 ||
       (long long)rows * (ld / 8) > 0x7fffffff ||
       reinterpret_cast<uintptr_t>(xr) % 16 != 0 ||
@@ -467,13 +620,10 @@ int launch_stage(const void* z, long long s_c, int rows, int n_seg,
   a.s_c = s_c;
   const long long total = (long long)rows * (ld / 8);
   const int blocks = (int)((total + 255) / 256 < 132 * 16 ? (total + 255) / 256 : 132 * 16);
-  stage_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(z), a, static_cast<__nv_bfloat16*>(xr),
-      static_cast<__nv_bfloat16*>(xi));
+  stage_kernel<T><<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(z), a, xr, xi);
   return (int)cudaGetLastError();
 }
-
-constexpr int kMaxDevices = 64;
 
 }  // namespace
 
@@ -495,14 +645,8 @@ int sp_band_pc(int n_seg, const long long* tab, int rows, int num_g,
   if (n_seg < 1 || n_seg > kMaxSeg || rows < 1 ||
       (round_out ? (outr == nullptr || outi == nullptr) : out == nullptr))
     return (int)cudaErrorInvalidValue;
-  int order[kMaxSeg] = {0, 1, 2};
-  for (int i = 0; i < n_seg; ++i)      // longest k loop first
-    for (int j = i + 1; j < n_seg; ++j)
-      if (tab[8 * order[j] + 5] > tab[8 * order[i] + 5]) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
+  int order[kMaxSeg];
+  longest_first(n_seg, tab, 8, 5, order);
   StripArgs a{};
   const int nb_m = (rows + kBM - 1) / kBM;
   long long blocks = 0;
@@ -516,10 +660,10 @@ int sp_band_pc(int n_seg, const long long* tab, int rows, int num_g,
         !make_map(&a.si[i], t[4] + 2 * kBN * k_pad, k_pad, kBN, k_pad))
       return (int)cudaErrorInvalidValue;
     const int nb_n = (int)((j_len + kBN - 1) / kBN);
-    a.seg[i] = Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len, (int)t[7]};
+    a.seg[i] = Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len, (int)t[7],
+                   0, 0, 0};
     blocks += (long long)nb_m * nb_n;
   }
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   a.n_seg = n_seg;
   a.rows = rows;
   a.num_g = num_g;
@@ -527,32 +671,72 @@ int sp_band_pc(int n_seg, const long long* tab, int rows, int num_g,
   a.outr = static_cast<__nv_bfloat16*>(outr);
   a.outi = static_cast<__nv_bfloat16*>(outi);
   a.out = static_cast<float2*>(out);
-
-  static bool smem_set[kMaxDevices] = {};   // the attribute, once a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(strip_pc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
-  }
-  strip_pc_kernel<<<(unsigned)blocks, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return launch_strip<false>(a, blocks, static_cast<cudaStream_t>(stream));
 }
 
-// K8's staging kernel: compact complex64 z [rows, s_c] -> the two bf16
-// planes x [2, rows, ld] (16-byte aligned, ld a multiple of 8). tab holds 5
-// values a segment: c0, r_len, pad_front (the compact slice of z after
-// pad_front zeros), off, width (the segment's columns in the planes;
-// multiples of 8 covering [0, ld) in order). The strip GEMM then reads
-// segment s of plane p at x + (p * rows * ld + off) elements.
+// The strip GEMM in draw mode (K7's draw-mode PC at bf16) over n_seg (1..3)
+// segments in one launch: the data's boxes drawn in the block (Philox keyed
+// by (s0, s1), counter (n, p, b, seg), uniform_rail's scale, bf16) for
+// rows b * num_p + p of num_b beams, the rounded bf16 planes outr, outi
+// [rows, num_g] out. tab holds 7 values a segment: the strip [2, 128,
+// k_pad] bf16, k_pad, the segment's gates j_len, their offset g0 in the
+// output, pad_front, x_cols (the samples a row has: zeros from there on)
+// and the segment's index (the Philox counter's fourth word).
+int sp_band_pc_draw(int n_seg, const long long* tab, int num_b, int num_p,
+                    int num_g, unsigned s0, unsigned s1, float scale,
+                    void* outr, void* outi, void* stream) {
+  const long long rows = (long long)num_b * num_p;
+  if (n_seg < 1 || n_seg > kMaxSeg || num_b < 1 || num_p < 1 ||
+      rows > 0x7fffffff || outr == nullptr || outi == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int order[kMaxSeg];
+  longest_first(n_seg, tab, 7, 1, order);
+  StripArgs a{};
+  const int nb_m = (int)((rows + kBM - 1) / kBM);
+  long long blocks = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    const long long* t = tab + 7 * order[i];
+    const long long k_pad = t[1], j_len = t[2];
+    if (k_pad < kBK || k_pad % kBK != 0 || j_len < 1 || t[3] < 0 ||
+        t[3] + j_len > num_g || t[4] < 0 || t[5] < 1 || t[6] < 0 ||
+        !make_map(&a.sr[i], t[0], k_pad, kBN, k_pad) ||
+        !make_map(&a.si[i], t[0] + 2 * kBN * k_pad, k_pad, kBN, k_pad))
+      return (int)cudaErrorInvalidValue;
+    const int nb_n = (int)((j_len + kBN - 1) / kBN);
+    a.seg[i] = Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len, (int)t[3],
+                   (int)t[4], (int)t[5], (int)t[6]};
+    blocks += (long long)nb_m * nb_n;
+  }
+  a.n_seg = n_seg;
+  a.rows = (int)rows;
+  a.num_g = num_g;
+  a.round_out = 1;
+  a.num_p = num_p;
+  a.key = make_uint2(s0, s1);
+  a.scale = scale;
+  a.outr = static_cast<__nv_bfloat16*>(outr);
+  a.outi = static_cast<__nv_bfloat16*>(outi);
+  return launch_strip<true>(a, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// K8's staging kernel: compact complex64 z [rows, s_c] -> the two planes
+// x [2, rows, ld] (16-byte aligned, ld a multiple of 8), bf16 (each value
+// rounded once) or, with f32, float32. tab holds 5 values a segment: c0,
+// r_len, pad_front (the compact slice of z after pad_front zeros), off,
+// width (the segment's columns in the planes; multiples of 8 covering [0,
+// ld) in order). The strip GEMM (bf16) or K1's 3xTF32 strip GEMM (f32,
+// k8_tf32_pc in noise_rdm_sm90.cu) then reads segment s of plane p at x +
+// (p * rows * ld + off) elements.
 int sp_stage(const void* z, long long s_c, int rows, int n_seg, const int* tab,
-             int ld, void* x, void* stream) {
-  return launch_stage(z, s_c, rows, n_seg, tab, ld, x,
-                      static_cast<__nv_bfloat16*>(x) + (size_t)rows * ld, stream);
+             int ld, void* x, int f32, void* stream) {
+  if (f32) {
+    float* xr = static_cast<float*>(x);
+    return launch_stage(z, s_c, rows, n_seg, tab, ld, xr, xr + (size_t)rows * ld,
+                        stream);
+  }
+  __nv_bfloat16* xr = static_cast<__nv_bfloat16*>(x);
+  return launch_stage(z, s_c, rows, n_seg, tab, ld, xr, xr + (size_t)rows * ld,
+                      stream);
 }
 
 }  // extern "C"

@@ -76,6 +76,8 @@
 
 #include <mutex>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned long long kTimeoutNs = 4000000000ull;   // 4 s
@@ -608,31 +610,14 @@ bool tile_map(CUtensorMap* map, const float* base, int planes, int rows,
   return true;
 }
 
-constexpr int kMaxDevices = 64;
 constexpr int kMaxSmem = 232448 - 2048;   // dynamic, beside the static
-
-// The dynamic shared-memory attribute of `kernel`, set once a device.
-template <typename K>
-cudaError_t allow_smem(K kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
 
 template <int GR, int RR, int GV, int RV, int TV>
 cudaError_t k2_launch(const CUtensorMap& rmap, const CUtensorMap& cmap,
                       const K2Args& a, int num_q, size_t smem,
                       cudaStream_t st) {
   static bool smem_set[kMaxDevices] = {};
-  cudaError_t err = allow_smem(k2_kernel<GR, RR, GV, RV, TV>, smem_set);
+  cudaError_t err = allow_smem(k2_kernel<GR, RR, GV, RV, TV>, kMaxSmem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.out_cols / kK2Gates, (a.num_v + TV - 1) / TV, num_q);
   k2_kernel<GR, RR, GV, RV, TV><<<grid, kK2Threads, smem, st>>>(rmap, cmap, a);
@@ -644,7 +629,7 @@ cudaError_t k3_launch(const CUtensorMap& rmap, const CUtensorMap& cmap,
                       const K3Args& a, int groups, size_t smem,
                       cudaStream_t st) {
   static bool smem_set[kMaxDevices] = {};
-  cudaError_t err = allow_smem(k3_kernel<GR, RR, GV, RV, TV, GT>, smem_set);
+  cudaError_t err = allow_smem(k3_kernel<GR, RR, GV, RV, TV, GT>, kMaxSmem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.num_g + GT - 1) / GT, (a.num_v + TV - 1) / TV, groups);
   k3_kernel<GR, RR, GV, RV, TV, GT><<<grid, kK3Threads, smem, st>>>(rmap, cmap,

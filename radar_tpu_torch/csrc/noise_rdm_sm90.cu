@@ -47,6 +47,17 @@
 // and K7's draw mode with out_dtype=bf16, the result rounded). Their bf16
 // paths run band_pc_sm90.cu, rdm_sm90.cu and rdm_variants.cu.
 //
+// K8 at f32 (k8_pc_kernel, k8_tf32_pc; radar_tpu/studies/pallas_pc.py::
+// pulse_compress_noise_pallas, pallas_call :150, at mul_dtype=f32): the
+// banded PC of a compact white cube, complex64 [B, P, G] out. After K8's
+// staging kernel (band_pc_sm90.cu) has written each segment's buffer as
+// f32 planes, K4's planes-mode PC (below) runs on them with the B*P rows as
+// one beam, the main and the correction pass in one block, and an
+// epilogue of its own: the passes added in shared memory and stored in
+// runs along the gates. At full width its 8.07 G complex MACs take 0.391
+// ms as 3 TF32 products (0.9635 ms as f32 FMAs on the CUDA cores); bytes:
+// z read and the PC written 0.0796 ms, 0.169 with the staged planes.
+//
 // 3xTF32. Each f32 operand x is split into TF32 parts hi = rna(x) and
 // lo = rna(x - hi) (rna: round to nearest on the top 19 bits, ties away);
 // a product is hi*hi + hi*lo + lo*hi, each an exact TF32 product, so the
@@ -113,6 +124,7 @@
 
 #include <mutex>
 
+#include "launch.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -606,6 +618,7 @@ struct K4Args {
   float* out_im;
   float* corr_re;       // and the correction pass's
   float* corr_im;
+  float2* out;          // K8 (k8_pc_kernel): complex64 [num_p, num_g]
 };
 
 template <int kRegs>
@@ -627,46 +640,6 @@ struct Slot {
     }
   }
 };
-
-// Philox4x32-10 (philox.cuh) on kDrawLanes counters at once with one key
-// schedule: words 0 and 1 of each block into w0, w1 (independent chains
-// side by side).
-__device__ __forceinline__ void philox_lanes(const unsigned (&n)[kDrawLanes],
-                                             unsigned p, unsigned b, unsigned seg,
-                                             uint2 k, unsigned (&w0)[kDrawLanes],
-                                             unsigned (&w1)[kDrawLanes]) {
-  unsigned c0[kDrawLanes], c1[kDrawLanes], c2[kDrawLanes], c3[kDrawLanes];
-#pragma unroll
-  for (int i = 0; i < kDrawLanes; ++i) {
-    c0[i] = n[i];
-    c1[i] = p;
-    c2[i] = b;
-    c3[i] = seg;
-  }
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-#pragma unroll
-    for (int i = 0; i < kDrawLanes; ++i) {
-      const unsigned lo0 = 0xD2511F53u * c0[i];
-      const unsigned hi0 = __umulhi(0xD2511F53u, c0[i]);
-      const unsigned lo1 = 0xCD9E8D57u * c2[i];
-      const unsigned hi1 = __umulhi(0xCD9E8D57u, c2[i]);
-      c0[i] = hi1 ^ c1[i] ^ k.x;
-      c1[i] = lo1;
-      c2[i] = hi0 ^ c3[i] ^ k.y;
-      c3[i] = lo0;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kDrawLanes; ++i) {
-    w0[i] = c0[i];
-    w1[i] = c1[i];
-  }
-}
 
 // Producer thread t of kK4Producers draws its part of the data's stage: 8
 // consecutive samples (two 16-byte chunks of a row) a step, rows p0 .. p0
@@ -708,12 +681,65 @@ __device__ __forceinline__ void draw_stage(unsigned char* are, int t, int p0,
   }
 }
 
-// The k loop of a beam's 64 rows (pass kCorr) and its stores: register
-// 4c + 2h + e holds pulse p0 + fr + 8h, gate n0 + 8c + 2ft + e.
+// K8's epilogue (k8_pc_kernel: one beam of num_p rows, complex64 out
+// [num_p, num_g]): the correction warpgroup puts its accumulators into
+// shared memory (the stages are free once both passes' MMAs are done), the
+// main warpgroup adds its own to them (main + correction, as K1's join),
+// then both write the tile in runs of a row's gates, the output's
+// contiguous axis (from the fragments a warp store would cover 8 rows of
+// 64 bytes). Register 4c + 2h + e holds row p0 + fr + 8h, gate n0 + 8c +
+// 2ft + e; the tile [64 rows][128 gates] float2, rows padded by 64 bytes
+// (no bank conflicts for the fragments' 16-byte accesses).
 template <bool kCorr>
+__device__ __forceinline__ void k8_store(const K4Args& a, const K4Seg& sg,
+                                         unsigned char* tile, float (&accr)[64],
+                                         float (&acci)[64], int p0, int n0,
+                                         int fr, int ft) {
+  constexpr int kTileRowBytes = 2 * kBN * 4 + 64;   // a tile row, bytes
+  auto frag = [&](int c, int h) {
+    return reinterpret_cast<float4*>(tile + (fr + 8 * h) * kTileRowBytes +
+                                     (8 * c + 2 * ft) * 8);
+  };
+  named_sync_consumers();
+  if (kCorr) {
+#pragma unroll
+    for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *frag(c, h) = make_float4(accr[4 * c + 2 * h], acci[4 * c + 2 * h],
+                                  accr[4 * c + 2 * h + 1], acci[4 * c + 2 * h + 1]);
+  }
+  named_sync_consumers();
+  if (!kCorr) {
+#pragma unroll
+    for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 e = *frag(c, h);
+        *frag(c, h) = make_float4(accr[4 * c + 2 * h] + e.x, acci[4 * c + 2 * h] + e.y,
+                                  accr[4 * c + 2 * h + 1] + e.z,
+                                  acci[4 * c + 2 * h + 1] + e.w);
+      }
+  }
+  named_sync_consumers();
+  const int n = threadIdx.x & (kBN - 1);   // this thread's gate
+  const int j = n0 + n;
+  if (j >= sg.j_len) return;
+  for (int r = threadIdx.x / kBN; r < kK4Rows; r += 128 * kConsumers / kBN) {
+    const int p = p0 + r;
+    if (p >= a.num_p) break;
+    a.out[(long long)p * a.num_g + sg.g0 + j] =
+        *reinterpret_cast<const float2*>(tile + r * kTileRowBytes + n * 8);
+  }
+}
+
+// The k loop of a beam's 64 rows (pass kCorr) and its stores: register
+// 4c + 2h + e holds pulse p0 + fr + 8h, gate n0 + 8c + 2ft + e (kK8: K8's
+// epilogue, k8_store).
+template <bool kCorr, bool kK8>
 __device__ __forceinline__ void k4_beam(const K4Args& a, const K4Seg& sg,
                                         uint32_t tiles, uint32_t bars,
-                                        const unsigned char* smem_raw,
+                                        unsigned char* smem_raw,
                                         uint32_t raw, Slot& sl, int b, int p0,
                                         int n0, int fr, int ft) {
   float accr[64], acci[64];
@@ -728,6 +754,10 @@ __device__ __forceinline__ void k4_beam(const K4Args& a, const K4Seg& sg,
     mma_stage<kCorr, kK4Rows>(accr, acci, base, smem_raw + (base - raw), 0,
                               fr, ft);
     if ((threadIdx.x & 127) == 0) mbar_arrive(bars + 8u * (kStages + sl.i));
+  }
+  if (kK8) {
+    k8_store<kCorr>(a, sg, smem_raw + (tiles - raw), accr, acci, p0, n0, fr, ft);
+    return;
   }
   float* dst_re = kCorr ? a.corr_re : a.out_re;
   float* dst_im = kCorr ? a.corr_im : a.out_im;
@@ -750,9 +780,10 @@ __device__ __forceinline__ void k4_beam(const K4Args& a, const K4Seg& sg,
   }
 }
 
-template <bool kDraw>
-__global__ void __launch_bounds__(kK4Threads, 1)
-    k4_pc_kernel(const __grid_constant__ K4Args a) {
+// K4's PC (kK8 false) or K8's at f32 (kK8: planes mode, one beam, complex64
+// out through k8_store).
+template <bool kDraw, bool kK8>
+__device__ __forceinline__ void k4_body(const K4Args& a) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t tiles = (raw + 1023u) & ~1023u;
@@ -820,10 +851,24 @@ __global__ void __launch_bounds__(kK4Threads, 1)
   Slot sl;
   for (int b = b0; b < b1; ++b) {
     if (wg == 0)
-      k4_beam<false>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
+      k4_beam<false, kK8>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
     else
-      k4_beam<true>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
+      k4_beam<true, kK8>(a, sg, tiles, bars, smem_raw, raw, sl, b, p0, n0, fr, ft);
   }
+}
+
+template <bool kDraw>
+__global__ void __launch_bounds__(kK4Threads, 1)
+    k4_pc_kernel(const __grid_constant__ K4Args a) {
+  k4_body<kDraw, false>(a);
+}
+
+// K8 at f32 (studies/pallas_pc.py): K4's planes-mode PC on the staged f32
+// planes of every segment (one beam of B*P rows), both passes in one
+// launch, the passes joined in shared memory into complex64 rows.
+__global__ void __launch_bounds__(kK4Threads, 1)
+    k8_pc_kernel(const __grid_constant__ K4Args a) {
+  k4_body<false, true>(a);
 }
 
 // The beam mix of the PC's two passes into pr, pi [B, n]: x = p + c (the
@@ -1042,26 +1087,16 @@ bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
   return true;
 }
 
-constexpr int kMaxDevices = 64;
-
 cudaError_t launch_gemm(const GemmArgs& a, long long blocks,
                         cudaStream_t stream) {
   if (blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  static bool smem_set[kMaxDevices] = {};   // the attributes, once a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool smem_set[4][kMaxDevices] = {};   // the attributes, once a device
+  const int bytes = (int)kSmem;
+  cudaError_t err = allow_smem(pc_gemm_kernel<false>, bytes, smem_set[0]);
+  if (err == cudaSuccess) err = allow_smem(pc_gemm_kernel<true>, bytes, smem_set[1]);
+  if (err == cudaSuccess) err = allow_smem(dft_gemm_kernel<false>, bytes, smem_set[2]);
+  if (err == cudaSuccess) err = allow_smem(dft_gemm_kernel<true>, bytes, smem_set[3]);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    const int bytes = (int)kSmem;
-    const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    err = cudaFuncSetAttribute(pc_gemm_kernel<false>, attr, bytes);
-    if (err == cudaSuccess) err = cudaFuncSetAttribute(pc_gemm_kernel<true>, attr, bytes);
-    if (err == cudaSuccess) err = cudaFuncSetAttribute(dft_gemm_kernel<false>, attr, bytes);
-    if (err == cudaSuccess) err = cudaFuncSetAttribute(dft_gemm_kernel<true>, attr, bytes);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = true;
-  }
   // the main pass, then the correction pass adding to its output
   const unsigned grid = (unsigned)blocks;
   if (a.mode == 0) {
@@ -1102,14 +1137,8 @@ int k1_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)num_b * num_p;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  int order[kMaxSeg] = {0, 1, 2};
-  for (int i = 0; i < n_seg; ++i)      // longest k loop first
-    for (int j = i + 1; j < n_seg; ++j)
-      if (tab[8 * order[j] + 5] > tab[8 * order[i] + 5]) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
+  int order[kMaxSeg];
+  longest_first(n_seg, tab, 8, 5, order);
   GemmArgs a{};
   const int nb_m = (int)((rows + kBM - 1) / kBM);
   long long blocks = 0;
@@ -1160,14 +1189,8 @@ int k4_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
   const long long rows = (long long)num_b * num_p;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const bool draw = tab[0] == 0;
-  int order[kMaxSeg] = {0, 1, 2};
-  for (int i = 0; i < n_seg; ++i)      // longest k loop first
-    for (int j = i + 1; j < n_seg; ++j)
-      if (tab[10 * order[j] + 5] > tab[10 * order[i] + 5]) {
-        const int t = order[i];
-        order[i] = order[j];
-        order[j] = t;
-      }
+  int order[kMaxSeg];
+  longest_first(n_seg, tab, 10, 5, order);
   K4Args a{};
   a.p_tiles = (num_p + kK4Rows - 1) / kK4Rows;
   const long long groups = (num_b + bps - 1) / bps;
@@ -1200,25 +1223,61 @@ int k4_tf32_pc(int n_seg, const long long* tab, int num_b, int num_p,
   a.out_im = static_cast<float*>(pi);
   a.corr_re = static_cast<float*>(cr);
   a.corr_im = static_cast<float*>(ci);
-  static bool smem_set[kMaxDevices] = {};   // the attributes, once a device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool smem_set[2][kMaxDevices] = {};   // the attributes, once a device
+  cudaError_t err = allow_smem(k4_pc_kernel<true>, (int)kK4Smem, smem_set[0]);
+  if (err == cudaSuccess) err = allow_smem(k4_pc_kernel<false>, (int)kK4Smem, smem_set[1]);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    err = cudaFuncSetAttribute(k4_pc_kernel<true>, attr, (int)kK4Smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(k4_pc_kernel<false>, attr, (int)kK4Smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = true;
-  }
   const unsigned grid = (unsigned)blocks;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (draw)
     k4_pc_kernel<true><<<grid, kK4Threads, kK4Smem, st>>>(a);
   else
     k4_pc_kernel<false><<<grid, kK4Threads, kK4Smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K8's PC at f32 (k8_pc_kernel) over n_seg (1..3) segments in one launch:
+// K4's planes mode on `rows` rows (one beam), both passes in one block, the
+// passes joined in its epilogue, complex64 out [rows, num_g]. tab holds 8
+// values a segment, as k1_tf32_pc's: the f32 planes xr, xi [rows, x_cols]
+// (row stride x_ld, a multiple of 4; 16-byte aligned; K8's staging kernel
+// writes them), x_cols, x_ld, the strip [4, 128, k_pad] f32 (re_hi, re_lo,
+// im_hi, im_lo), k_pad, the segment's gates j_len and their offset g0.
+int k8_tf32_pc(int n_seg, const long long* tab, int rows, int num_g, void* out,
+               void* stream) {
+  if (n_seg < 1 || n_seg > kMaxSeg || rows < 1 || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int order[kMaxSeg];
+  longest_first(n_seg, tab, 8, 5, order);
+  K4Args a{};
+  a.p_tiles = (rows + kK4Rows - 1) / kK4Rows;
+  long long blocks = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    const long long* t = tab + 8 * order[i];
+    const long long k_pad = t[5], j_len = t[6];
+    if (k_pad < kBK || k_pad % kBK != 0 || j_len < 1 || t[7] < 0 ||
+        t[7] + j_len > num_g ||
+        !make_map(&a.a_re[i], t[0], t[2], rows, t[3], kK4Rows) ||
+        !make_map(&a.a_im[i], t[1], t[2], rows, t[3], kK4Rows) ||
+        !make_map(&a.b[i], t[4], k_pad, 4 * kBN, k_pad))
+      return (int)cudaErrorInvalidValue;
+    const int nb_n = (int)((j_len + kBN - 1) / kBN);
+    a.seg[i] = K4Seg{(int)blocks, nb_n, (int)(k_pad / kBK), (int)j_len,
+                     (int)t[7], 0, (int)t[2], 0};
+    blocks += (long long)nb_n * a.p_tiles;
+  }
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  a.n_seg = n_seg;
+  a.num_b = 1;
+  a.num_p = rows;
+  a.num_g = num_g;
+  a.bps = 1;
+  a.out = static_cast<float2*>(out);
+  static bool smem_set[kMaxDevices] = {};   // the attribute, once a device
+  const cudaError_t err = allow_smem(k8_pc_kernel, (int)kK4Smem, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  k8_pc_kernel<<<(unsigned)blocks, kK4Threads, kK4Smem,
+                 static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

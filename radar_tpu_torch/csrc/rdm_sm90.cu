@@ -47,10 +47,11 @@
 
 #include <mutex>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned long long kTimeoutNs = 4000000000ull;   // 4 s
-constexpr int kMaxDevices = 64;
 
 // ------------------------------------------------------ PTX helpers
 
@@ -413,22 +414,6 @@ bool make_map(CUtensorMap* map, long long ptr, long long cols, long long rows,
   g_map_next = (g_map_next + 1) % kMapCache;
   if (g_map_count < kMapCache) ++g_map_count;
   return true;
-}
-
-// The dynamic shared-memory attribute of `kernel`, set once a device.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
 }
 
 }  // namespace

@@ -35,12 +35,13 @@ At float32 the three take one sequence of K1's 3xTF32 GEMMs
 its passes joined, K1's DFT GEMM, then an epilogue that mixes, adds the
 signal and rounds), so they agree bit for bit. At bfloat16 they round
 (nearest even) the planes, the filter, D and L, the PC result and the DFT
-result, and accumulate every product in float32: the planes-mode PC is
-the strip GEMM of ``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on
-the Toeplitz strip of each segment's filter, rounded to bfloat16 once per
-plan, ``strip``), which K8 (``studies/pallas_pc.py``) shares, K7's
-draw-mode PC ``csrc/rdm_variants.cu``'s tensor-core kernel (on the plan's
-rounded filter, ``mp_bf16``); the DFT is the wgmma GEMM of
+result, and accumulate every product in float32: the PC is the strip GEMM
+of ``csrc/band_pc_sm90.cu`` (``strip_pc``: TMA + wgmma on the Toeplitz
+strip of each segment's filter, rounded to bfloat16 once per plan,
+``strip``), which K8 (``studies/pallas_pc.py``) shares; in K7's draw mode
+its producers draw the data's stages themselves (``strip_pc_draw``; plain
+twin of a drawn stage ``strip_draw_stage_plain``), so draw mode equals
+planes mode on K1c's planes bit for bit; the DFT is the wgmma GEMM of
 ``csrc/rdm_sm90.cu`` (``dft``, on the plan's rounded D, ``d_bf16``); then
 ``csrc/rdm_variants.cu``'s mix. L's rounded copy is kept for the latest L
 (``_rounded_l``), not made anew on every call.
@@ -89,6 +90,8 @@ k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
 strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
                                       # K10, K9 planes mode and of K8)
+strip_pc_draw_launch_count = 0        # strip-GEMM launches in draw mode
+                                      # (K7's bf16 draw mode)
 dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7, K9)
 tf32_pc_launch_count = 0              # K1's 3xTF32 PC launches (K1 and the
                                       # f32 planes schedules K10, K7, K9)
@@ -109,7 +112,6 @@ class RdmSegSpec(NamedTuple):
     mp: torch.Tensor    # [W, T] complex64 banded filter (plain version)
     strip: torch.Tensor  # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
     strip_tf32: torch.Tensor  # [4, STRIP_BN, k_pad] f32 split (``strip_tf32``)
-    mp_bf16: torch.Tensor      # [2, W, T] f32 (re, im) of mp rounded to bf16
 
     @property
     def xlen(self) -> int:
@@ -214,14 +216,6 @@ def d_bf16(d: torch.Tensor) -> torch.Tensor:
                         (d.real, d.imag)]).to(torch.bfloat16).contiguous()
 
 
-def bf16_planes(x: torch.Tensor) -> torch.Tensor:
-    """[2, ...] float32, contiguous: the (re, im) planes of complex ``x``
-    rounded to bfloat16 (``round_mul``), the filter operand of K7's bf16
-    draw-mode PC (``csrc/rdm_variants.cu``)."""
-    y = round_mul(x, torch.bfloat16)
-    return torch.stack([y.real, y.imag]).contiguous()
-
-
 def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
                   lane: int = 128, *, device) -> RdmPlan:
     """Segment geometry identical to the JAX ``make_rdm_plan`` (same
@@ -256,8 +250,7 @@ def make_rdm_plan(precomp, mtd_matrix, num_pulses: int, tile: int = 128,
             pad_tail=max(xlen - (pad_front + r_len), 0), j_len=j_len,
             g0=g0, tile=t, window=w_pad, taps=taps, mp=mp,
             strip=strip_bf16(mp.real, mp.imag, lh),
-            strip_tf32=strip_tf32(mp.real, mp.imag, lh),
-            mp_bf16=bf16_planes(mp)))
+            strip_tf32=strip_tf32(mp.real, mp.imag, lh)))
         c0 += r_len
         g0 += j_len
     d = torch.as_tensor(np.asarray(mtd_matrix)).to(device=device, dtype=c64)
@@ -323,6 +316,37 @@ def philox_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
         zero = torch.zeros((), dtype=torch.float32, device=device)
         out.append((torch.where(keep, _uniform_rail(w0), zero),
                     torch.where(keep, _uniform_rail(w1), zero)))
+    return out
+
+
+def strip_draw_stage_plain(plan: RdmPlan, seed: tuple[int, int], num_b: int,
+                           si: int, m0: int, n0: int, *,
+                           device="cpu") -> torch.Tensor:
+    """Plain twin of one stage the strip GEMM's drawing producers make in
+    draw mode (``csrc/band_pc_sm90.cu``, ``draw_stage``): the Xr and Xi
+    boxes [2, STRIP_BN rows, STRIP_BK samples] bfloat16 of segment ``si``
+    for rows m0 .. m0+127 (row = beam * P + pulse) and samples n0 ..
+    n0+63, each a Philox draw keyed as ``philox_planes``'s (zeros before
+    pad_front, from xlen on and past the last row) rounded to bfloat16, in
+    the byte order of the 128-byte swizzle TMA writes: sample k of row r at
+    position ((k // 8) ^ (r % 8)) * 8 + k % 8 of the row."""
+    i64 = torch.int64
+    seg = plan.segments[si]
+    row = m0 + torch.arange(STRIP_BN, dtype=i64, device=device)[:, None]
+    n = n0 + torch.arange(STRIP_BK, dtype=i64, device=device)[None, :]
+    b, p = row // plan.n_pulses, row % plan.n_pulses
+    w0, w1, _, _ = philox4x32_10(n, p, b, torch.full((), si, dtype=i64,
+                                                     device=device),
+                                 seed[0], seed[1])
+    keep = (n >= seg.pad_front) & (n < seg.xlen) & (row < num_b * plan.n_pulses)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    box = torch.stack([torch.where(keep, _uniform_rail(w), zero)
+                       for w in (w0, w1)]).to(torch.bfloat16)
+    r = torch.arange(STRIP_BN, device=device)[:, None]
+    k = torch.arange(STRIP_BK, device=device)[None, :]
+    pos = ((k // 8) ^ (r % 8)) * 8 + k % 8
+    out = torch.empty_like(box)
+    out[:, r.expand_as(pos), pos] = box
     return out
 
 
@@ -622,6 +646,42 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
+def strip_pc_draw(plan: RdmPlan, seed: tuple[int, int], num_b: int,
+                  outr: torch.Tensor, outi: torch.Tensor) -> None:
+    """Launch the strip GEMM in draw mode (``csrc/band_pc_sm90.cu``,
+    ``strip_pc_kernel<true>``; K7's bf16 draw-mode PC), one launch for
+    every segment: its producers draw each stage of the data (Philox keyed
+    by ``seed`` as ``philox_planes``, rounded to bfloat16) and the plan's
+    bf16 strips multiply it. Writes the rounded bf16 planes ``outr``,
+    ``outi`` [B, P, ld] (gates g0 .. g0+j_len-1 of each segment, ld a
+    multiple of 8 and at least n_gates)."""
+    global strip_pc_draw_launch_count
+    import ctypes
+
+    from .. import _build
+
+    dev = outr.device
+    num_p, ld = plan.n_pulses, outr.shape[-1]
+    if any(t.device != dev or t.dtype != torch.bfloat16
+           or not t.is_contiguous() or tuple(t.shape) != (num_b, num_p, ld)
+           for t in (outr, outi)) or ld < plan.n_gates:
+        raise ValueError("strip_pc_draw writes contiguous bfloat16 planes "
+                         f"[{num_b}, {num_p}, >= {plan.n_gates}] on the card")
+    vals = []
+    for si, seg in enumerate(plan.segments):
+        check_strip(seg.strip, dev)
+        vals += [seg.strip.data_ptr(), seg.strip.shape[2], seg.j_len, seg.g0,
+                 seg.pad_front, seg.xlen, si]
+    lib = _build.load("band_pc_sm90")
+    rc = lib.sp_band_pc_draw(
+        len(plan.segments), (ctypes.c_longlong * len(vals))(*vals), num_b,
+        num_p, ld, seed[0], seed[1], ctypes.c_float(U_SCALE),
+        outr.data_ptr(), outi.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "sp_band_pc_draw")
+    strip_pc_draw_launch_count += 1
+
+
 def strip_pc(segments, rows: int, num_g: int, *, out=None, outr=None,
              outi=None) -> None:
     """Launch the strip GEMM (``csrc/band_pc_sm90.cu``, ``strip_pc_kernel``)
@@ -788,12 +848,9 @@ def _variant_tf32(plan: RdmPlan, l_factor, signal, seed, planes,
 def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
                   schedule: str, out_dtype):
     """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
-    or K9 (``"allbeams"``) with bfloat16 operands: the PC (on planes the
-    strip GEMM, ``strip_pc``, one launch for the three segments; in draw
-    mode ``csrc/rdm_variants.cu``'s tensor-core PC, a launch a segment),
-    the wgmma DFT GEMM (``dft``), then the mix."""
-    import ctypes
-
+    or K9 (``"allbeams"``) with bfloat16 operands: the PC (the strip GEMM,
+    one launch for the three segments: on planes ``strip_pc``, in draw
+    mode ``strip_pc_draw``), the wgmma DFT GEMM (``dft``), then the mix."""
     from .. import _build
 
     lib = _build.load("rdm_variants")
@@ -822,16 +879,7 @@ def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
                          seg.g0))
         strip_pc(segs, num_b * num_p, ld, outr=pcr, outi=pci)
     else:
-        s0, s1 = seed
-        for si, seg in enumerate(plan.segments):
-            mr, mi = seg.mp_bf16
-            rc = lib.rv_band_pc(2, None, 0, 0, 0, seg.pad_front, si, s0, s1,
-                                ctypes.c_float(U_SCALE), mr.data_ptr(),
-                                mi.data_ptr(), seg.window, seg.tile,
-                                seg.taps.shape[0], num_b, num_p, seg.j_len,
-                                seg.g0, ld, pcr.data_ptr(), pci.data_ptr(),
-                                None, stream)
-            _build.check(lib, rc, "rv_band_pc")
+        strip_pc_draw(plan, seed, num_b, pcr, pci)
     out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
                       device=dev)
     mtr = torch.empty((num_b, num_v, num_g), dtype=bf, device=dev)

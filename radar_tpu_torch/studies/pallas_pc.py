@@ -19,11 +19,16 @@ buffer, rounded once, into two bfloat16 planes [2, B*P, ld]
 (``stage_layout``), then the strip GEMM ``strip_pc_kernel`` (TMA + wgmma
 on the Toeplitz strip ``SegSpec.strip``, shared with K7 and K9 through
 ``ops.noise_rdm.strip_pc``) computes all three segments in one launch.
-At float32 it is ``band_pc_kernel`` of ``csrc/rdm_variants.cu`` on the
-CUDA cores. ``pulse_compress_noise_plain`` is its plain version, which the
-wrapper runs only for CPU tensors; ``pulse_compress_noise_strips`` is the
-plain twin of the bfloat16 kernels' schedule (same staging, same strips,
-per-block sums), for the tests.
+At float32 the staging kernel writes float32 planes in the same layout,
+then K1's 3xTF32 strip GEMM in K4's one-launch form (``k8_pc_kernel`` of
+``csrc/noise_rdm_sm90.cu``: the main pass hi*hi and the correction pass
+hi*lo + lo*hi on the same rows, joined in its epilogue) multiplies them by
+the split strip ``SegSpec.strip_tf32``, all three segments in one launch.
+``pulse_compress_noise_plain`` is its plain version, which the wrapper
+runs only for CPU tensors; ``pulse_compress_noise_strips`` is the plain
+twin of the bfloat16 kernels' schedule (same staging, same strips,
+per-block sums) and ``pulse_compress_noise_tf32`` that of the float32
+kernels' 3xTF32 arithmetic, for the tests.
 """
 
 from __future__ import annotations
@@ -34,11 +39,12 @@ import numpy as np
 import torch
 
 from ..ops import noise_rdm as nr
-from ..ops.noise_rdm import (STRIP_BN, _banded, round_mul, strip_bf16,
-                             toeplitz_strip)
+from ..ops.noise_rdm import (STRIP_BN, _banded, _split_tf32, round_mul,
+                             strip_bf16, strip_tf32, toeplitz_strip)
 
 launch_count = 0          # K8 launches (one per pulse_compress_noise call)
-stage_launch_count = 0    # K8's staging kernel (bf16 calls)
+stage_launch_count = 0    # K8's staging kernel (every call)
+tf32_pc_launch_count = 0  # K8's 3xTF32 strip-GEMM launches (f32 calls)
 
 
 class SegSpec(NamedTuple):
@@ -53,6 +59,7 @@ class SegSpec(NamedTuple):
     mi: torch.Tensor      # [W, T] imag filter matrix
     taps: int             # filter length L (rows of the band per column)
     strip: torch.Tensor   # [2, STRIP_BN, k_pad] bf16 strip (``strip_bf16``)
+    strip_tf32: torch.Tensor  # [4, STRIP_BN, k_pad] f32 split (``strip_tf32``)
 
 
 class PallasPCPlan(NamedTuple):
@@ -94,7 +101,8 @@ def make_pallas_pc_plan(precomp, tile: int = 512, *,
         segs.append(SegSpec(c0=c0, r_len=r_len, pad_front=pad_front,
                             pad_tail=max(xlen_needed - (pad_front + r_len), 0),
                             j_len=j_len, tile=t, window=w_pad, mr=mr, mi=mi,
-                            taps=lh, strip=strip_bf16(mr, mi, lh)))
+                            taps=lh, strip=strip_bf16(mr, mi, lh),
+                            strip_tf32=strip_tf32(mr, mi, lh)))
         c0 += r_len
     return PallasPCPlan(segments=tuple(segs), s_compact=c0, n_gates=n_total,
                         stage=stage_layout(segs))
@@ -124,8 +132,9 @@ def pulse_compress_noise_plain(z: torch.Tensor, plan: PallasPCPlan,
 
 def stage_layout(segments) -> tuple:
     """Where K8's staging puts each segment's padded buffer (zero history,
-    samples, zeros up to a multiple of 8 columns, TMA's 16-byte row rule) in
-    its bf16 planes: ((off, width) per segment, row length ld)."""
+    samples, zeros up to a multiple of 8 columns, TMA's 16-byte row rule for
+    bf16, and for f32 too) in its planes: ((off, width) per segment, row
+    length ld)."""
     cols, off = [], 0
     for seg in segments:
         width = -(-(seg.pad_front + seg.r_len) // 8) * 8
@@ -176,60 +185,110 @@ def pulse_compress_noise_strips(z: torch.Tensor, plan: PallasPCPlan,
     return torch.cat(pieces, dim=-1).reshape(num_b, num_p, plan.n_gates)
 
 
+def pulse_compress_noise_tf32(z: torch.Tensor, plan: PallasPCPlan,
+                              bn: int = STRIP_BN) -> torch.Tensor:
+    """Plain twin of the float32 kernels' arithmetic (3xTF32): the staged
+    float32 planes, each value split into TF32 parts (``_split_tf32``: hi,
+    lo), the plan's split strip ``strip_tf32`` (hi, lo), and per segment and
+    bn-gate block the strip schedule of ``pulse_compress_noise_strips``
+    taken twice: the main pass hi*hi, the correction pass hi*lo + lo*hi
+    (the data's hi there with its low 13 bits dropped, as the tensor cores
+    read it from shared memory), then their sum. Same function as
+    ``pulse_compress_noise_plain`` at float32, within 2^-21 of each
+    product."""
+    num_b, num_p, _ = z.shape
+    xr, xi = stage_planes_plain(z, plan, torch.float32)
+    drop = lambda x: (x.contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+    parts = [_split_tf32(x) for x in (xr, xi)]
+    hi = torch.complex(parts[0][0], parts[1][0])
+    lo = torch.complex(parts[0][1], parts[1][1])
+    hi_rz = torch.complex(drop(xr), drop(xi))
+    pieces = []
+    for seg, (off, width) in zip(plan.segments, plan.stage[0]):
+        st = seg.strip_tf32.to(z.device)
+        s_hi, s_lo = torch.complex(st[0].T, st[2].T), torch.complex(st[1].T,
+                                                                    st[3].T)
+        k_pad, nb = s_hi.shape[0], -(-seg.j_len // bn)
+
+        def blocks(x, s):
+            xs = torch.nn.functional.pad(
+                x[:, off:off + width],
+                (0, max((nb - 1) * bn + k_pad - width, 0)))
+            return torch.matmul(xs.unfold(-1, k_pad, bn)[:, :nb], s)
+
+        y = blocks(hi, s_hi) + (blocks(hi_rz, s_lo) + blocks(lo, s_hi))
+        pieces.append(y.reshape(hi.shape[0], nb * bn)[:, :seg.j_len])
+    return torch.cat(pieces, dim=-1).reshape(num_b, num_p, plan.n_gates)
+
+
+def _stage(z: torch.Tensor, plan: PallasPCPlan, dtype, stream: int):
+    """K8's staging kernel (``sp_stage``): the planes [2, B*P, ld] of
+    ``dtype`` (bfloat16 or float32) and, per segment, the strip GEMMs'
+    8-value table head (the pointers of its xr and xi columns, its width
+    and the row stride ld)."""
+    global stage_launch_count
+    import ctypes
+
+    from .. import _build
+
+    lib = _build.load("band_pc_sm90")
+    num_b, num_p, s_c = z.shape
+    rows = num_b * num_p
+    cols, ld = plan.stage
+    x = torch.empty((2, rows, ld), dtype=dtype, device=z.device)
+    vals = [v for seg, (off, width) in zip(plan.segments, cols)
+            for v in (seg.c0, seg.r_len, seg.pad_front, off, width)]
+    rc = lib.sp_stage(z.data_ptr(), s_c, rows, len(cols),
+                      (ctypes.c_int * len(vals))(*vals), ld, x.data_ptr(),
+                      int(dtype == torch.float32), stream)
+    _build.check(lib, rc, "sp_stage")
+    stage_launch_count += 1
+    # each segment's columns of the two planes (16-byte aligned: the
+    # offsets and ld are multiples of 8)
+    size = x.element_size()
+    xr, xi = x.data_ptr(), x.data_ptr() + size * rows * ld
+    heads = [(xr + size * off, xi + size * off, width, ld)
+             for off, width in cols]
+    return x, heads
+
+
 def _pc_cuda(z: torch.Tensor, plan: PallasPCPlan, mul_dtype):
-    global launch_count, stage_launch_count
+    global launch_count, tf32_pc_launch_count
     import ctypes
 
     from .. import _build
 
     dev = z.device
-    num_b, num_p, s_c = z.shape
+    num_b, num_p, _ = z.shape
     if z.dtype != torch.complex64 or not z.is_contiguous():
         z = z.to(torch.complex64).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bf16 = mul_dtype == torch.bfloat16
-    if bf16:
-        # the staging kernel first, then, while it runs, the strip GEMM's
-        # arguments and launch (the strips' type and shape are the plan's)
-        if any(seg.strip.device != dev for seg in plan.segments):
-            raise ValueError("the plan's strips must be on z's device")
-        lib = _build.load("band_pc_sm90")
-        rows = num_b * num_p
-        cols, ld = plan.stage
-        x = torch.empty((2, rows, ld), dtype=torch.bfloat16, device=dev)
-        vals = [v for seg, (off, width) in zip(plan.segments, cols)
-                for v in (seg.c0, seg.r_len, seg.pad_front, off, width)]
-        rc = lib.sp_stage(z.data_ptr(), s_c, rows, len(cols),
-                          (ctypes.c_int * len(vals))(*vals), ld,
-                          x.data_ptr(), stream)
-        _build.check(lib, rc, "sp_stage")
-        stage_launch_count += 1
-        out = torch.empty((num_b, num_p, plan.n_gates),
-                          dtype=torch.complex64, device=dev)
-        # each segment's columns of the two planes (16-byte aligned: the
-        # offsets and ld are multiples of 8)
-        xr, xi, vals, g0 = x.data_ptr(), x.data_ptr() + 2 * rows * ld, [], 0
-        for seg, (off, width) in zip(plan.segments, cols):
-            vals += [xr + 2 * off, xi + 2 * off, width, ld,
-                     seg.strip.data_ptr(), seg.strip.shape[2], seg.j_len, g0]
-            g0 += seg.j_len
-        nr.launch_strips(vals, rows, plan.n_gates, stream, out=out)
-        launch_count += 1
-        return out
-    if any(seg.mr.device != dev for seg in plan.segments):
-        raise ValueError("the plan's filters must be on z's device")
+    # the strips' type and shape are the plan's
+    strips = [seg.strip if bf16 else seg.strip_tf32 for seg in plan.segments]
+    if any(st.device != dev for st in strips):
+        raise ValueError("the plan's strips must be on z's device")
+    # the staging kernel first, then, while it runs, the strip GEMM's
+    # arguments and launch (x, the staged planes, stays referenced until
+    # then, so that out cannot take its memory)
+    x, heads = _stage(z, plan, mul_dtype, stream)
     out = torch.empty((num_b, num_p, plan.n_gates), dtype=torch.complex64,
                       device=dev)
-    lib = _build.load("rdm_variants")
-    g0 = 0
-    for seg in plan.segments:
-        rc = lib.rv_band_pc(1, z.data_ptr(), s_c, seg.c0, seg.r_len,
-                            seg.pad_front, 0, 0, 0, ctypes.c_float(0.0),
-                            seg.mr.data_ptr(), seg.mi.data_ptr(), seg.window,
-                            seg.tile, seg.taps, num_b, num_p, seg.j_len, g0,
-                            plan.n_gates, None, None, out.data_ptr(), stream)
-        _build.check(lib, rc, "rv_band_pc")
+    vals, g0 = [], 0
+    for seg, st, head in zip(plan.segments, strips, heads):
+        vals += [*head, st.data_ptr(), st.shape[2], seg.j_len, g0]
         g0 += seg.j_len
+    if bf16:
+        nr.launch_strips(vals, num_b * num_p, plan.n_gates, stream, out=out)
+    else:
+        lib = _build.load("noise_rdm_sm90")
+        rc = lib.k8_tf32_pc(len(plan.segments),
+                            (ctypes.c_longlong * len(vals))(*vals),
+                            num_b * num_p, plan.n_gates, out.data_ptr(),
+                            stream)
+        _build.check(lib, rc, "k8_tf32_pc")
+        tf32_pc_launch_count += 1
     launch_count += 1
     return out
 
@@ -239,9 +298,9 @@ def pulse_compress_noise(z: torch.Tensor, plan: PallasPCPlan,
     """White-noise PC: compact z [beams, pulses, s_compact] complex ->
     [beams, pulses, n_gates] complex64, with ``mul_dtype`` (float32 or
     bfloat16) operands and float32 sums and output. A CUDA ``z`` runs K8
-    (or raises): at bfloat16 the staging kernel and the strip GEMM, at
-    float32 the CUDA-core banded GEMM. A CPU ``z`` runs the plain
-    version."""
+    (or raises): the staging kernel, then at bfloat16 the strip GEMM, at
+    float32 K1's 3xTF32 strip GEMM (both passes in one launch). A CPU
+    ``z`` runs the plain version."""
     if z.dim() != 3 or z.shape[2] != plan.s_compact:
         raise ValueError(f"z must be [B, P, {plan.s_compact}], got "
                          f"{tuple(z.shape)}")

@@ -347,7 +347,10 @@ def _events(fn, busy: bool) -> tuple:
 
 
 def _profile(fn, reps: int = 5) -> dict:
-    """Device ms a call by kernel name (torch.profiler)."""
+    """Device ms a call by kernel name (torch.profiler): a kernel's mean
+    over the launches recorded times its launches a call (the recorded
+    ones over ``reps``, rounded), as ``chip_smoke.py::_kernel_profile``, so
+    that a launch the profiler missed does not lower it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -360,9 +363,14 @@ def _profile(fn, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0))
-    return {e.key[:60]: dev_t(e) / reps / 1000.0
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_t(e) > 0}
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and dev_t(e) > 0:
+            seen = e.count / reps
+            calls = round(seen) if seen >= 0.5 else seen
+            out[e.key[:60]] = (out.get(e.key[:60], 0.0)
+                               + dev_t(e) / e.count / 1000.0 * calls)
+    return out
 
 
 def measure(plan, lmat, signal, seed, reps: int = 10) -> dict:

@@ -35,9 +35,11 @@ MMA = """      wgmma_m64n128k16<1>(accr, dxr, dsr);
       wgmma_m64n128k16<1>(acci, dxr, dsi);
       wgmma_m64n128k16<1>(acci, dxi, dsr);
 """
-LOAD = """        mbar_expect_tx(full(st), kStageBytes);
-        tma_load(base, mxr, j0 + kt * kBK, m0, full(st));
-        tma_load(base + kTileA, mxi, j0 + kt * kBK, m0, full(st));
+LOAD = """        mbar_expect_tx(full(st), kDraw ? 2 * kTileB : kStageBytes);
+        if (!kDraw) {
+          tma_load(base, mxr, j0 + kt * kBK, m0, full(st));
+          tma_load(base + kTileA, mxi, j0 + kt * kBK, m0, full(st));
+        }
         tma_load(base + 2 * kTileA, msr, kt * kBK, 0, full(st));
         tma_load(base + 2 * kTileA + kTileB, msi, kt * kBK, 0, full(st));
 """
@@ -94,7 +96,7 @@ def main() -> int:
         with open(os.path.join(out_dir, f"{name}.cu"), "w") as f:
             f.write(src)
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build._COMMON, "-o",
+            [_build._nvcc(), *_build._COMMON, "-I", _build._CSRC, "-o",
              os.path.join(out_dir, f"lib{name}.so"),
              os.path.join(out_dir, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

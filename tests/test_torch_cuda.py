@@ -1,7 +1,9 @@
 """PyTorch port on the card: kernels K1, K1c, K2, K3, K4, K5, K6, K7, K8,
 K9 and K10 against their plain PyTorch versions (K6 on a ring of two ranks
 sharing the card, through ``run_ranks``; K8 at bf16, the staging kernel
-and the strip GEMM, also at ragged shapes and with probe inputs), the
+and the strip GEMM, and at f32, the staging kernel and the 3xTF32 strip
+GEMM, also at ragged shapes and with probe inputs; K7's bf16 draw mode,
+the strip GEMM with drawing producers, against its planes mode), the
 perf-config frame (each noise-RDM route) and the reference-stream frame
 through the kernels against the plain path on the CPU, and a small SNR
 sweep. Marked ``cuda``; each test skips without an NVIDIA GPU.
@@ -467,8 +469,9 @@ def test_k8_delta_and_one_tap_probes_on_card(cuda_device):
 @pytest.mark.parametrize("variant", ["stacked", "allbeams"])
 def test_k7_k9_planes_pc_runs_the_strip_gemm_on_card(cuda_device, variant):
     """At bf16 the planes-mode PC of K7 and K9 is one strip-GEMM launch and
-    the map holds 3e-4 RMS against the plain version; f32 and draw mode
-    keep their own GEMM (the strip counter stays)."""
+    the map holds 3e-4 RMS against the plain version; f32 runs K1's GEMMs
+    and K7's draw mode the strip GEMM's draw mode, counted apart (the
+    planes-mode strip counter stays)."""
     lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
     planes = nr.philox_planes(lr.rplan, (3, 5), 5, device=cuda_device)
     bf = torch.bfloat16
@@ -479,12 +482,14 @@ def test_k7_k9_planes_pc_runs_the_strip_gemm_on_card(cuda_device, variant):
     assert nr.strip_pc_launch_count == before + 1
     ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, mul_dtype=bf)
     assert _rms(got - ref) <= 3e-4 * _rms(ref)
+    drawn = nr.strip_pc_draw_launch_count
     nr.noise_rdm(lr.rplan, lr.l_factor, planes=planes, variant=variant,
                  layout="bvg")
     nr.noise_rdm(lr.rplan, lr.l_factor, seed=(3, 5), stacked=True,
                  mul_dtype=bf, layout="bvg")
     torch.cuda.synchronize()
     assert nr.strip_pc_launch_count == before + 1
+    assert nr.strip_pc_draw_launch_count == drawn + 1
 
 
 @pytest.mark.cuda
@@ -1096,3 +1101,98 @@ def test_f32_join_and_mix_after_exact_probe_on_card(cuda_device, num_b):
     assert float(ref.abs().max()) > 0.0
     assert torch.equal(got, ref)
     assert torch.equal(got16, nr.round_mul(ref, bf))
+
+
+# ------------- K7's bf16 draw mode (drawing producers) and K8 at f32 (3xTF32)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "ragged"])
+def test_k7_bf16_draw_mode_equals_planes_mode_on_card(cuda_device, shape):
+    """K7's bf16 draw mode (``stacked=True``: the strip GEMM whose producers
+    draw the data's stages) equals K7's bf16 planes mode on K1c's planes bit
+    for bit (the same consumers on the same bf16 values), with the rank-K
+    signal, at the small config (5 beams x 32 pulses) and at 3 beams x 45
+    pulses (135 rows, not a multiple of 128) on K1_RAGGED's gates (37/300/
+    700, segments starting at odd gates) and taps; within 3e-4 RMS of the
+    plain version; one drawing strip-GEMM launch, no planes-mode one."""
+    bf = torch.bfloat16
+    if shape == "small":
+        lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+        plan, lmat = lr.rplan, lr.l_factor
+        signal = lr.signal_factors(TargetBatch.make(*TARGETS))
+    else:
+        plan, lmat, signal = _ragged_inputs(cuda_device, 3, num_p=45)
+    num_b = lmat.shape[0]
+    seed = (17, 29)
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=cuda_device)
+    before = (nr.strip_pc_draw_launch_count, nr.strip_pc_launch_count,
+              nr.k7_launch_count)
+    drawn = nr.noise_rdm(plan, lmat, signal, seed=seed, stacked=True,
+                         mul_dtype=bf, layout="bvg")
+    torch.cuda.synchronize()
+    assert (nr.strip_pc_draw_launch_count, nr.strip_pc_launch_count,
+            nr.k7_launch_count) == (before[0] + 1, before[1], before[2] + 1)
+    fed = nr.noise_rdm(plan, lmat, signal, planes=planes, variant="stacked",
+                       mul_dtype=bf, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, planes, signal, mul_dtype=bf)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(torch.view_as_real(drawn)).all())
+    assert torch.equal(drawn, fed)
+    assert _rms(drawn - ref) <= 3e-4 * _rms(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "ragged"])
+def test_k8_f32_matches_plain_and_twin_on_card(cuda_device, shape):
+    """K8 at f32 (the staging kernel's f32 planes, then K1's 3xTF32 strip
+    GEMM with both passes in one launch) vs its plain version and the plain
+    twin of its arithmetic (``pulse_compress_noise_tf32``): RMS of the
+    difference within 1e-5 of the RMS, at the small config and where every
+    edge is ragged (135 rows, gates 37/300/700 at odd offsets, taps
+    5/90/300); one staging and one strip-GEMM launch a call."""
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    if shape == "small":
+        plan = ppc.make_pallas_pc_plan(
+            precompute(small_test_config(channels=8, pulses=8)),
+            device=cuda_device)
+        bp = (3, 8)
+    else:
+        plan = _ragged_plan(*RAGGED[:2], cuda_device)
+        bp = RAGGED[2]
+    z = _cube(bp + (plan.s_compact,), 0, cuda_device)
+    before = (ppc.launch_count, ppc.stage_launch_count,
+              ppc.tf32_pc_launch_count)
+    got = ppc.pulse_compress_noise(z, plan, mul_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (ppc.launch_count, ppc.stage_launch_count,
+            ppc.tf32_pc_launch_count) == tuple(n + 1 for n in before)
+    ref = ppc.pulse_compress_noise_plain(z, plan, torch.float32)
+    twin = ppc.pulse_compress_noise_tf32(z, plan)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    assert _rms(got - ref) <= 1e-5 * _rms(ref)
+    assert _rms(got - twin) <= 1e-5 * _rms(ref)
+
+
+@pytest.mark.cuda
+def test_k8_f32_exact_probe_on_card(cuda_device):
+    """Inputs whose every sum is exact in f32: unit filters (5/90/300 taps)
+    and integers plus odd multiples of 2^-12 (so each value's TF32 lo part
+    is nonzero and the correction pass carries it: a dropped, doubled or
+    misplaced correction or a swizzle or descriptor fault shows), at
+    RAGGED's shapes. K8 at f32 equals the plain version exactly."""
+    from radar_tpu_torch.studies import pallas_pc as ppc
+
+    plan = _ragged_plan(RAGGED[0], RAGGED[1], cuda_device, unit=True)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    shape = RAGGED[2] + (plan.s_compact,)
+    ints = lambda: (torch.randint(-3, 4, shape, generator=g,
+                                  device=cuda_device).float()
+                    + (2 * torch.randint(-3, 4, shape, generator=g,
+                                         device=cuda_device).float() + 1)
+                    * 2.0 ** -12)
+    z = torch.complex(ints(), ints())
+    got = ppc.pulse_compress_noise(z, plan, mul_dtype=torch.float32)
+    ref = ppc.pulse_compress_noise_plain(z, plan, torch.float32)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)

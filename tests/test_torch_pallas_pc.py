@@ -26,7 +26,8 @@ from radar_tpu.studies.pallas_pc import (make_pallas_pc_plan as j_plan,
                                          pulse_compress_noise_pallas)
 from radar_tpu.waveform.precompute import precompute as j_precompute
 
-from radar_tpu_torch.ops.noise_rdm import (STRIP_BK, STRIP_BN, round_mul,
+from radar_tpu_torch.ops.noise_rdm import (STRIP_BK, STRIP_BN, TF32_BK,
+                                          round_mul, strip_tf32,
                                           toeplitz_strip)
 from radar_tpu_torch.ops.pulse_compression import (compact_noise_plan,
                                                    make_matmul_plan,
@@ -197,11 +198,13 @@ def test_strip_schedule_matches_jax_kernel(setup, dtype):
         assert _rms(got.numpy() - want) <= 1e-4 * _rms(want)
 
 
-def _ragged_precomp(lh, gates, seed=1):
+def _ragged_precomp(lh, gates, seed=1, unit=False):
     """A stand-in for ``precompute``'s output with chosen filter lengths and
-    segment gates (what ``make_pallas_pc_plan`` reads)."""
+    segment gates (what ``make_pallas_pc_plan`` reads); random complex taps,
+    or all ones with ``unit``."""
     rng = np.random.default_rng(seed)
-    taps = [rng.normal(size=n) + 1j * rng.normal(size=n) for n in lh]
+    taps = [np.ones(n, np.complex128) if unit else
+            rng.normal(size=n) + 1j * rng.normal(size=n) for n in lh]
     g1, g2, g3 = gates
     return SimpleNamespace(gate_splits=(g1, g2, g3), n_total_gate=g1 + g2 + g3,
                            fir_delay=lh[0] // 2, mf_narrow=taps[0],
@@ -223,3 +226,88 @@ def test_strip_schedule_on_ragged_edges(bn):
     got = ppc.pulse_compress_noise_strips(z, plan, torch.float32, bn=bn)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("tile", [512, 128])
+def test_plan_carries_the_split_strip(setup, tile):
+    """``SegSpec.strip_tf32`` (the f32 kernels' strip: re_hi, re_lo, im_hi,
+    im_lo, k contiguous) equals ``noise_rdm.strip_tf32`` of the segment's
+    filter planes bit for bit; its hi + lo parts give the f32 strip within
+    2^-21 of each value, and its hi parts are TF32 values."""
+    plan = ppc.make_pallas_pc_plan(setup["tpre"], tile=tile, device="cpu")
+    for seg in plan.segments:
+        st = seg.strip_tf32
+        assert st.dtype == torch.float32 and st.is_contiguous()
+        assert st.shape[:2] == (4, STRIP_BN) and st.shape[2] % TF32_BK == 0
+        assert torch.equal(st, strip_tf32(seg.mr, seg.mi, seg.taps))
+        for hi, lo, m in ((st[0], st[1], seg.mr), (st[2], st[3], seg.mi)):
+            want = toeplitz_strip(m[:seg.taps, 0], bk=TF32_BK).T
+            assert float((hi + lo - want).abs().max()) <= 2.0 ** -21 * float(
+                want.abs().max())
+            assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+
+
+def test_stage_planes_f32(setup):
+    """K8's staged planes at f32 (the 3xTF32 GEMM's input): the same layout
+    as at bf16 (8-column widths keep rows 16-byte aligned), each segment's
+    compact samples exactly, zeros before and after them."""
+    plan, z = setup["plan"], torch.from_numpy(setup["z"])
+    cols, ld = plan.stage
+    xr, xi = ppc.stage_planes_plain(z, plan, dtype=torch.float32)
+    assert xr.dtype == torch.float32 and xr.shape == (z.shape[0] * z.shape[1],
+                                                       ld)
+    assert ld % 4 == 0 and all(off % 4 == 0 for off, _ in cols)
+    zf = z.reshape(xr.shape[0], -1)
+    for seg, (off, width) in zip(plan.segments, cols):
+        a = off + seg.pad_front
+        want = zf[:, seg.c0:seg.c0 + seg.r_len]
+        assert torch.equal(xr[:, a:a + seg.r_len], want.real)
+        assert torch.equal(xi[:, a:a + seg.r_len], want.imag)
+        assert not bool(xr[:, off:a].any() or xi[:, off:a].any())
+        assert not bool(xr[:, a + seg.r_len:off + width].any())
+        assert not bool(xi[:, a + seg.r_len:off + width].any())
+
+
+def test_tf32_schedule_matches_jax_kernel(setup):
+    """The plain twin of K8's f32 kernels (staged f32 planes, 3xTF32 on the
+    strips: hi*hi + (hi*lo + lo*hi)) vs JAX
+    ``pulse_compress_noise_pallas(interpret=True, mul_dtype=f32)``: RMS of
+    the difference within 1e-5 of the RMS (the TF32 splits leave ~2^-21 a
+    product; f32 sums in another order), and against the port's plain
+    version the same."""
+    z = setup["z"]
+    want = np.asarray(pulse_compress_noise_pallas(
+        jnp.asarray(z), j_plan(setup["jpre"]), interpret=True,
+        mul_dtype=jnp.float32))
+    got = ppc.pulse_compress_noise_tf32(torch.from_numpy(z), setup["plan"])
+    assert got.shape == want.shape and got.dtype == torch.complex64
+    assert _rms(got.numpy() - want) <= 1e-5 * _rms(want)
+    plain = ppc.pulse_compress_noise_plain(torch.from_numpy(z),
+                                           setup["plan"], torch.float32)
+    assert _rms(got.numpy() - plain.numpy()) <= 1e-5 * _rms(want)
+
+
+def test_tf32_schedule_on_ragged_edges():
+    """The 3xTF32 twin equals the plain version (f32, 1e-5 RMS) where every
+    edge is ragged, and exactly on inputs whose every sum is exact: unit
+    filters and integers plus odd multiples of 2^-12 (so each value's TF32
+    lo part is nonzero and the correction pass carries it)."""
+    pre = _ragged_precomp((5, 90, 300), (37, 300, 700))
+    plan = ppc.make_pallas_pc_plan(pre, tile=128, device="cpu")
+    rng = np.random.default_rng(5)
+    shape = (3, 45, plan.s_compact)
+    z = torch.from_numpy((rng.normal(size=shape) + 1j * rng.normal(size=shape)
+                          ).astype(np.complex64))
+    want = ppc.pulse_compress_noise_plain(z, plan, torch.float32)
+    got = ppc.pulse_compress_noise_tf32(z, plan)
+    assert _rms((got - want).numpy()) <= 1e-5 * _rms(want.numpy())
+
+    ones = ppc.make_pallas_pc_plan(_ragged_precomp((5, 90, 300),
+                                                   (37, 300, 700), unit=True),
+                                   tile=128, device="cpu")
+    ints = lambda: (rng.integers(-3, 4, size=shape)
+                    + (2 * rng.integers(-3, 4, size=shape) + 1) * 2.0 ** -12)
+    z = torch.from_numpy((ints() + 1j * ints()).astype(np.complex64))
+    want = ppc.pulse_compress_noise_plain(z, ones, torch.float32)
+    got = ppc.pulse_compress_noise_tf32(z, ones)
+    assert float(want.abs().max()) > 0.0 and torch.equal(got, want)

@@ -245,19 +245,19 @@ def test_rdm_plan_d_bf16_is_the_rounded_dft(setup):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_constants_rounded_once_per_tensor(setup, dtype):
-    """The plan's bf16-rounded planes of mp (``mp_bf16``, the filter of
-    K7's bf16 draw-mode PC, made once per plan) equal ``round_mul`` of mp's
-    (re, im) planes, contiguous; L's (``_rounded_l``) at ``dtype`` equals
-    ``round_mul`` of L, a second call returns the kept copy, and after a
-    change to L in place the copy follows it (a new rounded copy at bf16;
-    at f32 L itself)."""
+    """The plan's bf16 strip (``strip``, the filter of K7's bf16 PC in
+    planes and in draw mode, made once per plan) equals the Toeplitz strip
+    of mp's first column rounded with ``round_mul``, contiguous; L's
+    (``_rounded_l``) at ``dtype`` equals ``round_mul`` of L, a second call
+    returns the kept copy, and after a change to L in place the copy
+    follows it (a new rounded copy at bf16; at f32 L itself)."""
     md = DTYPES[dtype][1]
     plan = setup["plan"]
     for seg in plan.segments:
-        re, im = seg.mp_bf16
-        want = nr.round_mul(seg.mp, torch.bfloat16)
-        assert torch.equal(re, want.real) and torch.equal(im, want.imag)
-        assert seg.mp_bf16.is_contiguous()
+        col = nr.round_mul(seg.mp[:seg.taps.shape[0], 0], torch.bfloat16)
+        for plane, part in zip(seg.strip, (col.real, col.imag)):
+            assert torch.equal(plane.T.float(), nr.toeplitz_strip(part))
+        assert seg.strip.is_contiguous()
     lt = setup["lt"].clone()
     first = nr._rounded_l(lt, md)
     assert torch.equal(first, nr.round_mul(lt, md)) and first.is_contiguous()
@@ -304,3 +304,38 @@ def test_ring_schedule_on_planes_equals_banded_windows(setup, dtype):
         got = got.reshape(*x.shape[:2], nb * bn)[..., :seg.j_len]
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-4 * _rms(want.numpy()))
+
+
+def _unswizzle(stage: torch.Tensor) -> torch.Tensor:
+    """A drawn stage [2, 128, 64] in the 128-byte swizzle's byte order back
+    to [2, rows, samples]: sample k of row r sits at ((k // 8) ^ (r % 8)) *
+    8 + k % 8 of the row."""
+    r = torch.arange(stage.shape[1])[:, None]
+    k = torch.arange(stage.shape[2])[None, :]
+    return stage[:, r.expand(-1, k.shape[1]), ((k // 8) ^ (r % 8)) * 8 + k % 8]
+
+
+@pytest.mark.parametrize("si", [0, 1, 2])
+def test_strip_draw_stage_plain_matches_philox_planes(setup, si):
+    """The plain twin of a stage the strip GEMM's drawing producers make
+    (``strip_draw_stage_plain``: Philox draws rounded to bf16 in the
+    128-byte swizzle) holds, unswizzled, the bf16 rounding of
+    ``philox_planes`` at its rows and samples: at the first samples (zeros
+    before pad_front), inside, and at the last block (zeros from xlen on
+    and past the last row)."""
+    plan = setup["plan"]
+    num_b = setup["lt"].shape[0]
+    seg = plan.segments[si]
+    rows = num_b * plan.n_pulses
+    xr, xi = nr.philox_planes(plan, SEED, num_b, device="cpu")[si]
+    width = seg.xlen + 3 * nr.STRIP_BK
+    planes = torch.stack([torch.nn.functional.pad(
+        x.reshape(rows, seg.xlen), (0, width - seg.xlen, 0, nr.STRIP_BN))
+        for x in (xr, xi)]).to(torch.bfloat16)
+    last = (seg.xlen - 1) // nr.STRIP_BK * nr.STRIP_BK
+    for m0, n0 in ((0, 0), (64, nr.STRIP_BK), (rows - 7, last)):
+        got = _unswizzle(nr.strip_draw_stage_plain(plan, SEED, num_b, si, m0,
+                                                   n0))
+        want = planes[:, m0:m0 + nr.STRIP_BN, n0:n0 + nr.STRIP_BK]
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        assert bool(got.float().any())
