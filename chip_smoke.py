@@ -30,6 +30,18 @@ targets:
   their plain versions (K4 at 13, 1 and 2 beams a block, bit for bit
   alike and equal to K4 planes mode on K1c's planes), and K1c's integer
   issue bound from the SASS of its loop (``cuobjdump``);
+- phase ``tails``: one full-width frame of each tail variant (the
+  kernel-maps tail, with and without bf16 output and with matmul means,
+  bf16 output alone, the beams-major tail on both kernel routes, the perf
+  frame with matmul means; on the reference stream tail_from_rdm, the
+  native scan, the monopulse flags with pair mode, matmul means), both
+  truth targets found in each and each path's kernels counted; the
+  kernel-maps frame's detections bit for bit against the plain tail on
+  K1's own maps, its mask against the default frame's; K1's maps epilogue
+  (``add_maps_kernel``) at f32 and bf16 output bit for bit against its
+  plain version on the kernel's own map; the frames' device time, K1 with
+  and without the maps, and the epilogue beside ``add_kernel`` and its
+  bytes bound;
 - the rank-K stream's three noise-RDM routes (``pallas_prng``, ``pallas``
   with normal and uniform rails, ``xla``) at full size and, at small
   widths, against the CPU;
@@ -969,6 +981,199 @@ def _strip_pc_planes(nr, plan, planes, pcr, pci) -> None:
                 num_b * num_p, pcr.shape[-1], outr=pcr, outi=pci)
 
 
+def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
+           counts, reset, perf_process) -> dict:
+    """Phase ``tails``: one full-width frame of each tail variant, both
+    truth targets found in each, with the kernels each must launch; the
+    kernel-maps frame's detections against the plain tail on K1's own maps
+    (bit for bit) and its mask against the default perf frame's; K1's maps
+    epilogue (``add_maps_kernel``) held bit for bit against its plain
+    version on the kernel's own unrounded map, with the times and the
+    epilogue's bytes bound. Returns row 1's extra keys."""
+    import torch
+
+    from radar_tpu_torch.pipeline.frame import (detection_tail,
+                                                make_frame_processor,
+                                                measure_consts)
+
+    matmul = dataclasses.replace(cfg.cfar, means_impl="matmul")
+    branches = (
+        ("kernel_maps", cfg.replace(kernel_maps=True), pre,
+         ("K1", "K1_maps", "K2")),
+        ("kernel_maps_bf16", cfg.replace(kernel_maps=True,
+                                         kernel_out_bf16=True), pre,
+         ("K1", "K1_maps", "K2")),
+        ("kernel_out_bf16", cfg.replace(kernel_out_bf16=True), pre,
+         ("K1", "K1_maps", "K2")),
+        ("kernel_maps_matmul", cfg.replace(kernel_maps=True, cfar=matmul),
+         pre, ("K1", "K1_maps")),
+        ("beams_major_prng", cfg.replace(beams_major_tail=True), pre,
+         ("K1",)),
+        ("beams_major_pallas", cfg.replace(beams_major_tail=True,
+                                           noise_rdm_impl="pallas"), pre,
+         ("K1",)),
+        ("perf_matmul", cfg.replace(cfar=matmul), pre, ("K1",)),
+        ("ref_tail_from_rdm", ref_cfg.replace(tail_from_rdm=True), ref_pre,
+         ("K3",)),
+        ("ref_native_scan", ref_cfg.replace(extract_native_scan=True),
+         ref_pre, ("K3",)),
+        ("ref_monopulse_complex_pair_mode", ref_cfg.replace(
+            monopulse_complex=True, cluster=dataclasses.replace(
+                ref_cfg.cluster, keep_pair_mode=True)), ref_pre, ("K3",)),
+        ("ref_monopulse_refined", ref_cfg.replace(monopulse_refined=True),
+         ref_pre, ("K3",)),
+        ("ref_matmul", ref_cfg.replace(cfar=dataclasses.replace(
+            ref_cfg.cfar, means_impl="matmul")), ref_pre, ()))
+    procs, launches = {}, {}
+    for label, cfg_t, pre_t, want in branches:
+        proc = make_frame_processor(cfg_t, pre_t, device=dev)
+        proc(1, truth)                     # warm-up outside the count
+        torch.cuda.synchronize()
+        reset()
+        res = proc(20261016, truth)
+        torch.cuda.synchronize()
+        got = counts()
+        rows = _rows(res)
+        found = _found(rows, truth, dr, dv)
+        _line("tails", branch=label, launches=got,
+              num_raw=int(res.num_raw_detections),
+              num_final=int(res.num_final), found=found,
+              pair_idx=(None if res.targets.pair_idx is None else
+                        res.targets.pair_idx[res.targets.valid].tolist()),
+              targets=np.round(rows, 3).tolist())
+        _require(bool(np.all(np.isfinite(rows))) and all(found),
+                 f"tails {label}: both truth targets found")
+        _require(all(got[k] >= 1 for k in want),
+                 f"tails {label} launched {want}")
+        _require(("matmul" not in label or got["K2"] + got["K3"] == 0)
+                 and (label.startswith("kernel") or got["K1_maps"] == 0),
+                 f"tails {label}: no shift-means CFAR kernel under matmul "
+                 "means, K1's maps epilogue only on the kernel-maps and "
+                 "bf16 frames")
+        procs[label], launches[label] = proc, got
+
+    # the kernel-maps frame: K1's maps through K2 on the card against the
+    # plain tail (plain K2) on the CPU on the same map and maps
+    lr = procs["kernel_maps"].stages
+    rdm, maps_p = lr.noise_rdm_sig(20261016, truth, layout="bvg",
+                                   emit_maps=True)
+    mc = measure_consts(cfg, pre, device=dev)
+    mc_cpu = measure_consts(cfg, pre, device="cpu")
+    on_card = detection_tail(cfg, mc, rdm, "bvg", "qvg", maps_p=maps_p)
+    plain = detection_tail(cfg, mc_cpu, rdm.cpu(), "bvg", "qvg",
+                           maps_p=maps_p.cpu())
+    same = {f: bool(torch.equal(getattr(on_card[1], f).cpu(),
+                                getattr(plain[1], f)))
+            for f in ("v_idx", "r_idx", "pair_idx", "amp", "valid",
+                      "count")}
+    _same_rows(_rows(on_card[-1]), _rows(plain[-1]), rtol=1e-5)
+    # the default perf frame's mask (K2 on |rdm|'s pair sums) against the
+    # kernel-maps one on the same map: cells at a threshold tie may differ
+    num_v, num_g = rdm.shape[1:]
+    mag = rdm.abs()
+    mask_d, _ = ck.goca_cfar_qvg(ck.pad_maps_qvg(mag[:-1] + mag[1:]),
+                                 cfg.cfar, num_g, num_v)
+    mask_k, _ = ck.goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
+    maps_i = maps_p[:, :num_v, ck.HALO:ck.HALO + num_g]
+    maps_rel = float(((maps_i - (mag[:-1] + mag[1:])).abs()
+                      / (mag[:-1] + mag[1:])).max())
+    _line("tails_kernel_maps", detections_equal_plain=same,
+          mask_cells_differing_from_default=int((mask_d != mask_k).sum()),
+          hits=int(mask_k.sum()), maps_vs_abs_max_rel=maps_rel,
+          shape=[num_v, num_g])
+    _require(all(same.values()), "kernel-maps tail == plain tail on K1's "
+             "maps, detections bit for bit")
+
+    # K1's epilogue: with maps (f32 and bf16 output) against the plain
+    # epilogue on the kernel's own unrounded map, bit for bit
+    plan, lmat = lr.rplan, lr.l_factor
+    factors = lr.signal_factors(truth)
+    seed = nr.seed_words(20261016)
+    base = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg")
+    checks = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = nr.maps_launch_count
+        y, m = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                            emit_maps=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        checks[str(out_dtype)] = {
+            "map_equal_rounded_base": bool(torch.equal(
+                y, nr.round_mul(base, out_dtype))),
+            "maps_equal_plain": bool(torch.equal(m,
+                                                 nr.pair_maps_plain(base))),
+            "maps_max_abs_err": float((m - nr.pair_maps_plain(base)).abs()
+                                      .max()),
+            "epilogue_launches": nr.maps_launch_count - before}
+    _line("tails_k1_maps", checks=checks,
+          tol="bit for bit: the map (rounded to bf16 values) and the maps "
+              "of the unrounded map, halo and padding zero")
+    _require(all(c["map_equal_rounded_base"] and c["maps_equal_plain"]
+                 and c["epilogue_launches"] == 1 for c in checks.values()),
+             "K1's maps epilogue == plain, bit for bit")
+
+    # times: the frames (device busy by the profiler, events), K1 with and
+    # without the maps, the epilogue beside add_kernel
+    frame_busy = {}
+    for label, proc in (("default", perf_process),
+                        ("kernel_maps", procs["kernel_maps"]),
+                        ("kernel_maps_bf16", procs["kernel_maps_bf16"]),
+                        ("beams_major_prng", procs["beams_major_prng"])):
+        call = lambda p=proc: p(20261016, truth)
+        busy, top = _device_busy_ms(call, reps=3)
+        frame_busy[label] = {
+            "device_busy_ms": round(busy, 4),
+            "events_ms": round(statistics.median(_event_ms(call, 5)), 4),
+            "top": top[:3]}
+    k1_call = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
+                                   layout="bvg")
+    km_call = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
+                                   layout="bvg", emit_maps=True)
+    bf_call = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
+                                   layout="bvg", emit_maps=True,
+                                   out_dtype=torch.bfloat16)
+    k1_busy = _busy_event_ms(k1_call)[0]
+    km_busy, km_host = _busy_event_ms(km_call)
+    bf_busy = _busy_event_ms(bf_call)[0]
+    k1_busy_2 = _busy_event_ms(k1_call)[0]
+    add_ms = _named_ms(_kernel_ms(k1_call), "add_kernel")
+    epi_ms = _named_ms(_kernel_ms(km_call), "add_maps_kernel")
+    epi_bf_ms = _named_ms(_kernel_ms(bf_call), "add_maps_kernel")
+    num_b = lmat.shape[0]
+    # bytes: out and the DFT's correction read, out and the maps' interior
+    # written, each once
+    epi_bytes = (3 * num_b * num_v * num_g * 8
+                 + (num_b - 1) * num_v * num_g * 4)
+    epi_bound = epi_bytes / PEAK_HBM * 1e3
+    _line("tails_times", card=repr(card), frames=frame_busy,
+          k1_busy_card_ms=round(k1_busy, 4),
+          k1_again_busy_card_ms=round(k1_busy_2, 4),
+          k1_emit_maps_busy_card_ms=round(km_busy, 4),
+          k1_emit_maps_host_ms=round(km_host, 4),
+          k1_emit_maps_bf16_busy_card_ms=round(bf_busy, 4),
+          add_kernel_ms=round(add_ms, 5),
+          add_maps_kernel_ms=round(epi_ms, 5),
+          add_maps_kernel_bf16_ms=round(epi_bf_ms, 5),
+          epilogue_bytes=epi_bytes, epilogue_bound_ms=round(epi_bound, 5))
+    _require(epi_ms > 0.0 and add_ms > 0.0,
+             "the profiler saw add_maps_kernel and add_kernel")
+    return {"emit_maps_busy_card_ms": km_busy,
+            "emit_maps_host_ms": km_host,
+            "emit_maps_bf16_busy_card_ms": bf_busy,
+            "emit_maps_epilogue_ms": epi_ms,
+            "emit_maps_epilogue_bf16_ms": epi_bf_ms,
+            "add_kernel_ms": add_ms,
+            "emit_maps_epilogue_bound_ms": epi_bound,
+            "emit_maps_epilogue_bound_by": "bytes",
+            "emit_maps_max_abs_err": max(c["maps_max_abs_err"]
+                                         for c in checks.values()),
+            "emit_maps_launches_kernel_maps_frame":
+                launches["kernel_maps"]["K1_maps"],
+            "kernel_maps_frame_device_busy_ms":
+                frame_busy["kernel_maps"]["device_busy_ms"],
+            "default_frame_device_busy_ms":
+                frame_busy["default"]["device_busy_ms"]}
+
+
 def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     """Phase ``pc_study``: ``scripts/bench_pc2d.py``'s three chains at full
     size (white z -> PC -> MTD with bf16 operands -> mix): the cuBLAS banded
@@ -1808,12 +2013,14 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
-                      "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count}
+                      "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count,
+                      "K1_maps": nr.maps_launch_count}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
         ck.k3_launch_count = k5.launch_count = 0
         nr.k1c_launch_count = nr.k4_launch_count = 0
+        nr.maps_launch_count = 0
 
     reset()
     res = process(20261016, truth)
@@ -1855,8 +2062,14 @@ def main() -> int:
              "card and CPU frames agree")
     _same_rows(_rows(a)[:, :2], _rows(b)[:, :2], rtol=1e-4)
 
-    # ---- 7. K5 at the raw-cube shape vs its plain version, statistics
     ref_cfg = full_config()
+    ref_pre = precompute(ref_cfg)
+
+    # ---- 5b. phase tails: every tail variant at full width
+    tails_extra = _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv,
+                         dev, card, counts, reset, process)
+
+    # ---- 7. K5 at the raw-cube shape vs its plain version, statistics
     shape = (ref_cfg.sig.prt_num, ref_cfg.sig.point_prt,
              ref_cfg.sig.channel_num)
     zeros = torch.zeros(shape, dtype=torch.complex64, device=dev)
@@ -1893,7 +2106,6 @@ def main() -> int:
     # (both compiled in) and the generic instantiation (a narrow window, and
     # the widest the halo takes), each method; and on the first 2 and 3
     # beams (one pair, an odd pair count) at the first three windows
-    ref_pre = precompute(ref_cfg)
     inter = make_frame_processor(ref_cfg, ref_pre, device=dev,
                                  return_intermediates=True)(11, truth)
     mag = inter.rdm.permute(2, 0, 1).abs().contiguous()    # [13, 332, 3404]
@@ -2426,7 +2638,8 @@ def main() -> int:
     k4_bytes_ms = num_b * plan.n_dop * plan.n_gates * 8 / PEAK_HBM * 1e3
     kernels = [
         ("K1 noise RDM (draw mode, rank-K signal): K1c planes + 3xTF32 "
-         "strip-GEMM PC + mix + 3xTF32 DFT GEMM", "noise_rdm_sm90.cu",
+         "strip-GEMM PC + mix + 3xTF32 DFT GEMM; emit_maps and bf16 "
+         "output in the maps epilogue add_maps_kernel", "noise_rdm_sm90.cu",
          "radar_tpu/ops/pallas_rdm.py:980", sweeps["perf"]["K1"], k1_err,
          k1_busy_ms, k1_plain_ms, *_bound(k1_tf32_bound, k1_bytes_ms), None,
          {"ms_is": "events around one call, the card kept busy",
@@ -2434,7 +2647,8 @@ def main() -> int:
           "host_ms": k1_host_ms, "profile_ms": k1_split,
           "bound_fp32_cuda_cores_ms": k1_fp32_bound,
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
-          "bytes_bound_ms": k1_bytes_ms, "cublas_chain_ms": cublas_ms}),
+          "bytes_bound_ms": k1_bytes_ms, "cublas_chain_ms": cublas_ms,
+          **tails_extra}),
         ("K2 2D GOCA-CFAR on qvg maps (TMA-staged, compiled-in window)",
          "cfar.cu", "radar_tpu/ops/pallas_kernels.py:234",
          sweeps["perf"]["K2"], k2_err, k2_busy_ms, k2_plain_ms,

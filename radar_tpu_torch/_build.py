@@ -46,7 +46,7 @@ _SIGNATURES = {
         "k8_tf32_pc": [_I, _P, _I, _I, _P, _P],
         "k1_tf32_mix": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "k1_tf32_dft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                        _P, _I, _P, _P, _P],
+                        _P, _I, _P, _P, _P, _LL, _LL, _P],
     },
     "rdm_variants": {
         "rv_mix": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],

@@ -31,7 +31,11 @@
 //   3. dft_gemm_kernel<false>, <true>: out^T[b] [G, V] = pcT[b] [G, P] @
 //      D^T, i.e. one GEMM of M = B*G rows, N = V, K = P, written as the
 //      [B, V, G] complex64 map; add_kernel adds the correction and the
-//      rank-K signal to the main pass's.
+//      rank-K signal to the main pass's. With emit_maps (cfg.kernel_maps)
+//      or bf16 output (cfg.kernel_out_bf16), add_maps_kernel does instead:
+//      it walks the beams of a (v, g), rounds the map to bf16 values and
+//      writes the adjacent-beam sum maps |y_b| + |y_b+1| of the unrounded
+//      map into K2's padded qvg buffer.
 //
 // The planes kernel's other schedules at f32 (ops/noise_rdm.py::
 // _variant_tf32: K10 variant="resident", noise_rdm_pallas_planes's body
@@ -931,9 +935,27 @@ join_kernel(float4* __restrict__ pr, float4* __restrict__ pi,
   }
 }
 
+// One element of K1's map: out + corr (the DFT's two passes) + the rank-K
+// signal sum_k st[k,b] dv[k,v] pb[k,g]. add_kernel and add_maps_kernel
+// both form it here, so the two write the same map bit for bit.
+__device__ __forceinline__ float2 k1_element(
+    const float2 y, const float2 c, const float2* __restrict__ dv,
+    const float2* __restrict__ pb, const float2* __restrict__ st, int num_k,
+    int num_b, int num_v, int num_g, int b, int v, int g) {
+  float yr = y.x + c.x, yi = y.y + c.y;
+  for (int k = 0; k < num_k; ++k) {
+    const float2 a = dv[k * num_v + v], p = pb[k * num_g + g];
+    const float2 w = st[k * num_b + b];
+    const float orr = a.x * p.x - a.y * p.y, oi = a.x * p.y + a.y * p.x;
+    yr += w.x * orr - w.y * oi;
+    yi += w.x * oi + w.y * orr;
+  }
+  return make_float2(yr, yi);
+}
+
 // The map out [B, V, G] += corr (the DFT's two passes) + the rank-K
-// signal sum_k st[k,b] dv[k,v] pb[k,g]. (In the GEMM's epilogue the
-// signal's loads cost a fifth of the DFT.)
+// signal. (In the GEMM's epilogue the signal's loads cost a fifth of the
+// DFT.)
 __global__ void __launch_bounds__(256)
 add_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
            const float2* __restrict__ dv, const float2* __restrict__ pb,
@@ -943,21 +965,62 @@ add_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const float2 y = out[i], c = corr[i];
-    float yr = y.x + c.x, yi = y.y + c.y;
+    int b = 0, v = 0, g = 0;
     if (num_k > 0) {
       const long long bv = i / num_g;
-      const int g = (int)(i - bv * num_g);
-      const int b = (int)(bv / num_v), v = (int)(bv - (long long)b * num_v);
-      for (int k = 0; k < num_k; ++k) {
-        const float2 a = dv[k * num_v + v], p = pb[k * num_g + g];
-        const float2 w = st[k * num_b + b];
-        const float orr = a.x * p.x - a.y * p.y, oi = a.x * p.y + a.y * p.x;
-        yr += w.x * orr - w.y * oi;
-        yi += w.x * oi + w.y * orr;
-      }
+      g = (int)(i - bv * num_g);
+      b = (int)(bv / num_v);
+      v = (int)(bv - (long long)b * num_v);
     }
-    out[i] = make_float2(yr, yi);
+    out[i] = k1_element(out[i], corr[i], dv, pb, st, num_k, num_b, num_v,
+                        num_g, b, v, g);
+  }
+}
+
+// K1's epilogue for the kernel-maps tail (cfg.kernel_maps) and bf16
+// output (cfg.kernel_out_bf16); replaces the emit_maps and out_dtype
+// modes of radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas_gen (:469-478,
+// the maps from the resident f32 tiles before the cast). A thread owns a
+// (v, g) and walks the beams in order: y[b] = k1_element(...) (add_kernel's
+// sum), out[b] = y[b], rounded to bf16 values (nearest even) with
+// round_out; with maps, maps[b-1] = |y[b-1]| + |y[b]| from the UNROUNDED
+// f32 y, the previous beam's magnitude kept in a register. The magnitude
+// is sqrt(re*re + im*im) rounded at each step (the build contracts, so the
+// intrinsics keep it the plain version's bit for bit). maps points at
+// column 0 of pair 0's interior in K2's padded qvg layout (row stride ld,
+// plane stride plane); the wrapper zeroes its halo and padding. With g
+// fastest in the thread index, every beam plane's loads and the maps'
+// stores are coalesced. Bound by bytes: out and corr read, out and the
+// maps' interior written (0.1214 ms at the perf shape).
+__global__ void __launch_bounds__(256)
+add_maps_kernel(float2* __restrict__ out, const float2* __restrict__ corr,
+                const float2* __restrict__ dv, const float2* __restrict__ pb,
+                const float2* __restrict__ st, int num_k, int num_b,
+                int num_v, int num_g, float* __restrict__ maps, long long ld,
+                long long plane, int round_out) {
+  const long long pg = (long long)num_v * num_g;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < pg;
+       i += stride) {
+    const int v = (int)(i / num_g), g = (int)(i - (long long)v * num_g);
+    float* m = maps == nullptr ? nullptr : maps + (long long)v * ld + g;
+    float prev = 0.f;
+    for (int b = 0; b < num_b; ++b) {
+      const long long j = (long long)b * pg + i;
+      float2 y = k1_element(out[j], corr[j], dv, pb, st, num_k, num_b, num_v,
+                            num_g, b, v, g);
+      if (m != nullptr) {
+        const float mag = __fsqrt_rn(
+            __fadd_rn(__fmul_rn(y.x, y.x), __fmul_rn(y.y, y.y)));
+        if (b > 0) m[(long long)(b - 1) * plane] = __fadd_rn(prev, mag);
+        prev = mag;
+      }
+      if (round_out) {
+        y.x = __bfloat162float(__float2bfloat16_rn(y.x));
+        y.y = __bfloat162float(__float2bfloat16_rn(y.y));
+      }
+      out[j] = y;
+    }
   }
 }
 
@@ -1319,16 +1382,23 @@ int k1_tf32_mix(void* pr, void* pi, const void* cr, const void* ci,
 // pass's result, which add_kernel adds, with the signal, to the main
 // pass's in out). With lmat [B, B] (the f32 schedules: pr, pi joined, not
 // mixed) out = sum_c L[b,c] (D @ pc[c]) + the signal instead
-// (mix_after_kernel), rounded to bf16 values with round_out.
+// (mix_after_kernel), rounded to bf16 values with round_out. Without lmat
+// (K1), maps (the interior's first element of K2's padded qvg maps, row
+// stride maps_ld, plane stride maps_plane floats) or round_out take
+// add_maps_kernel in place of add_kernel: K1's emit_maps and bf16-output
+// modes.
 int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
                 int num_b, int num_v, int num_p, int num_g, int p4,
                 const void* dv, const void* pb, const void* st, int num_k,
                 const void* lmat, int round_out, void* out, void* corr,
+                void* maps, long long maps_ld, long long maps_plane,
                 void* stream) {
   if (num_b < 1 || num_v < 1 || v_rows < num_v || v_rows % kBN != 0 ||
       p4 < num_p || p4 % 4 != 0 || out == nullptr || corr == nullptr ||
       (num_k > 0 && (dv == nullptr || pb == nullptr || st == nullptr)) ||
-      (lmat != nullptr && num_b > kMaxB) || (lmat == nullptr && round_out))
+      (lmat != nullptr && num_b > kMaxB) ||
+      (lmat != nullptr && maps != nullptr) ||
+      (maps != nullptr && (maps_ld < num_g || maps_plane < maps_ld * num_v)))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)num_b * num_g;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -1354,7 +1424,8 @@ int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_gemm(a, blocks, s);
   if (err != cudaSuccess) return (int)err;
-  const long long n = lmat != nullptr ? (long long)num_v * num_g : rows * num_v;
+  const bool walk = lmat != nullptr || maps != nullptr || round_out;
+  const long long n = walk ? (long long)num_v * num_g : rows * num_v;
   long long blocks_e = (n + 255) / 256;
   if (blocks_e > 132 * 16) blocks_e = 132 * 16;
   if (lmat != nullptr)
@@ -1362,6 +1433,12 @@ int k1_tf32_dft(const void* pr, const void* pi, const void* d4, int v_rows,
         a.out, a.corr, static_cast<const float2*>(lmat),
         static_cast<const float2*>(dv), static_cast<const float2*>(pb),
         static_cast<const float2*>(st), num_k, num_b, num_v, num_g, round_out);
+  else if (walk)
+    add_maps_kernel<<<(unsigned)blocks_e, 256, 0, s>>>(
+        a.out, a.corr, static_cast<const float2*>(dv),
+        static_cast<const float2*>(pb), static_cast<const float2*>(st), num_k,
+        num_b, num_v, num_g, static_cast<float*>(maps), maps_ld, maps_plane,
+        round_out);
   else
     add_kernel<<<(unsigned)blocks_e, 256, 0, s>>>(
         a.out, a.corr, static_cast<const float2*>(dv),

@@ -1,5 +1,5 @@
 """2D GOCA-CFAR and first-K detection extraction — port of
-``radar_tpu/ops/cfar.py:146-216, 272-312, 367-454``.
+``radar_tpu/ops/cfar.py``.
 
 Reference (fun_process_single_frame.m:172-223): on each adjacent-beam sum
 map |RDM_A| + |RDM_B|, a cross-shaped greatest-of cell-averaging detector
@@ -15,6 +15,13 @@ compiles the reference's division by the constant into (eager JAX divides,
 which can differ in the last bit) — and the "CA" combine takes the fused
 multiply-add XLA's CPU compiler makes of it. The port does the same on
 every device, so kernels K2 and K3 match it bit for bit.
+``CfarParams.means_impl="matmul"`` takes the range means from a blocked
+banded-stencil matrix product instead (``lead_trail_means_matmul``), equal
+up to the order of the sums.
+
+Layouts of the pair-sum maps: "vgq" [V, G, pairs] (the default tail),
+"qvg" [pairs, V, G] (the kernel-CFAR tails) and "qgv" [pairs, G, V] (the
+beams-major tail, ``pair_sum_maps_bm``).
 
 Detections leave as a fixed-capacity list in (pair, range, velocity)
 order, the order of MATLAB's column-major ``find`` per pair (ref :215-221).
@@ -22,6 +29,7 @@ order, the order of MATLAB's column-major ``find`` per pair (ref :215-221).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -71,24 +79,78 @@ def _combine(lead: torch.Tensor, trail: torch.Tensor, ref: int,
     raise ValueError(f"unknown CFAR method: {method}")
 
 
+@functools.lru_cache(maxsize=8)
+def _banded_means_matrix(guard: int, ref: int, tile: int) -> np.ndarray:
+    """[tile + 2*halo, 2*tile] banded stencil (halo = guard + ref):
+    columns 0..tile-1 give the lead window means of a ``tile``-wide output
+    block from its input window, tile..2*tile-1 the trail means."""
+    halo = guard + ref
+    w = np.zeros((tile + 2 * halo, 2 * tile), np.float64)
+    for j in range(tile):
+        for k in range(guard + 1, guard + ref + 1):
+            w[j + halo - k, j] = 1.0 / ref          # lead:  x[i - k]
+            w[j + halo + k, tile + j] = 1.0 / ref   # trail: x[i + k]
+    return w
+
+
+def lead_trail_means_matmul(x: torch.Tensor, guard: int, ref: int,
+                            axis: int, tile: int = 128):
+    """The lead and trail window means along ``axis`` as one blocked
+    banded-stencil matrix product: each ``tile``-wide output block
+    contracts its ``tile + 2*(guard+ref)`` input window (zero fill at the
+    borders) against ``_banded_means_matrix`` (in ``x``'s dtype). Equal to
+    the shifted adds up to the order of the sums (the matrix product's
+    own)."""
+    halo = guard + ref
+    xm = x.movedim(axis, -1)
+    n = xm.shape[-1]
+    n_tiles = -(-n // tile)
+    xp = torch.nn.functional.pad(xm, (halo, n_tiles * tile - n + halo))
+    blocks = xp.unfold(-1, tile + 2 * halo, tile)    # [..., n_tiles, win]
+    w = torch.tensor(_banded_means_matrix(guard, ref, tile), dtype=x.dtype,
+                     device=x.device)
+    y = torch.matmul(blocks, w)                      # [..., n_tiles, 2T]
+    flat = xm.shape[:-1] + (n_tiles * tile,)
+    lead = y[..., :tile].reshape(flat)[..., :n]
+    trail = y[..., tile:].reshape(flat)[..., :n]
+    return lead.movedim(-1, axis), trail.movedim(-1, axis)
+
+
 def pair_sum_maps(rdm: torch.Tensor) -> torch.Tensor:
     """|RDM| adjacent-beam sums: [V, G, B] complex -> [V, G, B-1] real."""
     mag = rdm.abs()
     return mag[:, :, :-1] + mag[:, :, 1:]
 
 
+def pair_sum_maps_bm(rdm_bm: torch.Tensor) -> torch.Tensor:
+    """Beams-major variant: [B, V, G] complex -> [B-1, G, V] real sum
+    maps (contiguous), whose order is the reference's (pair, range,
+    velocity) scan order."""
+    mag = rdm_bm.abs()
+    return (mag[:-1] + mag[1:]).transpose(1, 2).contiguous()
+
+
+_AXES = {"vgq": (1, 0), "qgv": (1, 2), "qvg": (2, 1)}   # (range, Doppler)
+
+
 def goca_noise_and_valid(maps: torch.Tensor, params: CfarParams,
                          layout: str = "vgq"):
     """max(noise_R, noise_V) and the border-validity mask, before the
-    threshold factor. ``layout`` is "vgq" ([V, G, pairs]) or "qvg"
-    ([pairs, V, G])."""
-    if params.means_impl != "shift":
-        raise NotImplementedError(
-            f"cfg.cfar.means_impl={params.means_impl!r} is not ported")
-    r_axis, v_axis = {"vgq": (1, 0), "qvg": (2, 1)}[layout]
-    noise_r = _combine(*_lead_trail_sums(maps, params.guard_cells_r,
-                                         params.ref_cells_r, r_axis),
-                       params.ref_cells_r, params.method)
+    threshold factor. ``layout`` is "vgq" ([V, G, pairs]), "qvg"
+    ([pairs, V, G]) or "qgv" ([pairs, G, V]). Under ``means_impl="matmul"``
+    the range means come from ``lead_trail_means_matmul``."""
+    if params.means_impl not in ("shift", "matmul"):
+        raise ValueError(f"unknown means_impl {params.means_impl!r}")
+    r_axis, v_axis = _AXES[layout]
+    if params.means_impl == "matmul":
+        # the means are the sums of a window of one cell
+        noise_r = _combine(*lead_trail_means_matmul(
+            maps, params.guard_cells_r, params.ref_cells_r, r_axis), 1,
+            params.method)
+    else:
+        noise_r = _combine(*_lead_trail_sums(maps, params.guard_cells_r,
+                                             params.ref_cells_r, r_axis),
+                           params.ref_cells_r, params.method)
     noise_v = _combine(*_lead_trail_sums(maps, params.guard_cells_v,
                                          params.ref_cells_v, v_axis),
                        params.ref_cells_v, params.method)
@@ -103,6 +165,8 @@ def goca_noise_and_valid(maps: torch.Tensor, params: CfarParams,
     v_ok = (av >= border_v) & (av < num_v - border_v)
     if layout == "vgq":
         valid = v_ok[:, None, None] & r_ok[None, :, None]
+    elif layout == "qgv":
+        valid = r_ok[None, :, None] & v_ok[None, None, :]
     else:
         valid = v_ok[None, :, None] & r_ok[None, None, :]
     return noise, valid
@@ -149,6 +213,20 @@ def _first_k(row_counts: torch.Tensor, capacity: int, column):
     return r_s, torch.argmax(hit.to(torch.int32), dim=1), valid
 
 
+def first_k_true_indices(flat: torch.Tensor, capacity: int,
+                         row_width: int = 4096):
+    """Ascending flat indices of the first ``capacity`` True entries of a
+    boolean vector (rows of ``row_width``), and their validity; invalid
+    slots hold 0."""
+    n = flat.shape[0]
+    num_rows = -(-n // row_width)
+    m2 = torch.nn.functional.pad(flat.to(torch.int32),
+                                 (0, num_rows * row_width - n))
+    m2 = m2.reshape(num_rows, row_width)
+    r_s, pos, valid = _first_k(m2.sum(dim=1), capacity, lambda r: m2[r])
+    return torch.where(valid, r_s * row_width + pos, 0), valid
+
+
 def first_k_true_vgq(mask: torch.Tensor, capacity: int):
     """Ascending (pair, range, velocity)-major flat indices of the first
     ``capacity`` True cells of a [V, G, pairs] mask, and their validity;
@@ -162,9 +240,37 @@ def first_k_true_vgq(mask: torch.Tensor, capacity: int):
     return torch.where(valid, r_s * num_v + v_c, 0), valid
 
 
-def extract_detections(mask: torch.Tensor, maps: torch.Tensor,
+def first_k_true_beams_major(mask: torch.Tensor, capacity: int,
+                             layout: str = "qgv",
+                             row_counts: torch.Tensor | None = None):
+    """(pair, range, velocity, valid) of the first ``capacity`` True cells
+    of a [pairs, G, V] ("qgv") or [pairs, V, G'] ("qvg") mask in (pair,
+    range, velocity) order; invalid slots hold 0. Rows are (pair, gate) of
+    width V in both layouts, read where they lie. ``row_counts`` [pairs,
+    G] (e.g. from kernel K2) saves the mask reduction."""
+    if layout == "qgv":
+        num_g = mask.shape[1]
+        axis, column = 2, lambda r: mask[r // num_g, r % num_g, :]
+    elif layout == "qvg":
+        num_g = mask.shape[2]
+        axis, column = 1, lambda r: mask[r // num_g, :, r % num_g]
+    else:
+        raise ValueError(f"unknown beams-major layout {layout!r}")
+    if row_counts is None:
+        row_counts = mask.sum(dim=axis, dtype=torch.int32)
+    r_s, v_c, valid = _first_k(row_counts, capacity,
+                               lambda r: column(r).to(torch.int32))
+    zero = torch.zeros((), dtype=torch.int64, device=mask.device)
+    return (torch.where(valid, r_s // num_g, zero),
+            torch.where(valid, r_s % num_g, zero),
+            torch.where(valid, v_c, zero), valid)
+
+
+def extract_detections(mask: torch.Tensor, maps: torch.Tensor | None,
                        capacity: int, layout: str = "qvg",
-                       row_counts: torch.Tensor | None = None) -> Detections:
+                       row_counts: torch.Tensor | None = None, *,
+                       native_scan: bool = False,
+                       rdm: torch.Tensor | None = None) -> Detections:
     """The first ``capacity`` True cells of the mask in (pair, range,
     velocity) order, with their ``maps`` amplitudes: the JAX
     ``impl="direct"`` extraction (its ``"rowfetch"`` gives the same output
@@ -172,33 +278,44 @@ def extract_detections(mask: torch.Tensor, maps: torch.Tensor,
 
     ``layout="qvg"``: mask [pairs, V, G'] and maps [pairs, V, G] (G' >= G,
     columns past G False); ``row_counts`` [pairs, G'] (e.g. from kernel K2)
-    saves the mask reduction. ``layout="vgq"``: mask and maps [V, G,
-    pairs]. Rows are (pair, gate) of width V in both layouts, read where
-    they lie, with no host sync."""
+    saves the mask reduction. ``layout="qgv"``: mask and maps [pairs, G,
+    V]. ``layout="vgq"``: mask and maps [V, G, pairs]. Rows are (pair,
+    gate) of width V in every layout, read where they lie, with no host
+    sync.
+
+    vgq only: ``native_scan`` scans the mask in its own [V, G, pairs] order
+    and sorts the <= ``capacity`` hits into (pair, range, velocity) order
+    afterwards (the same output unless the hits exceed the capacity, where
+    it keeps another subset, JAX's); ``rdm`` ([V, G, B] complex, with
+    ``maps=None``) takes the amplitudes |rdm[v,r,p]| + |rdm[v,r,p+1]| from
+    the RDM (``cfg.tail_from_rdm``)."""
     if layout == "vgq":
-        num_v, num_g, _ = mask.shape
-        idx, valid = first_k_true_vgq(mask, capacity)
-        pair, rem = idx // (num_g * num_v), idx % (num_g * num_v)
-        r, v = rem // num_v, rem % num_v
-        amp = maps[v, r, pair]
+        num_v, num_g, num_q = mask.shape
+        if native_scan:
+            idx, valid = first_k_true_indices(mask.reshape(-1), capacity)
+            v, rem = idx // (num_g * num_q), idx % (num_g * num_q)
+            r, pair = rem // num_q, rem % num_q
+            # (pair, range, velocity) order; invalid slots sort last
+            key = torch.where(valid, (pair * num_g + r) * num_v + v,
+                              torch.iinfo(torch.int32).max)
+            order = torch.argsort(key, stable=True)
+            v, r, pair, valid = v[order], r[order], pair[order], valid[order]
+        else:
+            idx, valid = first_k_true_vgq(mask, capacity)
+            pair, rem = idx // (num_g * num_v), idx % (num_g * num_v)
+            r, v = rem // num_v, rem % num_v
+        if rdm is not None:
+            amp = rdm[v, r, pair].abs() + rdm[v, r, pair + 1].abs()
+        else:
+            amp = maps[v, r, pair]
         count = mask.sum()
-    elif layout == "qvg":
-        num_g = mask.shape[2]
-        if row_counts is None:
-            row_counts = mask.sum(dim=1, dtype=torch.int32)
-        r_s, v_c, valid = _first_k(
-            row_counts, capacity,
-            lambda r: mask[r // num_g, :, r % num_g].to(torch.int32))
-        zero = torch.zeros((), dtype=torch.int64, device=mask.device)
-        pair = torch.where(valid, r_s // num_g, zero)
-        r = torch.where(valid, r_s % num_g, zero)
-        v = torch.where(valid, v_c, zero)
-        amp = maps[pair, v, r]
-        count = row_counts.sum()
+    elif layout in ("qvg", "qgv"):
+        pair, r, v, valid = first_k_true_beams_major(mask, capacity, layout,
+                                                     row_counts)
+        amp = maps[pair, v, r] if layout == "qvg" else maps[pair, r, v]
+        count = mask.sum() if row_counts is None else row_counts.sum()
     else:
-        raise NotImplementedError(f"extract_detections layout={layout!r} "
-                                  "is not ported (the port runs 'qvg' and "
-                                  "'vgq')")
+        raise ValueError(f"unknown extraction layout {layout!r}")
     return Detections(
         v_idx=v, r_idx=r, pair_idx=pair,
         amp=torch.where(valid, amp, torch.zeros((), dtype=amp.dtype,

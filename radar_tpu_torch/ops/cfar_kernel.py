@@ -20,6 +20,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -127,10 +128,11 @@ def k3_smem_bytes(geo: K3Geometry) -> int:
     return 4 * K3_SLOTS * -(-slot // 32) * 32 + 128
 
 
-def _check_params(params: CfarParams) -> None:
+def _check_params(params: CfarParams, means: bool = True) -> None:
     """Refuse what the padded layout cannot hold exactly: a window wider
     than HALO would read past the zero halo, and an unknown method must
-    not silently become another one."""
+    not silently become another one. ``means``: refuse
+    ``means_impl="matmul"`` (K3; K2 ignores it, as JAX's kernel does)."""
     border_r = params.ref_cells_r + params.guard_cells_r
     border_v = params.ref_cells_v + params.guard_cells_v
     if border_r > HALO or border_v > HALO:
@@ -140,9 +142,10 @@ def _check_params(params: CfarParams) -> None:
             "wide")
     if params.method not in _METHODS:
         raise ValueError(f"unknown CFAR method: {params.method}")
-    if params.means_impl != "shift":
+    if means and params.means_impl != "shift":
         raise NotImplementedError(
-            f"cfg.cfar.means_impl={params.means_impl!r} is not ported")
+            f"cfg.cfar.means_impl={params.means_impl!r}: K3 computes shift "
+            "means; the frame runs the plain CFAR for matmul means")
 
 
 def pad_maps_qvg(maps_qvg: torch.Tensor) -> torch.Tensor:
@@ -160,11 +163,13 @@ def goca_cfar_qvg_plain(maps_padded: torch.Tensor, params: CfarParams,
                         num_gates: int, num_v: int):
     """Plain PyTorch version of K2: (mask bool [pairs, V, G_out], rc int32
     [pairs, G_out]) with G_out = n_tiles * GATE_TILE; padded columns are
-    False. Runs on any device (the card uses it to check K2)."""
-    _check_params(params)
+    False. Shift means whatever ``means_impl`` says, as K2. Runs on any
+    device (the card uses it to check K2)."""
+    _check_params(params, means=False)
     num_q, _, g_pad = maps_padded.shape
     maps = maps_padded[:, :num_v, HALO:HALO + num_gates]
-    m, _ = goca_cfar_2d(maps, params, layout="qvg")
+    m, _ = goca_cfar_2d(maps, dataclasses.replace(params, means_impl="shift"),
+                        layout="qvg")
     mask = torch.zeros((num_q, num_v, g_pad - 2 * HALO), dtype=torch.bool,
                        device=maps_padded.device)
     mask[:, :, :num_gates] = m
@@ -218,8 +223,9 @@ def _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v):
 def goca_cfar_qvg(maps_padded: torch.Tensor, params: CfarParams,
                   num_gates: int, num_v: int):
     """2D CFAR over ``pad_maps_qvg`` maps: K2 for a CUDA tensor (or it
-    raises), the plain version for a CPU tensor."""
-    _check_params(params)
+    raises), the plain version for a CPU tensor. Shift means: like JAX's
+    kernel, K2 ignores ``means_impl``."""
+    _check_params(params, means=False)
     if maps_padded.is_cuda:
         return _goca_cfar_qvg_cuda(maps_padded, params, num_gates, num_v)
     return goca_cfar_qvg_plain(maps_padded, params, num_gates, num_v)

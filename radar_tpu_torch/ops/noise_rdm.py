@@ -22,7 +22,12 @@ two modes agree bit for bit. Kernel K4 (the same source), the schedule of
 the TPU's non-rolling kernel, computes the same map through K1's GEMMs with
 its data drawn inside the PC's blocks, no noise cube in device memory,
 ``beams_per_step`` beams walked by a block. K1 and K4 hold float32
-accuracy.
+accuracy. K1 has the two modes of the TPU kernel's kernel-maps tail:
+``emit_maps`` also writes the adjacent-beam sum maps of its unrounded map
+into K2's padded qvg layout (``maps_buffer``; plain version
+``pair_maps_plain``), and ``out_dtype=torch.bfloat16`` rounds its map to
+bfloat16 values; both in one epilogue that walks the beams
+(``add_maps_kernel``), in place of the sum of the DFT's passes.
 
 The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
 the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
@@ -97,6 +102,8 @@ tf32_pc_launch_count = 0              # K1's 3xTF32 PC launches (K1 and the
                                       # f32 planes schedules K10, K7, K9)
 tf32_dft_launch_count = 0             # K1's 3xTF32 DFT launches (K1, K4
                                       # and the f32 schedules)
+maps_launch_count = 0                 # K1's emit_maps / bf16-output
+                                      # epilogue (add_maps_kernel) launches
 
 
 class RdmSegSpec(NamedTuple):
@@ -382,9 +389,40 @@ def round_mul(x: torch.Tensor, dtype) -> torch.Tensor:
 # ------------------------------------------------------- plain version
 
 
+def maps_buffer(num_q: int, num_v: int, num_g: int, device) -> torch.Tensor:
+    """An f32 buffer in K2's padded qvg layout (``ops/cfar_kernel.py::
+    pad_maps_qvg``): [num_q, V8, HALO + G512 + HALO], V8 the Doppler rows
+    rounded up to 8 and G512 the gates to ``GATE_TILE``; the interior
+    [:, :V, HALO:HALO + G] left unset, the halo and the padding zero."""
+    from .cfar_kernel import GATE_TILE, HALO
+
+    v_pad = -(-num_v // 8) * 8
+    g_pad = -(-num_g // GATE_TILE) * GATE_TILE + 2 * HALO
+    buf = torch.empty((num_q, v_pad, g_pad), dtype=torch.float32,
+                      device=device)
+    buf[:, :, :HALO].zero_()
+    buf[:, :, HALO + num_g:].zero_()
+    buf[:, num_v:, HALO:HALO + num_g].zero_()
+    return buf
+
+
+def pair_maps_plain(y: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1's maps epilogue: the adjacent-beam sum maps
+    |y_b| + |y_b+1| of a [B, V, G] complex map, each magnitude
+    ``sqrt(re*re + im*im)`` rounded at every step (not ``abs``'s hypot),
+    in ``maps_buffer``'s padded layout."""
+    from .cfar_kernel import HALO
+
+    num_b, num_v, num_g = y.shape
+    mag = torch.sqrt(y.real * y.real + y.imag * y.imag)
+    buf = maps_buffer(num_b - 1, num_v, num_g, y.device)
+    buf[:, :num_v, HALO:HALO + num_g] = mag[:-1] + mag[1:]
+    return buf
+
+
 def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
                     signal=None, *, mul_dtype=torch.float32,
-                    out_dtype=torch.float32) -> torch.Tensor:
+                    out_dtype=torch.float32, emit_maps: bool = False):
     """Plain PyTorch version of every schedule (K1, K4, K7, K9, K10):
     banded-matmul PC per segment, MTD matrix product, Cholesky beam mix,
     rank-K signal add. ``planes``: per-segment (re, im) [B, P, >= xlen]
@@ -392,8 +430,9 @@ def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
     the filter, D and L, the PC result and the MTD result are rounded to
     it (the TPU variants' rounding points, ``radar_tpu/ops/pallas_rdm.py``
     :527-536, :822-825); the output is rounded to ``out_dtype``. Returns
-    [B, V, G] complex64. Runs on any device (the card uses it to check the
-    kernels)."""
+    [B, V, G] complex64, and with ``emit_maps`` also the pair maps of the
+    unrounded map (``pair_maps_plain``). Runs on any device (the card uses
+    it to check the kernels)."""
     num_b = l_factor.shape[0]
     md = mul_dtype
     pcs = []
@@ -413,6 +452,8 @@ def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
         for k in range(dv.shape[0]):
             outer = dv[k][:, None] * pb[k][None, :]
             y = y + st[k][:, None, None] * outer[None]
+    if emit_maps:
+        return round_mul(y, out_dtype), pair_maps_plain(y)
     return round_mul(y, out_dtype)
 
 
@@ -488,14 +529,19 @@ def _check_strip_tf32(seg: RdmSegSpec, dev) -> torch.Tensor:
 
 
 def _tf32_tail(lib, plan: RdmPlan, lmat, sig, p4: int, ptrs, out, stream,
-               *, mix_after: bool = False, round_out: bool = False) -> None:
+               *, mix_after: bool = False, round_out: bool = False,
+               maps: torch.Tensor | None = None) -> None:
     """The 3xTF32 tail on the PC's two passes. K1's and K4's: the beam mix
     of their sum, the DFT GEMM (two passes) and the sum of its passes with
-    the rank-K signal into ``out``. ``mix_after`` (K10, K7 and K9 at f32):
-    the passes joined un-mixed, the DFT GEMM, then one epilogue that sums
-    its passes, mixes the beams, adds the signal and, with ``round_out``,
-    rounds to bfloat16 values."""
-    global tf32_dft_launch_count
+    the rank-K signal into ``out``; for K1 with ``maps`` (a ``maps_buffer``)
+    or ``round_out``, that sum is the epilogue that walks the beams
+    (``add_maps_kernel``): it rounds ``out`` to bfloat16 values with
+    ``round_out`` and writes the pair maps of the unrounded map into the
+    buffer's interior. ``mix_after`` (K10, K7 and K9 at f32): the passes
+    joined un-mixed, the DFT GEMM, then one epilogue that sums its passes,
+    mixes the beams, adds the signal and, with ``round_out``, rounds to
+    bfloat16 values."""
+    global tf32_dft_launch_count, maps_launch_count
     from .. import _build
 
     num_b, num_p = lmat.shape[0], plan.n_pulses
@@ -509,21 +555,38 @@ def _tf32_tail(lib, plan: RdmPlan, lmat, sig, p4: int, ptrs, out, stream,
     if d4.device != lmat.device or d4.shape[2] != p4:
         raise ValueError("the plan's d_tf32 must be on the card, [4, V128, "
                          f"{p4}]")
+    maps_args = (None, 0, 0)
+    if maps is not None:
+        from .cfar_kernel import HALO
+
+        if (mix_after or maps.device != lmat.device
+                or maps.dtype != torch.float32 or not maps.is_contiguous()
+                or maps.shape[0] != num_b - 1 or maps.shape[1] < num_v
+                or maps.shape[2] < num_g + 2 * HALO):
+            raise ValueError("K1's maps go into a maps_buffer() on the card")
+        maps_args = (maps.data_ptr() + 4 * HALO, maps.shape[2],
+                     maps.shape[1] * maps.shape[2])
     _build.check(lib, lib.k1_tf32_dft(
         pcr, pci, d4.data_ptr(), d4.shape[1], num_b, num_v, num_p, num_g, p4,
         *sig_ptrs, num_k, lmat.data_ptr() if mix_after else None,
-        int(round_out), out.data_ptr(), corr, stream), "k1_tf32_dft")
+        int(round_out), out.data_ptr(), corr, *maps_args, stream),
+        "k1_tf32_dft")
     tf32_dft_launch_count += 1
+    if not mix_after and (maps is not None or round_out):
+        maps_launch_count += 1
 
 
-def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
+def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes, *,
+             round_out: bool = False, emit_maps: bool = False):
     """K1 (``csrc/noise_rdm_sm90.cu``): the 3xTF32 strip-GEMM PC of every
     segment into pcT planes [B, G, P4] (a main and a correction pass, each
     one launch for all segments), the beam mix of their sum, the 3xTF32 DFT
     GEMM (two passes, the rank-K signal in the second) and their sum; in
     draw mode on the planes K1c writes first, read in place. One scratch
     allocation holds K1c's planes, the PC's planes and the DFT's
-    correction."""
+    correction. ``round_out`` rounds the map to bfloat16 values and
+    ``emit_maps`` also returns its pair maps in a ``maps_buffer``, both in
+    the epilogue that walks the beams."""
     global launch_count
     num_b, num_p = l_factor.shape[0], plan.n_pulses
     k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
@@ -542,9 +605,12 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes):
     if planes is not None:
         xs, kept = _tf32_rows(planes, plan, dev, num_b, num_p)
     _tf32_pc(lib, plan, xs, num_b, p4, ptrs, dev, stream)
-    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream)
+    maps = (maps_buffer(num_b - 1, plan.n_dop, plan.n_gates, dev)
+            if emit_maps else None)
+    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream,
+               round_out=round_out, maps=maps)
     launch_count += 1
-    return out
+    return (out, maps) if emit_maps else out
 
 
 def _tf32_pc(lib, plan: RdmPlan, xs, num_b: int, p4: int, ptrs, dev,
@@ -918,12 +984,14 @@ def _check_schedule(planes, rolling, beams_per_step, variant, stacked,
         raise ValueError(f"variant {variant!r} implements float32 output "
                          "only")
     if variant == "beams" and not stacked and (
-            mul_dtype != torch.float32 or out_dtype != torch.float32):
+            mul_dtype != torch.float32
+            or (out_dtype != torch.float32 and not rolling)):
         raise NotImplementedError(
-            "variant='beams' (K1, and K4 with rolling=False) computes in "
-            "float32 only: mul_dtype=/out_dtype=torch.bfloat16 run in the "
-            "variants 'resident', 'stacked', 'allbeams' and in draw mode "
-            "with stacked=True")
+            "variant='beams' (K1, and K4 with rolling=False) multiplies in "
+            "float32 only, and K4 writes float32 only: bfloat16 operands "
+            "run in the variants 'resident', 'stacked', 'allbeams' and in "
+            "draw mode with stacked=True; K1 takes "
+            "out_dtype=torch.bfloat16")
     if rolling:
         if beams_per_step is not None:
             raise ValueError("beams_per_step= sets the schedule of "
@@ -935,7 +1003,7 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
               layout: str = "vgb", rolling: bool = True,
               beams_per_step: int | None = None, variant: str = "beams",
               stacked: bool = False, mul_dtype=torch.float32,
-              out_dtype=torch.float32) -> torch.Tensor:
+              out_dtype=torch.float32, emit_maps: bool = False):
     """Complete noise (+ signal) RDM: draw mode with ``seed`` (two uint32
     key words, see ``seed_words``) or planes mode with ``planes``.
 
@@ -953,14 +1021,26 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
     draws. These take ``mul_dtype`` float32 or bfloat16; ``out_dtype``
     bfloat16 rounds the output of ``"resident"`` and of ``stacked=True``
     (``"stacked"``/``"allbeams"`` raise ``ValueError`` as JAX does). K1 and
-    K4 compute in float32 only and raise ``NotImplementedError`` for
-    bfloat16."""
+    K4 multiply in float32 only and raise ``NotImplementedError`` for
+    bfloat16 operands; K1 takes ``out_dtype`` bfloat16 (its map rounded
+    to bfloat16 values, ``cfg.kernel_out_bf16``), K4 raises for it.
+
+    ``emit_maps`` (K1 with a ``signal``: ``cfg.kernel_maps``) returns
+    ``(rdm, maps)``: ``maps`` are the adjacent-beam sum maps |y_b| +
+    |y_b+1| of the unrounded map in K2's padded qvg layout
+    (``maps_buffer``; interior ``[:, :V, HALO:HALO + G]``), written by the
+    epilogue that walks the beams, as the TPU's kernel writes them from its
+    resident f32 tiles."""
     if (seed is None) == (planes is None):
         raise ValueError("give exactly one of seed= and planes=")
     if layout not in ("vgb", "bvg"):
         raise ValueError(f"unknown layout {layout!r}")
     _check_schedule(planes, rolling, beams_per_step, variant, stacked,
                     mul_dtype, out_dtype)
+    if emit_maps and (signal is None or not rolling or variant != "beams"
+                      or stacked):
+        raise ValueError("emit_maps is K1's mode on the signal-fused map: "
+                         "give signal=, rolling=True, variant='beams'")
     num_b = l_factor.shape[0]
     if not rolling:
         beams_per_step = 1 if beams_per_step is None else beams_per_step
@@ -970,7 +1050,9 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
     schedule = "stacked" if stacked else variant
     if l_factor.is_cuda:
         if schedule == "beams" and rolling:
-            bm = _k1_cuda(plan, l_factor, signal, seed, planes)
+            bm = _k1_cuda(plan, l_factor, signal, seed, planes,
+                          round_out=out_dtype != torch.float32,
+                          emit_maps=emit_maps)
         elif schedule == "beams":
             bm = _k4_cuda(plan, l_factor, signal, seed, planes,
                           beams_per_step)
@@ -983,7 +1065,11 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
         if planes is None:
             planes = philox_planes(plan, seed, num_b, device=l_factor.device)
         bm = noise_rdm_plain(plan, l_factor, planes, signal,
-                             mul_dtype=mul_dtype, out_dtype=out_dtype)
+                             mul_dtype=mul_dtype, out_dtype=out_dtype,
+                             emit_maps=emit_maps)
+    if emit_maps:
+        bm, maps = bm
+        return (bm if layout == "bvg" else bm.permute(1, 2, 0)), maps
     return bm if layout == "bvg" else bm.permute(1, 2, 0)
 
 

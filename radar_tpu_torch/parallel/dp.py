@@ -41,7 +41,11 @@ def broadcast_targets(targets: TargetBatch, n: int) -> TargetBatch:
 
 
 def _tree_map(fn, *trees):
-    """``fn`` over the tensors of NamedTuples of tensors."""
+    """``fn`` over the tensors of NamedTuples of tensors (a field that is
+    None, as ``ClusteredTargets.pair_idx`` without ``keep_pair_mode``,
+    stays None)."""
+    if trees[0] is None:
+        return None
     if isinstance(trees[0], tuple):
         return type(trees[0])(*(_tree_map(fn, *leaves)
                                 for leaves in zip(*trees)))

@@ -22,8 +22,10 @@ with the Cholesky beam mix applied afterwards. Three noise-RDM backends
   SNR point.
 
 The kernel routes keep K1's f32 output where the TPU's noise-only kernel
-writes bf16 planes. ``cfg.noise_prng`` ("threefry"/"rbg") selects nothing
-here: every draw comes from the torch generator or K1's Philox; JAX's
+writes bf16 planes. ``cfg.kernel_out_bf16`` rounds the signal-fused map
+(``noise_rdm_sig``, the frame's) to bfloat16 values, as JAX does; its
+``emit_maps=True`` (``cfg.kernel_maps``) also returns K1's pair maps.
+``cfg.noise_prng`` ("threefry"/"rbg") selects nothing here: every draw comes from the torch generator or K1's Philox; JAX's
 streams cannot be reproduced anyway, so tests inject the same noise into
 both packages.
 
@@ -68,7 +70,8 @@ class LowrankStages(NamedTuple):
     # kernel routes only (None on "xla"):
     noise_rdm: Callable | None      # (frame_seed, layout, planes) -> noise RDM
     noise_planes: Callable | None   # "pallas": frame_seed -> per-segment planes
-    noise_rdm_sig: Callable | None  # "pallas_prng": (seed, targets, layout, planes)
+    noise_rdm_sig: Callable | None  # "pallas_prng": (seed, targets, layout,
+                                    # planes, emit_maps)
     rplan: RdmPlan | None
     l_factor: torch.Tensor    # [B, B] complex64 Cholesky beam mix
 
@@ -89,8 +92,6 @@ def check_config(cfg: RadarConfig) -> None:
             raise NotImplementedError(
                 f"cfg.mtd_fft_len={cfg.mtd_fft_len!r} is not ported with "
                 f"noise_rdm_impl={cfg.noise_rdm_impl!r}")
-    if cfg.kernel_out_bf16:
-        raise NotImplementedError("cfg.kernel_out_bf16=True is not ported")
     if cfg.noise_dist not in ("normal", "uniform"):
         raise ValueError(f"cfg.noise_dist={cfg.noise_dist!r}: not one of "
                          "('normal', 'uniform')")
@@ -183,17 +184,26 @@ def make_lowrank_stages(cfg: RadarConfig, precomp, *,
             return out
 
     if impl != "xla":
-        def noise_rdm_fn(frame_seed, layout="vgb", planes=None, signal=None):
+        def noise_rdm_fn(frame_seed, layout="vgb", planes=None, signal=None,
+                         **kw):
             if planes is None and noise_planes is not None:
                 planes = noise_planes(frame_seed)
             seed = None if planes is not None else seed_words(frame_seed)
             return noise_rdm(rplan, l_t, signal, seed=seed, planes=planes,
-                             layout=layout)
+                             layout=layout, **kw)
 
     if impl == "pallas_prng":
-        def noise_rdm_sig(frame_seed, targets, layout="vgb", planes=None):
+        out_dtype = torch.bfloat16 if cfg.kernel_out_bf16 else torch.float32
+
+        def noise_rdm_sig(frame_seed, targets, layout="vgb", planes=None,
+                          emit_maps=False):
+            """The complete RDM from one K1 call (the signal fused), in
+            bfloat16 values under ``cfg.kernel_out_bf16``; with
+            ``emit_maps`` also its pair maps (``ops/noise_rdm.py::
+            maps_buffer``), from the unrounded map."""
             return noise_rdm_fn(frame_seed, layout, planes,
-                                signal_factors(targets))
+                                signal_factors(targets), out_dtype=out_dtype,
+                                emit_maps=emit_maps)
 
     def noisy_rdm(rdm_sig, frame_seed, noise=None, noise_planes=None):
         """The route's complete RDM from a signal RDM in ``rdm_layout``:

@@ -11,7 +11,11 @@ make_frame_stages``). Trials run as a loop on one stream, as JAX's
 the device and a batch is copied to the host once. The reference stream's
 trials draw their AWGN with ``torch.randn`` whatever ``noise_impl`` says,
 as JAX's trial function calls ``add_noise``; the perf stream's
-``"pallas_prng"`` route runs kernel K1 noise-only.
+``"pallas_prng"`` route runs kernel K1 noise-only. The trials' tail honours
+``tail_from_rdm``, the monopulse flags, ``cluster.keep_pair_mode`` and
+``cfar.means_impl`` and, as JAX's ``make_trial_fn`` does, disregards
+``kernel_maps`` and ``beams_major_tail`` (``make_frame_stages(trials=
+True)``).
 
 Per trial the recorded statistic follows the reference (:269-278): the
 *first* final target's angle error vs truth, NaN when nothing is detected;
@@ -70,7 +74,7 @@ def make_trial_fn(cfg: RadarConfig, precomp: Precomputed | None = None, *,
     kernel routes) replace the draws, so tests can feed JAX's own."""
     if precomp is None:
         precomp = precompute(cfg)
-    st = make_frame_stages(cfg, precomp, device=device)
+    st = make_frame_stages(cfg, precomp, device=device, trials=True)
     lr = st.lowrank
 
     def trials(targets: TargetBatch, seeds, noise=None, noise_planes=None):

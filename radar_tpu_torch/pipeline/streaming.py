@@ -149,7 +149,9 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
     if processor is not None:
         def trial_targets(seeds, truth):
             finals = [processor(s, truth).targets for s in seeds]
-            return type(finals[0])(*(torch.stack(xs) for xs in zip(*finals)))
+            return type(finals[0])(*(None if xs[0] is None
+                                     else torch.stack(xs)
+                                     for xs in zip(*finals)))
 
     rng = np.random.default_rng(seed)
     all_snr, all_det, all_dr, all_dv = [], [], [], []

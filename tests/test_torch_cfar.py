@@ -91,8 +91,13 @@ def test_k2_refuses_what_jax_refuses():
                          300, 40)
     with pytest.raises(ValueError, match="method"):
         ck.goca_cfar_qvg(maps, CfarParams(method="GO"), 300, 40)
-    with pytest.raises(NotImplementedError, match="means_impl"):
-        ck.goca_cfar_qvg(maps, CfarParams(means_impl="matmul"), 300, 40)
+    # JAX's kernel never reads means_impl (shift means): K2 ignores it
+    maps = ck.pad_maps_qvg(torch.from_numpy(_maps(2, (2, 40, 300))))
+    want = ck.goca_cfar_qvg(maps, CfarParams(**SMALL), 300, 40)
+    got = ck.goca_cfar_qvg(maps, CfarParams(means_impl="matmul", **SMALL),
+                           300, 40)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[0].sum()) > 0
 
 
 @pytest.mark.parametrize("capacity", [8, 64, 512])

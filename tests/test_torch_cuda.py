@@ -1196,3 +1196,85 @@ def test_k8_f32_exact_probe_on_card(cuda_device):
     ref = ppc.pulse_compress_noise_plain(z, plan, torch.float32)
     torch.cuda.synchronize()
     assert float(ref.abs().max()) > 0.0 and torch.equal(got, ref)
+
+
+def _perf_k1_inputs(device, num_b=None):
+    """The perf config's plan, L and the signal of the benchmark's two
+    targets, on its first ``num_b`` beams (all 13 by default)."""
+    from radar_tpu_torch.config.params import perf_config
+
+    cfg = perf_config()
+    lr = make_lowrank_stages(cfg, precompute(cfg), device=device)
+    dv, pb, st = lr.signal_factors(TargetBatch.make(
+        [3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0], [10.0, 15.0]))
+    num_b = num_b or lr.l_factor.shape[0]
+    return (lr.rplan, lr.l_factor[:num_b, :num_b].contiguous(),
+            (dv, pb, st[:, :num_b].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("num_b", [2, 3, 13])
+def test_k1_emit_maps_matches_plain_on_card(cuda_device, num_b, out_dtype):
+    """K1's maps epilogue (``add_maps_kernel``) at the perf config's full
+    shape on 2, 3 and 13 beams: the map equals K1's map without the maps
+    rounded to ``out_dtype`` bit for bit, and the maps equal the plain
+    epilogue (``pair_maps_plain``) of that unrounded map bit for bit, halo
+    and padding zero; one epilogue launch; the maps within K1's hold of
+    the plain version's maps."""
+    plan, lmat, signal = _perf_k1_inputs(cuda_device, num_b)
+    seed = (3, 5)
+    base = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg")
+    before = nr.maps_launch_count
+    rdm, maps = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg",
+                             emit_maps=True, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert nr.maps_launch_count == before + 1
+    assert torch.equal(rdm, nr.round_mul(base, out_dtype))
+    want = nr.pair_maps_plain(base)
+    assert maps.shape == want.shape == (
+        num_b - 1, -(-plan.n_dop // 8) * 8,
+        -(-plan.n_gates // ck.GATE_TILE) * ck.GATE_TILE + 2 * ck.HALO)
+    assert torch.equal(maps, want)
+    ref = nr.pair_maps_plain(nr.noise_rdm_plain(
+        plan, lmat, nr.philox_planes(plan, seed, num_b, device=cuda_device),
+        signal))
+    assert _rms(maps - ref) <= 1e-5 * _rms(ref)
+
+
+@pytest.mark.cuda
+def test_k1_emit_maps_at_ragged_shapes_on_card(cuda_device):
+    """The same relations at K1_RAGGED's shapes (41 Doppler rows, not a
+    multiple of 8: the padded rows read zero) on 5 beams."""
+    plan, lmat, signal = _ragged_inputs(cuda_device, 5)
+    seed = (7, 9)
+    base = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        rdm, maps = nr.noise_rdm(plan, lmat, signal, seed=seed, layout="bvg",
+                                 emit_maps=True, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(rdm, nr.round_mul(base, out_dtype))
+        assert torch.equal(maps, nr.pair_maps_plain(base))
+
+
+# K1 without the maps on the perf config's full shape (draw mode, seed
+# (3, 5), the signal of the benchmark's two targets, f32 output): SHA-256
+# of the map's bytes as the build before the maps epilogue (commit 808a8af)
+# wrote them on an NVIDIA H100 80GB HBM3, planes mode the same
+K1_BITS_SHA256 = ("3a59303f43cbb276de8fbe500ddb51001fc1980587afc5a4c1fd6cfad0"
+                  "c683c1")
+
+
+@pytest.mark.cuda
+def test_k1_without_maps_keeps_its_bits_on_card(cuda_device):
+    """K1 without emit_maps launches what it launched before the maps
+    epilogue (``add_kernel``) and writes the same map bit for bit."""
+    import hashlib
+
+    plan, lmat, signal = _perf_k1_inputs(cuda_device)
+    before = nr.maps_launch_count
+    rdm = nr.noise_rdm(plan, lmat, signal, seed=(3, 5), layout="bvg")
+    torch.cuda.synchronize()
+    assert nr.maps_launch_count == before
+    digest = hashlib.sha256(rdm.cpu().numpy().tobytes()).hexdigest()
+    assert digest == K1_BITS_SHA256, digest

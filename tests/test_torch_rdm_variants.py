@@ -151,14 +151,16 @@ def test_stacked_draw_mode_is_planes_mode_on_philox_planes(setup, dtype):
       "out_dtype": torch.bfloat16}, ValueError),
     ({"variant": "allbeams", "out_dtype": torch.bfloat16}, ValueError),
     ({"variant": "beams", "mul_dtype": torch.bfloat16}, NotImplementedError),
-    ({"variant": "beams", "out_dtype": torch.bfloat16}, NotImplementedError),
+    ({"variant": "beams", "rolling": False, "out_dtype": torch.bfloat16},
+     NotImplementedError),
     ({"variant": "blocked"}, ValueError),
     ({"mul_dtype": torch.float16}, ValueError),
     ({"stacked": True}, ValueError)])
 def test_planes_schedules_refuse_what_they_do_not_run(setup, kwargs, error):
-    """stacked/allbeams write float32 only (as JAX raises); K1 ("beams")
-    computes in float32 only; unknown variants and types raise;
-    ``stacked=True`` is the draw-mode option."""
+    """stacked/allbeams write float32 only (as JAX raises); K1 and K4
+    ("beams") multiply in float32 only and K4 writes float32 only (K1's
+    bfloat16 output is held in test_torch_kernel_maps.py); unknown variants
+    and types raise; ``stacked=True`` is the draw-mode option."""
     planes = nr.planes_from_compact(torch.from_numpy(setup["z"]),
                                     setup["plan"])
     with pytest.raises(error):

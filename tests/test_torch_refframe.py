@@ -210,12 +210,40 @@ def test_extract_impl_rowfetch_runs_the_direct_extraction():
 PERF = {**tparams.PERF_OVERRIDES, "matmul_precision": "f32"}
 
 
-@pytest.mark.parametrize("over", [{}, PERF], ids=["vgq_tail", "perf"])
-def test_native_scan_is_refused_where_jax_runs_it(over):
-    cfg = tparams.small_test_config().replace(**over,
-                                              extract_native_scan=True)
-    with pytest.raises(NotImplementedError, match="extract_native_scan"):
-        make_frame_processor(cfg, device="cpu")
+# the rank-K stream's xla route on threefry draws, which the test reproduces
+PERF_XLA = {**PERF, "noise_rdm_impl": "xla", "noise_dist": "normal",
+            "noise_prng": "threefry"}
+
+
+@pytest.mark.parametrize("over", [{}, PERF_XLA], ids=["vgq_tail", "perf"])
+def test_native_scan_matches_jax_where_jax_runs_it(over):
+    """JAX runs the native scan on the vgq tail
+    (radar_tpu/ops/cfar.py:468-480), on the reference stream and on the
+    rank-K stream: the port's frame on JAX's draws gives JAX's targets and
+    raw count."""
+    from radar_tpu.ops.mtd import make_mtd_matrix as j_mtd_matrix
+    from radar_tpu.ops.pulse_compression import make_matmul_plan
+    from radar_tpu.ops.pulse_compression import make_plan as j_make_plan
+    from radar_tpu.pipeline.lowrank import make_lowrank_stages as j_lowrank
+
+    jcfg, tcfg = (mod.small_test_config().replace(
+        **over, extract_native_scan=True) for mod in (jparams, tparams))
+    jpre = j_precompute(jcfg)
+    key = jax.random.PRNGKey(4)
+    want = j_make(jcfg, jpre)(key, JTargets.make(*TARGETS))
+    if over:
+        jl = j_lowrank(jcfg, jpre, j_make_plan(jpre), make_matmul_plan(jpre),
+                       j_mtd_matrix(jpre.mtd_win, jcfg.sig.prt_num),
+                       jpre.mtd_win, jnp.complex64)
+        noise = np.array(jl.gen_noise(key))
+    else:
+        noise = _jax_noise(key, jcfg, jpre, False)
+    got = make_frame_processor(tcfg, from_numpy(jpre._asdict()),
+                               device="cpu")(0, TargetBatch.make(*TARGETS),
+                                             noise=noise)
+    assert int(got.num_final) == int(want.num_final) >= 2
+    _assert_same_targets(got.targets, want.targets, rtol=1e-4)
+    assert int(got.num_raw_detections) == int(want.num_raw_detections)
 
 
 @pytest.mark.parametrize("over", [{}, PERF], ids=["qvg_tail", "perf"])

@@ -135,11 +135,3 @@ def test_connected_labels_random_graphs_equal_jax(seed):
     want = j_labels(j_adjacency(fields(jnp.asarray), jnp.asarray(ok)),
                     jnp.asarray(ok))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def test_keep_pair_mode_is_refused(scene):
-    est = ParamDetections(*[T(getattr(scene["est"], f))
-                            for f in JParams._fields])
-    with pytest.raises(NotImplementedError, match="keep_pair_mode"):
-        cluster_stage1(est, scene["tcfg"].cluster.__class__(
-            keep_pair_mode=True))
