@@ -78,6 +78,17 @@ targets:
   f32 (f32 staging, then K1's 3xTF32 strip GEMM with both passes in one
   launch, counted), split and timed beside both its bounds and three f32
   ``torch.matmul`` calls;
+- phase ``tracking``: the device-scan multi-frame runner
+  (``run_multiframe_device``) on the five-target headline (perf config,
+  simple kinematics, 50 frames x 3 seeds, K1 and K2 counted at 50 a run:
+  5 clean tracks a seed, at most one false track in all), a 12-frame run
+  stopped after 8 and resumed from its store (bit for bit the run without
+  chunks), the two-target altitude scene against the host loop, 10 frames
+  of the exact stream (K3 at 10), the tracking Monte-Carlo's entry point
+  (6 scenes x 40 frames: mean track Pd >= 0.95, no switched track) and
+  the smoother on the headline's tracks; each run's frames/s, event ms
+  and host syncs a frame, one run's idle share by the profiler, the
+  native associator's host ms;
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -962,7 +973,9 @@ def _dft_gemm(nr, plan, planes, launches: int, card) -> tuple:
           profile_ms=round(prof, 4), plain_ms=round(pms, 4),
           library_ms=round(lib_ms, 4), ops_bound_ms=round(ops_ms, 4),
           bytes_bound_ms=round(bytes_ms, 4), bound_by=by,
-          tflops=round(8.0 * macs / prof / 1e9, 2), tol=f"<={BF16_HOLD}")
+          tflops=round(8.0 * macs / prof / 1e9, 2) if prof > 0.0
+          else "not measured (the profiler recorded no dft_kernel)",
+          tol=f"<={BF16_HOLD}")
     return ("bf16 DFT GEMM of K10, K7 and K9 (wgmma, B = pc MN-major by "
             "TMA)", "rdm_sm90.cu", "radar_tpu/ops/pallas_rdm.py:789 (the DFT "
             "of _make_kernel_resident; also :627, :1088)", launches,
@@ -1881,6 +1894,257 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
              med("library_copy"), extra)]
 
 
+TRACK_FRAMES = 50        # the five-target headline's frames a run
+TRACK_SEEDS = (0, 1, 2)
+
+
+def _tracked_run(fn, frames: int, syncs: bool = True,
+                 profile: bool = False) -> tuple:
+    """(fn's result, stats) of one multi-frame run: frames/s by the host
+    clock and CUDA events' ms a frame around the run (which ends on the
+    host); with ``syncs``, the host syncs a frame (warnings of
+    ``torch.cuda.set_sync_debug_mode``, whose hooks ride in the timed
+    run); with ``profile``, the device busy ms and idle share of the run
+    by torch.profiler (its overhead rides in the wall)."""
+    import contextlib
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, (
+            tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile else contextlib.nullcontext()) as prof:
+        warnings.simplefilter("always")
+        if syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            a.record()
+            t0 = time.perf_counter()
+            out = fn()
+            b.record()
+            b.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    stats = {"frames_per_s": round(frames / wall, 3),
+             "event_ms_a_frame": round(a.elapsed_time(b) / frames, 4)}
+    if syncs:
+        stats["host_syncs_a_frame"] = round(sum(
+            "synchroniz" in str(w.message) for w in caught) / frames, 3)
+    if prof is not None:
+        dev_t = lambda e: getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0))
+        busy = sum(dev_t(e) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1000.0
+        stats["device_busy_ms"] = round(busy, 3)
+        stats["wall_ms"] = round(wall * 1e3, 3)
+        stats["idle_share"] = round(1.0 - busy / (wall * 1e3), 4)
+    return out, stats
+
+
+def _same_log(a, b) -> bool:
+    """Whether two detection logs are equal bit for bit."""
+    return len(a) == len(b) and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+            "range_m", "velocity_ms", "elevation_deg", "power", "frame",
+            "azimuth_deg"))
+
+
+def _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts, reset) -> dict:
+    """Phase ``tracking``: the device-scan runner (``pipeline/driver.py::
+    run_multiframe_device``) at full width on the five-target headline
+    (perf config, simple kinematics, 50 frames x 3 seeds: 5/5 clean tracks
+    a seed, at most one false track in all), its chunked resume through a
+    store, the two-target altitude scene against the host loop, 10 frames
+    of the exact stream, the tracking Monte-Carlo's entry point (6 scenes
+    x 40 frames) and the smoother on the headline's tracks; each run's
+    kernel counts, frames/s, event ms and host syncs a frame. Prints a
+    line per run, raises on any failed hold, returns the launches a run
+    for the kernels line."""
+    import shutil
+
+    from radar_tpu_torch.io.orbax_store import OrbaxFrameStore
+    from radar_tpu_torch.pipeline.driver import (associate_tracks,
+                                                 device_results_to_log,
+                                                 make_device_multiframe,
+                                                 run_multiframe,
+                                                 run_multiframe_device)
+    from radar_tpu_torch.pipeline.track_metrics import (score_tracks,
+                                                        truth_trajectories)
+    from radar_tpu_torch.pipeline.tracking import smooth_tracks
+    from radar_tpu_torch.scripts import run_tracking_mc
+    from radar_tpu_torch.sim.scenario import (default_two_target_scene,
+                                              five_target_scene)
+
+    scene = five_target_scene()
+    headline = lambda seed, frames=TRACK_FRAMES, c=cfg, p=pre, **kw: \
+        run_multiframe_device(c, scene, frames, seed=seed, precomp=p,
+                              kinematics="simple", device=dev, **kw)
+    # the runner built once (the tracking MC's way): its build apart
+    build_ms = statistics.median(_host_ms(lambda: make_device_multiframe(
+        cfg, pre, "simple", device=dev)) for _ in range(3))
+    runner = make_device_multiframe(cfg, pre, "simple", device=dev)
+
+    def built(seed):
+        res, az, _ = runner(seed, scene, TRACK_FRAMES)
+        log = device_results_to_log(res, az)
+        return log, associate_tracks(log, cfg)
+
+    _line("tracking", run="make_device_multiframe build", card=repr(card),
+          host_ms=round(build_ms, 3))
+    launches = {}
+    false_total, first = 0, None
+    for seed in TRACK_SEEDS:
+        # seeds 0 and 2 through run_multiframe_device (its processor built
+        # in the run; 0 counts host syncs, 2 runs under the profiler), 1
+        # on the built runner with no hooks
+        reset()
+        (log, tracks), stats = _tracked_run(
+            (lambda: built(seed)) if seed == 1 else (lambda: headline(seed)),
+            TRACK_FRAMES, syncs=seed == 0, profile=seed == 2)
+        got = counts()
+        sc = score_tracks(log, tracks, scene, TRACK_FRAMES, cfg,
+                          kinematics="simple")
+        false_total += sc.false_tracks
+        first = first or (log, tracks)
+        _line("tracking", run=f"headline seed {seed}", card=repr(card),
+              entry="runner built once" if seed == 1
+              else "run_multiframe_device",
+              frames=TRACK_FRAMES, launches=got, detections=len(log),
+              tracks=len(tracks), track_pd=sc.track_pd,
+              matched_tracks=int(sc.truth_n_tracks.sum()),
+              fragmentation=sc.fragmentation, false_tracks=sc.false_tracks,
+              ghost_tracks=sc.ghost_tracks,
+              switched_tracks=sc.switched_tracks,
+              coverage=np.round(sc.truth_coverage, 3).tolist(), **stats)
+        _require(got["K1"] == TRACK_FRAMES and got["K2"] == TRACK_FRAMES,
+                 f"headline seed {seed}: K1 and K2 at {TRACK_FRAMES}")
+        _require(sc.track_pd == 1.0 and int(sc.truth_n_tracks.sum()) == 5
+                 and sc.fragmentation == 1.0,
+                 f"headline seed {seed}: 5 matched tracks, one a truth")
+        launches["headline"] = got
+    _require(false_total <= 1, f"headline: {false_total} false tracks in "
+             f"{len(TRACK_SEEDS)} seeds (at most 1)")
+    log0, tracks0 = first
+    assoc_ms = statistics.median(
+        _host_ms(lambda: associate_tracks(log0, cfg)) for _ in range(20))
+    _line("tracking", run="association", rows=len(log0),
+          host_ms=round(assoc_ms, 4), engine="native (csrc/tracker.cpp)")
+
+    # the smoother on the headline's tracks, each held to its truth
+    smoothed = smooth_tracks(log0, tracks0, cfg)
+    traj = truth_trajectories(scene, TRACK_FRAMES, cfg, "simple")["range_m"]
+    rows = []
+    for st in smoothed:
+        tr = traj[:, st.frames - 1]
+        k = int(np.argmin(np.abs(st.meas_range_m[None] - tr).mean(1)))
+        rmse = lambda x: float(np.sqrt(np.mean((x - tr[k]) ** 2)))
+        rows.append([k, len(st.frames), round(rmse(st.meas_range_m), 3),
+                     round(rmse(st.range_m), 3),
+                     round(float(st.innovation_nis.mean()), 3)])
+    _line("tracking", run="smooth_tracks",
+          truth_frames_rmse_meas_smoothed_mean_nis=rows)
+    _require(len(smoothed) >= 5 and all(
+        np.all(np.isfinite(st.range_m)) and np.all(np.isfinite(
+            st.velocity_std_ms)) for st in smoothed),
+        "smooth_tracks: 5 or more finite smoothed tracks")
+
+    # chunked resume in one process: stop after 8 of 12 frames, resume
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_store")
+    shutil.rmtree(root, ignore_errors=True)
+    whole, _ = headline(7, 12)
+    reset()
+    _, st_a = _tracked_run(lambda: headline(
+        7, 8, store=OrbaxFrameStore(root), chunk_frames=4), 8)
+    part = counts()
+    reset()
+    (resumed, _), st_b = _tracked_run(lambda: headline(
+        7, 12, store=OrbaxFrameStore(root), chunk_frames=4), 4)
+    rest = counts()
+    same = _same_log(resumed, whole)
+    _line("tracking", run="chunked resume (12 frames, chunks of 4)",
+          launches_first_8=part, launches_resumed=rest,
+          chunks_done=OrbaxFrameStore(root).frames_done(),
+          log_rows=len(whole), bit_identical=same, first_8=st_a,
+          resumed_4=st_b)
+    _require(same and part["K1"] == 8 and rest["K1"] == 4,
+             "chunked resume: the unchunked log bit for bit, 8 + 4 frames")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # the two-target altitude scene: device scan against the host loop
+    two = default_two_target_scene()
+    reset()
+    (log_d, tracks_d), st_d = _tracked_run(lambda: run_multiframe_device(
+        cfg, two, 10, seed=3, precomp=pre, device=dev), 10)
+    launches["altitude_scan"] = counts()
+    (log_h, tracks_h, _), st_h = _tracked_run(lambda: run_multiframe(
+        cfg, two, 10, seed=3, precomp=pre, device=dev), 10)
+    close = (len(log_d) == len(log_h) and np.array_equal(log_d.frame,
+                                                         log_h.frame)
+             and np.allclose(log_d.range_m, log_h.range_m, rtol=0, atol=1.0)
+             and np.allclose(log_d.velocity_ms, log_h.velocity_ms, rtol=0,
+                             atol=0.5)
+             and np.allclose(log_d.azimuth_deg, log_h.azimuth_deg, rtol=0,
+                             atol=1e-3) and len(tracks_d) == len(tracks_h))
+    _line("tracking", run="altitude scene, device scan vs host loop",
+          rows=[len(log_d), len(log_h)], tracks=[len(tracks_d),
+                                                 len(tracks_h)],
+          max_range_diff=float(np.max(np.abs(log_d.range_m - log_h.range_m))
+                               ) if len(log_d) == len(log_h) else None,
+          within_jax_tolerances=close, launches=launches["altitude_scan"],
+          scan=st_d, host_loop=st_h)
+    _require(close and len(log_d) >= 10, "altitude scene: the device scan "
+             "within JAX's tolerances of the host loop")
+
+    # the exact stream (--exact): K3 each frame
+    reset()
+    (log_x, tracks_x), st_x = _tracked_run(
+        lambda: headline(0, 10, ref_cfg, ref_pre), 10)
+    launches["exact"] = counts()
+    sc_x = score_tracks(log_x, tracks_x, scene, 10, ref_cfg, "simple")
+    _line("tracking", run="exact stream, 10 frames", launches=
+          launches["exact"], detections=len(log_x), tracks=len(tracks_x),
+          track_pd=sc_x.track_pd, false_tracks=sc_x.false_tracks, **st_x)
+    _require(launches["exact"]["K3"] == 10, "exact stream: K3 at 10")
+
+    # the tracking Monte-Carlo's entry point, 2 scenes of each type
+    out = os.path.join(os.path.dirname(root), "tracking_mc_smoke.json")
+    reset()
+    _, st_m = _tracked_run(lambda: run_tracking_mc.main(
+        ["--scenes", "6", "--frames", "40", "--out", out]), 240)
+    launches["mc"] = counts()
+    with open(out) as f:
+        mc = json.load(f)
+    tpu_path = os.path.join(os.path.dirname(root), os.pardir, "results",
+                            "tracking_mc.json")
+    with open(tpu_path) as f:
+        tpu = json.load(f)
+    _line("tracking", run="tracking MC 6 x 40", launches=launches["mc"],
+          device=repr(mc["device"]), overall=mc["overall"],
+          by_scene_type=mc["by_scene_type"], wall_s=mc["wall_s"],
+          beside=f"results/tracking_mc.json ({tpu['device']}, "
+                 f"{tpu['scenes']} scenes): {tpu['overall']}", **st_m)
+    _require(launches["mc"]["K1"] == 240 and launches["mc"]["K2"] == 240,
+             "tracking MC: K1 and K2 at 240")
+    _require(mc["overall"]["track_pd"] >= 0.95
+             and mc["overall"]["switched_tracks_total"] == 0,
+             "tracking MC: mean track Pd >= 0.95, no switched track")
+    return {"K1": TRACK_FRAMES, "K2": TRACK_FRAMES,
+            "K3": launches["exact"]["K3"]}
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -1890,7 +2154,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-    from radar_tpu_torch import _build
+    from radar_tpu_torch import _build, native
     from radar_tpu_torch.config.params import (PERF_OVERRIDES, full_config,
                                                perf_config,
                                                small_test_config)
@@ -1921,6 +2185,10 @@ def main() -> int:
     _build.build_all(["noise_rdm", "noise_rdm_sm90", "rdm_variants",
                       "band_pc_sm90", "rdm_sm90", "cfar", "awgn", "ring"])
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
+          seconds=round(time.perf_counter() - t0, 2))
+    t0 = time.perf_counter()
+    native.load_library()       # the host C++ track associator
+    _line("build", tracker="csrc/tracker.cpp",
           seconds=round(time.perf_counter() - t0, 2))
     for name, info in _build.build_info.items():
         for ln in info["log"].splitlines():
@@ -2212,6 +2480,11 @@ def main() -> int:
                        t.num_points] for t in tracks])
     _require(all(good) and mf_launches["K3"] >= 5,
              "run_multiframe: a track of >= 4 points near each truth")
+
+    # ---- 10b. phase tracking: the device-scan runner, its resume, the
+    # tracking Monte-Carlo and the smoother
+    track_launches = _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts,
+                               reset)
 
     # ---- 12. the validation entry point (scripts/validate_rdm_gen.py):
     # K1c's planes through K1 == K1 draw mode, K4 vs K1, moments
@@ -2648,6 +2921,7 @@ def main() -> int:
           "bound_fp32_cuda_cores_ms": k1_fp32_bound,
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
           "bytes_bound_ms": k1_bytes_ms, "cublas_chain_ms": cublas_ms,
+          "tracking_launches_a_headline_run": track_launches["K1"],
           **tails_extra}),
         ("K2 2D GOCA-CFAR on qvg maps (TMA-staged, compiled-in window)",
          "cfar.cu", "radar_tpu/ops/pallas_kernels.py:234",
@@ -2655,14 +2929,16 @@ def main() -> int:
          _bytes_ms(maps_p[:, :num_v, ck.HALO:ck.HALO + num_g], mask, rc),
          "bytes", None,
          {"ms_is": "events around one call, the card kept busy",
-          "idle_card_ms": k2_ms, "host_ms": k2_host_ms}),
+          "idle_card_ms": k2_ms, "host_ms": k2_host_ms,
+          "tracking_launches_a_headline_run": track_launches["K2"]}),
         ("K3 pair sum + 2D GOCA-CFAR (mask, threshold): the beams walked "
          "through TMA-staged slots, compiled-in window", "cfar.cu",
          "radar_tpu/ops/pallas_kernels.py:292", ref_launches["K3"], k3_err,
          k3_busy_ms, k3_plain_ms, _bytes_ms(mag, m3, t3), "bytes", None,
          {"ms_is": "events around one call, the card kept busy",
           "idle_card_ms": k3_ms, "host_ms": k3_host_ms,
-          "profile_ms": _named_ms(k3_profile, "k3_kernel")}),
+          "profile_ms": _named_ms(k3_profile, "k3_kernel"),
+          "tracking_launches_in_10_exact_frames": track_launches["K3"]}),
         ("K5 complex AWGN (Philox + Box-Muller)", "awgn.cu",
          "radar_tpu/ops/pallas_noise.py:106", ref_launches["K5"], k5_err,
          k5_ms, k5_plain_ms, 2 * _bytes_ms(zeros), "bytes", k5_lib_ms,

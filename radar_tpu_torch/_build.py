@@ -7,6 +7,10 @@ repository root, named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused. Nothing is compiled at
 import time; the first kernel call builds, and ``build_all`` compiles
 several sources at once, one ``nvcc`` process each.
+
+Host C++ sources (``csrc/<name>.cpp``: the track associator) are compiled
+the same way by ``load_host``, with the host compiler ``c++``; a failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -153,6 +157,44 @@ def load(name: str) -> ctypes.CDLL:
     lib.radar_error_string.restype = ctypes.c_char_p
     _libs[name] = lib
     return lib
+
+
+# no -march=native: a cached library must run on any x86-64 host
+_HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library of ``csrc/<name>.cpp``, compiled with ``c++`` at
+    first use into ``BUILD_DIR`` (named by a hash of the source and
+    flags). Raises with the compiler's message if it cannot be built or
+    loaded; there is no fallback."""
+    if name in _libs:
+        return _libs[name]
+    src = os.path.join(_CSRC, name + ".cpp")
+    digest = hashlib.sha256(" ".join(_HOST_FLAGS).encode())
+    with open(src, "rb") as f:
+        digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        cxx = shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no host C++ compiler (c++) to build {src}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([cxx, *_HOST_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        build_info[name] = {"seconds": time.perf_counter() - t0,
+                            "log": proc.stdout + proc.stderr}
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"c++ failed on {src}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+    _libs[name] = ctypes.CDLL(out)
+    return _libs[name]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -18,8 +18,15 @@ trial for trial; without it, every trial's frame is sharded over the mesh
 (``parallel/sharded.py``).
 
 Trial seeds: trial ``t`` of scene ``s`` takes the integer seed
-``pipeline/driver.py::trial_seed(seed, s, t)``. Not ported: the checkpoint
-store (``store=``).
+``pipeline/driver.py::trial_seed(seed, s, t)``.
+
+Resume (``store=``, an ``io.orbax_store.OrbaxFrameStore``; the
+single-device route only): each scene's final targets (the valid flags,
+ranges and velocities the statistics read) are saved under the scene's
+index, and a rerun with the same (seed, scene schedule) replays the saved
+scenes, with field-exact statistics. The manifest is JAX's, with its
+``trial_route`` ("map" or "vmap") by JAX's rule. On the mesh routes
+``store=`` is not ported (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch
 from ..config.params import RadarConfig
 from ..sim.scenario import TargetBatch
 from ..waveform.precompute import Precomputed
-from .driver import trial_seed
+from .driver import config_sha, trial_seed
 from .frame import make_frame_processor
 
 
@@ -115,10 +122,12 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
     """Total injected targets = num_scenes*targets_per_scene*trials_per_scene,
     run on ``device`` (the card by default), or on the mesh's device with
     ``mesh`` (see the module docstring). ``processor`` may be a frame
-    processor built once and reused (single-device route only)."""
-    if store is not None:
-        raise NotImplementedError("store= is not ported; see ROADMAP Queue "
-                                  "1 #9")
+    processor built once and reused (single-device route only);
+    ``store`` resumes the single-device route (see the module
+    docstring)."""
+    if store is not None and mesh is not None:
+        raise NotImplementedError("store= is not ported on the mesh routes; "
+                                  "see ROADMAP Queue 1 item 14")
     if dp_trials and mesh is None:
         raise NotImplementedError(
             "dp_trials=True without mesh= (which JAX ignores) is not "
@@ -153,15 +162,40 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
                                      else torch.stack(xs)
                                      for xs in zip(*finals)))
 
+    done = set()
+    if store is not None:
+        from ..io.checkpoint import check_run_manifest
+
+        # refuse a store written by a different run: its scenes would be
+        # matched against this run's truths (radar_tpu/pipeline/
+        # streaming.py:160-202)
+        check_run_manifest(store.root, {
+            "seed": int(seed), "config_sha": config_sha(cfg),
+            "targets_per_scene": int(targets_per_scene),
+            "trials_per_scene": int(trials_per_scene),
+            "snr_range": [float(snr_range[0]), float(snr_range[1])],
+            "dtype": "complex64",
+            "trial_route": "map" if (
+                cfg.lowrank_rdm and cfg.fused_synth_dbf
+                and cfg.noise_rdm_impl in ("pallas", "pallas_prng"))
+            else "vmap"})
+        done = set(store.frames_done())
+
     rng = np.random.default_rng(seed)
     all_snr, all_det, all_dr, all_dv = [], [], [], []
     for s in range(num_scenes):
+        # the scene rng advances for replayed scenes too
         truth = random_scene(rng, targets_per_scene, cfg, snr_range)
-        finals = trial_targets([trial_seed(seed, s, t)
-                                for t in range(trials_per_scene)], truth)
-        # one copy per scene: [trials, slots] per field
-        host = HostTargets(*(getattr(finals, name).cpu().numpy()
-                             for name in HostTargets._fields))
+        if s + 1 in done:
+            host = HostTargets(**store.restore(s + 1))
+        else:
+            finals = trial_targets([trial_seed(seed, s, t)
+                                    for t in range(trials_per_scene)], truth)
+            # one copy per scene: [trials, slots] per field
+            host = HostTargets(*(getattr(finals, name).cpu().numpy()
+                                 for name in HostTargets._fields))
+            if store is not None:
+                store.save(s + 1, host._asdict())
         for t in range(trials_per_scene):
             det, dr, dv = _match_rate(
                 HostTargets(*(x[t] for x in host)), truth, match_gate_r,

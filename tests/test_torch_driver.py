@@ -22,6 +22,7 @@ from radar_tpu.sim.scenario import TargetBatch as JTargets
 from radar_tpu.waveform.precompute import precompute as j_precompute
 
 from radar_tpu_torch.config import params as tparams
+from radar_tpu_torch.io.checkpoint import CheckpointStore
 from radar_tpu_torch.pipeline import driver as tdriver
 from radar_tpu_torch.pipeline.frame import make_frame_processor
 from radar_tpu_torch.sim.scenario import TargetBatch
@@ -138,7 +139,7 @@ def test_run_multiframe_matches_jax():
     assert scen.azimuth_deg == pytest.approx(jscen.azimuth_deg, rel=1e-12)
 
 
-def test_run_multiframe_own_noise_and_refusals():
+def test_run_multiframe_own_noise_and_refusals(tmp_path):
     cfg = tparams.small_test_config()
     tb = TargetBatch.make([3000.0], [15.0], [10.0], [18.0])
     log, tracks, _ = tdriver.run_multiframe(cfg, tb, 3, seed=2,
@@ -146,8 +147,11 @@ def test_run_multiframe_own_noise_and_refusals():
                                             device="cpu")
     main = max(tracks, key=lambda t: t.num_points)
     assert main.num_points >= 3 and abs(main.range_m - 3000.0) < 60.0
-    with pytest.raises(NotImplementedError, match="store"):
-        tdriver.run_multiframe(cfg, tb, 1, store=object(), device="cpu")
+    store = CheckpointStore(str(tmp_path / "ck"))
+    tdriver.run_multiframe(cfg, tb, 1, seed=2, kinematics="simple",
+                           store=store, device="cpu")
+    with pytest.raises(ValueError, match="different run"):
+        tdriver.run_multiframe(cfg, tb, 1, seed=2, store=store, device="cpu")
     off = cfg.replace(inter_frame=dataclasses.replace(cfg.inter_frame,
                                                       enable=False))
     log2, tracks2, _ = tdriver.run_multiframe(off, tb, 2, device="cpu")

@@ -109,7 +109,7 @@ def test_streaming_mc_reuses_a_processor_and_is_deterministic():
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"dp_trials": True},
-                                {"store": object()}],
+                                {"store": object(), "mesh": object()}],
                          ids=["mesh", "dp_trials", "store"])
 def test_unported_routes_are_refused(kw):
     cfg = tparams.small_test_config()
