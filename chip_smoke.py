@@ -89,6 +89,18 @@ targets:
   the smoother on the headline's tracks; each run's frames/s, event ms
   and host syncs a frame, one run's idle share by the profiler, the
   native associator's host ms;
+- phase ``realdata``: the second detector family at the reference's
+  gated size (332 pulses x 3404 gates x 16 channels): a ``.bin`` frame
+  pair with an injected target written by the native writer and read
+  onto the card by the native reader (and the numpy reader, bit for bit
+  alike), ``run_realdata_pipeline`` and ``run_realdata_pipeline_windowed``
+  (the target within 3 gates and 2 Doppler bins in the frame and every
+  slice, the RDM within 1e-5 of the port's CPU run, no kernel counted),
+  timed by events with host syncs, idle share and a stage split; phase
+  ``doa``: MUSIC 1D/2D (refined), root-MUSIC and both ESPRITs at 128
+  elements within ``tests/test_doa.py``'s tolerances, each one's host ms;
+  phase ``scripts``: ``run_roc_realdata`` at its defaults and
+  ``run_doa_accuracy`` at 10 trials on the card;
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -102,7 +114,9 @@ targets:
   at a time, beside copy_); ``perf_dp_fused``/``perf_dp_xla``
   run 4 perf frames at dp=4, ``stream``/``lowrank`` one frame sharded over
   (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
-  perf sweep and a streaming MC at dp=4, each against its single-rank run.
+  perf sweep and a streaming MC at dp=4, ``doa_cov`` ``music_2d(mesh=)``
+  with the 512 snapshots of a 128-element URA sharded over the ranks,
+  each against its single-rank run.
 
 K1, K2 and K4 are also timed on a card kept busy (events behind a sleep
 kernel) beside the idle card and the host's time a call; K1 and K4 are
@@ -1734,6 +1748,39 @@ def _multichip_rank() -> dict:
     if rank == 1:
         mc["streaming_single"] = run_streaming_mc(perf, device=dev, **st_kw)
     out["mc_dp"] = mc
+
+    # ---- doa_cov: music_2d(mesh=) on BASELINE config 4's 16x8 URA, its
+    # 512 snapshots sharded over the ranks (the covariance all-reduced)
+    from radar_tpu_torch.doa.music import covariance, music_2d, steering_ura
+    from radar_tpu_torch.parallel.collectives import \
+        covariance_snapshot_sharded
+
+    truth2 = np.array([[12.3, 25.7], [-40.6, 55.4]])
+    rng = np.random.default_rng(11)
+    a2 = steering_ura(truth2[:, 0], truth2[:, 1], 16, 8, 0.5)
+    a2 = np.stack([a2[:, 0], a2[:, 3]], axis=1)
+    x = (a2 @ ((rng.normal(size=(2, 512)) + 1j * rng.normal(size=(2, 512)))
+               / np.sqrt(2))
+         + (rng.normal(size=(128, 512)) + 1j * rng.normal(size=(128, 512)))
+         * np.sqrt(0.5) * 0.1).astype(np.complex64)
+    az = np.arange(-60.0, 60.0 + 1e-9, 1.0)
+    el = np.arange(10.0, 80.0 + 1e-9, 1.0)
+    cpi_mesh = make_mesh(cpi=world)
+    xl = shard_along(x, cpi_mesh, "cpi", 1)
+    kw = dict(az_deg=az, el_deg=el, refine=True)
+    music_2d(xl, 2, 16, 8, 0.5, mesh=cpi_mesh, **kw)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = music_2d(xl, 2, 16, 8, 0.5, mesh=cpi_mesh, **kw)
+    doa_ms = (time.perf_counter() - t0) * 1e3
+    cov = covariance_snapshot_sharded(cpi_mesh)(xl)
+    xd = torch.as_tensor(x, device=dev)
+    one = covariance(xd)
+    out["doa_cov"] = {
+        "cov_err": float((cov - one).abs().max() / one.abs().max()),
+        "peaks": sharded.peaks_deg,
+        "single_peaks": music_2d(xd, 2, 16, 8, 0.5, **kw).peaks_deg,
+        "truth": truth2, "ms": doa_ms}
     out["rank_s"] = time.perf_counter() - t_rank
     return out
 
@@ -1866,6 +1913,22 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
              "mc_dp: the dp sweep and streaming MC == the one-rank runs")
     _require(all(a["launches"]["K1"] == 8 for a in arms),
              "mc_dp: 8 K1 trials per rank (2 points x 16 trials / 4)")
+    arms = [r["doa_cov"] for r in res]
+    by_az = lambda p: p[np.argsort(p[:, 0])]
+    peak_err = [float(np.abs(by_az(a["peaks"]) - by_az(a["single_peaks"]))
+                      .max()) for a in arms]
+    truth_err = [float(np.abs(by_az(a["peaks"]) - by_az(a["truth"])).max())
+                 for a in arms]
+    _line("multichip", arm="doa_cov", mesh=f"cpi={n}", shape=[128, 512],
+          cov_err_over_max=[a["cov_err"] for a in arms],
+          peaks_vs_one_rank_deg=peak_err, peaks_vs_truth_deg=truth_err,
+          music_2d_refine_ms=[round(a["ms"], 3) for a in arms],
+          tol="covariance 1e-5 of max; peaks within 0.05 deg (zoom step) "
+              "of one rank's, 0.15 of the truth")
+    _require(all(a["cov_err"] <= 1e-5 for a in arms),
+             "doa_cov: the sharded covariance == one rank's")
+    _require(max(peak_err) <= 0.05 + 1e-9 and max(truth_err) <= 0.15,
+             "doa_cov: the sharded MUSIC finds one rank's peaks")
     _line("multichip", wall_s=round(wall, 2), card=repr(card))
 
     # K6 on the main path: the push reads the halo once and writes it once
@@ -2137,6 +2200,346 @@ def _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts, reset) -> dict:
              "tracking MC: mean track Pd >= 0.95, no switched track")
     return {"K1": TRACK_FRAMES, "K2": TRACK_FRAMES,
             "K3": launches["exact"]["K3"]}
+
+
+REALDATA_TRUTH = (1500, 12.0, 12.0)     # gate, m/s, physical elevation
+REALDATA_AMP = 1.0       # per-sample echo amplitude on unit-power noise
+
+
+def _realdata_frames(cfg, dev):
+    """Two consecutive gated frames [2P, 3404, 16] complex64 on the card:
+    unit-power noise and one echo coherent across both (the long
+    segment's pulse at the truth gate, the real-data DBF's conjugate
+    steering; tests/test_realdata.py's scene)."""
+    import torch
+
+    from radar_tpu_torch.pipeline.stages import _segment_pulses
+
+    sig = cfg.sig
+    n_p, n_g, n_c = sig.prt_num, sig.n_total_gate, sig.channel_num
+    gate, vel, el = REALDATA_TRUTH
+    _, _, p3 = _segment_pulses(cfg)
+    dphi = 2 * np.pi * 0.0138 * np.sin(np.deg2rad(el)) / sig.wavelength
+    steer = np.exp(-1j * np.arange(n_c) * dphi)
+    dop = np.exp(1j * 2 * np.pi * (2 * vel / sig.wavelength)
+                 * np.arange(2 * n_p) * sig.prt)
+    seg = np.zeros(n_g, complex)
+    seg[gate:gate + len(p3)] = p3
+    c = lambda a: torch.as_tensor(a.astype(np.complex64), device=dev)
+    gen = torch.Generator(dev).manual_seed(20261018)
+    two = torch.randn((2 * n_p, n_g, n_c), dtype=torch.complex64,
+                      device=dev, generator=gen)
+    return two + REALDATA_AMP * (c(dop)[:, None, None] * c(seg)[None, :, None]
+                                 * c(steer)[None, None, :])
+
+
+def _strongest(meas, dets) -> tuple:
+    """(gate, Doppler bin, pair, range m, velocity m/s, elevation deg) of
+    the strongest valid measurement."""
+    v = meas.valid.cpu().numpy()
+    if not v.any():
+        return None
+    i = int(np.flatnonzero(v)[np.argmax(meas.power.cpu().numpy()[v])])
+    return (int(dets.r_idx[i]), int(dets.v_idx[i]), int(dets.pair_idx[i]),
+            round(float(meas.range_m[i]), 3),
+            round(float(meas.velocity_ms[i]), 4),
+            round(float(meas.elevation_deg[i]), 4))
+
+
+def _realdata(card: str, counts, reset, dev) -> dict:
+    """Phase ``realdata``: the second detector family at full width. A
+    .bin frame pair (2 x 332 PRT records of 3404 gates x 16 channels) with
+    the injected target is written by the native writer, read back onto
+    the card by the native reader (and by the numpy reader, bit for bit
+    alike), then ``run_realdata_pipeline`` (stages 1-4) and
+    ``run_realdata_pipeline_windowed`` (the 664-pulse PC, four slices)
+    run on it; the target is required within 3 gates and 2 Doppler bins in
+    every run, and the card's RDM within 1e-5 RMS-relative of the port's
+    CPU run of the same frame. Times: the frame and the windowed chain by
+    CUDA events, host syncs a frame, the idle share by the profiler, each
+    stage on a busy card, the .bin write and reads on the host clock. No
+    kernel of the table runs here: the counters stay at 0."""
+    import torch
+
+    from radar_tpu_torch.config import assets
+    from radar_tpu_torch.config.params import RadarConfig
+    from radar_tpu_torch.io import binio
+    from radar_tpu_torch.ops.dbf import dbf
+    from radar_tpu_torch.pipeline import stages
+
+    cfg = RadarConfig()
+    sig = cfg.sig
+    n_p = sig.prt_num
+    t_all = time.perf_counter()
+    iq = _realdata_frames(cfg, dev).cpu().numpy()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_realdata")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "frames.bin")
+    try:
+        # freq_no in the header is MATLAB's 1-based frequency point
+        write_ms = _host_ms(lambda: binio.write_bin(
+            path, iq, 0.0, freq_no=7, fs_hz=sig.fs, prt_s=sig.prt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames, meta, servo = binio.read_bin_frames(path, n_p, device=dev)
+        torch.cuda.synchronize()
+        read_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        frames_np, _, _ = binio.read_bin_frames(path, n_p, use_native=False,
+                                                device=dev)
+        torch.cuda.synchronize()
+        read_np_ms = (time.perf_counter() - t0) * 1e3
+        file_mb = os.path.getsize(path) / 1e6
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    scale = binio.default_iq_scale(iq)
+    q_err = float((frames.reshape(iq.shape).cpu()
+                   - torch.from_numpy(iq)).abs().max())
+    _line("realdata", file_mb=round(file_mb, 3), records=meta.n_prt,
+          shape=list(frames.shape), device=str(frames.device),
+          write_native_host_ms=round(write_ms, 2),
+          read_native_host_ms=round(read_ms, 2),
+          read_numpy_host_ms=round(read_np_ms, 2),
+          readers_identical=bool(torch.equal(frames, frames_np)),
+          quantization_max_err=q_err, iq_scale=scale, card=repr(card))
+    _require(frames.device.type == dev.type and meta.n_prt == 2 * n_p
+             and meta.freq_no == 7, "read_bin_frames: 664 records on the card")
+    _require(bool(torch.equal(frames, frames_np)),
+             "the native and numpy readers agree bit for bit")
+    _require(q_err <= 0.51 * scale * np.sqrt(2.0),
+             "int16 round trip within half a quantization step")
+    del frames_np
+    freq_no = meta.freq_no - 1
+    f0, f1 = frames[0], frames[1]
+
+    gate, vel, _ = REALDATA_TRUTH
+    v_axis = np.linspace(-sig.v_max / 2, sig.v_max / 2, n_p)
+    v_bin = int(np.argmin(np.abs(v_axis - vel)))
+
+    def on_truth(hit) -> bool:
+        if hit is None:
+            return False
+        dv = abs(hit[1] - v_bin)
+        return abs(hit[0] - gate) <= 3 and min(dv, n_p - dv) <= 2
+
+    run = lambda: stages.run_realdata_pipeline(f0, cfg, freq_no)
+    run()
+    torch.cuda.synchronize()
+    reset()
+    meas, dets, rdm = run()
+    torch.cuda.synchronize()
+    launches = counts()
+    hit = _strongest(meas, dets)
+    n_det = int(dets.count)
+    reset()
+    meas_w, rdm_w = stages.run_realdata_pipeline_windowed(f0, f1, cfg,
+                                                          freq_no)
+    torch.cuda.synchronize()
+    launches_w = counts()
+    dets_w = [stages.stage3_detection(rdm_w[k], cfg)[0] for k in range(4)]
+    hits_w = [_strongest(m, d) for m, d in zip(meas_w, dets_w)]
+    slice0_vs_single = _rel_rms(rdm_w[0], rdm)
+
+    # the port's CPU run of the same frame
+    t0 = time.perf_counter()
+    meas_c, dets_c, rdm_c = stages.run_realdata_pipeline(f0.cpu(), cfg,
+                                                         freq_no)
+    cpu_s = time.perf_counter() - t0
+    card_vs_cpu = _rel_rms(rdm.cpu(), rdm_c)
+    hit_c = _strongest(meas_c, dets_c)
+    _line("realdata", run="run_realdata_pipeline", shape=list(f0.shape),
+          rdm=list(rdm.shape), launches=launches, detections=n_det,
+          strongest=hit, truth=(gate, v_bin, vel), card_vs_cpu_rms=card_vs_cpu,
+          cpu_detections=int(dets_c.count), cpu_strongest=hit_c,
+          cpu_run_s=round(cpu_s, 2), tol="target within 3 gates and 2 "
+          "bins; RDM card vs CPU rms(err) <= 1e-5 rms")
+    _line("realdata", run="run_realdata_pipeline_windowed",
+          rdm_slices=list(rdm_w.shape), launches=launches_w,
+          strongest=hits_w, slice0_vs_single_rms=slice0_vs_single,
+          detections=[int(d.count) for d in dets_w])
+    _require(on_truth(hit), f"realdata frame: target found ({hit})")
+    _require(all(on_truth(h) for h in hits_w),
+             f"realdata windowed: target in every slice ({hits_w})")
+    _require(card_vs_cpu <= 1e-5, "realdata RDM: card vs CPU 1e-5")
+    _require(slice0_vs_single <= 1e-5, "windowed slice 0 == the frame")
+    _require(hit_c is not None and hit_c[:3] == hit[:3],
+             "the CPU run finds the same strongest cell")
+    _require(all(v == 0 for v in list(launches.values())
+                 + list(launches_w.values())),
+             "the real-data path reaches none of the kernel table's rows")
+
+    # times: the frame and the windowed chain end on the host (a read of
+    # the valid count), 10 and 3 a run
+    def frames_run(n, windowed=False):
+        for _ in range(n):
+            out = (stages.run_realdata_pipeline_windowed(f0, f1, cfg,
+                                                         freq_no)[0][-1]
+                   if windowed else run()[0])
+        return int(out.valid.sum())
+
+    _, st = _tracked_run(lambda: frames_run(10), 10)
+    _, stp = _tracked_run(lambda: frames_run(10), 10, syncs=False,
+                          profile=True)
+    frames_run(1, True)
+    _, sw = _tracked_run(lambda: frames_run(3, True), 3)
+    _, swp = _tracked_run(lambda: frames_run(3, True), 3, syncs=False,
+                          profile=True)
+    dbf_w = np.asarray(assets.dbf_coeffs())
+    beams = dbf(f0, dbf_w, "realdata")
+    rdm2, _ = stages.stage2_mtd(beams, cfg)
+    maps = stages.pair_sum_maps_realdata(rdm2)
+    d3, _ = stages.stage3_detection(rdm2, cfg, maps=maps)
+    consts = stages.measure_consts(cfg, freq_no, device=dev)
+    stage_ms = {name: round(_busy_event_ms(fn, 5)[0], 4) for name, fn in (
+        ("dbf", lambda: dbf(f0, dbf_w, "realdata")),
+        ("stage2_pc_mtd", lambda: stages.stage2_mtd(beams, cfg)),
+        ("pair_maps", lambda: stages.pair_sum_maps_realdata(rdm2)),
+        ("stage3_cfar_extract",
+         lambda: stages.stage3_detection(rdm2, cfg, maps=maps)),
+        ("stage4_measure", lambda: stages.stage4_measurement(
+            d3, rdm2, cfg, freq_no, maps=maps, consts=consts)))}
+    _line("realdata", card=repr(card), frame=st, frame_profiled=stp,
+          windowed=sw, windowed_profiled=swp, busy_card_stage_ms=stage_ms,
+          phase_s=round(time.perf_counter() - t_all, 2))
+    return {"frame": st, "frame_profiled": stp, "windowed": sw,
+            "windowed_profiled": swp, "stage_ms": stage_ms}
+
+
+def _doa(card: str, dev) -> dict:
+    """Phase ``doa``: the DoA tools on the card at BASELINE config 4's
+    128 elements: ``music_1d`` (128-element ULA, 512 snapshots drawn by
+    ``simulate_snapshots`` on the card, complex128; its spectrum held to the
+    port's CPU run at rtol 1e-5), root-MUSIC and TLS/LS-ESPRIT on the same
+    snapshots, ``music_2d`` on the 16x8 URA (1-deg grid, then
+    ``refine=True``) and ``esprit_2d``, each within ``tests/test_doa.py``'s
+    tolerances; each method's host ms a call (it ends on the host)."""
+    import torch
+
+    from radar_tpu_torch.doa import music, superres
+
+    wl = 2.99792458e8 / 9450e6
+    d = wl / 2
+    t_all = time.perf_counter()
+    truth1 = np.array([-5.0, -4.0, 10.0])
+    x1 = music.simulate_snapshots(torch.Generator(dev).manual_seed(2),
+                                  truth1, 128, d, wl, 512, snr_db=5.0,
+                                  dtype=torch.complex128, device=dev)
+    scan = np.arange(-20.0, 20.0 + 1e-9, 0.05)
+    m1 = music.music_1d(x1, 3, d, wl, scan)
+    m1c = music.music_1d(x1.cpu(), 3, d, wl, scan)
+    spec_err = float(((m1.spectrum.cpu() - m1c.spectrum).abs()
+                      / m1c.spectrum.abs()).max())
+    rm = superres.root_music_1d(x1, 3, d, wl)
+    es = superres.esprit_1d(x1, 3, d, wl, tls=True)
+    es_ls = superres.esprit_1d(x1, 3, d, wl, tls=False)
+
+    rng = np.random.default_rng(4)
+
+    def ura(truth, k=512, noise=0.1):
+        a = music.steering_ura(truth[:, 0], truth[:, 1], 16, 8, 0.5)
+        m = len(truth)
+        a = np.stack([a[:, i * m + i] for i in range(m)], axis=1)
+        s = (rng.normal(size=(m, k)) + 1j * rng.normal(size=(m, k))) \
+            / np.sqrt(2)
+        n = (rng.normal(size=(128, k)) + 1j * rng.normal(size=(128, k))) \
+            * np.sqrt(0.5) * noise
+        return a @ s + n
+
+    by_az = lambda p: p[np.argsort(p[:, 0])]
+    truth2 = np.array([[12.3, 25.7], [-40.6, 55.4]])
+    x2 = torch.as_tensor(ura(truth2), dtype=torch.complex64, device=dev)
+    az = np.arange(-60.0, 60.0 + 1e-9, 1.0)
+    el = np.arange(10.0, 80.0 + 1e-9, 1.0)
+    coarse = music.music_2d(x2, 2, 16, 8, 0.5, az_deg=az, el_deg=el)
+    fine = music.music_2d(x2, 2, 16, 8, 0.5, az_deg=az, el_deg=el,
+                          refine=True)
+    truth3 = np.array([[12.34, 25.71], [12.9, 55.43], [-40.62, 40.2]])
+    x3 = torch.as_tensor(ura(truth3), dtype=torch.complex128, device=dev)
+    e2 = superres.esprit_2d(x3, 3, 16, 8, 0.5)
+    errs = {"music_1d": float(np.abs(m1.peaks_deg - truth1).max()),
+            "root_music_1d": float(np.abs(rm - truth1).max()),
+            "esprit_1d_tls": float(np.abs(es - truth1).max()),
+            "esprit_1d_ls": float(np.abs(es_ls - truth1).max()),
+            "music_2d_grid": float(np.abs(by_az(coarse.peaks_deg)
+                                          - by_az(truth2)).max()),
+            "music_2d_zoom": float(np.abs(by_az(fine.peaks_deg)
+                                          - by_az(truth2)).max()),
+            "esprit_2d": float(np.abs(e2 - by_az(truth3)).max())}
+    tol = {"music_1d": 0.2, "root_music_1d": 0.1, "esprit_1d_tls": 0.1,
+           "esprit_1d_ls": 0.1, "music_2d_grid": 0.5 + 1e-6,
+           "music_2d_zoom": 0.15, "esprit_2d": 0.15}
+
+    def host_ms(fn, reps=5):
+        fn()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            out.append(_host_ms(fn))
+        return round(statistics.median(out), 3)
+
+    ms = {"music_1d (c128, 801 angles)": host_ms(
+              lambda: music.music_1d(x1, 3, d, wl, scan)),
+          "root_music_1d": host_ms(
+              lambda: superres.root_music_1d(x1, 3, d, wl)),
+          "esprit_1d_tls": host_ms(lambda: superres.esprit_1d(x1, 3, d, wl)),
+          "music_2d (c64, 121x71 grid)": host_ms(lambda: music.music_2d(
+              x2, 2, 16, 8, 0.5, az_deg=az, el_deg=el)),
+          "music_2d refine": host_ms(lambda: music.music_2d(
+              x2, 2, 16, 8, 0.5, az_deg=az, el_deg=el, refine=True)),
+          "esprit_2d (c128)": host_ms(
+              lambda: superres.esprit_2d(x3, 3, 16, 8, 0.5)),
+          "steering_ura of the 121x71 grid (host numpy, in music_2d)":
+              host_ms(lambda: music.steering_ura(az, el, 16, 8, 0.5))}
+    _line("doa", elements=128, snapshots=512, device=str(x1.device),
+          max_abs_err_deg=errs, tol_deg=tol, music_1d_spectrum_card_vs_cpu=
+          spec_err, peaks_card_equal_cpu=bool(np.array_equal(
+              m1.peaks_deg, m1c.peaks_deg)), host_ms_a_call=ms,
+          card=repr(card), phase_s=round(time.perf_counter() - t_all, 2))
+    _require(all(errs[k] <= tol[k] for k in tol),
+             f"doa: every method within its tolerance ({errs})")
+    _require(spec_err <= 1e-5, "doa: MUSIC spectrum card vs CPU rtol 1e-5")
+    _require(np.array_equal(m1.peaks_deg, m1c.peaks_deg),
+             "doa: MUSIC peaks card == CPU")
+    return {"errs": errs, "ms": ms}
+
+
+def _new_scripts(card: str, dev) -> dict:
+    """The real-data and DoA paths' entry points, through their ``main``:
+    the ROC script at its default counts (200 trials, 400 noise frames)
+    and the DoA accuracy study at 10 trials, each on the card, JSON into
+    build/."""
+    from radar_tpu_torch.scripts import run_doa_accuracy, run_roc_realdata
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    on = [] if dev.type == "cuda" else ["--cpu"]
+    t0 = time.perf_counter()
+    roc = run_roc_realdata.main(on + ["--out", os.path.join(
+        root, "roc_realdata_smoke.json")])
+    roc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doa = run_doa_accuracy.main(on + ["--trials", "10", "--out", os.path.join(
+        root, "doa_accuracy_smoke.json")])
+    doa_s = time.perf_counter() - t0
+    i8 = roc["t_factors"].index(8.0)
+    _line("scripts", roc_realdata_wall_s=round(roc_s, 2),
+          roc_trials=roc["trials_per_t"], roc_noise_frames=roc["noise_frames"],
+          roc_pd_at_8=roc["pd"][i8], roc_pfa_hits_at_8=roc["pfa_hits"][i8],
+          roc_arms_s=roc["wall_s"], doa_accuracy_wall_s=round(doa_s, 2),
+          doa_rmse_1d=doa["1d_ula"]["rmse_deg"],
+          doa_rmse_2d=doa["2d_ura_16x8"]["rmse_deg"], card=repr(card))
+    _require(roc["device"].startswith(card.split(" (")[0])
+             and doa["device"].startswith(card.split(" (")[0]),
+             "the scripts ran on the card")
+    _require(roc["pd"][0] >= 0.95 and roc["pd"] == sorted(roc["pd"],
+                                                         reverse=True),
+             "ROC: Pd falls with T from ~1")
+    _require(all(v < 0.1 for k, v in doa["1d_ula"]["rmse_deg"].items()
+                 if k != "music_grid")
+             and doa["2d_ura_16x8"]["rmse_deg"]["esprit_2d"] < 0.1,
+             "DoA accuracy: the search-free methods below 0.1 deg")
+    return {"roc_s": roc_s, "doa_s": doa_s}
 
 
 def _host_ms(fn) -> float:
@@ -2485,6 +2888,12 @@ def main() -> int:
     # tracking Monte-Carlo and the smoother
     track_launches = _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts,
                                reset)
+
+    # ---- 10c. phases realdata and doa: the second detector family from a
+    # .bin frame pair, the DoA tools at 128 elements, and their scripts
+    _realdata(card, counts, reset, dev)
+    _doa(card, dev)
+    _new_scripts(card, dev)
 
     # ---- 12. the validation entry point (scripts/validate_rdm_gen.py):
     # K1c's planes through K1 == K1 draw mode, K4 vs K1, moments

@@ -58,3 +58,11 @@ def angle_k_table() -> np.ndarray:
     """Monopulse K vs frequency point, [11, 12] (real-data path)."""
     with np.load(os.path.join(_DATA_DIR, "angle_k.npz")) as f:
         return f["angle_k"]
+
+
+@functools.cache
+def ddc_fir_taps() -> np.ndarray:
+    """12-tap decimation low-pass (reference ``FIR.mat`` variable ``Num``,
+    used by the mixing/decimation tutorial, simulation_learn.m:94-102)."""
+    with np.load(os.path.join(_DATA_DIR, "ddc_fir.npz")) as f:
+        return f["taps"]

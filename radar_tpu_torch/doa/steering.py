@@ -1,5 +1,5 @@
-"""ULA steering vectors and synthetic DBF banks — the part of
-``radar_tpu/doa/steering.py`` that ``waveform/precompute.py`` needs.
+"""ULA steering vectors and synthetic DBF banks — port of
+``radar_tpu/doa/steering.py``.
 Channel ``n`` sees phase ``+n * 2*pi*d*sin(theta)/lambda``
 (fun_process_single_frame.m:163-169)."""
 
@@ -9,10 +9,14 @@ import numpy as np
 
 
 def steering_vector(angles_deg: np.ndarray, num_elements: int,
-                    element_spacing: float, wavelength: float) -> np.ndarray:
-    """Steering matrix S, complex [num_elements, len(angles)]."""
+                    element_spacing: float, wavelength: float,
+                    index_base: int = 0) -> np.ndarray:
+    """Steering matrix S, complex [num_elements, len(angles)].
+    ``index_base=1`` is the reference plot script's 1-based element index
+    (plot_beam_patterns.m:52): a per-angle global phase on every column,
+    so |w . S| patterns and peak angles do not change."""
     angles = np.deg2rad(np.atleast_1d(np.asarray(angles_deg, np.float64)))
-    n = np.arange(num_elements)[:, None]
+    n = (np.arange(num_elements) + index_base)[:, None]
     phase = 2.0 * np.pi * element_spacing * np.sin(angles)[None, :] / wavelength
     return np.exp(1j * n * phase)
 

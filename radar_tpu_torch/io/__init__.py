@@ -1,5 +1,5 @@
-"""Port of ``radar_tpu/io/``: the checkpoint stores. ``binio`` (the .bin
-real-data reader) is not ported yet."""
+"""Port of ``radar_tpu/io/``: the checkpoint stores and the .bin record
+reader and writer (``io/binio.py``)."""
 
 from .checkpoint import (CheckpointStore, SaveOptions, load_sim_frame,
                          save_detection_log_json, save_sim_frame)

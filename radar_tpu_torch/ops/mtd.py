@@ -1,8 +1,9 @@
 """MTD: the reference's windowed, fftshifted slow-time FFT
-(fun_process_single_frame.m:129-136) — port of ``radar_tpu/ops/mtd.py:20-58``,
+(fun_process_single_frame.m:129-136) — port of ``radar_tpu/ops/mtd.py``,
 as the FFT (``mtd``) or folded into one constant [n_dop, pulses] matrix
 product (``mtd_matmul``). ``fft_len`` zero-pads the transform (the v7_7
 512-point variant, main_simulate_echoes_with_array_v7_7.m:150).
+``zero_velocity_suppress`` is the real-data path's DC clutter notch.
 """
 
 from __future__ import annotations
@@ -11,14 +12,16 @@ import numpy as np
 import torch
 
 
-def mtd(pc: torch.Tensor, mtd_win, fft_len: int | None = None
-        ) -> torch.Tensor:
+def mtd(pc: torch.Tensor, mtd_win, fft_len: int | None = None,
+        dim: int = 0) -> torch.Tensor:
     """[pulses, gates, beams] -> [fft_len or pulses, gates, beams] RDM:
-    kaiser window, FFT over pulses, fftshift."""
+    kaiser window, FFT over pulses, fftshift. ``dim`` names the pulse axis
+    of a batched cube (e.g. 1 for [slices, pulses, gates, beams])."""
     w = torch.as_tensor(np.asarray(mtd_win), device=pc.device).to(
         pc.real.dtype)
-    y = torch.fft.fft(pc * w[:, None, None], n=fft_len, dim=0)
-    return torch.fft.fftshift(y, dim=0)
+    w = w.reshape((-1,) + (1,) * (pc.ndim - 1 - dim))
+    y = torch.fft.fft(pc * w, n=fft_len, dim=dim)
+    return torch.fft.fftshift(y, dim=dim)
 
 
 def make_mtd_matrix(mtd_win, num_pulses: int,
@@ -44,3 +47,16 @@ def mtd_matmul(pc: torch.Tensor, mtd_matrix,
 
         return einsum_complex_bf16("vp,pgb->vgb", m, pc, out_dtype=pc.dtype)
     return torch.einsum("vp,pgb->vgb", m.to(pc.dtype), pc)
+
+
+def zero_velocity_suppress(rdm: torch.Tensor, velocity_axis,
+                           v_half_width_ms: float) -> torch.Tensor:
+    """Zero the Doppler bins within +/- v_half_width_ms of zero velocity —
+    the real-data path's DC clutter suppression (``fun_0v_pressing``,
+    inline copy at debug_simulated_data_processing_v2.m:259-405; half-width
+    from ``config.mtd.MTD_V=3 m/s``)."""
+    mask = torch.as_tensor(velocity_axis, device=rdm.device).abs() \
+        <= v_half_width_ms
+    return torch.where(mask[:, None, None], torch.zeros((), dtype=rdm.dtype,
+                                                        device=rdm.device),
+                       rdm)

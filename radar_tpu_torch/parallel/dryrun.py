@@ -100,6 +100,21 @@ def collectives(iq, w, pc, mtd_win, x_cov, device="cuda") -> dict:
             "cov": cov.cpu().numpy()}
 
 
+def music_2d_sharded(x, num_sources: int, nx: int, ny: int, az_deg, el_deg,
+                     refine: bool = False, device="cuda") -> dict:
+    """``doa.music.music_2d(mesh=)`` with the snapshots [C, K] of ``x``
+    sharded over every rank (cpi): the covariance, the spectrum and the
+    peaks each rank finds (all ranks hold the same)."""
+    from ..doa.music import music_2d
+
+    mesh = make_mesh(cpi=dist.get_world_size(), device=device)
+    xl = shard_along(x, mesh, "cpi", 1)
+    res = music_2d(xl, num_sources, nx, ny, 0.5, az_deg=az_deg,
+                   el_deg=el_deg, refine=refine, mesh=mesh)
+    return {"cov": covariance_snapshot_sharded(mesh)(xl).cpu().numpy(),
+            "spectrum": res.spectrum.cpu().numpy(), "peaks": res.peaks_deg}
+
+
 def ring(x_halo, halo: int, pc_cases: dict, device="cuda") -> dict:
     """The halo exchange of ``x_halo`` [rows, S] on a ring of every rank
     (each rank's halo, in cpi order along the columns), the overlap-save
