@@ -100,7 +100,16 @@ targets:
   ``doa``: MUSIC 1D/2D (refined), root-MUSIC and both ESPRITs at 128
   elements within ``tests/test_doa.py``'s tolerances, each one's host ms;
   phase ``scripts``: ``run_roc_realdata`` at its defaults and
-  ``run_doa_accuracy`` at 10 trials on the card;
+  ``run_doa_accuracy`` at 10 trials on the card, then every command-line
+  entry point through its ``main`` at full width, cut in frames, seeds
+  and trials (``run_simulation`` on the default stream, with ``--perf``,
+  and both resume routes, each resumed log equal to the uninterrupted one
+  bit for bit; the five-target headline, the SNR sweep with ``--prng``,
+  the streaming MC with ``--perf``, the calibration tool, ``run_roc``,
+  ``run_pfa``, ``run_roc_full``, ``run_pfa_means_ab`` and
+  ``run_monopulse_ab``), each one's launches of K1 (with K1c's planes in
+  its draw mode), K2 and K3 counted where its path runs them and K5 at
+  0, its truths found and its wall seconds printed;
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -308,41 +317,51 @@ def _reference_stages(cfg, pre, truth, dev, reps: int = 5) -> dict:
     return {name: statistics.median(t[1:]) for name, t in times.items()}
 
 
-def _kernel_profile(fn, reps: int = 5) -> dict:
+PROFILE_WINDOWS = 5   # windows a profile may take to record its kernels
+
+
+def _kernel_profile(fn, reps: int = 5, need=()) -> dict:
     """{kernel name: (device ms per call, launches a call the profiler
     recorded)} of ``fn`` from torch.profiler. A kernel's ms a call is its
     mean over the launches recorded times its launches a call (the
     recorded ones over ``reps``, rounded): in this script's process the
     profiler has missed the first launches of a window (K4's PC, mix and
     DFT recorded 4 calls of 5; the drawing strip GEMM 2 of 3), and the sum
-    over ``reps`` then read low."""
+    over ``reps`` then read low. It has also recorded no launch at all of
+    a kernel in a window (K8's staging kernel, in two runs; the lone bf16
+    DFT GEMM recorded 1 launch of 10 late in a run): a window where some
+    part of ``need`` names no recorded kernel is profiled again, up to
+    ``PROFILE_WINDOWS`` windows, the last returned for the caller's
+    check."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     # kernel rows only: an operator's row repeats its kernels' device time
     dev_t = lambda e: getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0))
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and dev_t(e) > 0:
-            seen = e.count / reps
-            calls = round(seen) if seen >= 0.5 else seen
-            out[e.key] = (dev_t(e) / e.count / 1000.0 * calls, seen)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and dev_t(e) > 0:
+                seen = e.count / reps
+                calls = round(seen) if seen >= 0.5 else seen
+                out[e.key] = (dev_t(e) / e.count / 1000.0 * calls, seen)
+        if all(any(n in k for k in out) for n in need):
+            break
     return out
 
 
-def _kernel_ms(fn, reps: int = 5) -> dict:
+def _kernel_ms(fn, reps: int = 5, need=()) -> dict:
     """Device ms per call of ``fn`` by kernel name (``_kernel_profile``)."""
-    return {k: ms for k, (ms, _) in _kernel_profile(fn, reps).items()}
+    return {k: ms for k, (ms, _) in _kernel_profile(fn, reps, need).items()}
 
 
 def _busy_top(ms: dict):
@@ -770,7 +789,7 @@ def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
         plan, lmat, nr.philox_planes(plan, seed, num_b, device=lmat.device),
         mul_dtype=bf))
     d_busy, d_host = _busy_event_ms(draw)
-    d_prof = _kernel_profile(draw, reps=10)
+    d_prof = _kernel_profile(draw, reps=10, need=("strip_pc_kernel<true>",))
     parts = (("pc_strip_gemm_drawn", "strip_pc_kernel<true>"),
              ("dft_gemm", "dft_kernel"), ("mix", "::mix_kernel<"))
     d_split = {part: sum(v[0] for k, v in d_prof.items() if key in k)
@@ -897,7 +916,9 @@ def _f32_schedules(nr, plan, lmat, z, seed, errs, launches, card) -> list:
         ms, pms = _time_pair(call, lambda: nr.noise_rdm_plain(plan, lmat,
                                                               planes))
         busy_ms, host_ms = _busy_event_ms(call)
-        prof = _kernel_ms(call, reps=3)
+        prof = _kernel_ms(call, reps=3, need=(
+            dict(F32_SPLIT)[pc_part], "join_kernel", "dft_gemm_kernel",
+            "mix_after_kernel"))
         busy, top = _busy_top(prof)
         split = {k: _named_ms(prof, key) for k, key in F32_SPLIT}
         split = {k: ms_ for k, ms_ in split.items() if ms_ > 0.0}
@@ -975,7 +996,8 @@ def _dft_gemm(nr, plan, planes, launches: int, card) -> tuple:
     ms, pms = _time_pair(call, plain)
     busy_ms, host_ms = _busy_event_ms(call, reps=20)
     lib_ms = statistics.median(_event_ms(lib, 10))
-    prof = _named_ms(_kernel_ms(call, reps=10), "dft_kernel")
+    prof = _named_ms(_kernel_ms(call, reps=10, need=("dft_kernel",)),
+                     "dft_kernel")
     macs = num_b * num_v * num_p * num_g
     # pc read once, mt written once (bf16 planes)
     ops_ms = 8.0 * macs / PEAK_BF16 * 1e3
@@ -1162,9 +1184,12 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
     km_busy, km_host = _busy_event_ms(km_call)
     bf_busy = _busy_event_ms(bf_call)[0]
     k1_busy_2 = _busy_event_ms(k1_call)[0]
-    add_ms = _named_ms(_kernel_ms(k1_call), "add_kernel")
-    epi_ms = _named_ms(_kernel_ms(km_call), "add_maps_kernel")
-    epi_bf_ms = _named_ms(_kernel_ms(bf_call), "add_maps_kernel")
+    add_ms = _named_ms(_kernel_ms(k1_call, need=("add_kernel",)),
+                       "add_kernel")
+    epi_ms = _named_ms(_kernel_ms(km_call, need=("add_maps_kernel",)),
+                       "add_maps_kernel")
+    epi_bf_ms = _named_ms(_kernel_ms(bf_call, need=("add_maps_kernel",)),
+                          "add_maps_kernel")
     num_b = lmat.shape[0]
     # bytes: out and the DFT's correction read, out and the maps' interior
     # written, each once
@@ -1309,11 +1334,13 @@ def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
     # K8's two kernels (profiler) and the strip GEMM's rate over the band
     # it walks (128-row x 128-gate blocks, k to the strip's padded depth)
     # and over the convolution's own MACs, 8 FLOPs a complex MAC
-    split = _kernel_ms(lambda: ppc.pulse_compress_noise(z, pplan), reps=5)
+    split = _kernel_ms(lambda: ppc.pulse_compress_noise(z, pplan), reps=5,
+                       need=("stage_kernel", "strip_pc_kernel"))
     stage_ms = _named_ms(split, "stage_kernel")
     gemm_ms = _named_ms(split, "strip_pc_kernel")
     _require(stage_ms > 0.0 and gemm_ms > 0.0,
-             "the profiler saw K8's staging kernel and strip GEMM")
+             f"the profiler saw K8's staging kernel and strip GEMM "
+             f"({sorted(k[:50] for k in split)})")
     # K8's events on a card kept busy and the host's time per call: on an
     # idle card the events also hold the host work before the first launch
     busy, host = _busy_event_ms(lambda: ppc.pulse_compress_noise(z, pplan))
@@ -1379,7 +1406,7 @@ def _k8_f32(ppc, pplan, z, macs: int, bytes_ms: float, card) -> tuple:
     ms, plain_ms = _time_pair(call, lambda: ppc.pulse_compress_noise_plain(
         z, pplan, mul_dtype=f32))
     busy, host = _busy_event_ms(call)
-    prof = _kernel_ms(call, reps=5)
+    prof = _kernel_ms(call, reps=5, need=("stage_kernel", "k8_pc_kernel"))
     split = {"stage": _named_ms(prof, "stage_kernel"),
              "gemm_3xtf32": _named_ms(prof, "k8_pc_kernel")}
     retired = [k[:60] for k in prof if "band_pc_kernel" in k]
@@ -2542,6 +2569,198 @@ def _new_scripts(card: str, dev) -> dict:
     return {"roc_s": roc_s, "doa_s": doa_s}
 
 
+def _entry_points(card: str, dev, dr: float, dv: float, counts,
+                  reset) -> dict:
+    """Phase ``scripts`` (continued): the command-line entry points of the
+    port through their ``main``, on the card at full width (16 ch x 332
+    pulses x 5819 samples), cut only in frames, seeds and trials, JSON
+    into build/chip_smoke_scripts/. For each call the launch counters are
+    reset just before and read just after: K1 (and K1c's planes in its
+    draw mode), K2 and K3 counted on the paths that run them, K5 at 0
+    everywhere; the truths found as each script defines it; the two
+    resume routes' logs equal to the uninterrupted runs' bit for bit.
+    Prints a line per call and the phase's wall time; raises on any
+    failed hold."""
+    import shutil
+
+    import torch
+
+    from radar_tpu_torch.scripts import (run_calibration,
+                                         run_headline_5target,
+                                         run_monopulse_ab, run_pfa,
+                                         run_pfa_means_ab, run_roc,
+                                         run_roc_full, run_simulation,
+                                         run_snr_sweep, run_streaming_mc)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_scripts")
+    shutil.rmtree(root, ignore_errors=True)
+    out = lambda name: os.path.join(root, name)
+    phase_t0 = time.perf_counter()
+    walls = {}
+
+    def call(label, script, argv, want=(), headline=None):
+        """``script.main(argv)`` between a reset and a read of the
+        counters; ``want``: the kernels its path must launch."""
+        reset()
+        t0 = time.perf_counter()
+        rep = script.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        walls[label] = wall
+        fig = headline(rep) if headline else None
+        _line("scripts", script=label, wall_s=round(wall, 3),
+              launches={k: got[k] for k in ("K1", "K1c_draw", "K2", "K3",
+                                            "K5")},
+              headline=fig, card=repr(card))
+        _require(got["K5"] == 0, f"{label}: no K5 launch")
+        for k in want:
+            _require(got[k] > 0, f"{label} launched {k}")
+        _require(rep["device"].startswith(card.split(" (")[0]),
+                 f"{label} ran on the card")
+        return rep, got
+
+    def log_of(directory):
+        with open(os.path.join(directory, "detection_log.json")) as f:
+            return json.load(f)
+
+    def tracked(rep, frames):
+        """A track of every frame's point near each truth of the
+        two-target scene."""
+        rows = rep["track_rows"]
+        return all(any(abs(r[0] - rt) <= 30 and abs(r[1] - vt) <= 2 * dv
+                       and r[3] >= frames - 1 for r in rows)
+                   for rt, vt in ((3000.0, 20.0), (10000.0, 25.0)))
+
+    sim_head = lambda r: {"detections": r["detections"],
+                          "tracks": r["tracks"], "frames_per_s":
+                          r["frames_per_s"]}
+    # run_simulation: the default stream (K3), the perf config (K1 + K2)
+    rep, _ = call("run_simulation", run_simulation,
+                  ["--frames", "3", "--out", out("sim")], ("K3",), sim_head)
+    _require(tracked(rep, 3), "run_simulation: both truths tracked")
+    rep, _ = call("run_simulation --perf", run_simulation,
+                  ["--perf", "--frames", "3", "--out", out("sim_perf")],
+                  ("K1", "K1c_draw", "K2"), sim_head)
+    _require(tracked(rep, 3), "run_simulation --perf: both truths tracked")
+    # the device scan's resume: 4 frames (one chunk of 4), a rerun at 6
+    # refused by the store's chunk size, the rerun at 8 replaying the
+    # first chunk; against the uninterrupted 8-frame scan
+    rep, _ = call("run_simulation --device-scan --resume (4)",
+                  run_simulation, ["--device-scan", "--resume", "--frames",
+                                   "4", "--out", out("scan")], ("K3",),
+                  sim_head)
+    try:
+        run_simulation.main(["--device-scan", "--resume", "--frames", "6",
+                             "--out", out("scan")])
+        refused = False
+    except SystemExit as e:
+        refused = "not divisible" in str(e)
+    _require(refused, "a rerun at 6 frames is refused by chunk_frames 4")
+    rep, got = call("run_simulation --device-scan --resume (8)",
+                    run_simulation, ["--device-scan", "--resume", "--frames",
+                                     "8", "--out", out("scan")], ("K3",),
+                    sim_head)
+    _require(got["K3"] == 4, "the resumed scan ran the 4 new frames only")
+    call("run_simulation --device-scan (8)", run_simulation,
+         ["--device-scan", "--frames", "8", "--out", out("scan_whole")],
+         ("K3",), sim_head)
+    _require(log_of(out("scan")) == log_of(out("scan_whole")),
+             "device-scan resume == the uninterrupted scan, bit for bit")
+    _require(tracked(rep, 8), "device scan: both truths tracked")
+    # the host loop's resume: 2 frames, then the rerun at 3 replays 1..2
+    call("run_simulation --resume (2)", run_simulation,
+         ["--resume", "--frames", "2", "--out", out("host")], ("K3",),
+         sim_head)
+    rep, got = call("run_simulation --resume (3)", run_simulation,
+                    ["--resume", "--frames", "3", "--out", out("host")],
+                    ("K3",), sim_head)
+    _require(got["K3"] == 1, "the resumed host loop ran frame 3 only")
+    _require(log_of(out("host")) == log_of(out("sim")),
+             "host-loop resume == the uninterrupted run, bit for bit")
+
+    rep, _ = call("run_headline_5target", run_headline_5target,
+                  ["--seeds", "1", "--frames", "20", "--out",
+                   out("headline.json")], ("K1", "K1c_draw", "K2"),
+                  lambda r: {"track_pd": r["track_pd"],
+                             "false_tracks": r["false_tracks"],
+                             "tracks": r["tracks"]})
+    _require(rep["track_pd"] == 1.0, "headline: the 5 truths tracked")
+    rep, _ = call("run_snr_sweep --prng", run_snr_sweep,
+                  ["--prng", "--snr=10:10:30", "--trials", "16", "--json",
+                   out("sweep.json")], ("K1", "K1c_draw", "K2"),
+                  lambda r: {"pd": r["detection_probability"],
+                             "sigma_deg": r["angle_error_std_deg"],
+                             "trials_per_s": r["trials_per_s"]})
+    _require(all(p == 1.0 for p in rep["detection_probability"])
+             and all(s < b for s, b in zip(rep["angle_error_std_deg"],
+                                           rep["theory_bound_deg"])),
+             "sweep: Pd 1 and sigma below the bound at every point")
+    rep, _ = call("run_streaming_mc --perf", run_streaming_mc,
+                  ["--perf", "--scenes", "2", "--json",
+                   out("streaming.json")], ("K1", "K1c_draw", "K2"),
+                  lambda r: {"rate": r["overall_rate"],
+                             "range_rmse_m": r["range_rmse_m"],
+                             "targets_per_s": r["targets_per_s"]})
+    _require(abs(rep["overall_rate"] - 0.683) <= 0.13
+             and rep["range_rmse_m"] <= 2 * 8.4,
+             "streaming: rate 0.683 +- 0.13, range RMSE <= 16.8 m")
+    rep, _ = call("run_calibration", run_calibration,
+                  ["--json", out("calibration.json")], (),
+                  lambda r: {"beam_angles_deg": r["beam_angles_deg"]})
+    from radar_tpu_torch.config.params import full_config
+    from radar_tpu_torch.waveform.precompute import precompute
+
+    lut = np.asarray(precompute(full_config()).beam_angles_deg)
+    _require(len(rep["beam_angles_deg"]) == 13
+             and np.abs(np.asarray(rep["beam_angles_deg"]) - lut).max()
+             <= 1.0 and np.all(np.isfinite(rep["k_slopes_lut"])),
+             "calibration: 13 pointing angles within 1 deg of the LUT")
+    rep, _ = call("run_roc", run_roc, ["--trials", "8", "--out",
+                                       out("roc.json")], ("K3",),
+                  lambda r: {"pd": r["pd"], "pfa_hits": r["pfa_hits"]})
+    _require(max(rep["pd"][:3]) == 1.0 and rep["pd"][-1] <= 0.25,
+             "ROC: the truth found at low T, lost at T=12")
+    rep, _ = call("run_pfa", run_pfa, ["--frames", "4", "--exp-frames", "2",
+                                       "--out", out("pfa.json")], (),
+                  lambda r: {"ratio_2d_t4": r["exponential_validation"]
+                             ["sim_2d"][0]["ratio"],
+                             "t8_hits": r["sim_path_operating"]["t8_hits"]})
+    val = rep["exponential_validation"]
+    _require(all(abs(val[k][i]["ratio"] - 1.0) < 0.05
+                 for k in ("sim_2d", "realdata_1d") for i in (0, 1))
+             and rep["sim_path_operating"]["t8_hits"] == 0,
+             "Pfa: measured/analytic within 5% at T=4, 6; 0 hits at T=8")
+    rep, _ = call("run_roc_full", run_roc_full,
+                  ["--trials", "32", "--noise-frames", "16", "--out",
+                   out("roc_full.json")], ("K1", "K1c_draw"),
+                  lambda r: {"pd": r["pd"], "pfa_hits": r["pfa_hits"]})
+    _require(rep["pd"][1] >= 0.9 and rep["pfa_hits"][-1] == 0,
+             "ROC full: the truth found at T=4, no false alarm at T=12")
+    rep, _ = call("run_pfa_means_ab", run_pfa_means_ab,
+                  ["--exp-frames", "2", "--frames", "2", "--out",
+                   out("pfa_ab.json")], (),
+                  lambda r: {"deltas": [x["count_delta"] for x in
+                                        r["exponential_validation"]["rows"]]})
+    _require(all(abs(x["count_delta"]) <= max(5, 1e-4 * x["hits_shift"])
+                 for sec in ("exponential_validation", "sim_path_operating")
+                 for x in rep[sec]["rows"]),
+             "means A/B: matmul and shift counts agree")
+    rep, _ = call("run_monopulse_ab", run_monopulse_ab,
+                  ["--snrs=-26", "--trials", "16", "--batch", "16", "--out",
+                   out("monopulse_ab.json")], ("K1", "K1c_draw", "K2"),
+                  lambda r: {"deltas": r["deltas"],
+                             "e2e_cost": r["e2e_cost"]})
+    _require(all(r["pd"] >= 0.9 and np.isfinite(r["sigma_deg"])
+                 for r in rep["rows"]),
+             "monopulse A/B: the truth found in both variants")
+    total = time.perf_counter() - phase_t0
+    _line("scripts", phase_wall_s=round(total, 2),
+          calls=len(walls), card=repr(card))
+    return walls
+
+
 def _host_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2685,13 +2904,14 @@ def main() -> int:
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
                       "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count,
-                      "K1_maps": nr.maps_launch_count}
+                      "K1_maps": nr.maps_launch_count,
+                      "K1c_draw": nr.k1c_draw_launch_count}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
         ck.k3_launch_count = k5.launch_count = 0
         nr.k1c_launch_count = nr.k4_launch_count = 0
-        nr.maps_launch_count = 0
+        nr.maps_launch_count = nr.k1c_draw_launch_count = 0
 
     reset()
     res = process(20261016, truth)
@@ -2710,7 +2930,10 @@ def main() -> int:
              "truth targets found")
     # the frame's kernels by name: K1's GEMMs, mix and K1c's planes, K2;
     # the CUDA-core convolution of the old K1 no longer runs
-    frame_kernels = _kernel_ms(lambda: process(20261016, truth), reps=2)
+    frame_kernels = _kernel_ms(lambda: process(20261016, truth), reps=2,
+                               need=("pc_gemm_kernel", "dft_gemm_kernel",
+                                     "mix_planes_kernel", "planes_kernel",
+                                     "k2_kernel"))
     names = {k: round(v, 4) for k, v in frame_kernels.items()
              if any(n in k for n in ("gemm_kernel", "mix_planes",
                                      "planes_kernel", "k2_kernel",
@@ -3172,7 +3395,8 @@ def main() -> int:
         plan, lmat, seed=seed, layout="bvg", rolling=False,
         beams_per_step=bps))
     k4_busy = {bps: _busy_event_ms(k4_call(bps)) for bps in (num_b, 1, 2)}
-    k4_prof = _kernel_profile(k4_call(1), reps=5)
+    k4_prof = _kernel_profile(k4_call(1), reps=5,
+                              need=("k4_pc_kernel<true>",))
     k4_parts = (("pc_both_passes", "k4_pc_kernel<true>"),
                 ("mix", "mix_planes_kernel"), ("dft_gemm", "dft_gemm_kernel"),
                 ("add", "add_kernel"))
@@ -3213,7 +3437,10 @@ def main() -> int:
     k1_call = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
                                    layout="bvg")
     k1_busy_ms, k1_host_ms = _busy_event_ms(k1_call)
-    k1_split_all = _kernel_ms(k1_call, reps=5)
+    k1_split_all = _kernel_ms(k1_call, reps=5, need=(
+        "planes_kernel<", "pc_gemm_kernel<false>", "pc_gemm_kernel<true>",
+        "mix_planes_kernel", "dft_gemm_kernel<false>",
+        "dft_gemm_kernel<true>", "add_kernel"))
     k1_split = {name: _named_ms(k1_split_all, key) for name, key in (
         ("K1c_planes", "planes_kernel<"), ("pc_gemm", "pc_gemm_kernel"),
         ("pc_gemm_main", "pc_gemm_kernel<false>"),
@@ -3301,7 +3528,8 @@ def main() -> int:
     _line("ref_stages", card=repr(card),
           ms={k: round(v, 4) for k, v in stage_ms.items()},
           sum_ms=round(sum(stage_ms.values()), 4))
-    ref_kernels = _kernel_ms(lambda: ref_proc(20261016, truth))
+    ref_kernels = _kernel_ms(lambda: ref_proc(20261016, truth),
+                             need=("k3_kernel",))
     busy_ms, top = _busy_top(ref_kernels)
     k3_in_frame = _named_ms(ref_kernels, "k3_kernel")
     _line("ref_profile", device_busy_ms=round(busy_ms, 4),
@@ -3309,6 +3537,11 @@ def main() -> int:
           idle_share=round(1.0 - busy_ms / ref_ms, 4), top_kernels=top,
           k3_kernel_ms=round(k3_in_frame, 4))
     _require(k3_in_frame > 0.0, "the reference frame ran k3_kernel")
+
+    # ---- 11b. phase scripts, continued: every command-line entry point
+    # (after the profiled phases, which ran at these points of the
+    # process before it: the profiler's misses, _kernel_profile)
+    _entry_points(card, dev, dr, dv, counts, reset)
 
     # launches: K1 and K2 from the perf SNR sweep, K3 and K5 from the
     # reference frame, K1c and K4 from the validation path, K7, K9 and K10

@@ -90,6 +90,7 @@ k4_launch_count = 0                   # K4 calls (rolling=False)
 k4_pc_launch_count = 0                # K4's PC launches (its drawing GEMM;
                                       # K7's f32 draw mode too)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
+k1c_draw_launch_count = 0             # K1c launches inside K1's draw mode
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
 k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
@@ -587,7 +588,7 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes, *,
     correction. ``round_out`` rounds the map to bfloat16 values and
     ``emit_maps`` also returns its pair maps in a ``maps_buffer``, both in
     the epilogue that walks the beams."""
-    global launch_count
+    global launch_count, k1c_draw_launch_count
     num_b, num_p = l_factor.shape[0], plan.n_pulses
     k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
     lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
@@ -596,6 +597,7 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes, *,
     xs, kept = [], []    # per segment (xr, xi, row stride); tensors alive
     if planes is None:
         spans = _k1c_launch(plan, seed, num_b, scratch, stream)
+        k1c_draw_launch_count += 1
         if all(xlen % 4 == 0 for *_, xlen in spans):
             # K1c's [B*P, xlen] rows in place (TMA: 16-byte row strides)
             xs = [(base + 4 * r, base + 4 * i, xlen)
@@ -1139,8 +1141,9 @@ def _k1c_table(plan: RdmPlan, num_b: int):
 def _k1c_launch(plan: RdmPlan, seed, num_b: int, buf: torch.Tensor,
                 stream: int):
     """K1c's launch (``k1c_planes``) into the f32 ``buf`` from its first
-    float, uncounted (K1's draw mode counts it as part of K1): the spans of
-    ``k1c_layout``."""
+    float, uncounted here (``gen_noise_planes`` counts it in
+    ``k1c_launch_count``, K1's draw mode in ``k1c_draw_launch_count``): the
+    spans of ``k1c_layout``."""
     import ctypes
 
     from .. import _build

@@ -17,7 +17,7 @@ host-clock ms a call (each call ends on the host):
 The snapshots and covariances are complex128 on the card (``--cpu`` for a
 smoke run on the host); the subspace tails of root-MUSIC and ESPRIT run on
 the host in float64 by design (``doa/superres.py``). Writes
-``results/doa_accuracy_torch.json``.
+``results/doa_accuracy_torch.json`` (``build/`` with ``--cpu``).
 """
 
 from __future__ import annotations
@@ -34,8 +34,7 @@ from ..config.params import full_config
 from ..doa.music import music_1d, music_2d, simulate_snapshots, steering_ura
 from ..doa.steering import steering_vector
 from ..doa.superres import esprit_1d, esprit_2d, root_music_1d
-from .run_roc_realdata import REPO, pick_device
-from .run_tracking_mc import device_record
+from ._common import artifact_path, device_record, pick_device
 
 
 class _Timed:
@@ -156,7 +155,7 @@ def run(args, device: torch.device) -> dict:
                                 "quantization); zoom and 2D ESPRIT are "
                                 "sub-0.1"},
         "wall_s": time.perf_counter() - t0,
-        "device": device_record(str(device)),
+        "device": device_record(device),
         "ms_is": "host clock around one call, synchronised at both ends, "
                  "mean over the trials after the first",
         "ref": "MUSIC_1D.m / MUSIC_2D.m / run_music_algorithm.m scaled "
@@ -171,9 +170,12 @@ def main(argv=None) -> dict:
                     help="run on the host (smoke runs)")
     ap.add_argument("--trials", type=int, default=50)
     ap.add_argument("--snapshots", type=int, default=512)
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "results", "doa_accuracy_torch.json"))
+    ap.add_argument("--out", default=None,
+                    help="JSON path (default results/doa_accuracy_torch."
+                         "json; build/ with --cpu)")
     args = ap.parse_args(argv)
+    if args.out is None:
+        args.out = artifact_path("doa_accuracy_torch.json", args.cpu)
     out = run(args, pick_device(args.cpu))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

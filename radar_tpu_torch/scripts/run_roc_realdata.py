@@ -18,15 +18,13 @@ artifact — port of ``scripts/run_roc_realdata.py``.
 
 Runs on the card (``--cpu`` for a smoke run on the host's plain PyTorch)
 at 64 pulses x 3404 gates x 16 channels, and writes
-``results/roc_realdata_torch.json`` with Wilson 95% intervals beside every
-Pd; ``--png`` also draws the curves (needs matplotlib).
+``results/roc_realdata_torch.json`` (``build/`` with ``--cpu``) with
+Wilson 95% intervals beside every Pd; ``--png`` also draws the curves (needs matplotlib).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import time
 
 import numpy as np
@@ -40,21 +38,11 @@ from ..ops.dbf import dbf
 from ..pipeline.stages import (_delta_v_bin, _segment_pulses,
                                pair_sum_maps_realdata, stage2_mtd)
 from ..utils.stats import wilson_ci
-from .run_tracking_mc import device_record
+from ._common import (artifact_path, device_record, pick_device,
+                      require_matplotlib, write_json)
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 T_SWEEP = [3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 9.0, 10.0, 12.0]
 T_REF = 8.0
-
-
-def pick_device(cpu: bool) -> torch.device:
-    """The card unless ``cpu``; no card when one was asked for raises."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --cpu for a host smoke run")
-    return torch.device("cuda")
 
 
 def run(args, device: torch.device) -> dict:
@@ -140,7 +128,7 @@ def run(args, device: torch.device) -> dict:
     pd_ci = [wilson_ci(int(c), args.trials) for c in pd_counts]
     i8 = T_SWEEP.index(T_REF)
     lo8, hi8 = pd_ci[i8]
-    dev = device_record(str(device))
+    dev = device_record(device)
     headline = (
         f"realdata 1D CA-GO: Pd={pds[i8]:.2f} (95% CI {lo8:.2f}-{hi8:.2f}"
         f", {args.trials} trials) at Pfa"
@@ -223,17 +211,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--noise-batch", type=int, default=100,
                     help="noise frames between progress lines")
     ap.add_argument("--seed", type=int, default=20260821)
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "results", "roc_realdata_torch.json"))
+    ap.add_argument("--out", default=None,
+                    help="JSON path (default results/roc_realdata_torch."
+                         "json; build/ with --cpu)")
     ap.add_argument("--png", default=None,
                     help="also draw the curves here (needs matplotlib)")
     args = ap.parse_args(argv)
-    device = pick_device(args.cpu)
-    report = run(args, device)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as fh:
-        json.dump(report, fh, indent=1)
-    print("wrote", args.out, flush=True)
+    if args.out is None:
+        args.out = artifact_path("roc_realdata_torch.json", args.cpu)
+    if args.png:
+        require_matplotlib("--png")
+    report = run(args, pick_device(args.cpu))
+    write_json(args.out, report)
     if args.png:
         plot(report, args.png)
     return report

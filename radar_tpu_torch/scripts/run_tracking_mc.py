@@ -33,10 +33,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
+
+from ._common import device_record
 
 SCENE_TYPES = ("random", "close", "crossing")
 
@@ -84,23 +85,6 @@ def make_scene(rng, cfg, scene_type: str, num_frames: int, el_range=None):
         r[1] = r[0] - dv * t_frame * f_cross   # R2 rises through R1
         el[1] = el[0] + rng.uniform(-1.0, 1.0)
     return TargetBatch.make(r, v, el, snr)
-
-
-def device_record(device: str) -> str:
-    """The card's name and power limit (nvidia-smi), or "cpu"."""
-    import torch
-
-    if device == "cpu":
-        return "cpu"
-    index = torch.device(device).index or 0
-    try:
-        limit = subprocess.run(
-            ["nvidia-smi", f"--id={index}", "--query-gpu=power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip()
-    except (OSError, subprocess.CalledProcessError):
-        limit = "power limit not read"
-    return f"{torch.cuda.get_device_name(index)}, {limit}"
 
 
 def aggregate(items):
