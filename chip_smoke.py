@@ -22,7 +22,8 @@ targets:
   driver ``run_multiframe``; K3 is also held bit for bit at full size at
   each compiled-in window and through its generic instantiation, with each
   method, and the profiler shows ``k3_kernel`` in the reference frame;
-- the checks of ``scripts/validate_rdm_gen.py``: K1 fed the planes that
+- the checks of ``radar_tpu_torch/scripts/validate_rdm_gen.py`` (the port
+  of ``scripts/validate_rdm_gen.py``, called here): K1 fed the planes that
   kernel K1c exports (one launch for every segment) equals K1 draw mode
   bit for bit, kernel K4 (the window schedule: K1's GEMMs with the PC's
   noise drawn in its blocks) against K1, and the moments of K1's draws
@@ -109,7 +110,10 @@ targets:
   ``run_pfa``, ``run_roc_full``, ``run_pfa_means_ab`` and
   ``run_monopulse_ab``), each one's launches of K1 (with K1c's planes in
   its draw mode), K2 and K3 counted where its path runs them and K5 at
-  0, its truths found and its wall seconds printed;
+  0, its truths found and its wall seconds printed; then
+  ``run_kernel_bench``'s five arms (CUDA events, busy card) and the seven
+  tutorials ``radar_tpu_torch/examples/01-07`` through their ``main`` in
+  ``build/chip_smoke_scripts/examples/`` (02, 05 and 06 counted at K3);
 - the multi-device layer (phase ``multichip``, the arms of
   ``__graft_entry__.py::dryrun_multichip``): 4 ranks through
   ``run_ranks``, all on one card (gloo, plain collectives staged through
@@ -125,7 +129,18 @@ targets:
   (ch=2, cpi=2), ``dp_x_model`` 4 frames at dp=2 x ch=2, ``mc_dp`` the
   perf sweep and a streaming MC at dp=4, ``doa_cov`` ``music_2d(mesh=)``
   with the 512 snapshots of a 128-element URA sharded over the ranks,
-  each against its single-rank run.
+  each against its single-rank run; ``fused`` the fused stream's frame
+  sharded over (ch=2, cpi=2) (per-element synthesis, K5's channel noise,
+  DBF's all-reduce, K3) against the one-rank reference-stream frame;
+- phase ``elastic``: the perf config's streaming MC at full width on 4
+  ranks sharing the card (dp=4), stopped after 2 of 4 scenes with each
+  rank's rows in the multi-rank store, resumed on 2 ranks (dp=2), bit for
+  bit against the uninterrupted dp=4 run and the one-rank run, K1 and K2
+  counted on each rank (the replayed scenes launch none);
+- phase ``multiprocess``: ``radar_tpu_torch/scripts/run_multiprocess.py``
+  with its workers joined through the environment (4 processes sharing
+  the card): the four parity checks, the streaming arms 1, 2 and 4
+  (bit-equal) and the weak-scaling bench arms.
 
 K1, K2 and K4 are also timed on a card kept busy (events behind a sleep
 kernel) beside the idle card and the host's time a call; K1 and K4 are
@@ -491,59 +506,6 @@ def _sass_has(lib_path: str, kernel: str, opcode: str) -> list:
                           text=True, check=True).stdout
     return [opcode in f for f in sass.split("Function : ")[1:]
             if kernel in f.split("\n", 1)[0]]
-
-
-def _validate_rdm_gen(nr, lr_prng, lr_uni, lr_norm, plan, lmat, dev, counts,
-                      reset) -> dict:
-    """The checks of scripts/validate_rdm_gen.py through the port's entry
-    points: K1 on K1c's planes == K1 draw mode (bit check), K4 (all beams
-    per block) vs K1 (rolling check), and the moments of K1 draw mode vs
-    the "pallas" route's torch-drawn planes over eight frames. The launch
-    counters are read around these checks only. Returns (results, K1c's
-    planes, the Philox key)."""
-    import torch
-
-    from radar_tpu_torch.pipeline.driver import frame_seed
-
-    num_b = lmat.shape[0]
-    seed = nr.seed_words(frame_seed(12345, 1))
-    reset()
-    planes = nr.gen_noise_planes(plan, seed, num_b, device=dev)
-    y_gen = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg")
-    y_dma = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg")
-    y_k4 = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg", rolling=False,
-                        beams_per_step=num_b)
-
-    def moments(noise_rdm):
-        acc = torch.zeros(3, dtype=torch.float64, device=dev)
-        for i in range(8):
-            y = noise_rdm(frame_seed(7, i), layout="bvg")
-            yr = torch.view_as_real(y).double()
-            var = (yr ** 2).mean()
-            acc += torch.stack([yr.mean(), var,
-                                (y.abs() > 8.0 * var.sqrt()).sum().double()])
-        m = (acc / 8).tolist()
-        return {"mean": m[0], "var": m[1], "tail_count_8sigma": m[2]}
-
-    out = {"moments_pallas_prng": moments(lr_prng.noise_rdm),
-           "moments_pallas_uniform": moments(lr_uni.noise_rdm),
-           "moments_pallas_normal": moments(lr_norm.noise_rdm)}
-    torch.cuda.synchronize()
-    out["launches"] = counts()
-    bit = float((y_gen - y_dma).abs().max())
-    ymax = float(y_gen.abs().max())
-    roll = float((y_k4 - y_gen).abs().max())
-    out["bit_check"] = {"max_abs_diff": bit, "max_abs_out": ymax,
-                        "pass": bit == 0.0 and ymax > 0.0}
-    out["rolling_check"] = {"max_abs_diff": roll, "max_abs_out": ymax,
-                            "rel": roll / ymax,
-                            "pass": ymax > 0.0 and roll <= 2.0 ** -7 * ymax}
-    base = out["moments_pallas_uniform"]["var"]
-    out["var_ratio"] = out["moments_pallas_prng"]["var"] / base
-    out["var_ratio_normal"] = out["moments_pallas_normal"]["var"] / base
-    out["moments_pass"] = (abs(out["var_ratio"] - 1.0) < 0.02 and
-                           abs(out["moments_pallas_prng"]["mean"]) < 1e-2)
-    return out, planes, seed
 
 
 # bf16 holds at full size, RMS of the difference over the RMS: both sides
@@ -1717,12 +1679,17 @@ def _multichip_rank() -> dict:
                                      single),
                       "batch": batch if rank == 0 else None}
 
-    # ---- stream / lowrank: one full frame sharded over (1, 2, 2)
+    # ---- stream / lowrank / fused: one full frame sharded over (1, 2, 2);
+    # the fused stream runs the reference stream's stages (per-element
+    # synthesis, K5's channel noise, DBF's all-reduce), so its single-rank
+    # frame is the reference stream's on the same seed
     mesh_122 = make_mesh(1, 2, 2)
     for label, cfg in (("stream", full),
                        ("lowrank", full.replace(fused_synth_dbf=True,
-                                                lowrank_rdm=True))):
-        pre_c = pre if label == "stream" else precompute(cfg)
+                                                lowrank_rdm=True)),
+                       ("fused", full.replace(fused_synth_dbf=True,
+                                              noise_impl="pallas"))):
+        pre_c = pre if label != "lowrank" else precompute(cfg)
         proc = make_sharded_frame_processor(cfg, mesh_122, pre_c)
         proc(1, truth)                     # warm-up outside the count
         torch.cuda.synchronize()
@@ -1734,7 +1701,8 @@ def _multichip_rank() -> dict:
                       "result": res}
         if rank == 0:
             out[label]["single"] = host_result(make_frame_processor(
-                cfg, pre_c, device=dev)(20261016, truth))
+                cfg.replace(fused_synth_dbf=label == "lowrank"), pre_c,
+                device=dev)(20261016, truth))
 
     # ---- dp_x_model: dp=2 x ch=2, a batch of 4 full frames
     proc = make_dp_sharded_frame_processor(full, make_mesh(dp=2, ch=2),
@@ -1893,7 +1861,8 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
         _require(all(all(found(f)) for f in frames),
                  f"{label}: truth targets found in every frame")
 
-    for label, kernel in (("stream", "K3"), ("lowrank", "K2")):
+    for label, kernels in (("stream", ("K3",)), ("lowrank", ("K2",)),
+                           ("fused", ("K5", "K3"))):
         arms = [r[label] for r in res]
         single = arms[0]["single"]
         same = [_same(a["result"], single, rtol=1e-4) for a in arms]
@@ -1905,8 +1874,8 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
               frame_ms=[round(a["frame_ms"], 3) for a in arms],
               tol="counts exact, fields rtol 1e-4")
         _require(all(same), f"{label}: == the single-rank frame")
-        _require(all(a["launches"][kernel] >= 1 for a in arms),
-                 f"{label}: the tail launched {kernel}")
+        _require(all(a["launches"][k] >= 1 for a in arms for k in kernels),
+                 f"{label}: the frame launched {kernels}")
         _require(all(found(arms[0]["result"])),
                  f"{label}: truth targets found")
 
@@ -1982,6 +1951,118 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
              max(a["halo_max_abs_err"] for a in rr), med("K6"),
              med("plain_os_input"), (push_bound + fill_bound) * 1e3, "bytes",
              med("library_copy"), extra)]
+
+
+def _stats_equal(a, b) -> bool:
+    """Two StreamingStats field for field, bit for bit (NaN == NaN)."""
+    try:
+        for f in b._fields:
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    except AssertionError:
+        return False
+    return True
+
+
+def _elastic(card: str) -> None:
+    """Phase ``elastic``: the perf config's streaming MC at full width on 4
+    ranks sharing the card (dp=4, each scene's trials over the ranks),
+    stopped after 2 of 4 scenes with every rank's rows in the multi-rank
+    store, then resumed on 2 ranks (dp=2: the saved scenes restored onto
+    the new blocks, scenes 3-4 run); bit for bit against the uninterrupted
+    dp=4 run and the one-rank run; K1 and K2 counted on each rank around
+    the stored runs (the replayed scenes launch none). Raises on any
+    failed hold."""
+    import shutil
+
+    from radar_tpu_torch.config.params import perf_config
+    from radar_tpu_torch.parallel import dryrun
+    from radar_tpu_torch.parallel.multihost import run_ranks
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = perf_config()
+    kw = dict(targets_per_scene=8, trials_per_scene=4, seed=17,
+              snr_range=(-5.0, 20.0))
+    t0 = time.perf_counter()
+    first = run_ranks(dryrun.streaming_elastic, 4, cfg, root, 2, kw, "cuda",
+                      4, 0, device="cuda", timeout=600)
+    t1 = time.perf_counter()
+    second = run_ranks(dryrun.streaming_elastic, 2, cfg, root, 4, kw,
+                       "cuda", 0, 4, device="cuda", timeout=600)
+    t2 = time.perf_counter()
+    want = second[0]["one_rank"]
+    same_resumed = [_stats_equal(r["run"], want) for r in second]
+    same_full = [_stats_equal(r["uninterrupted"], want) for r in first]
+    _line("elastic", card=repr(card), config="perf, full width",
+          scenes="4 x 8 targets x 4 trials", dp="4 -> 2",
+          frames_done=[first[0]["frames_done"], second[0]["frames_done"]],
+          launches_dp4_2_scenes=[r["launches"] for r in first],
+          launches_dp2_resume=[r["launches"] for r in second],
+          stopped_run_s=[round(r["run_s"], 3) for r in first],
+          resume_run_s=[round(r["run_s"], 3) for r in second],
+          uninterrupted_dp4_s=[round(r["uninterrupted_s"], 3)
+                               for r in first],
+          launch_wall_s=[round(t1 - t0, 2), round(t2 - t1, 2)],
+          resumed_identical=same_resumed, uninterrupted_identical=same_full,
+          detection_rate=want.detection_rate,
+          total_detected=want.total_detected,
+          tol="statistics bit for bit")
+    _require(all(same_resumed) and all(same_full),
+             "elastic: the dp=2 resume and the dp=4 run == the one-rank run")
+    _require(want.total_detected > 0, "elastic: targets detected")
+    _require(all(r["launches"]["K1"] == r["launches"]["K2"] == 2
+                 for r in first),
+             "elastic: dp=4, 2 scenes: K1 and K2 once a scene a rank")
+    _require(all(r["launches"]["K1"] == r["launches"]["K2"] == 4
+                 for r in second),
+             "elastic: dp=2 resume: K1 and K2 only for scenes 3-4 (2 "
+             "trials a scene a rank), none for the replayed scenes")
+    _require(first[0]["frames_done"] == [1, 2]
+             and second[0]["frames_done"] == [1, 2, 3, 4],
+             "elastic: the store holds 2 scenes, then 4")
+    shutil.rmtree(root)
+
+
+def _multiprocess(card: str) -> None:
+    """Phase ``multiprocess``: ``run_multiprocess`` on the card, its workers
+    joined through the environment, 4 processes sharing the card: the
+    parity mode's four checks, the streaming arms 1, 2 and 4 of the perf
+    config (bit-equal), the weak-scaling bench arms (trials/s; contention
+    for one card, not scaling). JSON into build/."""
+    from radar_tpu_torch.scripts import run_multiprocess as rmp
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_multiprocess")
+    common = ["--logdir", root, "--timeout", "300"]
+    t0 = time.perf_counter()
+    par = rmp.main(common + ["--out", os.path.join(root, "parity.json")])
+    t1 = time.perf_counter()
+    st = rmp.main(common + ["--streaming", "--perf", "--arms", "1,2,4",
+                            "--scenes", "8", "--targets-per-scene", "8",
+                            "--trials-per-scene", "4", "--out",
+                            os.path.join(root, "streaming.json")])
+    t2 = time.perf_counter()
+    bench = rmp.main(common + ["--bench", "--perf", "--arms", "1,2,4",
+                               "--trials-per-proc", "16", "--out",
+                               os.path.join(root, "bench.json")])
+    t3 = time.perf_counter()
+    _line("multiprocess", card=repr(card), parity=par["multiprocess_parity"],
+          checks=[c["name"] for c in par["checks"] if c["ok"]],
+          streaming_identical=st["parity_exact_across_arms"],
+          streaming_targets_per_s={n: round(a["targets_per_s"], 3)
+                                   for n, a in st["arms"].items()},
+          streaming_walls_s={n: [round(w, 3) for w in a["walls_per_worker_s"]]
+                             for n, a in st["arms"].items()},
+          bench_trials_per_s={n: c["trials_per_s"]
+                              for n, c in bench["curve"].items()},
+          note=bench["note"],
+          mode_wall_s=[round(t1 - t0, 2), round(t2 - t1, 2),
+                       round(t3 - t2, 2)])
+    _require(par["multiprocess_parity"] and len(par["checks"]) == 4,
+             "multiprocess: the four parity checks on every worker")
+    _require(st["parity_exact_across_arms"],
+             "multiprocess: the streaming arms bit-equal")
 
 
 TRACK_FRAMES = 50        # the five-target headline's frames a run
@@ -2585,8 +2666,11 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
 
     import torch
 
+    import importlib
+
     from radar_tpu_torch.scripts import (run_calibration,
                                          run_headline_5target,
+                                         run_kernel_bench,
                                          run_monopulse_ab, run_pfa,
                                          run_pfa_means_ab, run_roc,
                                          run_roc_full, run_simulation,
@@ -2755,6 +2839,45 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
     _require(all(r["pd"] >= 0.9 and np.isfinite(r["sigma_deg"])
                  for r in rep["rows"]),
              "monopulse A/B: the truth found in both variants")
+    # the kernel bench's five arms (no kernel of the table: cuBLAS, cuFFT,
+    # cuSOLVER), CUDA events on a busy card
+    rep, _ = call("run_kernel_bench", run_kernel_bench,
+                  ["--out", out("kernel_bench.json")], (),
+                  lambda r: {k: round(v["ms"], 4) for k, v in r.items()
+                             if isinstance(v, dict)})
+    _require(all(v["ms"] > 0 for v in rep.values() if isinstance(v, dict)),
+             "run_kernel_bench: every arm timed on the card")
+    # the tutorials, each through its main on the card in a directory of
+    # its own (02 and 04 write out_debug/ and out_realdata/ there); 01 and
+    # 03 at JAX's full_config width, the others at their tutorials' small
+    # configs; 05 and 07 launch 4 + 2 and 8 ranks sharing the card
+    want = {"02_single_frame_debug": ("K3",),
+            "05_elastic_checkpointing": ("K3",),
+            "06_five_target_tracking": ("K3",)}
+    cwd = os.getcwd()
+    os.makedirs(out("examples"), exist_ok=True)
+    os.chdir(out("examples"))
+    try:
+        for name in ("01_pulse_compression_basics", "02_single_frame_debug",
+                     "03_music_doa", "04_realdata_stages",
+                     "05_elastic_checkpointing", "06_five_target_tracking",
+                     "07_multichip_sharding"):
+            reset()
+            t0 = time.perf_counter()
+            importlib.import_module(
+                f"radar_tpu_torch.examples.{name}").main([])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            got = counts()
+            _line("scripts", example=name, wall_s=round(walls[name], 3),
+                  launches={k: got[k] for k in ("K1", "K2", "K3", "K5")},
+                  card=repr(card))
+            for k in want.get(name, ()):
+                _require(got[k] > 0, f"example {name} launched {k}")
+        _require(os.listdir("out_debug") and os.listdir("out_realdata"),
+                 "examples 02 and 04 wrote their outputs in their cwd")
+    finally:
+        os.chdir(cwd)
     total = time.perf_counter() - phase_t0
     _line("scripts", phase_wall_s=round(total, 2),
           calls=len(walls), card=repr(card))
@@ -3120,13 +3243,10 @@ def main() -> int:
 
     # ---- 12. the validation entry point (scripts/validate_rdm_gen.py):
     # K1c's planes through K1 == K1 draw mode, K4 vs K1, moments
-    lr_uni = make_lowrank_stages(cfg.replace(noise_rdm_impl="pallas"), pre,
-                                 device=dev)
-    lr_norm = make_lowrank_stages(cfg.replace(noise_rdm_impl="pallas",
-                                              noise_dist="normal"), pre,
-                                  device=dev)
-    val, k1c_planes, vseed = _validate_rdm_gen(nr, lr, lr_uni, lr_norm, plan,
-                                               lmat, dev, counts, reset)
+    from radar_tpu_torch.scripts import validate_rdm_gen
+
+    reset()
+    val, k1c_planes, vseed = validate_rdm_gen.validate(cfg, dev)
     val_launches = val.pop("launches")
     _line("validate", launches=val_launches, bit_check=val["bit_check"],
           rolling_check=val["rolling_check"], var_ratio=val["var_ratio"],
@@ -3318,6 +3438,8 @@ def main() -> int:
 
     # ---- 17. the multi-device layer on 4 ranks (K6 in range_rdma)
     study_rows += _multichip(card, truth, dr, dv)
+    _elastic(card)
+    _multiprocess(card)
 
     # ---- 6. times (CUDA events, median), card and power limit beside
     k1_ms, k1_plain_ms = _time_pair(

@@ -13,6 +13,8 @@ imports them without importing the tests' JAX.
 
 from __future__ import annotations
 
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -20,10 +22,12 @@ import torch
 import torch.distributed as dist
 
 from ..config.params import perf_config, small_test_config
+from ..io.orbax_store import OrbaxFrameStore
 from ..pipeline.driver import frame_seed
 from ..pipeline.frame import make_frame_processor
 from ..pipeline.montecarlo import make_trial_fn, snr_sweep
 from ..pipeline.streaming import run_streaming_mc
+from ..scripts._common import kernel_launches
 from ..sim.scenario import TargetBatch
 from ..waveform.precompute import precompute
 from .collectives import (covariance_snapshot_sharded, dbf_channel_sharded,
@@ -224,10 +228,17 @@ def frames(device="cuda") -> dict:
     m122 = make_mesh(1, 2, 2, device=device)
     out["streaming_sharded"] = run_streaming_mc(
         base, mesh=m122, precomp=pre["stream"], **st_kw)
-    try:
-        run_streaming_mc(sw_cfg, mesh=m4, store=object(), **st_kw)
-    except NotImplementedError as e:
-        out["errors"]["store"] = str(e)
+    # the dp route with a store: a run that saves every scene, then one
+    # that replays them all (each rank its own rows)
+    root = m4.all_gather_object(tempfile.mkdtemp(prefix="dp_store_")
+                                if rank == 0 else None, AXES)[0]
+    out["streaming_dp_store"] = [run_streaming_mc(
+        sw_cfg, mesh=m4, dp_trials=True, precomp=sw_pre,
+        store=OrbaxFrameStore(root), **st_kw) for _ in range(2)]
+    out["store_frames"] = OrbaxFrameStore(root).frames_done()
+    m4.barrier(AXES)
+    if rank == 0:
+        shutil.rmtree(root)
     if rank == 1:
         out["trials_single"] = tuple(
             x.cpu().numpy() for x in make_trial_fn(
@@ -293,3 +304,91 @@ def k6_timeout(timeout_s: float, device="cuda") -> str:
             message = str(e)
     ex.close()
     return message
+
+
+def streaming_elastic(cfg, root: str, num_scenes: int, kw: dict,
+                      device="cuda", uninterrupted: int = 0,
+                      one_rank: int = 0) -> dict:
+    """``run_streaming_mc(cfg, num_scenes, mesh=dp over every rank,
+    dp_trials=True, store=OrbaxFrameStore(root), **kw)`` with its wall
+    seconds and kernel launches; then, when asked, the run of
+    ``uninterrupted`` scenes on this mesh without a store, and on rank 0
+    the one-rank run of ``one_rank`` scenes. A rerun on another dp resumes
+    the scenes the store holds (the elastic resume)."""
+    mesh = make_mesh(dp=dist.get_world_size(), device=device)
+    pre = precompute(cfg)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    out = {"run": run_streaming_mc(cfg, num_scenes, mesh=mesh,
+                                   dp_trials=True, precomp=pre,
+                                   store=OrbaxFrameStore(root), **kw)}
+    sync()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v - before[k]
+                       for k, v in kernel_launches().items()}
+    out["frames_done"] = OrbaxFrameStore(root).frames_done()
+    if uninterrupted:
+        t0 = time.perf_counter()
+        out["uninterrupted"] = run_streaming_mc(
+            cfg, uninterrupted, mesh=mesh, dp_trials=True, precomp=pre, **kw)
+        sync()
+        out["uninterrupted_s"] = time.perf_counter() - t0
+    if one_rank and mesh.rank == 0:
+        out["one_rank"] = run_streaming_mc(cfg, one_rank, precomp=pre,
+                                           device=mesh.device, **kw)
+    return out
+
+
+def _store_rows(rank: int, dp: int) -> dict:
+    """A tree of rank ``rank``'s 3 rows of a 3*dp-row batch (its dp
+    index's): float, bool and integer fields, distinct in every row."""
+    rows = np.arange(3 * rank, 3 * rank + 3)
+    return {"range_m": rows * 1.5, "valid": rows % 3 == 1,
+            "count": np.stack([rows, -rows], 1)}
+
+
+def elastic_save(root: str, cfg_fused, noise, targets, kw: dict,
+                 device="cuda") -> dict:
+    """The elastic path's first launch, on 4 ranks: the sharded fused
+    stream at (1, 2, 2) and (2, 1, 2) on the injected channel ``noise``;
+    the store's multi-rank save at dp=4 (``root/rows``); the dp=4
+    streaming MC stopped after 2 of 4 scenes (``root/dp``) and the
+    uninterrupted dp=4 run; the sharded route with a store at (2, 1, 2)
+    (``root/gspmd``, one scene)."""
+    out = {"sharded": {}}
+    pre = precompute(cfg_fused)
+    for shape in ((1, 2, 2), (2, 1, 2)):
+        proc = make_sharded_frame_processor(
+            cfg_fused, make_mesh(*shape, device=device), pre)
+        out["sharded"][shape] = host_result(proc(7, targets, noise=noise))
+    m4 = make_mesh(dp=4, device=device)
+    OrbaxFrameStore(root + "/rows").save(
+        1, _store_rows(m4.index("dp"), 4), mesh=m4)
+    base = small_test_config(channels=8, pulses=32)
+    out["streaming"] = streaming_elastic(
+        perf_config(base), root + "/dp", 2, kw, device=device,
+        uninterrupted=4)
+    run_streaming_mc(base, 1, mesh=make_mesh(2, 1, 2, device=device),
+                     store=OrbaxFrameStore(root + "/gspmd"), **kw)
+    return out
+
+
+def elastic_resume(root: str, kw: dict, device="cuda") -> dict:
+    """The elastic path's second launch, on 2 ranks: the dp=4 save
+    restored at dp=2; the streaming MC resumed on dp=2 to 4 scenes, and
+    the one-rank run (rank 0); the sharded route's store resumed at (1, 1,
+    2), another dp than its (2, 1, 2) (the manifest's error, or None)."""
+    m2 = make_mesh(dp=2, device=device)
+    out = {"rows": OrbaxFrameStore(root + "/rows").restore(1, mesh=m2)}
+    base = small_test_config(channels=8, pulses=32)
+    out["streaming"] = streaming_elastic(
+        perf_config(base), root + "/dp", 4, kw, device=device, one_rank=4)
+    out["gspmd_error"] = None
+    try:
+        run_streaming_mc(base, 2, mesh=make_mesh(1, 1, 2, device=device),
+                         store=OrbaxFrameStore(root + "/gspmd"), **kw)
+    except ValueError as e:
+        out["gspmd_error"] = str(e)
+    return out

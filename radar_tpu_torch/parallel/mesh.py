@@ -127,6 +127,16 @@ class Mesh:
             self._groups[names] = mine
         return self._groups[names]
 
+    def host_group(self):
+        """A gloo group of every rank of the mesh, for host tensors (the
+        checkpoints of ``io/orbax_store.py``): the default group where it
+        is gloo, else one made on first use by every rank."""
+        if self.backend == "gloo":
+            return dist.group.WORLD
+        if "host" not in self._groups:
+            self._groups["host"] = dist.new_group(backend="gloo")
+        return self._groups["host"]
+
     # ---- collectives over the group of ``axes`` (identity on one rank)
 
     def _wire(self, x: torch.Tensor) -> torch.Tensor:

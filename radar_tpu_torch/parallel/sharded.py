@@ -15,8 +15,13 @@ every rank here runs its block of the frame and calls them itself:
                                                     frame axes
 
 and then the port's single-device tail for the configuration (K3 on the
-vgq tail, K2 with ``use_pallas_cfar``) on every rank. The rank-K stream
-(``lowrank_rdm`` with ``fused_synth_dbf``) has no channel cube: white beam
+vgq tail, K2 with ``use_pallas_cfar``) on every rank. The fused stream
+(``fused_synth_dbf`` without ``lowrank_rdm``) runs this reference stream
+too, as JAX's does (``radar_tpu/parallel/sharded.py:106-119``): its echoes
+are synthesized per element, so that the channel axis has a cube to
+shard, the AWGN is channel noise (K5 under ``noise_impl="pallas"``) and
+DBF's all-reduce forms the beams. The rank-K stream (``lowrank_rdm``
+with ``fused_synth_dbf``) has no channel cube: white beam
 noise and its PC are pulse-sharded, the all-to-all feeds the MTD, and the
 beam mix plus the rank-K signal run on the gate block (JAX's
 ``sharded.py:95-105``); like JAX's mesh path it runs the xla chain, so the
@@ -59,22 +64,18 @@ def make_sharded_frame_processor(cfg: RadarConfig, mesh: Mesh,
     """``process(frame_seed, targets, noise=None) -> FrameResult``, called
     by every rank of ``mesh`` with the same arguments; each returns the
     whole frame's result, equal to the single-device frame processor's on
-    the same seed (up to the order of sums).
+    the same seed (up to the order of sums); on the fused stream, the
+    single-device frame of the reference stream (``fused_synth_dbf=False``).
 
     ``frame_axes``: the mesh axes the frame's pulses and gates shard over
     (dp and cpi by default). ``parallel/dp.py::
     make_dp_sharded_frame_processor`` passes ``(cpi,)`` to keep dp free for
     the batch. ``noise``: the stream's whole injected cube, as on the
-    single-device streams (channel AWGN [P, S, C], or white z [P, S(_compact),
-    B] on the rank-K stream)."""
+    single-device streams (channel AWGN [P, S, C] on the reference and
+    fused streams, or white z [P, S(_compact), B] on the rank-K stream)."""
     frame_axes = _axes(frame_axes)
     if AXIS_CH in frame_axes:
         raise ValueError("the channel axis cannot shard pulses")
-    if cfg.fused_synth_dbf and not cfg.lowrank_rdm:
-        raise NotImplementedError(
-            "the sharded frame runs the reference stream or the rank-K "
-            "stream; cfg.fused_synth_dbf=True without lowrank_rdm is not "
-            "sharded")
     device = mesh.device
     if precomp is None:
         precomp = precompute(cfg)

@@ -12,7 +12,7 @@ targets.
 
 With a mesh (every rank calls with the same arguments and gets the whole
 statistics), ``dp_trials=True`` shards each scene's trials over the dp
-axis (``parallel/dp.py``), the reference's parfor boundary
+axis (``parallel/dp.py``'s contract), the reference's parfor boundary
 (main_plot_snr_vs_angle_error.m:167) on ranks, equal to the one-rank run
 trial for trial; without it, every trial's frame is sharded over the mesh
 (``parallel/sharded.py``).
@@ -20,13 +20,19 @@ trial for trial; without it, every trial's frame is sharded over the mesh
 Trial seeds: trial ``t`` of scene ``s`` takes the integer seed
 ``pipeline/driver.py::trial_seed(seed, s, t)``.
 
-Resume (``store=``, an ``io.orbax_store.OrbaxFrameStore``; the
-single-device route only): each scene's final targets (the valid flags,
-ranges and velocities the statistics read) are saved under the scene's
-index, and a rerun with the same (seed, scene schedule) replays the saved
-scenes, with field-exact statistics. The manifest is JAX's, with its
-``trial_route`` ("map" or "vmap") by JAX's rule. On the mesh routes
-``store=`` is not ported (ROADMAP Queue 1 item 14).
+Resume (``store=``, an ``io.orbax_store.OrbaxFrameStore``): each scene's
+final targets (the valid flags, ranges and velocities the statistics read)
+are saved under the scene's index, and a rerun with the same (seed, scene
+schedule) replays the saved scenes, with field-exact statistics. On the
+dp route each rank saves and restores only its own trials' rows, so a run
+stopped on dp=4 resumes on dp=2 (the elastic resume; JAX's ``like=``
+restore). The manifest is JAX's, with its ``trial_route``: "map" or
+"vmap" by JAX's rule on one device, "dp" (no mesh shape: a trial's numbers
+do not depend on dp there) on the dp route, and on the sharded route
+"gspmd:" with every axis the frame shards over, dp included, because the
+port's sharded frame splits pulses and gates over (dp, cpi): a resume
+there on another mesh shape is refused (JAX leaves dp out,
+``radar_tpu/pipeline/streaming.py:192-196``).
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from ..config.params import RadarConfig
+from ..io.orbax_store import OrbaxFrameStore
 from ..sim.scenario import TargetBatch
 from ..waveform.precompute import Precomputed
 from .driver import config_sha, trial_seed
@@ -123,44 +130,57 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
     run on ``device`` (the card by default), or on the mesh's device with
     ``mesh`` (see the module docstring). ``processor`` may be a frame
     processor built once and reused (single-device route only);
-    ``store`` resumes the single-device route (see the module
-    docstring)."""
-    if store is not None and mesh is not None:
-        raise NotImplementedError("store= is not ported on the mesh routes; "
-                                  "see ROADMAP Queue 1 item 14")
+    ``store`` resumes any route (see the module docstring)."""
     if dp_trials and mesh is None:
         raise NotImplementedError(
             "dp_trials=True without mesh= (which JAX ignores) is not "
             "ported: it shards the trials over a mesh's dp axis")
+    local = None            # the dp route: this rank's trials
     if mesh is not None:
-        from ..parallel.mesh import check_mesh
+        from ..parallel.mesh import AXES, AXIS_DP, check_mesh
 
+        if store is not None and not isinstance(store, OrbaxFrameStore):
+            raise NotImplementedError(
+                "store= on the mesh routes takes an io.orbax_store."
+                "OrbaxFrameStore (its multi-rank save and restore)")
         check_mesh(mesh)
         if processor is not None:
             raise ValueError("processor= drives the single-device route; "
                              "with mesh= the route is built from the mesh")
         if dp_trials:
-            from ..parallel.dp import (broadcast_targets,
-                                       make_dp_frame_processor)
+            from ..parallel.multihost import local_batch_slice
 
-            proc_dp = make_dp_frame_processor(cfg, mesh, precomp)
-
-            def trial_targets(seeds, truth):
-                return proc_dp(seeds, broadcast_targets(truth,
-                                                        len(seeds))).targets
+            processor = make_frame_processor(cfg, precomp,
+                                             device=mesh.device)
+            local = range(trials_per_scene)[local_batch_slice(
+                trials_per_scene, mesh)]
+            route = "dp"
         else:
             from ..parallel.sharded import make_sharded_frame_processor
 
             processor = make_sharded_frame_processor(cfg, mesh, precomp)
+            route = "gspmd:" + "x".join(f"{a}={mesh.shape[a]}"
+                                        for a in AXES)
         progress = progress and mesh.rank == 0
-    elif processor is None:
-        processor = make_frame_processor(cfg, precomp, device=device)
-    if processor is not None:
-        def trial_targets(seeds, truth):
-            finals = [processor(s, truth).targets for s in seeds]
-            return type(finals[0])(*(None if xs[0] is None
-                                     else torch.stack(xs)
-                                     for xs in zip(*finals)))
+    else:
+        if processor is None:
+            processor = make_frame_processor(cfg, precomp, device=device)
+        route = "map" if (cfg.lowrank_rdm and cfg.fused_synth_dbf
+                          and cfg.noise_rdm_impl in ("pallas",
+                                                     "pallas_prng")) \
+            else "vmap"
+
+    def host_targets(seeds, truth) -> HostTargets:
+        """Final targets of ``seeds``' trials, copied once to the host:
+        [trials, slots] per field."""
+        finals = [processor(sd, truth).targets for sd in seeds]
+        return HostTargets(*(torch.stack([getattr(f, name) for f in finals])
+                             .cpu().numpy() for name in HostTargets._fields))
+
+    def gathered(host: HostTargets) -> HostTargets:
+        """The dp route's rows of every rank, in trial order."""
+        return HostTargets(*(mesh.all_gather(torch.from_numpy(x).to(
+            mesh.device), AXIS_DP).cpu().numpy() for x in host))
 
     done = set()
     if store is not None:
@@ -174,28 +194,28 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
             "targets_per_scene": int(targets_per_scene),
             "trials_per_scene": int(trials_per_scene),
             "snr_range": [float(snr_range[0]), float(snr_range[1])],
-            "dtype": "complex64",
-            "trial_route": "map" if (
-                cfg.lowrank_rdm and cfg.fused_synth_dbf
-                and cfg.noise_rdm_impl in ("pallas", "pallas_prng"))
-            else "vmap"})
+            "dtype": "complex64", "trial_route": route})
         done = set(store.frames_done())
+        if mesh is not None:            # the ranks replay the same scenes
+            done = set(mesh.all_gather_object(sorted(done), AXES)[0])
+    save_kw = {} if mesh is None else {
+        "mesh": mesh, "axis": AXIS_DP if local is not None else None}
 
     rng = np.random.default_rng(seed)
     all_snr, all_det, all_dr, all_dv = [], [], [], []
     for s in range(num_scenes):
         # the scene rng advances for replayed scenes too
         truth = random_scene(rng, targets_per_scene, cfg, snr_range)
+        seeds = [trial_seed(seed, s, t) for t in range(trials_per_scene)]
         if s + 1 in done:
-            host = HostTargets(**store.restore(s + 1))
+            host = HostTargets(**store.restore(s + 1, **save_kw))
         else:
-            finals = trial_targets([trial_seed(seed, s, t)
-                                    for t in range(trials_per_scene)], truth)
-            # one copy per scene: [trials, slots] per field
-            host = HostTargets(*(getattr(finals, name).cpu().numpy()
-                                 for name in HostTargets._fields))
+            host = host_targets(seeds if local is None
+                                else [seeds[t] for t in local], truth)
             if store is not None:
-                store.save(s + 1, host._asdict())
+                store.save(s + 1, host._asdict(), **save_kw)
+        if local is not None:
+            host = gathered(host)
         for t in range(trials_per_scene):
             det, dr, dv = _match_rate(
                 HostTargets(*(x[t] for x in host)), truth, match_gate_r,

@@ -5,6 +5,8 @@ matplotlib check of a figure asked for, and the kernels' launch counters.
 Every script runs on the card unless ``--cpu`` is given; without a card it
 exits before any work. Its JSON goes to ``results/<name>`` on the card and
 to ``build/<name>`` on the host, never to the path of a JAX artifact.
+``--dp N`` (the sweep and the streaming MC) runs the study as N ranks on
+the mesh route (:func:`run_dp`).
 """
 
 from __future__ import annotations
@@ -78,6 +80,44 @@ def launches_since(before: dict) -> dict:
     """The launches of each kernel since ``kernel_launches()`` gave
     ``before``."""
     return {k: v - before[k] for k, v in kernel_launches().items()}
+
+
+# a --dp run's bound: run_ranks kills every rank and raises past it, so a
+# hung rank never hangs the script
+DP_TIMEOUT_S = 24 * 3600.0
+
+
+def _dp_rank(run, args, device_type: str) -> dict:
+    """One rank of a ``--dp`` run: ``run(args, device, mesh=)`` on a dp
+    mesh of every rank."""
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=args.dp, device=device_type)
+    return run(args, mesh.device, mesh=mesh)
+
+
+def run_dp(run, args, device) -> dict:
+    """A script's ``run(args, device, mesh=)`` on ``args.dp`` ranks of this
+    host through ``parallel.multihost.run_ranks`` (gloo when they share
+    one card, ``choose_backend``); rank 0's report (rank 0 writes the
+    JSON)."""
+    from ..parallel.multihost import run_ranks
+
+    device = torch.device(device)
+    return run_ranks(_dp_rank, args.dp, run, args, device.type,
+                     device=device.type, timeout=DP_TIMEOUT_S)[0]
+
+
+def ranks_launches(launches: dict, mesh) -> dict:
+    """Each kernel's launches summed over the ranks of ``mesh``, and the
+    list a rank (``mesh=None``: this process's ``launches``)."""
+    if mesh is None:
+        return {"launches": launches}
+    from ..parallel.mesh import AXES
+
+    per = mesh.all_gather_object(launches, AXES)
+    return {"launches": {k: sum(p[k] for p in per) for k in launches},
+            "launches_per_rank": per}
 
 
 def write_json(path: str, obj) -> None:

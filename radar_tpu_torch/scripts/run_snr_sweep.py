@@ -5,7 +5,7 @@ SNR with the analytic |k|*sqrt(2)/sqrt(SNR) bound.
 
     python -m radar_tpu_torch.scripts.run_snr_sweep [--trials 100] [--cpu]
         [--small] [--snr=-10:2:30] [--lowrank --bf16 --rbg | --prng]
-        [--json PATH] [--out sweep.png]
+        [--dp N] [--json PATH] [--out sweep.png]
 
 Runs on the card (``--cpu`` runs the plain versions on the host). Writes
 the JAX script's ``--json`` keys, plus the card's name and power limit,
@@ -13,8 +13,10 @@ the wall time and the kernels' launches, to ``--json`` (default
 ``results/snr_sweep_torch.json``; ``build/`` with ``--cpu`` or
 ``--small``). ``--out`` draws the figure (needs matplotlib). ``--rbg`` is
 recorded and selects nothing: the port's draws come from a
-``torch.Generator`` or a Philox kernel. ``--dp`` is refused: the CLIs'
-data-parallel sweep is ROADMAP Queue 1 item 14.
+``torch.Generator`` or a Philox kernel. ``--dp N`` runs N ranks
+(``parallel.multihost.run_ranks``; on one card they share it over gloo),
+each trial batch sharded over dp (``snr_sweep(mesh=)``); rank 0 writes the
+JSON and the figure.
 """
 
 from __future__ import annotations
@@ -25,12 +27,8 @@ import time
 import numpy as np
 
 from ._common import (artifact_path, device_record, kernel_launches,
-                      launches_since, pick_device, require_matplotlib,
-                      write_json)
-
-DP_REFUSAL = ("--dp is not ported: the CLIs' data-parallel runs wait for "
-              "ROADMAP Queue 1 item 14 (the port's mesh takes its ranks "
-              "from parallel.multihost.run_ranks)")
+                      launches_since, pick_device, ranks_launches,
+                      require_matplotlib, run_dp, write_json)
 
 
 def parse_args(argv=None):
@@ -66,7 +64,9 @@ def parse_args(argv=None):
                          "cfg.noise_rdm_impl='pallas_prng'; implies "
                          "uniform rails)")
     ap.add_argument("--dp", type=int, default=None,
-                    help="refused: ROADMAP Queue 1 item 14")
+                    help="shard each trial batch over this many ranks "
+                         "(parallel/dp.py; trials and batch must divide "
+                         "by it)")
     ap.add_argument("--batch", type=int, default=16,
                     help="trials copied to the host at once")
     ap.add_argument("--truth-el", type=float, default=None,
@@ -155,8 +155,10 @@ def post_gain_bound(cfg, pre, snr_db, theory_bound) -> dict:
     }
 
 
-def run(args, device) -> dict:
-    """The sweep of ``args`` on ``device``."""
+def run(args, device, mesh=None) -> dict:
+    """The sweep of ``args`` on ``device``; with ``mesh`` (every rank of a
+    ``--dp`` run) each trial batch shards over its dp axis and rank 0
+    reports."""
     from ..pipeline.montecarlo import snr_sweep
     from ..sim.scenario import TargetBatch
     from ..waveform.precompute import precompute
@@ -173,9 +175,11 @@ def run(args, device) -> dict:
     t0 = time.perf_counter()
     res = snr_sweep(cfg, snr_db_vector=snr_vec, num_trials=args.trials,
                     truth=truth, progress=True, batch_size=args.batch,
-                    precomp=pre, device=device)
+                    precomp=pre, device=device, mesh=mesh)
     wall = time.perf_counter() - t0
-    launches = launches_since(before)
+    launches = ranks_launches(launches_since(before), mesh)
+    if mesh is not None and mesh.rank != 0:
+        return {}
     print(f"\nsweep done in {wall:.1f}s")
     for i, s in enumerate(res.snr_db):
         print(f"  SNR {s:+6.1f} dB: Pd={res.detection_probability[i]:5.2f} "
@@ -211,7 +215,8 @@ def run(args, device) -> dict:
         "device": device_record(device),
         "wall_s": round(wall, 3),
         "trials_per_s": round(args.trials * len(snr_vec) / wall, 3),
-        "launches": launches,
+        "dp": args.dp or 1,
+        **launches,
     }
     write_json(args.json, report)
     if args.out:
@@ -223,11 +228,16 @@ def run(args, device) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.dp is not None:
-        raise SystemExit(DP_REFUSAL)
+    if args.dp is not None and (args.trials % args.dp
+                                or args.batch % args.dp):
+        raise SystemExit(f"--trials {args.trials} and --batch {args.batch} "
+                         f"must be multiples of --dp {args.dp}")
     if args.out:
         require_matplotlib("--out")
-    return run(args, pick_device(args.cpu))
+    device = pick_device(args.cpu)
+    if args.dp is not None:
+        return run_dp(run, args, device)
+    return run(args, device)
 
 
 if __name__ == "__main__":

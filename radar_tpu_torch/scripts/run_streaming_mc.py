@@ -4,16 +4,18 @@ detection-rate statistics vs SNR, range/velocity RMSE.
 
     python -m radar_tpu_torch.scripts.run_streaming_mc [--cpu] [--small]
         [--perf] [--scenes 32] [--targets 40] [--trials 8] [--json PATH]
-        [--orbax DIR]
+        [--dp N] [--orbax DIR]
 
 Runs on the card (``--cpu`` runs the plain versions on the host). Writes
 the JAX script's ``--json`` keys, plus the card's name and power limit and
 the kernels' launches, to ``--json`` (default
 ``results/streaming_mc_torch.json``; ``build/`` with ``--cpu`` or
-``--small``). ``--orbax DIR`` checkpoints each scene's final targets
-(``io/orbax_store.py``, one process); a rerun replays the finished scenes.
-``--dp`` is refused: the sharded trials and the elastic resume onto
-another dp are ROADMAP Queue 1 item 14.
+``--small``). ``--dp N`` runs N ranks (``parallel.multihost.run_ranks``;
+on one card they share it over gloo), each scene's trials sharded over
+dp (``run_streaming_mc(mesh=, dp_trials=True)``); rank 0 writes the JSON.
+``--orbax DIR`` checkpoints each scene's final targets
+(``io/orbax_store.py``; with ``--dp`` each rank its own trials), and a
+rerun replays the finished scenes, on another ``--dp`` too.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ import argparse
 import time
 
 from ._common import (artifact_path, device_record, kernel_launches,
-                      launches_since, pick_device, write_json)
-from .run_snr_sweep import DP_REFUSAL
+                      launches_since, pick_device, ranks_launches, run_dp,
+                      write_json)
 
 
 def parse_args(argv=None):
@@ -47,10 +49,12 @@ def parse_args(argv=None):
                          "streaming_mc_torch.json; build/ with --cpu or "
                          "--small)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="refused: ROADMAP Queue 1 item 14")
+                    help="shard each scene's trials over this many ranks "
+                         "(the reference's parfor boundary on ranks)")
     ap.add_argument("--orbax", default=None, metavar="DIR",
                     help="checkpoint each scene's final targets here; a "
-                         "rerun resumes completed scenes from disk")
+                         "rerun resumes completed scenes from disk, even "
+                         "onto a different --dp")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.json is None:
@@ -59,9 +63,11 @@ def parse_args(argv=None):
     return args
 
 
-def run(args, device, processor=None) -> dict:
+def run(args, device, processor=None, mesh=None) -> dict:
     """The streaming study of ``args`` on ``device``; ``processor`` (a
-    frame processor) replaces the one ``run_streaming_mc`` builds."""
+    frame processor) replaces the one ``run_streaming_mc`` builds; with
+    ``mesh`` (every rank of a ``--dp`` run) the trials shard over its dp
+    axis and rank 0 reports."""
     from ..config.params import (full_config, perf_config, scaled_config,
                                  small_test_config)
     from ..pipeline.streaming import run_streaming_mc
@@ -73,12 +79,13 @@ def run(args, device, processor=None) -> dict:
     if args.perf:
         cfg = perf_config(cfg, pallas=device.type == "cuda")
     lo, hi = (float(x) for x in args.snr.split(":"))
+    lead = mesh is None or mesh.rank == 0
     store = None
     if args.orbax:
         from ..io.orbax_store import OrbaxFrameStore
 
         store = OrbaxFrameStore(args.orbax)
-        if store.frames_done():
+        if store.frames_done() and lead:
             print(f"resuming: scenes {store.frames_done()} replay from "
                   f"{args.orbax}", flush=True)
     before = kernel_launches()
@@ -87,9 +94,12 @@ def run(args, device, processor=None) -> dict:
                              targets_per_scene=args.targets,
                              trials_per_scene=args.trials, seed=args.seed,
                              store=store, snr_range=(lo, hi), progress=True,
-                             device=device, processor=processor)
+                             device=device, processor=processor, mesh=mesh,
+                             dp_trials=mesh is not None)
     wall = time.perf_counter() - t0
-    launches = launches_since(before)
+    launches = ranks_launches(launches_since(before), mesh)
+    if not lead:
+        return {}
     total = args.scenes * args.targets * args.trials
     print(f"\n{total} injected targets in {wall:.1f}s "
           f"({total / wall:.0f} targets/s)")
@@ -113,8 +123,9 @@ def run(args, device, processor=None) -> dict:
         "config": {"channels": cfg.sig.channel_num,
                    "pulses": cfg.sig.prt_num, "scenes": args.scenes,
                    "targets_per_scene": args.targets,
-                   "trials_per_scene": args.trials, "seed": args.seed},
-        "launches": launches,
+                   "trials_per_scene": args.trials, "seed": args.seed,
+                   "dp": args.dp or 1},
+        **launches,
     }
     write_json(args.json, report)
     return report
@@ -122,9 +133,14 @@ def run(args, device, processor=None) -> dict:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.dp and args.trials % args.dp:
+        raise SystemExit(f"--trials {args.trials} is not a multiple of "
+                         f"--dp {args.dp}: each rank runs trials/dp a "
+                         f"scene")
+    device = pick_device(args.cpu)
     if args.dp:
-        raise SystemExit(DP_REFUSAL)
-    return run(args, pick_device(args.cpu))
+        return run_dp(run, args, device)
+    return run(args, device)
 
 
 if __name__ == "__main__":

@@ -100,8 +100,9 @@ def test_snr_sweep_dp_mesh_matches_one_rank(ranks):
 def test_streaming_mc_mesh_matches_one_rank(ranks, route):
     """run_streaming_mc(mesh=dp4, dp_trials=True) equals the one-rank run
     exactly; with mesh=(1, 2, 2) and every frame sharded, the detections
-    and the statistics equal it to the DBF's reassociation. store= still
-    raises."""
+    and the statistics equal it to the DBF's reassociation. On the dp
+    route, a run with store= that saves every scene and the rerun that
+    replays them all (each rank its own rows) equal it too."""
     owner = {"dp": 2, "sharded": 3}[route]
     want = ranks[owner][f"streaming_{route}_single"]
     assert want.total_detected > 0
@@ -113,8 +114,12 @@ def test_streaming_mc_mesh_matches_one_rank(ranks, route):
         if route == "dp":
             assert (got.range_rmse_m, got.velocity_rmse_ms) == \
                 (want.range_rmse_m, want.velocity_rmse_ms)
+            assert r["store_frames"] == [1, 2]
+            for stored in r["streaming_dp_store"]:
+                for f in want._fields:
+                    np.testing.assert_array_equal(getattr(stored, f),
+                                                  getattr(want, f))
         else:
             np.testing.assert_allclose(
                 [got.range_rmse_m, got.velocity_rmse_ms],
                 [want.range_rmse_m, want.velocity_rmse_ms], rtol=1e-4)
-        assert "store= is not ported" in r["errors"]["store"]

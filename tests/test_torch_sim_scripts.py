@@ -14,8 +14,8 @@ small config on the CPU.
 - One subprocess runs the five scripts in turn and loads neither JAX, nor
   the JAX package, nor matplotlib; their JSON keys hold the JAX scripts'.
 - Without a card, without ``--cpu``, each script exits before any work;
-  a figure asked for without matplotlib exits naming it; ``--dp`` is
-  refused."""
+  a figure asked for without matplotlib exits naming it; a ``--dp`` that
+  does not divide the trials is refused."""
 
 from __future__ import annotations
 
@@ -286,9 +286,11 @@ def test_figures_are_drawn_when_asked(tmp_path):
 
 @pytest.mark.parametrize("script", [run_snr_sweep, run_streaming_mc])
 def test_dp_is_refused(script, tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 14"):
-        script.main(["--cpu", "--small", "--dp", "2", "--json",
-                     str(tmp_path / "x.json")])
+    """A --dp that does not divide the trials is refused before any work
+    (a dividing one runs: tests/test_torch_multiprocess.py)."""
+    with pytest.raises(SystemExit, match="multiple"):
+        script.main(["--cpu", "--small", "--dp", "2", "--trials", "3",
+                     "--json", str(tmp_path / "x.json")])
     assert not os.listdir(tmp_path)
 
 
