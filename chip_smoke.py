@@ -9,11 +9,21 @@ PyTorch version at the full shapes of the reference's frame (16 channels x
 pair maps). Then it drives the port's paths on the benchmark's two
 targets:
 
-- the perf-config frame, through kernels K1 (noise RDM: K1c's planes, the
-  3xTF32 strip-GEMM PC, the beam mix and the 3xTF32 DFT GEMM on the tensor
-  cores) and K2 (CFAR, TMA-staged, its window compiled in), with the
-  profiler's kernel names to show it (the GEMMs and K2 run, the old
-  CUDA-core ``pc_kernel`` does not);
+- the perf-config frame, through kernels K1 at bf16 operands, the
+  arithmetic JAX runs on its accelerator (noise RDM: K1c's bf16 rows, the
+  strip GEMM, the wgmma DFT GEMM and the mix, which adds the signal) and
+  K2 (CFAR, TMA-staged, its window compiled in), with the profiler's
+  kernel names to show it (K1's f32 GEMMs and the old CUDA-core
+  ``pc_kernel`` do not run); K1 at f32 operands (``mul_dtype=float32``:
+  K1c's planes, the 3xTF32 strip-GEMM PC, the beam mix and the 3xTF32 DFT
+  GEMM) held against its plain version, and the small-width card-vs-CPU
+  frames at both types;
+- phase ``k1_bf16``: K1c's bf16 rows equal the f32 Philox planes rounded
+  (pad columns zero); K1 at bf16 in draw mode equals its planes mode on
+  the Philox planes and on K1c's rows, and K4 at bf16 equals K1, bit for
+  bit; K1 at bf16 (signal, pair maps, bf16 output) against its plain
+  version; each call's launches; times beside K1 f32 and K7's bf16 draw
+  mode, the profiler's split and the bounds;
 - the exact reference stream, the default entry point (per-element echoes
   -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
   ``noise_impl="pallas"``) and K3 (pair sum + CFAR: a block walks every
@@ -39,8 +49,9 @@ targets:
   truth targets found in each and each path's kernels counted; the
   kernel-maps frame's detections bit for bit against the plain tail on
   K1's own maps, its mask against the default frame's; K1's maps epilogue
-  (``add_maps_kernel``) at f32 and bf16 output bit for bit against its
-  plain version on the kernel's own map; the frames' device time, K1 with
+  (``add_maps_kernel`` at f32 operands, the mix at bf16) at f32 and bf16
+  output bit for bit against its plain version on the kernel's own map;
+  the frames' device time, K1 with
   and without the maps, and the epilogue beside ``add_kernel`` and its
   bytes bound;
 - the rank-K stream's three noise-RDM routes (``pallas_prng``, ``pallas``
@@ -767,7 +778,7 @@ def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
     # im) times the samples it draws, each once for every 128-gate block
     # whose window holds it
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
-                          "planes_kernelILb1E")
+                          "planes_kernelIfLb1E")
     sass = _loop_sass(_build._library_path("band_pc_sm90")[1],
                       "strip_pc_kernelILb1E", store="STS", per_store=4,
                       innermost=True)
@@ -1015,7 +1026,7 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
                                          kernel_out_bf16=True), pre,
          ("K1", "K1_maps", "K2")),
         ("kernel_out_bf16", cfg.replace(kernel_out_bf16=True), pre,
-         ("K1", "K1_maps", "K2")),
+         ("K1", "K1_bf16", "K2")),
         ("kernel_maps_matmul", cfg.replace(kernel_maps=True, cfar=matmul),
          pre, ("K1", "K1_maps")),
         ("beams_major_prng", cfg.replace(beams_major_tail=True), pre,
@@ -1057,10 +1068,11 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
         _require(all(got[k] >= 1 for k in want),
                  f"tails {label} launched {want}")
         _require(("matmul" not in label or got["K2"] + got["K3"] == 0)
-                 and (label.startswith("kernel") or got["K1_maps"] == 0),
+                 and (label.startswith("kernel_maps") or got["K1_maps"] == 0)
+                 and got["K1_bf16"] == got["K1"],
                  f"tails {label}: no shift-means CFAR kernel under matmul "
-                 "means, K1's maps epilogue only on the kernel-maps and "
-                 "bf16 frames")
+                 "means, K1's pair maps only on the kernel-maps frames, K1 "
+                 "at bf16 operands")
         procs[label], launches[label] = proc, got
 
     # the kernel-maps frame: K1's maps through K2 on the card against the
@@ -1096,18 +1108,24 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
              "maps, detections bit for bit")
 
     # K1's epilogue: with maps (f32 and bf16 output) against the plain
-    # epilogue on the kernel's own unrounded map, bit for bit
+    # epilogue on the kernel's own unrounded map, bit for bit; at f32
+    # operands add_maps_kernel, at bf16 (the frame's) the mix
     plan, lmat = lr.rplan, lr.l_factor
     factors = lr.signal_factors(truth)
     seed = nr.seed_words(20261016)
-    base = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg")
     checks = {}
-    for out_dtype in (torch.float32, torch.bfloat16):
+    for mul, out_dtype in ((torch.float32, torch.float32),
+                           (torch.float32, torch.bfloat16),
+                           (torch.bfloat16, torch.float32),
+                           (torch.bfloat16, torch.bfloat16)):
+        base = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                            mul_dtype=mul)
         before = nr.maps_launch_count
         y, m = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
-                            emit_maps=True, out_dtype=out_dtype)
+                            emit_maps=True, out_dtype=out_dtype,
+                            mul_dtype=mul)
         torch.cuda.synchronize()
-        checks[str(out_dtype)] = {
+        checks[f"{str(mul)[6:]} operands, {str(out_dtype)[6:]} out"] = {
             "map_equal_rounded_base": bool(torch.equal(
                 y, nr.round_mul(base, out_dtype))),
             "maps_equal_plain": bool(torch.equal(m,
@@ -1186,6 +1204,290 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
                 frame_busy["kernel_maps"]["device_busy_ms"],
             "default_frame_device_busy_ms":
                 frame_busy["default"]["device_busy_ms"]}
+
+
+def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
+             launches: dict) -> list:
+    """Phase ``k1_bf16``: K1, K4 and K1's planes mode with bf16 operands
+    (the TPU kernel's default, what the main path runs on the card) and
+    K1c's bf16 rows, at full size. Bit for bit: K1c's rows equal the f32
+    Philox planes rounded (pad columns zero); K1's draw mode equals its
+    planes mode on the Philox planes and on K1c's bf16 planes, and K4
+    equals K1 (with the signal, f32 and bf16 output; noise only at bf16
+    output, the trials' map); bf16 output is the f32-output map rounded
+    and the pair maps those of it. Against the plain version: the map
+    within BF16_HOLD (BF16_OUT_HOLD at bf16 output), the maps within
+    BF16_HOLD; 1e-3..1e-2 from K1's f32 map. Each call's launches. Times
+    (busy/idle card, host ms, plain ms, the profiler's split) beside K1
+    f32 and K7's bf16 draw mode in this call, and the bounds. ``launches``:
+    each kernel's count from the main path's runs (``track_k1``: K1's in a
+    headline tracking run). Returns the kernels-line rows."""
+    import torch
+
+    from radar_tpu_torch import _build
+    from radar_tpu_torch.ops.cfar_kernel import HALO
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = lmat.device
+    num_b, num_p = lmat.shape[0], plan.n_pulses
+    num_v, num_g = plan.n_dop, plan.n_gates
+    ph = nr.philox_planes(plan, seed, num_b, device=dev)
+    nr.k1c_launch_count = nr.k1c_bf16_launch_count = 0
+    g16 = nr.gen_noise_planes(plan, seed, num_b, device=dev, dtype=bf)
+    torch.cuda.synchronize()
+    k1c_calls = (nr.k1c_launch_count, nr.k1c_bf16_launch_count)
+    k1c_same, k1c_pads = [], []
+    for (a, b), (c, d), sg in zip(g16, ph, plan.segments):
+        k1c_same.append(bool(torch.equal(a, c.to(bf))
+                             and torch.equal(b, d.to(bf))))
+        ld = a.stride(1)
+        for x in (a, b):
+            rows_ = x.as_strided((num_b * num_p, ld), (ld, 1))
+            k1c_pads.append(int(rows_[:, sg.xlen:].float().abs().sum()))
+    _line("k1_bf16", kernel="K1c bf16 rows", launches=k1c_calls,
+          identical_to_rounded_philox=k1c_same, row_strides=[
+              a.stride(1) for a, _ in g16], xlen=[sg.xlen for sg in
+                                                 plan.segments],
+          pad_abs_sum=k1c_pads, tol="bit-equal, pad columns zero")
+    _require(all(k1c_same) and not any(k1c_pads) and k1c_calls == (1, 1),
+             "K1c's bf16 rows == the f32 Philox planes rounded, one launch")
+
+    kw = dict(layout="bvg", mul_dtype=bf)
+    bits = {}
+    for out in (f32, bf):
+        for sig in (factors, None):
+            if sig is None and out == f32:
+                continue
+            draw = nr.noise_rdm(plan, lmat, sig, seed=seed, out_dtype=out,
+                                **kw)
+            k4 = nr.noise_rdm(plan, lmat, sig, seed=seed, out_dtype=out,
+                              rolling=False, **kw)
+            c = {"draw_eq_philox_planes": bool(torch.equal(draw, nr.noise_rdm(
+                    plan, lmat, sig, planes=ph, out_dtype=out, **kw))),
+                 "draw_eq_k1c_bf16_planes": bool(torch.equal(
+                     draw, nr.noise_rdm(plan, lmat, sig, planes=g16,
+                                        out_dtype=out, **kw))),
+                 "k4_eq_k1": bool(torch.equal(draw, k4))}
+            torch.cuda.synchronize()
+            bits[f"{str(out)[6:]}_out{'_signal' if sig else ''}"] = c
+    _line("k1_bf16", bit_checks=bits, tol="bit for bit")
+    _require(all(all(c.values()) for c in bits.values()),
+             "K1 bf16: draw == planes mode, K4 == K1, bit for bit")
+
+    # one call of each and its launches
+    names = ("launch_count", "k1_bf16_launch_count", "k1c_draw_launch_count",
+             "k1c_bf16_launch_count", "strip_pc_launch_count",
+             "strip_pc_draw_launch_count", "dft_launch_count",
+             "tf32_pc_launch_count", "tf32_dft_launch_count",
+             "maps_launch_count", "k4_launch_count", "k4_bf16_launch_count")
+    calls = {}
+    for label, call in (
+            ("K1", lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
+                                        emit_maps=True, **kw)),
+            ("K1_planes", lambda: nr.noise_rdm(plan, lmat, planes=g16,
+                                               out_dtype=bf, **kw)),
+            ("K4", lambda: nr.noise_rdm(plan, lmat, seed=seed,
+                                        rolling=False, **kw))):
+        for n in names:
+            setattr(nr, n, 0)
+        call()
+        torch.cuda.synchronize()
+        calls[label] = {n[:-len("_launch_count")] or "k1": getattr(nr, n)
+                        for n in names if getattr(nr, n)}
+    _line("k1_bf16", launches_a_call=calls)
+    _require(calls == {
+        "K1": {"k1": 1, "k1_bf16": 1, "k1c_draw": 1, "k1c_bf16": 1,
+               "strip_pc": 1, "dft": 1, "maps": 1},
+        "K1_planes": {"k1": 1, "k1_bf16": 1, "strip_pc": 1, "dft": 1},
+        "K4": {"strip_pc_draw": 1, "dft": 1, "k4": 1, "k4_bf16": 1}},
+        "K1, K1's planes mode and K4 at bf16: one launch of each part")
+
+    ref, ref_maps = nr.noise_rdm_plain(plan, lmat, ph, factors,
+                                       mul_dtype=bf, emit_maps=True)
+    y, maps = nr.noise_rdm(plan, lmat, factors, seed=seed, emit_maps=True,
+                           **kw)
+    y16, maps16 = nr.noise_rdm(plan, lmat, factors, seed=seed,
+                               emit_maps=True, out_dtype=bf, **kw)
+    # the rounding shows against K1 f32 on the noise alone (the targets'
+    # f32 signal would dilute the RMS), as phase rdm_variants holds it
+    n16 = nr.noise_rdm(plan, lmat, seed=seed, **kw)
+    n32 = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg")
+    torch.cuda.synchronize()
+    inner = lambda m: m[:, :num_v, HALO:HALO + num_g]
+    hold = {"map_vs_plain": _rel_rms(y, ref),
+            "bf16_out_vs_plain": _rel_rms(y16, nr.round_mul(ref, bf)),
+            "maps_vs_plain": _rel_rms(inner(maps), inner(ref_maps)),
+            "noise_vs_f32_K1": _rel_rms(n16, n32),
+            "bf16_out_is_map_rounded": bool(torch.equal(
+                y16, nr.round_mul(y, bf))),
+            "maps_are_the_maps_of_the_map": bool(torch.equal(
+                maps, nr.pair_maps_plain(y))),
+            "bf16_out_maps_equal": bool(torch.equal(maps16, maps)),
+            "max_abs_err": float((y - ref).abs().max()),
+            "finite": bool(torch.isfinite(torch.view_as_real(y16)).all())}
+    _line("k1_bf16", kernel="K1 bf16 (signal, maps, f32 and bf16 output)",
+          **hold, tol=f"map and maps <= {BF16_HOLD}, bf16 output <= "
+          f"{BF16_OUT_HOLD} (rms rel); noise vs f32 K1 in [1e-3, 1e-2]; "
+          "bf16 output == the map rounded, maps == pair maps of the map: "
+          "bit for bit")
+    _require(hold["map_vs_plain"] <= BF16_HOLD
+             and hold["maps_vs_plain"] <= BF16_HOLD
+             and hold["bf16_out_vs_plain"] <= BF16_OUT_HOLD
+             and 1e-3 <= hold["noise_vs_f32_K1"] <= 1e-2
+             and hold["bf16_out_is_map_rounded"]
+             and hold["maps_are_the_maps_of_the_map"]
+             and hold["bf16_out_maps_equal"] and hold["finite"],
+             "K1 bf16 vs plain")
+    del ref_maps, maps, y16, maps16, n16, n32
+    ref_n = nr.noise_rdm_plain(plan, lmat, ph, mul_dtype=bf)
+    e_k4 = float((nr.noise_rdm(plan, lmat, seed=seed, rolling=False, **kw)
+                  - ref_n).abs().max())
+    e_pl = float((nr.noise_rdm(plan, lmat, planes=g16, **kw)
+                  - ref_n).abs().max())
+    del ref_n
+
+    # times: each kernel on a busy card, the idle card in turns with its
+    # plain version, host ms a call; K1 f32 and K7's bf16 draw mode beside
+    k1b = lambda: nr.noise_rdm(plan, lmat, factors, seed=seed, **kw)
+    calls_t = {
+        "K1_bf16_signal": (k1b, lambda: nr.noise_rdm_plain(
+            plan, lmat, nr.philox_planes(plan, seed, num_b, device=dev),
+            factors, mul_dtype=bf)),
+        "K1_bf16_signal_maps": (lambda: nr.noise_rdm(
+            plan, lmat, factors, seed=seed, emit_maps=True, **kw), None),
+        "K1_bf16_noise_bf16_out": (lambda: nr.noise_rdm(
+            plan, lmat, seed=seed, out_dtype=bf, **kw), None),
+        "K1_planes_bf16": (lambda: nr.noise_rdm(plan, lmat, planes=g16,
+                                                **kw),
+                           lambda: nr.noise_rdm_plain(plan, lmat, g16,
+                                                      mul_dtype=bf)),
+        "K4_bf16": (lambda: nr.noise_rdm(plan, lmat, seed=seed,
+                                         rolling=False, **kw),
+                    lambda: nr.noise_rdm_plain(
+                        plan, lmat, nr.philox_planes(plan, seed, num_b,
+                                                     device=dev),
+                        mul_dtype=bf)),
+        "K1c_bf16": (lambda: nr.gen_noise_planes(plan, seed, num_b,
+                                                 device=dev, dtype=bf),
+                     lambda: [(a.to(bf), b.to(bf)) for a, b in
+                              nr.philox_planes(plan, seed, num_b,
+                                               device=dev)]),
+        "K1_f32_signal": (lambda: nr.noise_rdm(plan, lmat, factors,
+                                               seed=seed, layout="bvg"),
+                          None),
+        "K7_bf16_draw_mode": (lambda: nr.noise_rdm(
+            plan, lmat, seed=seed, stacked=True, **kw), None)}
+    t = {}
+    for label, (call, plain) in calls_t.items():
+        busy, host = _busy_event_ms(call)
+        t[label] = {"busy_card_ms": busy, "host_ms": host}
+        if plain is not None:
+            t[label]["idle_card_ms"], t[label]["plain_ms"] = _time_pair(
+                call, plain)
+    t["K1_bf16_signal_again"] = {"busy_card_ms": _busy_event_ms(k1b)[0]}
+    n_planes = sum(num_b * num_p * nr.k1c_row_len(sg.xlen, bf)
+                   for sg in plan.segments)
+    k1c_lib = lambda: torch.rand(2 * n_planes, device=dev, dtype=bf)
+    t["K1c_bf16"]["library_busy_card_ms"] = _busy_event_ms(k1c_lib)[0]
+    t["K1c_bf16"]["library_idle_card_ms"] = statistics.median(
+        _event_ms(k1c_lib, 10))
+    prof = _kernel_profile(k1b, reps=5, need=("strip_pc_kernel<false>",))
+    parts = (("K1c_bf16_rows", "planes_kernel<__nv_bfloat16"),
+             ("strip_gemm", "strip_pc_kernel<false>"),
+             ("dft_gemm", "dft_kernel"), ("mix_signal", "::mix_kernel<"))
+    split = {part: sum(v[0] for k, v in prof.items() if key in k)
+             for part, key in parts}
+    seen = {part: sum(v[1] for k, v in prof.items() if key in k)
+            for part, key in parts}
+    split["other"] = _busy_top({k: v[0] for k, v in prof.items()})[0] \
+        - sum(split.values())
+    maps_prof = _kernel_ms(calls_t["K1_bf16_signal_maps"][0], reps=5,
+                           need=("::mix_kernel<",))
+    split_maps = {"mix_signal_maps": _named_ms(maps_prof, "::mix_kernel<")}
+    _require(all(split[p] > 0.0 for p, _ in parts)
+             and not any("gemm_kernel" in k or "add_maps_kernel" in k
+                         for k in prof),
+             "the profiler saw K1c's bf16 rows, the strip GEMM, the DFT "
+             "GEMM and the mix, and none of K1's f32 GEMMs")
+    # bounds: the bf16 operations (the convolutions', the mix's and the
+    # DFT's complex MACs), the draws the function needs (each sample once,
+    # at K1c's bf16 SASS cost a sample), the bytes (the map written once;
+    # planes mode also reads its bf16 planes, K1c writes its rows)
+    k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
+                          "planes_kernelI13__nv_bfloat16Lb1E", per_store=4)
+    _, sm_max_mhz = _sm_clocks()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_drawn = sum(num_b * num_p * (sg.xlen - sg.pad_front)
+                  for sg in plan.segments)
+    draws_ms = (k1c_sass["clocks_per_sample"] * n_drawn
+                / (sms * sm_max_mhz * 1e6) * 1e3)
+    ops_ms = _k1_bound_ms(plan, num_b, PEAK_BF16)
+    map_ms = num_b * num_v * num_g * 8 / PEAK_HBM * 1e3
+    maps_ms = (num_b - 1) * num_v * num_g * 4 / PEAK_HBM * 1e3
+    planes_ms = n_planes * 4 / PEAK_HBM * 1e3
+    bounds = {"K1": _bound(max(ops_ms, draws_ms), map_ms),
+              "K1_maps": _bound(max(ops_ms, draws_ms), map_ms + maps_ms),
+              "K1_planes": _bound(ops_ms, planes_ms + map_ms),
+              "K1c": _bound(draws_ms, planes_ms)}
+    _line("time", what=repr("K1/K4/K1c bf16 (the main path) / plain, "
+                            "beside K1 f32 and K7 bf16 draw mode"),
+          card=repr(card), ms=t, profile_ms_K1_bf16_signal=split,
+          profile_launches_recorded_a_call=seen, profile_ms_maps=split_maps,
+          bf16_ops_bound_ms=ops_ms, draws_bound_ms=draws_ms,
+          drawn_samples=n_drawn, k1c_bf16_sass=k1c_sass,
+          map_bytes_ms=map_ms, maps_bytes_ms=maps_ms,
+          k1c_bf16_rows_bytes_ms=planes_ms, bounds=bounds)
+    extra = lambda label, **kw2: {
+        "ms_is": "events around one call, the card kept busy",
+        **{k: v for k, v in t[label].items() if k != "busy_card_ms"},
+        "bf16_ops_bound_ms": ops_ms, "draws_bound_ms": draws_ms, **kw2}
+    srcs = ("noise_rdm.cu (K1c bf16 rows), band_pc_sm90.cu (strip GEMM), "
+            "rdm_sm90.cu (DFT GEMM), rdm_variants.cu (mix)")
+    return [
+        ("K1 noise RDM, bf16 operands (the main path: draw mode, rank-K "
+         "signal, emit_maps and bf16 output in the mix): K1c bf16 rows + "
+         "strip GEMM + wgmma DFT + mix", "rdm_variants.cu",
+         "radar_tpu/ops/pallas_rdm.py:980", launches["K1_bf16"],
+         hold["max_abs_err"], t["K1_bf16_signal"]["busy_card_ms"],
+         t["K1_bf16_signal"]["plain_ms"], *bounds["K1"], None,
+         extra("K1_bf16_signal", sources=srcs, profile_ms=split,
+               profile_ms_maps=split_maps, bound_with_maps=bounds["K1_maps"],
+               busy_card_ms_with_maps=t["K1_bf16_signal_maps"][
+                   "busy_card_ms"],
+               busy_card_ms_noise_bf16_out=t["K1_bf16_noise_bf16_out"][
+                   "busy_card_ms"],
+               k1_f32_busy_card_ms_same_call=t["K1_f32_signal"][
+                   "busy_card_ms"],
+               k7_bf16_draw_busy_card_ms_same_call=t["K7_bf16_draw_mode"][
+                   "busy_card_ms"],
+               launches_from="the perf SNR sweep (80 trials)",
+               tracking_launches_a_headline_run=track_k1)),
+        ("K4 noise RDM, window schedule, bf16 operands: strip GEMM with "
+         "drawing producers + wgmma DFT + mix (== K1 bf16 bit for bit)",
+         "band_pc_sm90.cu", "radar_tpu/ops/pallas_rdm.py:980 "
+         "(rolling=False)", launches["K4_bf16"], e_k4,
+         t["K4_bf16"]["busy_card_ms"], t["K4_bf16"]["plain_ms"],
+         *bounds["K1"], None,
+         extra("K4_bf16", launches_from="the validation path")),
+        ("K1 noise RDM, planes mode, bf16 operands: strip GEMM on the "
+         "given planes + wgmma DFT + mix", "band_pc_sm90.cu",
+         "radar_tpu/ops/pallas_rdm.py:789", launches["K1_planes_bf16"],
+         e_pl, t["K1_planes_bf16"]["busy_card_ms"],
+         t["K1_planes_bf16"]["plain_ms"], *bounds["K1_planes"], None,
+         extra("K1_planes_bf16", launches_from="the \"pallas\" route's "
+               "frame")),
+        ("K1c noise-plane export, bf16 rows in the strip GEMM's layout",
+         "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:1052",
+         launches["K1c_bf16"], 0.0, t["K1c_bf16"]["busy_card_ms"],
+         t["K1c_bf16"]["plain_ms"], *bounds["K1c"],
+         t["K1c_bf16"]["library_busy_card_ms"],
+         {"ms_is": "events around one call, the card kept busy",
+          "idle_card_ms": t["K1c_bf16"]["idle_card_ms"],
+          "host_ms": t["K1c_bf16"]["host_ms"],
+          "library_call": "torch.rand of the bf16 rows' values",
+          "issue_bound_ms": draws_ms, "bytes_bound_ms": planes_ms,
+          "clocks_per_sample": k1c_sass["clocks_per_sample"],
+          "launches_from": "K1's draw mode in the perf SNR sweep"})]
 
 
 def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
@@ -2965,9 +3267,14 @@ def main() -> int:
     seed = nr.seed_words(20261016)
     planes = nr.philox_planes(plan, seed, num_b, device=dev)
     ref = nr.noise_rdm_plain(plan, lmat, planes, factors)
+    # K1 at f32 operands (3xTF32), noise_rdm's default; the main path runs
+    # K1 at bf16 (phase k1_bf16)
+    f32_calls = (nr.launch_count, nr.k1c_draw_launch_count)
     k_planes = nr.noise_rdm(plan, lmat, factors, planes=planes, layout="bvg")
     k_draw = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg")
     torch.cuda.synchronize()
+    f32_calls = (nr.launch_count - f32_calls[0],
+                 nr.k1c_draw_launch_count - f32_calls[1])
     _require(k_draw.shape == (num_b, plan.n_dop, plan.n_gates), "K1 shape")
     diff = (k_planes - ref).abs()
     rms = float(ref.abs().pow(2).mean().sqrt())
@@ -3028,13 +3335,18 @@ def main() -> int:
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
                       "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count,
                       "K1_maps": nr.maps_launch_count,
-                      "K1c_draw": nr.k1c_draw_launch_count}
+                      "K1c_draw": nr.k1c_draw_launch_count,
+                      "K1_bf16": nr.k1_bf16_launch_count,
+                      "K4_bf16": nr.k4_bf16_launch_count,
+                      "K1c_bf16": nr.k1c_bf16_launch_count}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
         ck.k3_launch_count = k5.launch_count = 0
         nr.k1c_launch_count = nr.k4_launch_count = 0
         nr.maps_launch_count = nr.k1c_draw_launch_count = 0
+        nr.k1_bf16_launch_count = nr.k4_bf16_launch_count = 0
+        nr.k1c_bf16_launch_count = 0
 
     reset()
     res = process(20261016, truth)
@@ -3047,37 +3359,56 @@ def main() -> int:
     _line("frame", launches=launches, num_raw=int(res.num_raw_detections),
           num_final=int(res.num_final), found=found,
           targets=np.round(rows, 3).tolist())
-    _require(launches["K1"] >= 1 and launches["K2"] >= 1,
-             "frame launched K1 and K2")
+    _require(launches["K1"] >= 1 and launches["K2"] >= 1
+             and launches["K1_bf16"] == launches["K1"]
+             and launches["K1c_bf16"] == launches["K1c_draw"] >= 1,
+             "frame launched K1 (bf16 operands, K1c's bf16 rows) and K2")
     _require(bool(np.all(np.isfinite(rows))) and all(found),
              "truth targets found")
-    # the frame's kernels by name: K1's GEMMs, mix and K1c's planes, K2;
-    # the CUDA-core convolution of the old K1 no longer runs
+    # the frame's kernels by name: K1 at bf16 (K1c's bf16 rows, the strip
+    # GEMM, the wgmma DFT GEMM, the mix), K2; neither K1's f32 GEMMs nor
+    # the CUDA-core convolution of the old K1 run
+    k1_bf16_names = ("planes_kernel<__nv_bfloat16", "strip_pc_kernel<false>",
+                     "dft_kernel", "::mix_kernel<", "k2_kernel")
     frame_kernels = _kernel_ms(lambda: process(20261016, truth), reps=2,
-                               need=("pc_gemm_kernel", "dft_gemm_kernel",
-                                     "mix_planes_kernel", "planes_kernel",
-                                     "k2_kernel"))
+                               need=k1_bf16_names)
     names = {k: round(v, 4) for k, v in frame_kernels.items()
-             if any(n in k for n in ("gemm_kernel", "mix_planes",
-                                     "planes_kernel", "k2_kernel",
-                                     "pc_kernel"))}
+             if any(n in k for n in ("gemm_kernel", "mix_", "planes_kernel",
+                                     "k2_kernel", "pc_kernel",
+                                     "dft_kernel"))}
     _line("frame_kernels", kernels=names)
-    _require(all(any(n in k for k in names) for n in (
-        "pc_gemm_kernel", "dft_gemm_kernel", "mix_planes_kernel",
-        "planes_kernel", "k2_kernel")) and not any(
-        "pc_kernel" in k for k in names),
-        "the frame ran K1's GEMMs and K2, and no CUDA-core pc_kernel")
+    import re
+    _require(all(any(n in k for k in names) for n in k1_bf16_names)
+             and not any("gemm_kernel" in k or re.search(r"\bpc_kernel", k)
+                         for k in names),
+             "the frame ran K1's bf16 kernels and K2, none of K1's f32 "
+             "GEMMs and no CUDA-core pc_kernel")
 
-    # small widths: the kernel path on the card vs the plain path on the CPU
+    # small widths: the kernel path on the card vs the plain path on the
+    # CPU, at f32 operands (K1's f32 kernels: accelerator_dtypes=False) as
+    # held before, and at the card's bf16 (the CPU's plain versions at the
+    # accelerator's dtypes): rtol 1e-3 there, the noise's bf16 roundings
+    # taken after sums in other orders
     small = small_test_config().replace(**PERF_OVERRIDES)
     tb2 = TargetBatch.make([3000.0, 6000.0], [15.0, -8.0], [10.0, 12.0],
                            [20.0, 14.0])
-    a = make_frame_processor(small, device=dev)(5, tb2)
+    a = make_frame_processor(small, device=dev,
+                             accelerator_dtypes=False)(5, tb2)
     b = make_frame_processor(small, device="cpu")(5, tb2)
-    _line("small", card_final=int(a.num_final), cpu_final=int(b.num_final))
+    a16 = make_frame_processor(small, device=dev)(5, tb2)
+    b16 = make_frame_processor(small, device="cpu",
+                               accelerator_dtypes=True)(5, tb2)
+    _line("small", card_final=int(a.num_final), cpu_final=int(b.num_final),
+          bf16_card_final=int(a16.num_final),
+          bf16_cpu_final=int(b16.num_final),
+          bf16_card_rows=np.round(_rows(a16), 5).tolist(),
+          bf16_cpu_rows=np.round(_rows(b16), 5).tolist())
     _require(int(a.num_final) == int(b.num_final) >= 2,
              "card and CPU frames agree")
     _same_rows(_rows(a)[:, :2], _rows(b)[:, :2], rtol=1e-4)
+    _require(int(a16.num_final) == int(b16.num_final) >= 2,
+             "card and CPU frames agree at bf16 operands")
+    _same_rows(_rows(a16)[:, :2], _rows(b16)[:, :2], rtol=1e-3)
 
     ref_cfg = full_config()
     ref_pre = precompute(ref_cfg)
@@ -3256,24 +3587,42 @@ def main() -> int:
                                        "moments_pallas_normal")},
           tol="bit 0; rolling <= 2^-7 max|y|; |var ratio-1|<0.02, "
               "|mean|<1e-2")
-    _require(val["bit_check"]["pass"], "K1 on K1c planes == K1 draw mode")
-    _require(val["rolling_check"]["pass"], "K4 within 2^-7 max|y| of K1")
+    _require(val["bit_check"]["pass"]
+             and val["bit_check"]["max_abs_diff"] == 0.0,
+             "K1 on K1c planes == K1 draw mode (bf16 operands)")
+    _require(val["rolling_check"]["pass"]
+             and val["rolling_check"]["max_abs_diff"] == 0.0,
+             "K4 == K1 (bf16 operands)")
+    _require(val_launches["K1_bf16"] == val_launches["K1"]
+             and val_launches["K4_bf16"] == val_launches["K4"] == 1
+             and val_launches["K1c_bf16"] >= 1,
+             "the validation checks ran K1, K4 and K1c at bf16, and the "
+             "moments each route's 8 frames at the card's dtypes")
     _require(val["moments_pass"], "moments of K1 draws vs the pallas route")
     _require(all(val_launches[k] >= 1 for k in ("K1", "K1c", "K4")),
              "the validation path launched K1, K1c and K4")
     _require(val_launches["K1c"] == 1,
              "K1c: one launch for the three segments of one call")
 
-    # K1c at full size vs its plain version, bit for bit
+    # K1c at full size vs its plain version, bit for bit: the f32 planes
+    # and (the validation's) the bf16 rows
+    k1c16_planes = k1c_planes
+    k1c_planes = nr.gen_noise_planes(plan, vseed, num_b, device=dev)
     ph_planes = nr.philox_planes(plan, vseed, num_b, device=dev)
     torch.cuda.synchronize()
+    same16 = [bool(torch.equal(a, c.to(torch.bfloat16))
+                   and torch.equal(b, d.to(torch.bfloat16)))
+              for (a, b), (c, d) in zip(k1c16_planes, ph_planes)]
+    del k1c16_planes
     same = [bool(torch.equal(a, c) and torch.equal(b, d))
             for (a, b), (c, d) in zip(k1c_planes, ph_planes)]
     k1c_err = max(float((a - c).abs().max()) for (a, _), (c, _) in
                   zip(k1c_planes, ph_planes))
     _line("K1c", planes=[list(a.shape) for a, _ in k1c_planes],
-          identical_per_segment=same, max_abs_err=k1c_err, tol="bit-equal")
-    _require(all(same), "K1c == philox_planes bit for bit")
+          identical_per_segment=same, max_abs_err=k1c_err,
+          bf16_identical_to_rounded=same16, tol="bit-equal")
+    _require(all(same) and all(same16), "K1c == philox_planes bit for bit "
+             "(f32; bf16: rounded)")
 
     # K4 at full size vs its plain version (K1's tolerances) and vs K1
     ref_noise = nr.noise_rdm_plain(plan, lmat, ph_planes)
@@ -3282,6 +3631,7 @@ def main() -> int:
     # K4: draws made in the PC's blocks; every beams_per_step gives the
     # same map, and draw mode equals planes mode on K1c's planes bit for bit
     k4, first = {}, None
+    k4_f32_calls = nr.k4_launch_count - nr.k4_bf16_launch_count
     for bps in (num_b, 1, 2):
         y4 = nr.noise_rdm(plan, lmat, seed=vseed, layout="bvg",
                           rolling=False, beams_per_step=bps)
@@ -3312,9 +3662,18 @@ def main() -> int:
     _require(k4_planes_same and nr.k4_pc_launch_count - before == 1,
              "K4 draw mode == K4 planes mode on K1c's planes, one PC launch")
     k4_err = k4[num_b]["max_abs_err"]
+    k4_f32_calls = nr.k4_launch_count - nr.k4_bf16_launch_count \
+        - k4_f32_calls
     del ph_planes, k1c_planes, ref_noise, k1_noise, y4, d4, y4p, first
 
+    # ---- 12b. phase k1_bf16: K1, K4, K1's planes mode and K1c at bf16
+    # operands, the main path's arithmetic on the card (launches: the perf
+    # SNR sweep's, the validation's K4 and the "pallas" route's frame,
+    # filled in below)
+    k1_bf16_args = (nr, plan, lmat, factors, seed, card)
+
     # ---- 13. the rank-K stream's three routes at full size
+    route_launches = {}
     route_cfgs = {"pallas_prng": cfg,
                   "pallas_uniform": cfg.replace(noise_rdm_impl="pallas"),
                   "pallas_normal": cfg.replace(noise_rdm_impl="pallas",
@@ -3336,10 +3695,13 @@ def main() -> int:
         _require(bool(np.all(np.isfinite(rows))) and all(found),
                  f"{label}: truth targets found")
         _require(got["K2"] >= 1 and (got["K1"] == 0 if label == "xla"
-                                     else got["K1"] >= 1),
-                 f"{label}: K1 launched on the kernel routes only")
+                                     else got["K1"] == got["K1_bf16"] >= 1),
+                 f"{label}: K1 launched on the kernel routes only, at bf16 "
+                 "operands")
+        route_launches[label] = got
 
-    # small widths: each route on the card vs the CPU on the same noise
+    # small widths: each route on the card vs the CPU on the same noise,
+    # at f32 operands on both (K1's f32 kernels on the card)
     small32 = small_test_config().replace(
         **{**PERF_OVERRIDES, "matmul_precision": "f32"})
     for label, over in (("pallas_prng", {}),
@@ -3350,7 +3712,8 @@ def main() -> int:
                                  "noise_dist": "normal"})):
         cfg_s = small32.replace(**over)
         cpu = make_frame_processor(cfg_s, device="cpu")
-        on_card = make_frame_processor(cfg_s, device=dev)
+        on_card = make_frame_processor(cfg_s, device=dev,
+                                       accelerator_dtypes=False)
         st_c = cpu.stages
         if label == "xla":
             z = st_c.gen_noise(5)
@@ -3374,7 +3737,8 @@ def main() -> int:
     snrs = [-10.0, 0.0, 10.0, 20.0, 30.0]
     sweeps = {}
     for label, cfg_m, pre_m, vec, n_tr, want in (
-            ("perf", cfg, pre, snrs, 16, {"K1": 80, "K2": 80}),
+            ("perf", cfg, pre, snrs, 16, {"K1": 80, "K2": 80,
+                                          "K1_bf16": 80, "K1c_bf16": 80}),
             ("reference", ref_cfg, ref_pre, [10.0], 8, {"K3": 8}),
             ("xla", perf_config(pallas=False), pre, [10.0], 8, {"K2": 8})):
         reset()
@@ -3396,6 +3760,12 @@ def main() -> int:
                  f"{label} sweep: Pd = 1 at every point")
         _require(bool(np.all(sw.angle_error_std < sw.theory_bound)),
                  f"{label} sweep: sigma below the theory bound")
+
+    bf16_rows = _k1_bf16(*k1_bf16_args, track_launches["K1"], {
+        "K1_bf16": sweeps["perf"]["K1_bf16"],
+        "K1c_bf16": sweeps["perf"]["K1c_bf16"],
+        "K4_bf16": val_launches["K4_bf16"],
+        "K1_planes_bf16": route_launches["pallas_uniform"]["K1_bf16"]})
 
     # ---- 15. streaming Monte-Carlo, perf config, 128 injected targets
     # (8 per scene), then the statistical hold at the hold's own scene
@@ -3484,7 +3854,7 @@ def main() -> int:
     # draws, on every SM at the SM clock nvidia-smi reads (its maximum:
     # the least time)
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
-                          "planes_kernelILb1E")
+                          "planes_kernelIfLb1E")
     sm_mhz, sm_max_mhz = _sm_clocks()
     n_drawn = sum(num_b * plan.n_pulses * (sg.xlen - sg.pad_front)
                   for sg in plan.segments)
@@ -3674,10 +4044,11 @@ def main() -> int:
     # K4 reads nothing: the map written once
     k4_bytes_ms = num_b * plan.n_dop * plan.n_gates * 8 / PEAK_HBM * 1e3
     kernels = [
-        ("K1 noise RDM (draw mode, rank-K signal): K1c planes + 3xTF32 "
-         "strip-GEMM PC + mix + 3xTF32 DFT GEMM; emit_maps and bf16 "
+        ("K1 noise RDM, f32 operands (mul_dtype=float32, "
+         "accelerator_dtypes=False; draw mode, rank-K signal): K1c planes + "
+         "3xTF32 strip-GEMM PC + mix + 3xTF32 DFT GEMM; emit_maps and bf16 "
          "output in the maps epilogue add_maps_kernel", "noise_rdm_sm90.cu",
-         "radar_tpu/ops/pallas_rdm.py:980", sweeps["perf"]["K1"], k1_err,
+         "radar_tpu/ops/pallas_rdm.py:980", f32_calls[0], k1_err,
          k1_busy_ms, k1_plain_ms, *_bound(k1_tf32_bound, k1_bytes_ms), None,
          {"ms_is": "events around one call, the card kept busy",
           "idle_card_ms": k1_noise_ms, "idle_card_ms_with_signal": k1_ms,
@@ -3685,7 +4056,7 @@ def main() -> int:
           "bound_fp32_cuda_cores_ms": k1_fp32_bound,
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
           "bytes_bound_ms": k1_bytes_ms, "cublas_chain_ms": cublas_ms,
-          "tracking_launches_a_headline_run": track_launches["K1"],
+          "launches_from": "the f32 checks of K1 at full size",
           **tails_extra}),
         ("K2 2D GOCA-CFAR on qvg maps (TMA-staged, compiled-in window)",
          "cfar.cu", "radar_tpu/ops/pallas_kernels.py:234",
@@ -3710,8 +4081,9 @@ def main() -> int:
           "randn_only_ms": k5_randn_ms,
           "randn_only_note": "torch.randn draws and writes the cube only: "
                              "half K5's bytes (x read, x + n written)"}),
-        ("K1c noise-plane export (draw mode's Philox planes)", "noise_rdm.cu",
-         "radar_tpu/ops/pallas_rdm.py:1052", val_launches["K1c"], k1c_err,
+        ("K1c noise-plane export (draw mode's Philox planes), f32",
+         "noise_rdm.cu", "radar_tpu/ops/pallas_rdm.py:1052", f32_calls[1],
+         k1c_err,
          k1c_busy_ms, k1c_plain_ms,
          *_bound(k1c_issue_ms, k1c_bytes_ms), k1c_lib_busy_ms,
          {"ms_is": "events around one call, the card kept busy",
@@ -3724,7 +4096,8 @@ def main() -> int:
         ("K4 noise RDM, window schedule: K1's 3xTF32 GEMMs, the PC's data "
          "drawn in its blocks (13 beams walked a block)",
          "noise_rdm_sm90.cu", "radar_tpu/ops/pallas_rdm.py:980 "
-         "(rolling=False)", val_launches["K4"], k4_err, k4_busy[num_b][0],
+         "(rolling=False), f32 operands", k4_f32_calls, k4_err,
+         k4_busy[num_b][0],
          k4_plain_ms, *_bound(k1_tf32_bound, k4_bytes_ms), None,
          {"ms_is": "events around one call, the card kept busy",
           "idle_card_ms": k4_ms, "host_ms": k4_busy[num_b][1],
@@ -3734,7 +4107,7 @@ def main() -> int:
           "profile_ms_1_beam_a_block": k4_split,
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
           "bound_fp32_cuda_cores_ms": k1_bound,
-          "bytes_bound_ms": k4_bytes_ms})] + study_rows
+          "bytes_bound_ms": k4_bytes_ms})] + bf16_rows + study_rows
     # a row may end with a dict of extra keys
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -30,10 +30,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "radar_tpu_torch")
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # K2, K3 and K5 must match their plain versions' rounding: no FMA
-# contraction; the noise-RDM kernels are held by RMS-relative bounds and
-# may contract
-_EXTRA = {"noise_rdm": [], "noise_rdm_sm90": [], "rdm_variants": [],
-          "band_pc_sm90": [], "rdm_sm90": [],
+# contraction; so must K1c's bf16 rows (the rounded f32 planes, bit for
+# bit) and the mix's pair maps (the plain version's of the unrounded map),
+# so noise_rdm and rdm_variants do not contract either; the GEMMs of the
+# noise-RDM kernels are held by RMS-relative bounds and may contract
+_EXTRA = {"noise_rdm": ["-fmad=false"], "noise_rdm_sm90": [],
+          "rdm_variants": ["-fmad=false"], "band_pc_sm90": [], "rdm_sm90": [],
           "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": []}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -41,7 +43,7 @@ _F, _LL = ctypes.c_float, ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 _SIGNATURES = {
     "noise_rdm": {
-        "k1c_planes": [_P, _I, _U, _U, _F, _I, _I, _P, _P],
+        "k1c_planes": [_P, _I, _U, _U, _F, _I, _I, _I, _P, _P],
     },
     "noise_rdm_sm90": {
         "k1_tf32_pc": [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -53,7 +55,8 @@ _SIGNATURES = {
                         _P, _I, _P, _P, _P, _LL, _LL, _P],
     },
     "rdm_variants": {
-        "rv_mix": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P],
+        "rv_mix": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _LL,
+                   _LL, _P, _P],
     },
     "rdm_sm90": {
         "rs_dft": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],

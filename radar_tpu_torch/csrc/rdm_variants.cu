@@ -25,6 +25,17 @@
 //
 // mix_kernel: a thread owns one (v, g) of every beam, L in shared memory; it
 // reads the bf16 mt planes and writes the f32 map once, so bytes bound it.
+// It is also the tail of K1's (and K4's) bf16 path (ops/noise_rdm.py::
+// _bf16_chain; radar_tpu/ops/pallas_rdm.py::noise_rdm_pallas_gen at its
+// default bf16 mul_dtype, whose rolling kernel mixes after the DFT too,
+// _mix_vals :159-172, then adds the signal, :447-468). For the kernel-maps
+// tail it writes, as the TPU kernel does from its resident f32 tiles
+// (:469-478), the adjacent-beam pair maps |y_b| + |y_b+1| of the UNROUNDED
+// f32 map (after the signal) into K2's padded qvg buffer: the thread walks
+// the beams in order and keeps the previous beam's magnitude in a register,
+// so the maps cost their own bytes written and no second pass over the map
+// (the f32 path's add_maps_kernel reads the map again). The magnitude is
+// sqrt(re*re + im*im) rounded at each step, as the plain version's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,12 +79,11 @@ struct Signal {
 };
 
 // y[b] = sum_c L[b,c] x[c] as the TPU's two real contractions (lr.x and
-// li.x, combined once), plus the rank-K signal, rounded when asked (the
-// resident variant's bf16 output planes).
+// li.x, combined once), plus the rank-K signal; unrounded.
 __device__ __forceinline__ float2 mix_out(const float2* sl, int num_b, int b,
                                           const float2 (&x)[kMaxB], int v,
                                           int g, int num_v, int num_g,
-                                          const Signal& s, bool round_out) {
+                                          const Signal& s) {
   float rr = 0.f, ii = 0.f, ri = 0.f, ir = 0.f;
 #pragma unroll
   for (int c = 0; c < kMaxB; ++c) {
@@ -93,18 +103,21 @@ __device__ __forceinline__ float2 mix_out(const float2* sl, int num_b, int b,
     yr += st.x * orr - st.y * oi;
     yi += st.x * oi + st.y * orr;
   }
-  if (round_out) {
-    yr = rnd<__nv_bfloat16>(yr);
-    yi = rnd<__nv_bfloat16>(yi);
-  }
   return make_float2(yr, yi);
 }
+
+// The pair maps' destination: column 0 of pair 0's interior in K2's padded
+// qvg layout (row stride ld, plane stride plane), or none.
+struct Maps {
+  float* m;
+  long long ld, plane;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const T* __restrict__ mtr, const T* __restrict__ mti,
            const float2* __restrict__ lmat, int num_b, int num_v, int num_g,
-           Signal s, int round_out, float2* __restrict__ out) {
+           Signal s, int round_out, Maps maps, float2* __restrict__ out) {
   __shared__ float2 sl[kMaxB * kMaxB];
   for (int i = threadIdx.x; i < num_b * num_b; i += blockDim.x) sl[i] = lmat[i];
   __syncthreads();
@@ -119,22 +132,36 @@ mix_kernel(const T* __restrict__ mtr, const T* __restrict__ mti,
                                      Num<T>::f32(mti[c * pg + i]))
                        : make_float2(0.f, 0.f);
     const int v = (int)(i / num_g), g = (int)(i - (long long)v * num_g);
-    for (int b = 0; b < num_b; ++b)
-      out[b * pg + i] = mix_out(sl, num_b, b, x, v, g, num_v, num_g, s,
-                                round_out != 0);
+    float* m =
+        maps.m == nullptr ? nullptr : maps.m + (long long)v * maps.ld + g;
+    float prev = 0.f;
+    for (int b = 0; b < num_b; ++b) {
+      float2 y = mix_out(sl, num_b, b, x, v, g, num_v, num_g, s);
+      if (m != nullptr) {
+        const float mag = __fsqrt_rn(
+            __fadd_rn(__fmul_rn(y.x, y.x), __fmul_rn(y.y, y.y)));
+        if (b > 0) m[(long long)(b - 1) * maps.plane] = __fadd_rn(prev, mag);
+        prev = mag;
+      }
+      if (round_out) {
+        y.x = rnd<__nv_bfloat16>(y.x);
+        y.y = rnd<__nv_bfloat16>(y.y);
+      }
+      out[b * pg + i] = y;
+    }
   }
 }
 
 template <typename T>
 int launch_mix(const void* mtr, const void* mti, const void* lmat, int num_b,
-               int num_v, int num_g, Signal s, int round_out, void* out,
-               cudaStream_t st) {
+               int num_v, int num_g, Signal s, int round_out, Maps maps,
+               void* out, cudaStream_t st) {
   long long blocks = ((long long)num_v * num_g + kThreads - 1) / kThreads;
   if (blocks > 65535) blocks = 65535;
   mix_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
       static_cast<const T*>(mtr), static_cast<const T*>(mti),
       static_cast<const float2*>(lmat), num_b, num_v, num_g, s, round_out,
-      static_cast<float2*>(out));
+      maps, static_cast<float2*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -153,15 +180,17 @@ const char* radar_error_string(int code) {
 
 // The bf16 schedules' mix: out [B, V, G] complex64 = L mt (+ sum_k st[k,b]
 // dv[k,v] pb[k,g]) of the bf16 planes mtr, mti [B, V, G]; with round_out
-// the output values are rounded to bf16.
+// the output values are rounded to bf16; with maps (not null) also the
+// pair maps of the unrounded map at maps[q * plane + v * ld + g].
 int rv_mix(const void* mtr, const void* mti, const void* lmat, int num_b,
            int num_v, int num_g, const void* dv, const void* pb,
-           const void* st_, int num_k, int round_out, void* out,
-           void* stream) {
+           const void* st_, int num_k, int round_out, void* maps,
+           long long ld, long long plane, void* out, void* stream) {
   if (num_b > kMaxB) return (int)cudaErrorInvalidValue;
-  return launch_mix<__nv_bfloat16>(mtr, mti, lmat, num_b, num_v, num_g,
-                                   make_signal(dv, pb, st_, num_k), round_out,
-                                   out, static_cast<cudaStream_t>(stream));
+  return launch_mix<__nv_bfloat16>(
+      mtr, mti, lmat, num_b, num_v, num_g, make_signal(dv, pb, st_, num_k),
+      round_out, Maps{static_cast<float*>(maps), ld, plane}, out,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,10 +12,11 @@ with x_c the white uniform noise planes of beam c, PC_seg the segment's
 causal convolution, D the MTD DFT matrix, L the 13x13 Cholesky factor of
 the DBF-output noise covariance and (dv, pb, st) the rank-K signal factors.
 
-Kernel K1 (``csrc/noise_rdm_sm90.cu``) computes this on the card's tensor
-cores: the PC of each segment as a strip GEMM and the DFT as a GEMM, both
-in 3xTF32 (each f32 operand split into TF32 parts hi + lo, three products
-summed in f32: ``_split_tf32``, the plan's ``strip_tf32`` and ``d_tf32``),
+At float32 multiplies, kernel K1 (``csrc/noise_rdm_sm90.cu``) computes
+this on the card's tensor cores: the PC of each segment as a strip GEMM
+and the DFT as a GEMM, both in 3xTF32 (each f32 operand split into TF32
+parts hi + lo, three products summed in f32: ``_split_tf32``, the plan's
+``strip_tf32`` and ``d_tf32``),
 the beam mix between them. It reads given planes (planes mode) or, in draw
 mode, the planes kernel K1c writes first (``gen_noise_planes``), so the
 two modes agree bit for bit. Kernel K4 (the same source), the schedule of
@@ -28,6 +29,17 @@ into K2's padded qvg layout (``maps_buffer``; plain version
 ``pair_maps_plain``), and ``out_dtype=torch.bfloat16`` rounds its map to
 bfloat16 values; both in one epilogue that walks the beams
 (``add_maps_kernel``), in place of the sum of the DFT's passes.
+
+With bfloat16 multiplies (``mul_dtype=torch.bfloat16``, the TPU kernel's
+default and what JAX runs on its accelerator) K1 and K4 take the TPU's
+arithmetic (``_beams_bf16``): K1 draws each sample once, as the TPU's
+rolling kernel does, into bf16 rows in the strip GEMM's layout (K1c's bf16
+mode), the strip GEMM (below) compresses them, the wgmma DFT GEMM follows
+and the mix (``csrc/rdm_variants.cu``) mixes the beams after the DFT, adds
+the signal in f32, rounds to ``out_dtype`` and with ``emit_maps`` writes the
+pair maps of the unrounded map. K4 runs the same launches with its PC's
+data drawn in the strip GEMM's producers (``strip_pc_draw``), so it equals
+K1 bit for bit; planes mode runs the strip GEMM on the given planes.
 
 The planes kernel's other schedules (``variant=`` of ``noise_rdm_pallas``,
 the TPU's A/B entry point) run in the TPU's arithmetic for a multiply type
@@ -85,26 +97,35 @@ STRIP_BK = 64                         # k depth of its stages (128-byte rows)
 TF32_BK = 32                          # k depth of K1's TF32 GEMM stages
 
 launch_count = 0                      # K1 calls (PC + mix + DFT GEMMs; with
-                                      # K1c's planes first in draw mode)
+                                      # K1c's planes first in draw mode),
+                                      # either multiply type
+k1_bf16_launch_count = 0              # K1 calls with bf16 operands
 k4_launch_count = 0                   # K4 calls (rolling=False)
+k4_bf16_launch_count = 0              # K4 calls with bf16 operands
 k4_pc_launch_count = 0                # K4's PC launches (its drawing GEMM;
                                       # K7's f32 draw mode too)
 k1c_launch_count = 0                  # K1c launches (gen_noise_planes calls)
 k1c_draw_launch_count = 0             # K1c launches inside K1's draw mode
+k1c_bf16_launch_count = 0             # K1c launches writing bf16 rows (either
+                                      # context)
 k7_launch_count = 0                   # K7 launches ("stacked", stacked=True)
 k9_launch_count = 0                   # K9 launches ("allbeams")
 k10_launch_count = 0                  # K10 launches ("resident")
-strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K7,
-                                      # K10, K9 planes mode and of K8)
+strip_pc_launch_count = 0             # strip-GEMM launches (bf16 PC of K1,
+                                      # K7, K10, K9 planes mode and of K8)
 strip_pc_draw_launch_count = 0        # strip-GEMM launches in draw mode
-                                      # (K7's bf16 draw mode)
-dft_launch_count = 0                  # bf16 DFT-GEMM launches (K10, K7, K9)
+                                      # (K4's and K7's bf16 draw mode)
+dft_launch_count = 0                  # bf16 DFT-GEMM launches (K1, K4, K10,
+                                      # K7, K9)
 tf32_pc_launch_count = 0              # K1's 3xTF32 PC launches (K1 and the
                                       # f32 planes schedules K10, K7, K9)
 tf32_dft_launch_count = 0             # K1's 3xTF32 DFT launches (K1, K4
                                       # and the f32 schedules)
 maps_launch_count = 0                 # K1's emit_maps / bf16-output
                                       # epilogue (add_maps_kernel) launches
+                                      # at f32 (K4's bf16 output too), and
+                                      # at bf16 the mix's launches that
+                                      # write the pair maps
 
 
 class RdmSegSpec(NamedTuple):
@@ -475,8 +496,9 @@ def _signal_args(signal, dev, num_b, num_v, num_g):
 
 
 def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
-    """Segment ``si``'s planes as contiguous ``dtype`` [B, P, >= xlen] on
-    the card: (xr, xi)."""
+    """Segment ``si``'s planes as ``dtype`` [B, P, >= xlen] on the card:
+    (xr, xi), contiguous, or at bf16 as given where they already are bf16
+    (``_bf16_rows`` takes K1c's padded rows as they are)."""
     xr, xi = planes[si]
     if (xr.device != dev or xr.dtype not in (torch.float32, dtype)
             or xr.shape != xi.shape or xr.dim() != 3
@@ -487,6 +509,8 @@ def _kernel_planes(planes, si, seg, dev, num_b, num_p, dtype):
                          "the card")
     # freed tensors are reused only by later work on this stream, so
     # temporaries may go out of scope before the kernel runs
+    if dtype == torch.bfloat16:
+        return xr[:, :num_p].to(dtype), xi[:, :num_p].to(dtype)
     return (xr[:, :num_p].to(dtype).contiguous(),
             xi[:, :num_p].to(dtype).contiguous())
 
@@ -665,11 +689,13 @@ def k4_table(plan: RdmPlan, xs=None) -> list:
 
 
 def _k4_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
-             beams_per_step):
+             beams_per_step, round_out: bool = False):
     """K4 (``csrc/noise_rdm_sm90.cu``, ``k4_pc_kernel``): K1's 3xTF32
     strip-GEMM PC, both passes in one launch on each stage, the data's stage
     drawn in the block (draw mode; in planes mode loaded by TMA),
-    ``beams_per_step`` beams walked a block, then K1's mix and DFT GEMM."""
+    ``beams_per_step`` beams walked a block, then K1's mix and DFT GEMM;
+    ``round_out`` rounds the map to bfloat16 values in K1's epilogue that
+    walks the beams."""
     global k4_launch_count
     num_b, num_p = l_factor.shape[0], plan.n_pulses
     lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
@@ -678,7 +704,8 @@ def _k4_cuda(plan: RdmPlan, l_factor, signal, seed, planes,
         planes, plan, lmat.device, num_b, num_p)
     _k4_pc(lib, plan, xs, seed, num_b, p4, beams_per_step, ptrs,
            lmat.device, stream)
-    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream)
+    _tf32_tail(lib, plan, lmat, sig, p4, ptrs, out, stream,
+               round_out=round_out)
     k4_launch_count += 1
     return out
 
@@ -712,6 +739,19 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     return x.reshape(-1, x.shape[-1])
+
+
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """bf16 [B, P, n] planes as [B*P, n] rows for the strip GEMM's TMA: a
+    view where the rows already lie one after the other at a 16-byte
+    stride (K1c's bf16 rows, ``gen_noise_planes(dtype=torch.bfloat16)``),
+    else ``_rows16`` of a contiguous copy."""
+    num_b, num_p, n = x.shape
+    ld = x.stride(1)
+    if (x.stride(2) == 1 and ld % 8 == 0 and x.stride(0) == num_p * ld
+            and x.data_ptr() % 16 == 0):
+        return x.as_strided((num_b * num_p, n), (ld, 1))
+    return _rows16(x.contiguous())
 
 
 def strip_pc_draw(plan: RdmPlan, seed: tuple[int, int], num_b: int,
@@ -913,12 +953,19 @@ def _variant_tf32(plan: RdmPlan, l_factor, signal, seed, planes,
     return out
 
 
-def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
-                  schedule: str, out_dtype):
-    """K10 (``schedule="resident"``), K7 (``"stacked"``, planes or draws)
-    or K9 (``"allbeams"``) with bfloat16 operands: the PC (the strip GEMM,
-    one launch for the three segments: on planes ``strip_pc``, in draw
-    mode ``strip_pc_draw``), the wgmma DFT GEMM (``dft``), then the mix."""
+def _bf16_chain(plan: RdmPlan, l_factor, signal, seed, planes, *,
+                draw: str = "gemm", round_out: bool = False,
+                emit_maps: bool = False):
+    """The bf16 path of K1, K4 and the planes schedules K10, K7, K9: the PC
+    (the strip GEMM, one launch for the three segments: ``strip_pc`` on
+    ``planes``; in draw mode with ``draw="k1c"`` (K1, the TPU's rolling
+    kernel: each sample drawn once) on the bf16 rows that K1c writes first,
+    with ``draw="gemm"`` (K4, K7) ``strip_pc_draw``, its producers drawing
+    each stage), the wgmma DFT GEMM (``dft``), then the mix, which adds the
+    signal, rounds the map to bfloat16 values with ``round_out`` and, with
+    ``emit_maps``, writes the pair maps of the unrounded map into a
+    ``maps_buffer``. Returns (map [B, V, G], maps or None)."""
+    global k1c_draw_launch_count, k1c_bf16_launch_count
     from .. import _build
 
     lib = _build.load("rdm_variants")
@@ -939,12 +986,19 @@ def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
     pcr = torch.empty((num_b, num_p, ld), dtype=bf, device=dev)
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if planes is None and draw == "k1c":
+        buf = torch.empty(_k1c_table(plan, num_b, bf)[2], dtype=bf,
+                          device=dev)
+        planes = _k1c_views(buf, _k1c_launch(plan, seed, num_b, buf, stream),
+                            num_b, num_p)
+        k1c_draw_launch_count += 1
+        k1c_bf16_launch_count += 1
     if planes is not None:
         segs = []
         for si, seg in enumerate(plan.segments):
             xr, xi = _kernel_planes(planes, si, seg, dev, num_b, num_p, bf)
-            segs.append((_rows16(xr), _rows16(xi), seg.strip, seg.j_len,
-                         seg.g0))
+            segs.append((_bf16_rows(xr), _bf16_rows(xi), seg.strip,
+                         seg.j_len, seg.g0))
         strip_pc(segs, num_b * num_p, ld, outr=pcr, outi=pci)
     else:
         strip_pc_draw(plan, seed, num_b, pcr, pci)
@@ -953,13 +1007,42 @@ def _variant_bf16(plan: RdmPlan, l_factor, signal, seed, planes,
     mtr = torch.empty((num_b, num_v, num_g), dtype=bf, device=dev)
     mti = torch.empty_like(mtr)
     dft(plan, pcr, pci, num_g, mtr, mti)
+    maps, maps_args = None, (None, 0, 0)
+    if emit_maps:
+        from .cfar_kernel import HALO
+
+        maps = maps_buffer(num_b - 1, num_v, num_g, dev)
+        maps_args = (maps.data_ptr() + 4 * HALO, maps.shape[2],
+                     maps.shape[1] * maps.shape[2])
     _build.check(lib, lib.rv_mix(mtr.data_ptr(), mti.data_ptr(),
                                  lmat.data_ptr(), num_b, num_v, num_g,
-                                 *sig_ptrs, num_k,
-                                 int(out_dtype != torch.float32),
-                                 out.data_ptr(), stream), "rv_mix")
-    _count_schedule(schedule)
-    return out
+                                 *sig_ptrs, num_k, int(round_out),
+                                 *maps_args, out.data_ptr(), stream),
+                 "rv_mix")
+    return out, maps
+
+
+def _beams_bf16(plan: RdmPlan, l_factor, signal, seed, planes, *,
+                rolling: bool, round_out: bool, emit_maps: bool):
+    """K1 (``rolling``) or K4 with bfloat16 operands, the TPU kernel's
+    default multiply type (``_bf16_chain``): K1 draws each sample once
+    (K1c's bf16 rows, then the strip GEMM on them), K4 in the strip GEMM's
+    producers (K7's drawing PC); both then run the same launches, so K4
+    equals K1 bit for bit, and draw mode equals planes mode on the same
+    draws."""
+    global launch_count, k1_bf16_launch_count, maps_launch_count
+    global k4_launch_count, k4_bf16_launch_count
+    out, maps = _bf16_chain(plan, l_factor, signal, seed, planes,
+                            draw="k1c" if rolling else "gemm",
+                            round_out=round_out, emit_maps=emit_maps)
+    if rolling:
+        launch_count += 1
+        k1_bf16_launch_count += 1
+        maps_launch_count += int(emit_maps)
+    else:
+        k4_launch_count += 1
+        k4_bf16_launch_count += 1
+    return (out, maps) if emit_maps else out
 
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -985,15 +1068,6 @@ def _check_schedule(planes, rolling, beams_per_step, variant, stacked,
         # as radar_tpu/ops/pallas_rdm.py:760-765: these schedules write f32
         raise ValueError(f"variant {variant!r} implements float32 output "
                          "only")
-    if variant == "beams" and not stacked and (
-            mul_dtype != torch.float32
-            or (out_dtype != torch.float32 and not rolling)):
-        raise NotImplementedError(
-            "variant='beams' (K1, and K4 with rolling=False) multiplies in "
-            "float32 only, and K4 writes float32 only: bfloat16 operands "
-            "run in the variants 'resident', 'stacked', 'allbeams' and in "
-            "draw mode with stacked=True; K1 takes "
-            "out_dtype=torch.bfloat16")
     if rolling:
         if beams_per_step is not None:
             raise ValueError("beams_per_step= sets the schedule of "
@@ -1013,26 +1087,31 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
     the kernel (or raises), a CPU tensor the plain version. ``rolling``
     (the default) runs K1; ``rolling=False`` runs K4, the schedule of the
     TPU's non-rolling kernel, with ``beams_per_step`` beams per block
-    (default 1; any value gives the same draws, keyed by the true beam).
+    (default 1; any value gives the same draws, keyed by the true beam; at
+    bfloat16 the strip GEMM's producers draw by rows, whatever the value).
     ``layout="bvg"`` returns the native [B, V, G]; ``"vgb"`` the [V, G, B]
     view.
 
     ``variant`` (planes mode) picks the schedule of the TPU's planes
     kernel: ``"beams"`` (K1), ``"resident"`` (K10), ``"stacked"`` (K7),
     ``"allbeams"`` (K9); ``stacked=True`` (draw mode) runs K7 on K1's
-    draws. These take ``mul_dtype`` float32 or bfloat16; ``out_dtype``
-    bfloat16 rounds the output of ``"resident"`` and of ``stacked=True``
-    (``"stacked"``/``"allbeams"`` raise ``ValueError`` as JAX does). K1 and
-    K4 multiply in float32 only and raise ``NotImplementedError`` for
-    bfloat16 operands; K1 takes ``out_dtype`` bfloat16 (its map rounded
-    to bfloat16 values, ``cfg.kernel_out_bf16``), K4 raises for it.
+    draws. All take ``mul_dtype`` float32 or bfloat16. The default here is
+    float32 (K1's and K4's 3xTF32 GEMMs), where JAX's default is bfloat16:
+    the callers pass JAX's effective dtypes (``pipeline/lowrank.py::
+    route_dtypes``). At bfloat16, K1 and K4 are the TPU kernel's default
+    arithmetic (``_beams_bf16``): planes, filter, D and L rounded, the PC
+    and the DFT rounded, the mix after the DFT, the signal in f32.
+    ``out_dtype`` bfloat16 rounds the output (``cfg.kernel_out_bf16``,
+    and JAX's noise-only maps on its accelerator) of K1, K4,
+    ``"resident"`` and ``stacked=True`` (``"stacked"``/``"allbeams"``
+    raise ``ValueError`` as JAX does).
 
     ``emit_maps`` (K1 with a ``signal``: ``cfg.kernel_maps``) returns
     ``(rdm, maps)``: ``maps`` are the adjacent-beam sum maps |y_b| +
     |y_b+1| of the unrounded map in K2's padded qvg layout
     (``maps_buffer``; interior ``[:, :V, HALO:HALO + G]``), written by the
-    epilogue that walks the beams, as the TPU's kernel writes them from its
-    resident f32 tiles."""
+    epilogue that walks the beams (at bfloat16 by the mix), as the TPU's
+    kernel writes them from its resident f32 tiles."""
     if (seed is None) == (planes is None):
         raise ValueError("give exactly one of seed= and planes=")
     if layout not in ("vgb", "bvg"):
@@ -1050,19 +1129,25 @@ def noise_rdm(plan: RdmPlan, l_factor: torch.Tensor, signal=None, *,
             raise ValueError(f"beams_per_step={beams_per_step} is not in "
                              f"[1, {num_b}]")
     schedule = "stacked" if stacked else variant
+    round_out = out_dtype != torch.float32
     if l_factor.is_cuda:
-        if schedule == "beams" and rolling:
+        if schedule == "beams" and mul_dtype == torch.bfloat16:
+            bm = _beams_bf16(plan, l_factor, signal, seed, planes,
+                             rolling=rolling, round_out=round_out,
+                             emit_maps=emit_maps)
+        elif schedule == "beams" and rolling:
             bm = _k1_cuda(plan, l_factor, signal, seed, planes,
-                          round_out=out_dtype != torch.float32,
-                          emit_maps=emit_maps)
+                          round_out=round_out, emit_maps=emit_maps)
         elif schedule == "beams":
             bm = _k4_cuda(plan, l_factor, signal, seed, planes,
-                          beams_per_step)
+                          beams_per_step, round_out)
+        elif mul_dtype == torch.float32:
+            bm = _variant_tf32(plan, l_factor, signal, seed, planes,
+                               schedule, out_dtype)
         else:
-            variant_cuda = (_variant_tf32 if mul_dtype == torch.float32
-                            else _variant_bf16)
-            bm = variant_cuda(plan, l_factor, signal, seed, planes, schedule,
-                              out_dtype)
+            bm, _ = _bf16_chain(plan, l_factor, signal, seed, planes,
+                                round_out=round_out)
+            _count_schedule(schedule)
     else:
         if planes is None:
             planes = philox_planes(plan, seed, num_b, device=l_factor.device)
@@ -1093,16 +1178,23 @@ def noise_rdm_compact(z: torch.Tensor, plan: RdmPlan,
 # ------------------------------------------------------------ K1c
 
 
-def k1c_layout(plan: RdmPlan, num_b: int):
-    """K1c's one allocation: ``(table, spans, floats)``, where ``table``
-    holds per segment ``pad_front, xlen`` and the float offsets of its re
-    and im planes (each on a 256-byte boundary), ``spans`` per segment
-    ``(re offset, im offset, plane size, xlen)`` and ``floats`` the
-    allocation's length."""
+def k1c_row_len(xlen: int, dtype=torch.float32) -> int:
+    """A row of K1c's planes: xlen values in f32; in bf16 xlen padded with
+    zero columns to a multiple of 8 (16 bytes: the strip GEMM's TMA rows)."""
+    return xlen if dtype == torch.float32 else -(-xlen // 8) * 8
+
+
+def k1c_layout(plan: RdmPlan, num_b: int, dtype=torch.float32):
+    """K1c's one allocation of ``dtype`` values: ``(table, spans, n)``,
+    where ``table`` holds per segment ``pad_front, xlen`` and the offsets of
+    its re and im planes (in values, each on a 256-byte boundary), ``spans``
+    per segment ``(re offset, im offset, plane size, xlen)`` and ``n`` the
+    allocation's length. A plane is [B, P, ``k1c_row_len``]."""
+    align = 256 // torch.tensor([], dtype=dtype).element_size()
     table, spans, off = [], [], 0
     for seg in plan.segments:
-        size = num_b * plan.n_pulses * seg.xlen
-        step = -(-size // 64) * 64
+        size = num_b * plan.n_pulses * k1c_row_len(seg.xlen, dtype)
+        step = -(-size // align) * align
         table += [seg.pad_front, seg.xlen, off, off + step]
         spans.append((off, off + step, size, seg.xlen))
         off += 2 * step
@@ -1112,72 +1204,88 @@ def k1c_layout(plan: RdmPlan, num_b: int):
 _k1c_tables: dict = {}       # K1c's segment table per plane geometry
 
 
-def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device):
+def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device, dtype):
     """K1c: one launch writes every segment's planes into one allocation;
     the planes are views of it."""
-    global k1c_launch_count
-    buf = torch.empty(_k1c_table(plan, num_b)[2], dtype=torch.float32,
+    global k1c_launch_count, k1c_bf16_launch_count
+    buf = torch.empty(_k1c_table(plan, num_b, dtype)[2], dtype=dtype,
                       device=device)
     spans = _k1c_launch(plan, seed, num_b, buf,
                         torch.cuda.current_stream(device).cuda_stream)
     k1c_launch_count += 1
+    k1c_bf16_launch_count += int(dtype == torch.bfloat16)
     return _k1c_views(buf, spans, num_b, plan.n_pulses)
 
 
-def _k1c_table(plan: RdmPlan, num_b: int):
+def _k1c_table(plan: RdmPlan, num_b: int, dtype=torch.float32):
     """``k1c_layout`` with its table as a ctypes array, kept per plane
-    geometry."""
+    geometry and type."""
     import ctypes
 
-    geom = (num_b, plan.n_pulses,
+    geom = (num_b, plan.n_pulses, dtype,
             tuple((sg.pad_front, sg.xlen) for sg in plan.segments))
     if geom not in _k1c_tables:
-        table, spans, floats = k1c_layout(plan, num_b)
+        table, spans, n = k1c_layout(plan, num_b, dtype)
         _k1c_tables[geom] = ((ctypes.c_longlong * len(table))(*table),
-                             spans, floats)
+                             spans, n)
     return _k1c_tables[geom]
 
 
 def _k1c_launch(plan: RdmPlan, seed, num_b: int, buf: torch.Tensor,
                 stream: int):
-    """K1c's launch (``k1c_planes``) into the f32 ``buf`` from its first
-    float, uncounted here (``gen_noise_planes`` counts it in
-    ``k1c_launch_count``, K1's draw mode in ``k1c_draw_launch_count``): the
-    spans of ``k1c_layout``."""
+    """K1c's launch (``k1c_planes``) into ``buf`` (float32, or bfloat16
+    rows padded to ``k1c_row_len``) from its first value, uncounted here
+    (``gen_noise_planes`` counts it in ``k1c_launch_count``, K1's draw mode
+    in ``k1c_draw_launch_count``): the spans of ``k1c_layout``."""
     import ctypes
 
     from .. import _build
 
+    if buf.dtype not in _DTYPES:
+        raise ValueError("K1c writes float32 or bfloat16 planes")
     lib = _build.load("noise_rdm")
-    table, spans, floats = _k1c_table(plan, num_b)
-    if buf.dtype != torch.float32 or buf.numel() < floats:
-        raise ValueError(f"K1c writes {floats} float32 values")
+    table, spans, n = _k1c_table(plan, num_b, buf.dtype)
+    if buf.numel() < n or not buf.is_contiguous():
+        raise ValueError(f"K1c writes {n} contiguous {buf.dtype} values")
     rc = lib.k1c_planes(table, len(spans), seed[0], seed[1],
                         ctypes.c_float(U_SCALE), num_b, plan.n_pulses,
-                        buf.data_ptr(), stream)
+                        int(buf.dtype == torch.bfloat16), buf.data_ptr(),
+                        stream)
     _build.check(lib, rc, "k1c_planes")
     return spans
 
 
 def _k1c_views(buf: torch.Tensor, spans, num_b: int, num_p: int):
-    """The (re, im) planes [B, P, xlen] of each segment in K1c's ``buf``."""
-    plane = lambda off, xlen: buf.as_strided(
-        (num_b, num_p, xlen), (num_p * xlen, xlen, 1), off)
+    """The (re, im) planes [B, P, xlen] of each segment in K1c's ``buf``
+    (row stride ``k1c_row_len``: bf16 rows keep their zero pad columns
+    beyond the view)."""
+    def plane(off, xlen):
+        ld = k1c_row_len(xlen, buf.dtype)
+        return buf.as_strided((num_b, num_p, xlen), (num_p * ld, ld, 1), off)
     return [(plane(r, xlen), plane(i, xlen)) for r, i, _, xlen in spans]
 
 
 def gen_noise_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
-                     device) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """The white (re, im) planes [B, P, xlen] f32 of every segment that
-    draw mode draws for ``seed`` — port of ``radar_tpu/ops/pallas_rdm.py::
-    gen_noise_planes_pallas``, so planes mode can be fed draw mode's noise
-    (``noise_rdm(planes=gen_noise_planes(...))`` equals ``noise_rdm(seed=
-    ...)`` bit for bit). The port's plane layout is its own: [B, P, xlen]
-    with no pulse-pad rows and no tail beyond the samples a window reads.
+                     device, dtype=torch.float32
+                     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The white (re, im) planes [B, P, xlen] of every segment that draw
+    mode draws for ``seed``, as ``dtype`` (float32, or bfloat16: each draw
+    rounded to nearest even, JAX's ``mul_dtype``) — port of
+    ``radar_tpu/ops/pallas_rdm.py::gen_noise_planes_pallas``, so planes
+    mode can be fed draw mode's noise (``noise_rdm(planes=
+    gen_noise_planes(...))`` equals ``noise_rdm(seed=...)`` bit for bit, at
+    either multiply type). The port's plane layout is its own: [B, P, xlen]
+    with no pulse-pad rows and no tail beyond the samples a window reads;
+    on the card bf16 planes are views of rows padded to 8 values (the
+    strip GEMM reads them in place).
 
     On a CUDA device kernel K1c writes them; on the CPU its plain version
-    ``philox_planes`` does, with the same bits."""
+    ``philox_planes`` does (rounded for bf16), with the same bits."""
+    if dtype not in _DTYPES:
+        raise ValueError("gen_noise_planes writes torch.float32 or "
+                         "torch.bfloat16 planes")
     device = torch.device(device)
     if device.type == "cuda":
-        return _gen_planes_cuda(plan, seed, num_b, device)
-    return philox_planes(plan, seed, num_b, device=device)
+        return _gen_planes_cuda(plan, seed, num_b, device, dtype)
+    return [(xr.to(dtype), xi.to(dtype))
+            for xr, xi in philox_planes(plan, seed, num_b, device=device)]

@@ -321,9 +321,12 @@ class FrameStages(NamedTuple):
 
 def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
                       *, device, return_intermediates: bool = False,
-                      trials: bool = False) -> FrameStages:
+                      trials: bool = False,
+                      accelerator_dtypes: bool | None = None) -> FrameStages:
     """The frame's stages on ``device``; raises for a CUDA device without
-    CUDA and for flag values the port does not know. ``trials``: the
+    CUDA and for flag values the port does not know. The rank-K kernel
+    routes take ``pipeline/lowrank.py::route_dtypes(cfg,
+    accelerator_dtypes)``, by default the device's. ``trials``: the
     Monte-Carlo trial function's stages, whose tail, as JAX's
     ``make_trial_fn``'s, disregards ``kernel_maps``, ``beams_major_tail``
     and ``use_pallas_cfar`` (its K2 is kept where it gives the vgq tail's
@@ -351,7 +354,9 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
                                     intermediates=return_intermediates)
     if lowrank:
         return FrameStages(cfg, mc,
-                           make_lowrank_stages(cfg, precomp, device=device),
+                           make_lowrank_stages(
+                               cfg, precomp, device=device,
+                               accelerator_dtypes=accelerator_dtypes),
                            None, None, None, None, tail, tfr)
     c64 = torch.complex64
     w_eff = dbf_weights_effective_np(precomp.dbf_w, cfg.dbf_variant)
@@ -419,7 +424,8 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
 
 def make_frame_processor(cfg: RadarConfig,
                          precomp: Precomputed | None = None, *,
-                         device="cuda", return_intermediates: bool = False):
+                         device="cuda", return_intermediates: bool = False,
+                         accelerator_dtypes: bool | None = None):
     """Returns ``process(frame_seed, targets, noise=None, noise_planes=None)
     -> FrameResult`` (``FrameIntermediates`` under
     ``return_intermediates``) running on ``device`` (the card by default;
@@ -433,9 +439,12 @@ def make_frame_processor(cfg: RadarConfig,
     [P, S(_compact), B] of the rank-K stream's xla route;
     ``noise_planes`` (per-segment (re, im) [B, P, >= xlen] f32 planes, e.g.
     ``ops.noise_rdm.planes_from_compact(z, rplan)``) replaces the draws of
-    the rank-K stream's kernel routes. The wrong kind raises."""
+    the rank-K stream's kernel routes. The wrong kind raises.
+    ``accelerator_dtypes`` picks the kernel routes' dtypes
+    (``pipeline/lowrank.py::route_dtypes``; by default the device's)."""
     st = make_frame_stages(cfg, precomp, device=device,
-                           return_intermediates=return_intermediates)
+                           return_intermediates=return_intermediates,
+                           accelerator_dtypes=accelerator_dtypes)
     lr = st.lowrank
     if lr is not None:
         def process(frame_seed: int, targets, noise=None,

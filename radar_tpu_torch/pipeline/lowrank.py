@@ -21,9 +21,17 @@ with the Cholesky beam mix applied afterwards. Three noise-RDM backends
   trials run it noise-only (``noise_rdm``) on a signal RDM made once per
   SNR point.
 
-The kernel routes keep K1's f32 output where the TPU's noise-only kernel
-writes bf16 planes. ``cfg.kernel_out_bf16`` rounds the signal-fused map
-(``noise_rdm_sig``, the frame's) to bfloat16 values, as JAX does; its
+The kernel routes take JAX's effective dtypes (``route_dtypes``). On the
+card they are those JAX runs on its accelerator: K1 multiplies in bf16 (the
+TPU kernel's own operands: planes, filter, D and L rounded, the PC and the
+DFT rounded, the mix after the DFT, the signal in f32), the noise-only map
+(the trials') and the "pallas" route's map are rounded to bf16 values, the
+"pallas" route's drawn planes are rounded to bf16, and the signal-fused map
+(``noise_rdm_sig``, the frame's) is f32 unless ``cfg.kernel_out_bf16``. On
+the CPU they are interpret mode's: f32 throughout, with
+``cfg.kernel_out_bf16`` honoured. ``accelerator_dtypes=False`` runs the
+card in interpret mode's dtypes (K1's f32 kernels, its 3xTF32 GEMMs);
+``True`` runs the plain versions on the CPU in the accelerator's.
 ``emit_maps=True`` (``cfg.kernel_maps``) also returns K1's pair maps.
 ``cfg.noise_prng`` ("threefry"/"rbg") selects nothing here: every draw comes from the torch generator or K1's Philox; JAX's
 streams cannot be reproduced anyway, so tests inject the same noise into
@@ -57,6 +65,27 @@ IMPLS = ("xla", "pallas", "pallas_prng")
 ROOT2INV = float(np.float32(np.sqrt(0.5)))
 
 
+class RouteDtypes(NamedTuple):
+    """The kernel routes' dtypes, as ``torch`` dtypes."""
+    mul: torch.dtype         # K1's multiply type (JAX's mul_dtype)
+    noise_out: torch.dtype   # the noise-only map (noise_rdm, noisy_rdm)
+    sig_out: torch.dtype     # the signal-fused map (noise_rdm_sig)
+    planes: torch.dtype      # the "pallas" route's drawn planes
+
+
+def route_dtypes(cfg: RadarConfig, accelerator: bool) -> RouteDtypes:
+    """JAX's effective dtypes of the kernel routes. On its accelerator
+    (``accelerator``: the port's CUDA device) every K1 call multiplies in
+    bf16, the noise-only map is bf16 (``radar_tpu/pipeline/lowrank.py``
+    :143-148), the signal-fused map f32 unless ``cfg.kernel_out_bf16``
+    (:166-171), and the "pallas" route draws bf16 planes and writes a bf16
+    map (:209-218, :228-231). Interpret mode (the CPU) takes f32
+    throughout, ``cfg.kernel_out_bf16`` honoured (:170-171)."""
+    low = torch.bfloat16 if accelerator else torch.float32
+    sig_out = torch.bfloat16 if cfg.kernel_out_bf16 else torch.float32
+    return RouteDtypes(mul=low, noise_out=low, sig_out=sig_out, planes=low)
+
+
 class LowrankStages(NamedTuple):
     impl: str                 # cfg.noise_rdm_impl
     rdm_layout: str           # layout of the route's RDM: "bvg" (kernels), "vgb"
@@ -74,6 +103,7 @@ class LowrankStages(NamedTuple):
                                     # planes, emit_maps)
     rplan: RdmPlan | None
     l_factor: torch.Tensor    # [B, B] complex64 Cholesky beam mix
+    dtypes: RouteDtypes       # the kernel routes' dtypes
 
 
 def check_config(cfg: RadarConfig) -> None:
@@ -100,9 +130,17 @@ def check_config(cfg: RadarConfig) -> None:
                          "rails only; set noise_dist='uniform'")
 
 
-def make_lowrank_stages(cfg: RadarConfig, precomp, *,
-                        device) -> LowrankStages:
+def make_lowrank_stages(cfg: RadarConfig, precomp, *, device,
+                        accelerator_dtypes: bool | None = None
+                        ) -> LowrankStages:
+    """The rank-K stages on ``device``; the kernel routes take
+    ``route_dtypes(cfg, accelerator_dtypes)``, by default the device's
+    (JAX's accelerator dtypes on a CUDA device, interpret mode's on the
+    CPU)."""
     check_config(cfg)
+    if accelerator_dtypes is None:
+        accelerator_dtypes = torch.device(device).type == "cuda"
+    dts = route_dtypes(cfg, accelerator_dtypes)
     impl = cfg.noise_rdm_impl
     prec = cfg.matmul_precision
     c64 = torch.complex64
@@ -180,21 +218,21 @@ def make_lowrank_stages(cfg: RadarConfig, precomp, *,
                     x = torch.randn(shape, generator=g, device=device)
                     x = x * ROOT2INV
                 x[..., :seg.pad_front] = 0.0
+                x = x.to(dts.planes)     # JAX's astype(mul), :217-218
                 out.append((x[0], x[1]))
             return out
 
     if impl != "xla":
         def noise_rdm_fn(frame_seed, layout="vgb", planes=None, signal=None,
-                         **kw):
+                         out_dtype=dts.noise_out, emit_maps=False):
             if planes is None and noise_planes is not None:
                 planes = noise_planes(frame_seed)
             seed = None if planes is not None else seed_words(frame_seed)
             return noise_rdm(rplan, l_t, signal, seed=seed, planes=planes,
-                             layout=layout, **kw)
+                             layout=layout, mul_dtype=dts.mul,
+                             out_dtype=out_dtype, emit_maps=emit_maps)
 
     if impl == "pallas_prng":
-        out_dtype = torch.bfloat16 if cfg.kernel_out_bf16 else torch.float32
-
         def noise_rdm_sig(frame_seed, targets, layout="vgb", planes=None,
                           emit_maps=False):
             """The complete RDM from one K1 call (the signal fused), in
@@ -202,8 +240,8 @@ def make_lowrank_stages(cfg: RadarConfig, precomp, *,
             ``emit_maps`` also its pair maps (``ops/noise_rdm.py::
             maps_buffer``), from the unrounded map."""
             return noise_rdm_fn(frame_seed, layout, planes,
-                                signal_factors(targets), out_dtype=out_dtype,
-                                emit_maps=emit_maps)
+                                signal_factors(targets),
+                                out_dtype=dts.sig_out, emit_maps=emit_maps)
 
     def noisy_rdm(rdm_sig, frame_seed, noise=None, noise_planes=None):
         """The route's complete RDM from a signal RDM in ``rdm_layout``:
@@ -232,4 +270,4 @@ def make_lowrank_stages(cfg: RadarConfig, precomp, *,
         gen_noise=gen_noise, pc=pc, mtd=_mtd, mix_add=mix_add,
         noisy_rdm=noisy_rdm, noise_rdm=noise_rdm_fn,
         noise_planes=noise_planes, noise_rdm_sig=noise_rdm_sig,
-        rplan=rplan, l_factor=l_t)
+        rplan=rplan, l_factor=l_t, dtypes=dts)

@@ -7,14 +7,17 @@ against the "pallas" route's torch-drawn planes.
         [--out PATH]
 
 Three checks at the perf configuration's shapes (full width, or
-``--small``):
+``--small``), at JAX's effective dtypes: the kernels' bf16 operands (the
+TPU kernels' default ``mul_dtype``, which JAX's script leaves in place on
+both backends) with f32 output for the first two, and the routes' own
+dtypes (``pipeline/lowrank.py::route_dtypes``) for the moments:
 
-1. bit check: K1c's exported planes fed through K1's planes mode equal K1
-   draw mode bit for bit (the same draws, the same sums);
-2. rolling check: kernel K4 (``rolling=False``, every beam a block: K1's
-   GEMMs with the PC's noise drawn in its blocks) within 2^-7 of max|y| of
-   K1 (JAX's check of its window schedule; the port's two are equal bit
-   for bit);
+1. bit check: K1c's exported bf16 planes fed through K1's planes mode
+   equal K1 draw mode bit for bit (the same draws, the same sums);
+2. rolling check: kernel K4 (``rolling=False``, every beam a block; at
+   bf16 the strip GEMM with the PC's noise drawn in its producers) within
+   2^-7 of max|y| of K1 (JAX's check of its window schedule; the port's
+   two are equal bit for bit);
 3. moments over 8 frames: mean, variance and the count of
    8-sigma cells of K1's draws against the "pallas" route's uniform and
    normal rails: the variance ratio within 2% of 1, the mean within 1e-2.
@@ -31,19 +34,25 @@ import argparse
 from ._common import artifact_path, device_record, pick_device, write_json
 
 FRAMES = 8          # frames of each route's moments (JAX's check's count)
+# JAX's scripts/validate_rdm_gen.py passes no mul_dtype to its kernels (so
+# bf16, their default, :65-72, :97-103) and out_dtype=float32
+MUL_DTYPE = "bfloat16"
 
 
 def _launches() -> dict:
     from ..ops import noise_rdm as nr
 
     return {"K1": nr.launch_count, "K1c": nr.k1c_launch_count,
-            "K1c_draw": nr.k1c_draw_launch_count, "K4": nr.k4_launch_count}
+            "K1c_draw": nr.k1c_draw_launch_count, "K4": nr.k4_launch_count,
+            "K1_bf16": nr.k1_bf16_launch_count,
+            "K1c_bf16": nr.k1c_bf16_launch_count,
+            "K4_bf16": nr.k4_bf16_launch_count}
 
 
 def validate(cfg, device):
     """The three checks on ``cfg``'s rank-K stages on ``device``:
-    (results with each kernel's launches during them, K1c's planes, the
-    Philox key of the bit check)."""
+    (results with each kernel's launches during them and the dtypes, K1c's
+    bf16 planes, the Philox key of the bit check)."""
     import torch
 
     from ..ops import noise_rdm as nr
@@ -62,12 +71,14 @@ def validate(cfg, device):
     lmat = stages["pallas_prng"].l_factor
     num_b = lmat.shape[0]
     seed = nr.seed_words(frame_seed(12345, 1))
+    mul = getattr(torch, MUL_DTYPE)
     before = _launches()
-    planes = nr.gen_noise_planes(plan, seed, num_b, device=device)
-    y_gen = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg")
-    y_dma = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg")
+    planes = nr.gen_noise_planes(plan, seed, num_b, device=device, dtype=mul)
+    y_gen = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg", mul_dtype=mul)
+    y_dma = nr.noise_rdm(plan, lmat, planes=planes, layout="bvg",
+                         mul_dtype=mul)
     y_k4 = nr.noise_rdm(plan, lmat, seed=seed, layout="bvg", rolling=False,
-                        beams_per_step=num_b)
+                        beams_per_step=num_b, mul_dtype=mul)
 
     def moments(noise_rdm):
         acc = torch.zeros(3, dtype=torch.float64, device=device)
@@ -97,6 +108,10 @@ def validate(cfg, device):
     out["var_ratio_normal"] = out["moments_pallas_normal"]["var"] / base
     out["moments_pass"] = (abs(out["var_ratio"] - 1.0) < 0.02 and
                            abs(out["moments_pallas_prng"]["mean"]) < 1e-2)
+    out["dtypes"] = {"checks_mul": MUL_DTYPE, "checks_out": "float32",
+                     **{f"moments_{k}": {f: str(d).split(".")[-1] for f, d in
+                                         v.dtypes._asdict().items()}
+                        for k, v in stages.items()}}
     return out, planes, seed
 
 

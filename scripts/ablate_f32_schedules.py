@@ -404,7 +404,7 @@ mtd_mix_kernel(const float* __restrict__ dr, const float* __restrict__ di,
                        : make_float2(0.f, 0.f);
     const long long off = (long long)v * num_g + g;
     for (int b = 0; b < num_b; ++b)
-      out[b * pg + off] = mix_out(sl, num_b, b, x, v, g, num_v, num_g, s, false);
+      out[b * pg + off] = mix_out(sl, num_b, b, x, v, g, num_v, num_g, s);
   }
 }
 
@@ -493,7 +493,8 @@ int rv_mix_f32(const void* mtr, const void* mti, const void* lmat, int num_b,
                void* stream) {
   if (num_b > kMaxB) return (int)cudaErrorInvalidValue;
   return launch_mix<float>(mtr, mti, lmat, num_b, num_v, num_g,
-                           make_signal(dv, pb, st_, num_k), round_out, out,
+                           make_signal(dv, pb, st_, num_k), round_out,
+                           Maps{nullptr, 0, 0}, out,
                            static_cast<cudaStream_t>(stream));
 }
 

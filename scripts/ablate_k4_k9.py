@@ -1240,7 +1240,8 @@ def k9(lib, plan, lmat, planes, reps: int, fused: dict) -> dict:
         nr.dft(plan, pcr, pci, num_g, mtr, mti)
         _build.check(rv, rv.rv_mix(mtr.data_ptr(), mti.data_ptr(),
                                    l16.data_ptr(), num_b, num_v, num_g, None,
-                                   None, None, 0, 0, out.data_ptr(), stream),
+                                   None, None, 0, 0, None, 0, 0,
+                                   out.data_ptr(), stream),
                      "rv_mix")
         return out
 

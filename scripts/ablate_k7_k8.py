@@ -503,7 +503,7 @@ def build_draw_variants(build_dir: str) -> dict:
 
 
 def old_k7_draw(lib, plan, lmat, seed):
-    """The old K7 draw mode at bf16 (what ``noise_rdm._variant_bf16`` ran):
+    """The old K7 draw mode at bf16 (what ``noise_rdm._bf16_chain`` ran):
     ``band_pc_tc_kernel`` a launch a segment on the plan's banded filter
     rounded to bf16 (its planes made once here, as the plan kept them),
     then the port's DFT GEMM and mix; a call of it."""

@@ -101,14 +101,19 @@ def test_k2_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_frame_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("accelerator", [False, True])
+def test_frame_on_card_matches_cpu(cuda_device, accelerator):
     """Same seed through K1 and K2 on the card and through the plain
-    versions on the CPU: same final targets within rtol 1e-4."""
+    versions on the CPU, both at interpret mode's dtypes (K1's f32
+    kernels) or both at the accelerator's (K1 at bf16 operands): same
+    final targets within rtol 1e-4 (1e-3 at bf16: the noise's bf16
+    roundings come after sums taken in other orders)."""
     tb = TargetBatch.make(*TARGETS)
-    a = make_frame_processor(CFG, device=cuda_device)(5, tb)
-    b = make_frame_processor(CFG, device="cpu")(5, tb)
+    kw = dict(accelerator_dtypes=accelerator)
+    a = make_frame_processor(CFG, device=cuda_device, **kw)(5, tb)
+    b = make_frame_processor(CFG, device="cpu", **kw)(5, tb)
     assert int(a.num_final) == int(b.num_final) >= 2
-    _assert_same_rows(_rows(a), _rows(b), rtol=1e-4)
+    _assert_same_rows(_rows(a), _rows(b), rtol=1e-3 if accelerator else 1e-4)
 
 
 @pytest.mark.cuda
@@ -248,11 +253,13 @@ def test_k4_matches_plain_on_card(cuda_device, beams_per_step):
                                        ("pallas", "uniform")])
 def test_lowrank_route_on_card_matches_cpu(cuda_device, impl, dist):
     """The xla and pallas routes on the card and on the CPU, fed the same
-    injected noise: same final targets within rtol 1e-4."""
+    injected noise, at interpret mode's dtypes (f32 kernels): same final
+    targets within rtol 1e-4."""
     cfg = CFG.replace(noise_rdm_impl=impl, noise_dist=dist)
     tb = TargetBatch.make(*TARGETS)
     cpu = make_frame_processor(cfg, device="cpu")
-    card = make_frame_processor(cfg, device=cuda_device)
+    card = make_frame_processor(cfg, device=cuda_device,
+                                accelerator_dtypes=False)
     if impl == "xla":
         z = cpu.stages.gen_noise(5)
         a, b = card(0, tb, noise=z.to(cuda_device)), cpu(0, tb, noise=z)
@@ -1278,3 +1285,119 @@ def test_k1_without_maps_keeps_its_bits_on_card(cuda_device):
     assert nr.maps_launch_count == before
     digest = hashlib.sha256(rdm.cpu().numpy().tobytes()).hexdigest()
     assert digest == K1_BITS_SHA256, digest
+
+
+# ------------------------------------------- K1, K4 and K1c at bf16 operands
+
+
+BF16_HOLD = 3e-4      # chip_smoke.py's: bf16 roundings after sums in
+BF16_OUT_HOLD = 6e-4  # other orders; a flip before the output rounding
+                      # costs a whole output ulp
+
+
+@pytest.mark.cuda
+def test_k1_bf16_matches_plain_on_card(cuda_device):
+    """K1 at bf16 operands (K1c's bf16 rows, the strip GEMM, the wgmma DFT,
+    the mix) with the signal vs its plain version: the map within
+    BF16_HOLD, bf16 output within BF16_OUT_HOLD and equal to the f32-output
+    map rounded, the pair maps those of the map bit for bit (and of the
+    plain map within BF16_HOLD); one launch of each part."""
+    bf = torch.bfloat16
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    plan, lmat = lr.rplan, lr.l_factor
+    assert lr.dtypes.mul == bf
+    factors = lr.signal_factors(TargetBatch.make(*TARGETS))
+    seed = (3, 5)
+    ref, ref_maps = nr.noise_rdm_plain(
+        plan, lmat, nr.philox_planes(plan, seed, 5, device=cuda_device),
+        factors, mul_dtype=bf, emit_maps=True)
+    counts = (nr.k1_bf16_launch_count, nr.strip_pc_launch_count,
+              nr.dft_launch_count, nr.k1c_bf16_launch_count,
+              nr.tf32_pc_launch_count)
+    y, maps = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                           mul_dtype=bf, emit_maps=True)
+    y16 = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                       mul_dtype=bf, out_dtype=bf)
+    torch.cuda.synchronize()
+    assert (nr.k1_bf16_launch_count, nr.strip_pc_launch_count,
+            nr.dft_launch_count, nr.k1c_bf16_launch_count,
+            nr.tf32_pc_launch_count) == (counts[0] + 2, counts[1] + 2,
+                                         counts[2] + 2, counts[3] + 2,
+                                         counts[4])
+    assert _rms(y - ref) <= BF16_HOLD * _rms(ref)
+    assert _rms(y16 - nr.round_mul(ref, bf)) <= BF16_OUT_HOLD * _rms(ref)
+    assert torch.equal(y16, nr.round_mul(y, bf))
+    assert torch.equal(maps, nr.pair_maps_plain(y))
+    assert _rms(maps - ref_maps) <= BF16_HOLD * _rms(ref_maps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_signal", [False, True])
+def test_k1_bf16_draw_equals_planes_mode_and_k4_on_card(cuda_device,
+                                                        with_signal):
+    """At bf16 operands on K1_RAGGED's plan (37 pulses, odd gate offsets,
+    41 Doppler bins) at 13 beams: K1's draw mode equals its planes mode on
+    the plain Philox planes and on K1c's bf16 rows, and K4 equals K1, bit
+    for bit, at f32 and bf16 output."""
+    bf, num_b = torch.bfloat16, 13
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b, seed=11)
+    signal = signal if with_signal else None
+    seed = (9, 2)
+    planes = nr.philox_planes(plan, seed, num_b, device=cuda_device)
+    rows16 = nr.gen_noise_planes(plan, seed, num_b, device=cuda_device,
+                                 dtype=bf)
+    for out in (torch.float32, bf):
+        kw = dict(layout="bvg", mul_dtype=bf, out_dtype=out)
+        k1 = nr.noise_rdm(plan, lmat, signal, seed=seed, **kw)
+        fed = nr.noise_rdm(plan, lmat, signal, planes=planes, **kw)
+        fed16 = nr.noise_rdm(plan, lmat, signal, planes=rows16, **kw)
+        k4 = nr.noise_rdm(plan, lmat, signal, seed=seed, rolling=False, **kw)
+        torch.cuda.synchronize()
+        assert float(k1.abs().max()) > 0.0
+        assert torch.equal(k1, fed) and torch.equal(k1, fed16)
+        assert torch.equal(k1, k4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["plan", "ragged"])
+def test_k1c_bf16_rows_on_card(cuda_device, shape):
+    """K1c's bf16 mode writes every segment's rows in one launch, each row
+    xlen values padded with zeros to a multiple of 8, equal bit for bit to
+    the plain Philox planes rounded to nearest even; at ragged sizes
+    (xlen not a multiple of 8, an odd number of pulse rows) too."""
+    bf = torch.bfloat16
+    lr = make_lowrank_stages(CFG, precompute(CFG), device=cuda_device)
+    plan = lr.rplan
+    if shape == "ragged":
+        segs = tuple(sg._replace(window=sg.window + 1 + 2 * i,
+                                 pad_front=sg.pad_front + 5 + i)
+                     for i, sg in enumerate(plan.segments))
+        plan = plan._replace(segments=segs, n_pulses=7)
+        assert all(sg.xlen % 8 for sg in segs)
+    before = (nr.k1c_launch_count, nr.k1c_bf16_launch_count)
+    got = nr.gen_noise_planes(plan, (7, 11), 3, device=cuda_device, dtype=bf)
+    want = nr.philox_planes(plan, (7, 11), 3, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (nr.k1c_launch_count, nr.k1c_bf16_launch_count) == (
+        before[0] + 1, before[1] + 1)
+    for (a, b), (c, d), sg in zip(got, want, plan.segments):
+        ld = nr.k1c_row_len(sg.xlen, bf)
+        assert a.dtype == bf and a.shape == (3, plan.n_pulses, sg.xlen)
+        assert a.stride() == (plan.n_pulses * ld, ld, 1)
+        assert torch.equal(a, c.to(bf)) and torch.equal(b, d.to(bf))
+        for x in (a, b):
+            rows = x.as_strided((3 * plan.n_pulses, ld), (ld, 1))
+            assert not rows[:, sg.xlen:].float().any()
+
+
+@pytest.mark.cuda
+def test_k4_f32_bf16_output_is_its_map_rounded_on_card(cuda_device):
+    """K4 at f32 operands with bf16 output (K1's epilogue that walks the
+    beams rounds it) equals its f32-output map rounded to bf16 values."""
+    plan, lmat, signal = _ragged_inputs(cuda_device, 13, seed=5)
+    kw = dict(seed=(4, 8), layout="bvg", rolling=False)
+    y = nr.noise_rdm(plan, lmat, signal, **kw)
+    y16 = nr.noise_rdm(plan, lmat, signal, out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y16, nr.round_mul(y, torch.bfloat16))
+    assert not torch.equal(y16, y)

@@ -142,9 +142,3 @@ def test_modes_refuse_what_k1_does_not_run(setup):
     with pytest.raises(ValueError, match="rolling"):
         nr.noise_rdm(tl.rplan, tl.l_factor, setup["factors"], seed=SEED,
                      rolling=False, emit_maps=True)
-    with pytest.raises(NotImplementedError, match="K4"):
-        nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED, rolling=False,
-                     out_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="operands"):
-        nr.noise_rdm(tl.rplan, tl.l_factor, seed=SEED,
-                     mul_dtype=torch.bfloat16)

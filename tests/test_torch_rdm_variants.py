@@ -150,17 +150,14 @@ def test_stacked_draw_mode_is_planes_mode_on_philox_planes(setup, dtype):
     ({"variant": "stacked", "mul_dtype": torch.bfloat16,
       "out_dtype": torch.bfloat16}, ValueError),
     ({"variant": "allbeams", "out_dtype": torch.bfloat16}, ValueError),
-    ({"variant": "beams", "mul_dtype": torch.bfloat16}, NotImplementedError),
-    ({"variant": "beams", "rolling": False, "out_dtype": torch.bfloat16},
-     NotImplementedError),
     ({"variant": "blocked"}, ValueError),
     ({"mul_dtype": torch.float16}, ValueError),
     ({"stacked": True}, ValueError)])
 def test_planes_schedules_refuse_what_they_do_not_run(setup, kwargs, error):
-    """stacked/allbeams write float32 only (as JAX raises); K1 and K4
-    ("beams") multiply in float32 only and K4 writes float32 only (K1's
-    bfloat16 output is held in test_torch_kernel_maps.py); unknown variants
-    and types raise; ``stacked=True`` is the draw-mode option."""
+    """stacked/allbeams write float32 only (as JAX raises); unknown
+    variants and types raise; ``stacked=True`` is the draw-mode option.
+    (K1 and K4, "beams", take both multiply and output types:
+    test_torch_k1_bf16.py.)"""
     planes = nr.planes_from_compact(torch.from_numpy(setup["z"]),
                                     setup["plan"])
     with pytest.raises(error):
@@ -169,13 +166,10 @@ def test_planes_schedules_refuse_what_they_do_not_run(setup, kwargs, error):
 
 @pytest.mark.parametrize("kwargs,error", [
     ({"variant": "resident"}, ValueError),
-    ({"stacked": True, "rolling": False}, ValueError),
-    ({"rolling": False, "mul_dtype": torch.bfloat16}, NotImplementedError),
-    ({"mul_dtype": torch.bfloat16}, NotImplementedError)])
+    ({"stacked": True, "rolling": False}, ValueError)])
 def test_draw_mode_refuses_planes_schedules(setup, kwargs, error):
-    """Draw mode runs K1, K4 (float32) or the stacked products
-    (``stacked=True``, rolling only, as JAX); the planes schedules need
-    planes."""
+    """Draw mode runs K1, K4 or the stacked products (``stacked=True``,
+    rolling only, as JAX); the planes schedules need planes."""
     with pytest.raises(error):
         nr.noise_rdm(setup["plan"], setup["lt"], seed=SEED, **kwargs)
 
