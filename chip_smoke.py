@@ -23,7 +23,13 @@ targets:
   the Philox planes and on K1c's rows, and K4 at bf16 equals K1, bit for
   bit; K1 at bf16 (signal, pair maps, bf16 output) against its plain
   version; each call's launches; times beside K1 f32 and K7's bf16 draw
-  mode, the profiler's split and the bounds;
+  mode, the profiler's split and the bounds; the bf16 beam mix alone (the
+  tail of K1, K4, K10, K7 and K9 at bf16) bit for bit against the mix
+  before its redesign (``scripts/ablate_mix.py``'s copy, built beside the
+  port's kernels) in every variant (K of 0, 2 and 40, pair maps, bf16
+  output), against its plain version, old and new timed in turns beside
+  each variant's bound, through its wrapper beside one complex64
+  ``torch.matmul`` (its yardstick), and K1 at K = 40;
 - the exact reference stream, the default entry point (per-element echoes
   -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
   ``noise_impl="pallas"``) and K3 (pair sum + CFAR: a block walks every
@@ -197,6 +203,17 @@ PEAK_NVLINK = 450e9   # H100 SXM NVLink bytes/s each way, card to card
 def _line(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
+
+
+def _script(name: str):
+    """The module ``scripts/<name>.py`` of this checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _require(ok, what: str) -> None:
@@ -559,27 +576,27 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     for k, _, _ in VARIANTS:
         setattr(nr, f"{k.lower()}_launch_count", 0)
     nr.strip_pc_launch_count = 0
-    nr.dft_launch_count = 0
+    nr.dft_launch_count = nr.mix_launch_count = 0
     y16 = {v: nr.noise_rdm_compact(z, plan, lmat, variant=v, mul_dtype=bf)
            for _, v, _ in VARIANTS}
     torch.cuda.synchronize()
     launches = counts()
     parts = {"strip_gemm": nr.strip_pc_launch_count,
-             "dft_gemm": nr.dft_launch_count}
+             "dft_gemm": nr.dft_launch_count, "mix": nr.mix_launch_count}
     _line("rdm_variants", path="noise_rdm_compact(variant=, mul_dtype=bf16)",
           launches=launches, part_launches=parts)
     _require(all(n >= 1 for n in launches.values()),
              "the schedules' path launched K10, K7 and K9")
-    _require(parts == {"strip_gemm": 3, "dft_gemm": 3},
+    _require(parts == {"strip_gemm": 3, "dft_gemm": 3, "mix": 3},
              "K10's, K7's and K9's bf16 PC ran the strip GEMM, their DFT "
-             "the wgmma GEMM")
+             "the wgmma GEMM, then the mix")
     # the f32 path: each schedule once through noise_rdm_compact, and K7's
     # draw mode, on K1's 3xTF32 GEMMs (the planes' PC k1_tf32_pc, the draw
     # mode's k4_tf32_pc, every DFT k1_tf32_dft)
     for k, _, _ in VARIANTS:
         setattr(nr, f"{k.lower()}_launch_count", 0)
     nr.tf32_pc_launch_count = nr.k4_pc_launch_count = 0
-    nr.tf32_dft_launch_count = 0
+    nr.tf32_dft_launch_count = nr.mix_launch_count = 0
     for _, v, _ in VARIANTS:
         nr.noise_rdm_compact(z, plan, lmat, variant=v)
     nr.noise_rdm(plan, lmat, seed=seed, stacked=True, layout="bvg")
@@ -587,13 +604,14 @@ def _rdm_variants(nr, plan, lmat, dev, card) -> dict:
     launches32 = counts()
     parts32 = {"tf32_pc": nr.tf32_pc_launch_count,
                "tf32_pc_drawn": nr.k4_pc_launch_count,
-               "tf32_dft": nr.tf32_dft_launch_count}
+               "tf32_dft": nr.tf32_dft_launch_count,
+               "bf16_mix": nr.mix_launch_count}
     _line("rdm_variants", path="noise_rdm_compact(variant=) and "
           "noise_rdm(seed=, stacked=True), f32", launches=launches32,
           part_launches=parts32)
     _require(launches32 == {"K10": 1, "K7": 2, "K9": 1}
              and parts32 == {"tf32_pc": 3, "tf32_pc_drawn": 1,
-                             "tf32_dft": 4},
+                             "tf32_dft": 4, "bf16_mix": 0},
              "each f32 schedule call ran K1's 3xTF32 PC (K4's in draw "
              "mode) and DFT GEMM once")
 
@@ -738,12 +756,13 @@ def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
     fed = nr.noise_rdm(plan, lmat, planes=planes, variant="stacked",
                        mul_dtype=bf, layout="bvg")
     nr.k7_launch_count = nr.strip_pc_draw_launch_count = 0
-    nr.strip_pc_launch_count = 0
+    nr.strip_pc_launch_count = nr.mix_launch_count = 0
     y_draw = draw()
     torch.cuda.synchronize()
     launches = {"K7": nr.k7_launch_count,
                 "strip_gemm_drawn": nr.strip_pc_draw_launch_count,
-                "strip_gemm_planes": nr.strip_pc_launch_count}
+                "strip_gemm_planes": nr.strip_pc_launch_count,
+                "mix": nr.mix_launch_count}
     e_draw16 = _rel_rms(y_draw, ref_draw)
     err_draw16 = float((y_draw - ref_draw).abs().max())
     same = bool(torch.equal(y_draw, fed))
@@ -752,8 +771,9 @@ def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
           equals_bf16_planes_mode_on_K1c_planes=same,
           tol=f"<={BF16_HOLD} (rms rel); == planes mode bit for bit")
     _require(launches == {"K7": 1, "strip_gemm_drawn": 1,
-                          "strip_gemm_planes": 0},
-             "K7's bf16 draw mode ran the strip GEMM's draw mode once")
+                          "strip_gemm_planes": 0, "mix": 1},
+             "K7's bf16 draw mode ran the strip GEMM's draw mode and the "
+             "mix once")
     _require(e_draw16 <= BF16_HOLD, "K7 draw mode at bf16 vs plain")
     _require(same, "K7 draw mode at bf16 == K7 bf16 planes mode on K1c's "
              "planes, bit for bit")
@@ -1279,7 +1299,8 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
              "k1c_bf16_launch_count", "strip_pc_launch_count",
              "strip_pc_draw_launch_count", "dft_launch_count",
              "tf32_pc_launch_count", "tf32_dft_launch_count",
-             "maps_launch_count", "k4_launch_count", "k4_bf16_launch_count")
+             "maps_launch_count", "k4_launch_count", "k4_bf16_launch_count",
+             "mix_launch_count")
     calls = {}
     for label, call in (
             ("K1", lambda: nr.noise_rdm(plan, lmat, factors, seed=seed,
@@ -1297,9 +1318,11 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
     _line("k1_bf16", launches_a_call=calls)
     _require(calls == {
         "K1": {"k1": 1, "k1_bf16": 1, "k1c_draw": 1, "k1c_bf16": 1,
-               "strip_pc": 1, "dft": 1, "maps": 1},
-        "K1_planes": {"k1": 1, "k1_bf16": 1, "strip_pc": 1, "dft": 1},
-        "K4": {"strip_pc_draw": 1, "dft": 1, "k4": 1, "k4_bf16": 1}},
+               "strip_pc": 1, "dft": 1, "maps": 1, "mix": 1},
+        "K1_planes": {"k1": 1, "k1_bf16": 1, "strip_pc": 1, "dft": 1,
+                      "mix": 1},
+        "K4": {"strip_pc_draw": 1, "dft": 1, "k4": 1, "k4_bf16": 1,
+               "mix": 1}},
         "K1, K1's planes mode and K4 at bf16: one launch of each part")
 
     ref, ref_maps = nr.noise_rdm_plain(plan, lmat, ph, factors,
@@ -1488,6 +1511,135 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
           "issue_bound_ms": draws_ms, "bytes_bound_ms": planes_ms,
           "clocks_per_sample": k1c_sass["clocks_per_sample"],
           "launches_from": "K1's draw mode in the perf SNR sweep"})]
+
+
+def _mix(nr, am, old_lib, lr, dev, card, launches: int) -> tuple:
+    """Phase ``k1_bf16``, the bf16 beam mix alone (``ops/noise_rdm.py::mix``,
+    the tail of K1, K4, K10, K7 and K9 at bf16) at full size on random bf16
+    planes with the perf configuration's L and the signal factors of K = 0,
+    2 (the benchmark's two targets) and 40 (``scripts/ablate_mix.py``'s
+    inputs): bit for bit against the mix before its redesign (``am``'s old
+    copy, ``old_lib``) in every variant (K of 0, 2 and 40, with and without
+    the pair maps, with and without bf16 output); against its plain
+    version (``mix_plain``) on the same planes; old and new in turns in
+    each timed variant beside its bound; through the wrapper on a busy
+    and an idle card, the host's ms a call, the plain version's ms and
+    one complex64 ``torch.matmul(L, mt)`` (the mix without its signal;
+    the port never calls it). ``launches``: the main path's count.
+    Returns (its kernels-line row, the old and new ms a variant)."""
+    import torch
+
+    from radar_tpu_torch import _build
+    from radar_tpu_torch.ops.cfar_kernel import HALO
+
+    bf = torch.bfloat16
+    mtr, mti, lmat, signals = am.full_inputs(dev, lr=lr)
+    num_b, num_v, num_g = mtr.shape
+    same = am.bit_checks(old_lib, mtr, mti, lmat, signals)
+    _line("k1_bf16", kernel="mix", shape=[num_b, num_v, num_g],
+          new_equals_old_bit_for_bit=same)
+    _require(all(same.values()), "the mix == the mix before its redesign, "
+             "bit for bit, in every variant")
+    mt = torch.complex(mtr.float(), mti.float())
+    hold = {}
+    for k in (0, 2, 40):
+        y, maps = nr.mix(mtr, mti, lmat, signals[k], emit_maps=True)
+        y16, _ = nr.mix(mtr, mti, lmat, signals[k], round_out=True)
+        ref, ref_maps = nr.mix_plain(mt, lmat, signals[k], emit_maps=True)
+        torch.cuda.synchronize()
+        inner = lambda m: m[:, :num_v, HALO:HALO + num_g]
+        hold[f"k{k}"] = {
+            "map_vs_plain": _rel_rms(y, ref),
+            "maps_vs_plain": _rel_rms(inner(maps), inner(ref_maps)),
+            "max_abs_err": float((y - ref).abs().max()),
+            "bf16_out_is_map_rounded": bool(torch.equal(
+                y16, nr.round_mul(y, bf))),
+            "finite": bool(torch.isfinite(torch.view_as_real(y)).all())}
+        del y, maps, y16, ref, ref_maps
+    _line("k1_bf16", kernel="mix vs plain", **hold,
+          tol="map and maps <= 1e-6 (rms rel: the 13-term sums and the "
+              "signal in f32, in another order); bf16 output == the map "
+              "rounded")
+    _require(all(h["map_vs_plain"] <= 1e-6 and h["maps_vs_plain"] <= 1e-6
+                 and h["bf16_out_is_map_rounded"] and h["finite"]
+                 for h in hold.values()), "the mix vs its plain version")
+    timed = am.time_variants({"old": old_lib,
+                              "new": _build.load("rdm_variants")},
+                             mtr, mti, lmat, signals, reps=20, rounds=2)
+    _, sm_max_mhz = _sm_clocks()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = {}
+    for label, (k, with_maps, _) in am.TIMED.items():
+        bd = am.bound(num_b, num_v, num_g, k, with_maps, sm_max_mhz, sms)
+        t = timed[label]
+        variants[label] = {
+            "new_ms": t["new"], "old_ms": t["old"], "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "bytes_ms": bd["bytes_ms"],
+            "ops_ms": bd["ops_ms"],
+            "new_share_of_bound": bd["bound_ms"] / t["new"],
+            "old_share_of_bound": bd["bound_ms"] / t["old"],
+            "new_bytes_per_s": bd["bytes"] / (t["new"] * 1e-3)}
+    _line("time", what=repr("mix: new vs old, in turns (ms a call, events "
+                            "around 20 launches behind a sleep kernel)"),
+          card=repr(card), variants=variants)
+    _require(all(v["new_ms"] < v["old_ms"] for v in variants.values()),
+             "the mix beats the old mix in every variant")
+    # the trials' variant (noise only, bf16 output) through the wrapper
+    call = lambda: nr.mix(mtr, mti, lmat, round_out=True)
+    busy, host = _busy_event_ms(call)
+    idle, plain = _time_pair(call, lambda: nr.mix_plain(
+        torch.complex(mtr.float(), mti.float()), lmat, out_dtype=bf))
+    library = lambda: torch.matmul(lmat, mt.view(num_b, -1))
+    lib_busy, _ = _busy_event_ms(library)
+    lib_idle = statistics.median(_event_ms(library, 10))
+    trials = variants["noise_bf16_out"]
+    _line("time", what=repr("mix through its wrapper, noise only with bf16 "
+                            "output (the trials')"), card=repr(card),
+          busy_card_ms=busy, idle_card_ms=idle, host_ms=host, plain_ms=plain,
+          library_busy_card_ms=lib_busy, library_idle_card_ms=lib_idle,
+          bound_ms=trials["bound_ms"])
+    # K1 at bf16 with K = 40 (run_streaming_mc's scene): its bound is the
+    # larger of the bf16 tensor-core operations, the mix's and the signal's
+    # FP32 operations (the mix's bound at K = 40) and the map's bytes
+    k1_40 = lambda: nr.noise_rdm(lr.rplan, lr.l_factor, signals[40],
+                                 seed=(1, 2), layout="bvg", mul_dtype=bf)
+    k1_40_busy, k1_40_host = _busy_event_ms(k1_40)
+    prof = _kernel_ms(k1_40, reps=3, need=("::mix_kernel<",))
+    k1_40_split = {part: _named_ms(prof, key) for part, key in (
+        ("K1c_bf16_rows", "planes_kernel<__nv_bfloat16"),
+        ("strip_gemm", "strip_pc_kernel<false>"), ("dft_gemm", "dft_kernel"),
+        ("mix_signal", "::mix_kernel<"))}
+    k1_40_bound = _bound(max(_k1_bound_ms(lr.rplan, num_b, PEAK_BF16),
+                             variants["k40"]["ops_ms"]),
+                         num_b * num_v * num_g * 8 / PEAK_HBM * 1e3)
+    _line("time", what=repr("K1 bf16 with K = 40 signal terms"),
+          card=repr(card), busy_card_ms=k1_40_busy, host_ms=k1_40_host,
+          profile_ms=k1_40_split, bound_ms=k1_40_bound[0],
+          bound_by=k1_40_bound[1],
+          bf16_ops_ms=_k1_bound_ms(lr.rplan, num_b, PEAK_BF16),
+          fp32_mix_and_signal_ops_ms=variants["k40"]["ops_ms"])
+    return ("bf16 beam mix, the tail of K1, K4, K10, K7 and K9 at bf16 "
+            "(L mt, the rank-K signal factored once a cell, bf16 output, "
+            "the pair maps; a run of cells a thread, the 13 beams compiled "
+            "in); ms: noise only with bf16 output, the trials'",
+            "rdm_variants.cu",
+            "radar_tpu/ops/pallas_rdm.py:980 (noise_rdm_pallas_gen), :789 "
+            "(noise_rdm_pallas_planes), :627 (_call_stacked), :1088 "
+            "(_call_allbeams): their mix tails, _mix_vals :159-172 and the "
+            "signal and maps :447-478", launches,
+            max(h["max_abs_err"] for h in hold.values()), busy, plain,
+            trials["bound_ms"], trials["bound_by"], lib_busy,
+            {"ms_is": "events around one call through the wrapper, the card "
+                      "kept busy", "idle_card_ms": idle, "host_ms": host,
+             "library_call": "torch.matmul(L, mt.view(13, -1)), complex64 "
+                             "on the widened planes: the mix without its "
+                             "signal", "library_idle_card_ms": lib_idle,
+             "variants_ms_in_turns_with_the_old_mix": variants,
+             "k1_bf16_k40_busy_card_ms": k1_40_busy,
+             "k1_bf16_k40_profile_ms": k1_40_split,
+             "k1_bf16_k40_bound_ms": k1_40_bound[0],
+             "launches_from": "the perf SNR sweep (80 trials, one K1 "
+                              "each)"}), variants
 
 
 def _pc_study(nr, ref_cfg, ref_pre, dev, card) -> list:
@@ -3229,8 +3381,13 @@ def main() -> int:
     print(smi, flush=True)
     card = f"{torch.cuda.get_device_name(0)} ({smi.split(',')[-1].strip()})"
     t0 = time.perf_counter()
+    # the mix as it was before its redesign (scripts/ablate_mix.py), built
+    # beside the port's kernels, only to be held against the port's mix
+    ablate_mix = _script("ablate_mix")
+    old_mix_build = ablate_mix.start_old_build()
     _build.build_all(["noise_rdm", "noise_rdm_sm90", "rdm_variants",
                       "band_pc_sm90", "rdm_sm90", "cfar", "awgn", "ring"])
+    old_mix = ablate_mix.finish_build(old_mix_build)["old"]
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     t0 = time.perf_counter()
@@ -3338,7 +3495,8 @@ def main() -> int:
                       "K1c_draw": nr.k1c_draw_launch_count,
                       "K1_bf16": nr.k1_bf16_launch_count,
                       "K4_bf16": nr.k4_bf16_launch_count,
-                      "K1c_bf16": nr.k1c_bf16_launch_count}
+                      "K1c_bf16": nr.k1c_bf16_launch_count,
+                      "mix": nr.mix_launch_count}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
@@ -3346,7 +3504,7 @@ def main() -> int:
         nr.k1c_launch_count = nr.k4_launch_count = 0
         nr.maps_launch_count = nr.k1c_draw_launch_count = 0
         nr.k1_bf16_launch_count = nr.k4_bf16_launch_count = 0
-        nr.k1c_bf16_launch_count = 0
+        nr.k1c_bf16_launch_count = nr.mix_launch_count = 0
 
     reset()
     res = process(20261016, truth)
@@ -3360,9 +3518,10 @@ def main() -> int:
           num_final=int(res.num_final), found=found,
           targets=np.round(rows, 3).tolist())
     _require(launches["K1"] >= 1 and launches["K2"] >= 1
-             and launches["K1_bf16"] == launches["K1"]
+             and launches["K1_bf16"] == launches["K1"] == launches["mix"]
              and launches["K1c_bf16"] == launches["K1c_draw"] >= 1,
-             "frame launched K1 (bf16 operands, K1c's bf16 rows) and K2")
+             "frame launched K1 (bf16 operands, K1c's bf16 rows, the mix) "
+             "and K2")
     _require(bool(np.all(np.isfinite(rows))) and all(found),
              "truth targets found")
     # the frame's kernels by name: K1 at bf16 (K1c's bf16 rows, the strip
@@ -3738,7 +3897,8 @@ def main() -> int:
     sweeps = {}
     for label, cfg_m, pre_m, vec, n_tr, want in (
             ("perf", cfg, pre, snrs, 16, {"K1": 80, "K2": 80,
-                                          "K1_bf16": 80, "K1c_bf16": 80}),
+                                          "K1_bf16": 80, "K1c_bf16": 80,
+                                          "mix": 80}),
             ("reference", ref_cfg, ref_pre, [10.0], 8, {"K3": 8}),
             ("xla", perf_config(pallas=False), pre, [10.0], 8, {"K2": 8})):
         reset()
@@ -3766,6 +3926,23 @@ def main() -> int:
         "K1c_bf16": sweeps["perf"]["K1c_bf16"],
         "K4_bf16": val_launches["K4_bf16"],
         "K1_planes_bf16": route_launches["pallas_uniform"]["K1_bf16"]})
+    mix_row, mix_ms = _mix(nr, ablate_mix, old_mix, lr, dev, card,
+                           sweeps["perf"]["mix"])
+    bf16_rows.append(mix_row)
+    k1_row = bf16_rows[0]
+    _line("k1_bf16", card=repr(card), summary=repr(
+        "K1 bf16 and the perf frame beside the mix, new and old, this run"),
+          k1_bf16_busy_card_ms=k1_row[5], k1_bf16_host_ms=k1_row[10][
+              "host_ms"], k1_bf16_mix_in_profile_ms=k1_row[10][
+              "profile_ms"]["mix_signal"],
+          k1_bf16_noise_bf16_out_busy_card_ms=k1_row[10][
+              "busy_card_ms_noise_bf16_out"],
+          perf_frame_device_busy_ms=tails_extra[
+              "default_frame_device_busy_ms"],
+          kernel_maps_frame_device_busy_ms=tails_extra[
+              "kernel_maps_frame_device_busy_ms"],
+          mix_new_ms={k: v["new_ms"] for k, v in mix_ms.items()},
+          mix_old_ms={k: v["old_ms"] for k, v in mix_ms.items()})
 
     # ---- 15. streaming Monte-Carlo, perf config, 128 injected targets
     # (8 per scene), then the statistical hold at the hold's own scene

@@ -64,8 +64,9 @@ planes mode on K1c's planes bit for bit; the DFT is the wgmma GEMM of
 (``_rounded_l``), not made anew on every call.
 
 ``noise_rdm_plain`` is the plain PyTorch version of every schedule,
-``philox_planes`` that of K1c; the wrappers run the kernels for CUDA
-tensors and the plain versions only on the CPU.
+``mix_plain`` that of the bf16 mix (``mix``), ``philox_planes`` that of
+K1c; the wrappers run the kernels for CUDA tensors and the plain versions
+only on the CPU.
 
 Noise draws. The TPU kernel draws from the TPU's hardware generator; the
 port uses a counter-based Philox4x32-10 keyed by the frame seed's two
@@ -126,6 +127,8 @@ maps_launch_count = 0                 # K1's emit_maps / bf16-output
                                       # at f32 (K4's bf16 output too), and
                                       # at bf16 the mix's launches that
                                       # write the pair maps
+mix_launch_count = 0                  # bf16 beam-mix launches (``mix``:
+                                      # the tail of K1, K4, K10, K7, K9)
 
 
 class RdmSegSpec(NamedTuple):
@@ -468,7 +471,20 @@ def noise_rdm_plain(plan: RdmPlan, l_factor: torch.Tensor, planes,
                               ntiles * seg.tile)[..., :seg.j_len])
     pc = round_mul(torch.cat(pcs, dim=-1), md)           # [B, P, G]
     mt = round_mul(torch.matmul(round_mul(plan.d, md), pc), md)  # [B, V, G]
-    y = torch.einsum("bc,cvg->bvg", round_mul(l_factor, md), mt)
+    return mix_plain(mt, round_mul(l_factor, md), signal,
+                     out_dtype=out_dtype, emit_maps=emit_maps)
+
+
+def mix_plain(mt: torch.Tensor, l_factor: torch.Tensor, signal=None, *,
+              out_dtype=torch.float32, emit_maps: bool = False):
+    """Plain version of the beam mix (``mix``): y[b] = sum_c L[b, c]
+    mt[c] of the [B, V, G] complex ``mt``, plus the rank-K signal
+    sum_k st[k, b] dv[k, v] pb[k, g] added term by term, rounded to
+    ``out_dtype``; with ``emit_maps`` also the pair maps of the unrounded
+    map (``pair_maps_plain``). The mix after the DFT of
+    ``radar_tpu/ops/pallas_rdm.py::_mix_vals`` (:159-172) and the signal
+    and maps of its rolling kernel (:447-478)."""
+    y = torch.einsum("bc,cvg->bvg", l_factor, mt)
     if signal is not None:
         dv, pb, st = signal                              # [K,V] [K,G] [K,B]
         for k in range(dv.shape[0]):
@@ -961,14 +977,12 @@ def _bf16_chain(plan: RdmPlan, l_factor, signal, seed, planes, *,
     ``planes``; in draw mode with ``draw="k1c"`` (K1, the TPU's rolling
     kernel: each sample drawn once) on the bf16 rows that K1c writes first,
     with ``draw="gemm"`` (K4, K7) ``strip_pc_draw``, its producers drawing
-    each stage), the wgmma DFT GEMM (``dft``), then the mix, which adds the
-    signal, rounds the map to bfloat16 values with ``round_out`` and, with
-    ``emit_maps``, writes the pair maps of the unrounded map into a
-    ``maps_buffer``. Returns (map [B, V, G], maps or None)."""
+    each stage), the wgmma DFT GEMM (``dft``), then the mix (``mix``),
+    which adds the signal, rounds the map to bfloat16 values with
+    ``round_out`` and, with ``emit_maps``, writes the pair maps of the
+    unrounded map into a ``maps_buffer``. Returns (map [B, V, G], maps or
+    None)."""
     global k1c_draw_launch_count, k1c_bf16_launch_count
-    from .. import _build
-
-    lib = _build.load("rdm_variants")
     dev = l_factor.device
     num_b, num_p = l_factor.shape[0], plan.n_pulses
     num_v, num_g = plan.n_dop, plan.n_gates
@@ -980,7 +994,6 @@ def _bf16_chain(plan: RdmPlan, l_factor, signal, seed, planes, *,
                              "the card")
     bf = torch.bfloat16
     lmat = _rounded_l(l_factor, bf)
-    num_k, sig_ptrs, _keep = _signal_args(signal, dev, num_b, num_v, num_g)
     # the DFT GEMM reads pc by TMA: rows padded to 16 bytes
     ld = -(-num_g // 8) * 8
     pcr = torch.empty((num_b, num_p, ld), dtype=bf, device=dev)
@@ -1002,24 +1015,71 @@ def _bf16_chain(plan: RdmPlan, l_factor, signal, seed, planes, *,
         strip_pc(segs, num_b * num_p, ld, outr=pcr, outi=pci)
     else:
         strip_pc_draw(plan, seed, num_b, pcr, pci)
-    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
-                      device=dev)
     mtr = torch.empty((num_b, num_v, num_g), dtype=bf, device=dev)
     mti = torch.empty_like(mtr)
     dft(plan, pcr, pci, num_g, mtr, mti)
-    maps, maps_args = None, (None, 0, 0)
-    if emit_maps:
-        from .cfar_kernel import HALO
+    return mix(mtr, mti, lmat, signal, round_out=round_out,
+               emit_maps=emit_maps)
 
-        maps = maps_buffer(num_b - 1, num_v, num_g, dev)
-        maps_args = (maps.data_ptr() + 4 * HALO, maps.shape[2],
-                     maps.shape[1] * maps.shape[2])
-    _build.check(lib, lib.rv_mix(mtr.data_ptr(), mti.data_ptr(),
-                                 lmat.data_ptr(), num_b, num_v, num_g,
-                                 *sig_ptrs, num_k, int(round_out),
-                                 *maps_args, out.data_ptr(), stream),
-                 "rv_mix")
+
+def mix(mtr: torch.Tensor, mti: torch.Tensor, lmat: torch.Tensor,
+        signal=None, *, round_out: bool = False, emit_maps: bool = False):
+    """The bf16 beam mix, the tail of K1, K4, K10, K7 and K9 at bf16
+    (``csrc/rdm_variants.cu``, ``mix_kernel``): out [B, V, G] complex64 =
+    L mt of the bfloat16 planes ``mtr``, ``mti`` [B, V, G] (contiguous)
+    with L ``lmat`` [B, B] complex64 (bf16 values), plus the rank-K
+    ``signal`` (dv [K, V], pb [K, G], st [K, B]); rounded to bfloat16
+    values with ``round_out``; with ``emit_maps`` also the pair maps of the
+    unrounded map in a ``maps_buffer``. Returns (map, maps or None). CPU
+    tensors take the plain version (``mix_plain``); on the card the kernel
+    runs, counted in ``mix_launch_count``, or this raises."""
+    global mix_launch_count
+    num_b, num_v, num_g = mtr.shape
+    if not mtr.is_cuda:
+        y = mix_plain(torch.complex(mtr.float(), mti.float()), lmat, signal,
+                      out_dtype=torch.bfloat16 if round_out
+                      else torch.float32, emit_maps=emit_maps)
+        return y if emit_maps else (y, None)
+    from .. import _build
+
+    dev = mtr.device
+    if not 1 <= num_b <= 16:
+        raise ValueError(f"the beam mix takes 1 to 16 beams, got {num_b}")
+    if any(t.device != dev or t.dtype != torch.bfloat16
+           or not t.is_contiguous() for t in (mtr, mti)) \
+            or mti.shape != mtr.shape:
+        raise ValueError("the mix takes contiguous bfloat16 planes [B, V, G] "
+                         "on the card")
+    if (lmat.device != dev or lmat.dtype != torch.complex64
+            or lmat.shape != (num_b, num_b) or not lmat.is_contiguous()):
+        raise ValueError("the mix takes L as contiguous complex64 [B, B] on "
+                         "the card")
+    lib = _build.load("rdm_variants")
+    out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
+                      device=dev)
+    maps = maps_buffer(num_b - 1, num_v, num_g, dev) if emit_maps else None
+    args, _keep = mix_args(mtr, mti, lmat, signal, round_out, out, maps)
+    _build.check(lib, lib.rv_mix(*args), "rv_mix")
+    mix_launch_count += 1
     return out, maps
+
+
+def mix_args(mtr, mti, lmat, signal, round_out: bool, out, maps) -> tuple:
+    """The C entry ``rv_mix``'s arguments for ``mix``'s checked tensors,
+    its output ``out`` and maps buffer ``maps`` (or None), on the current
+    stream; and the signal tensors to keep alive until the launch."""
+    from .cfar_kernel import HALO
+
+    num_b, num_v, num_g = mtr.shape
+    num_k, sig_ptrs, keep = _signal_args(signal, mtr.device, num_b, num_v,
+                                         num_g)
+    maps_args = (None, 0, 0) if maps is None else (
+        maps.data_ptr() + 4 * HALO, maps.shape[2],
+        maps.shape[1] * maps.shape[2])
+    return (mtr.data_ptr(), mti.data_ptr(), lmat.data_ptr(), num_b, num_v,
+            num_g, *sig_ptrs, num_k, int(round_out), *maps_args,
+            out.data_ptr(),
+            torch.cuda.current_stream(mtr.device).cuda_stream), keep
 
 
 def _beams_bf16(plan: RdmPlan, l_factor, signal, seed, planes, *,

@@ -11,7 +11,8 @@ strip-GEMM PC, its two passes joined, K1's DFT GEMM, the mix after the DFT
 in one epilogue), and ``noise_rdm(seed=, stacked=True)`` for the draw mode
 (K4's drawing PC in place of K1's). ``old`` is the route these schedules
 ran before, on the CUDA cores, kept only here (``OLD_F32``, appended to a
-copy of ``radar_tpu_torch/csrc/rdm_variants.cu``, after
+copy of ``radar_tpu_torch/csrc/rdm_variants.cu`` as it was before the
+mix's redesign (``scripts/ablate_mix.py``'s ``OLD_SOURCE``), after
 ``ablate_k7_k8.py``'s ``OLD_HELPERS``, built into
 ``build/ablate_f32_schedules/``): K10's resident ring PC
 (``ring_pc_kernel``), the banded PC GEMM of K7 and K9 on planes or Philox
@@ -52,8 +53,9 @@ from ablate_k1 import _compile, _load, _profile  # noqa: E402
 from ablate_k4_k9 import _rel_rms, in_turns  # noqa: E402
 
 # The f32 schedules' CUDA-core kernels as they ran before the move onto
-# K1's GEMMs; appended to a copy of csrc/rdm_variants.cu (its Num, Signal,
-# mix_out and mix_kernel) after ablate_k7_k8.py's OLD_HELPERS (Acc, the
+# K1's GEMMs; appended to csrc/rdm_variants.cu as it was before the mix's
+# redesign (scripts/ablate_mix.py's OLD_SOURCE: its Num, Signal, mix_out
+# and mix_kernel) after ablate_k7_k8.py's OLD_HELPERS (Acc, the
 # GEMM tile and Philox)
 OLD_F32 = r"""
 namespace {
@@ -528,15 +530,13 @@ SCHEDULES = ("resident", "stacked", "allbeams")
 
 
 def build(build_dir: str) -> ctypes.CDLL:
-    """The copy of rdm_variants.cu with OLD_HELPERS and OLD_F32 appended,
-    built and loaded."""
+    """rdm_variants.cu as it was before the mix's redesign (ablate_mix.py's
+    OLD_SOURCE) with OLD_HELPERS and OLD_F32 appended, built and loaded."""
     from ablate_k7_k8 import OLD_HELPERS
+    from ablate_mix import OLD_SOURCE
 
-    from radar_tpu_torch import _build
-
-    with open(os.path.join(_build._CSRC, "rdm_variants.cu")) as f:
-        so = _compile({"old_f32": f.read() + OLD_HELPERS + OLD_F32},
-                      build_dir)["old_f32"]
+    so = _compile({"old_f32": OLD_SOURCE + OLD_HELPERS + OLD_F32},
+                  build_dir)["old_f32"]
     lib = _load(so, "rdm_variants")
     for fn, argtypes in OLD_SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes

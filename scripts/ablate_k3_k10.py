@@ -27,7 +27,8 @@ RMS of the plain version and timed in turns, with the profiler's split.
 The DFT of K10 and K7 at bf16: ``wgmma`` is the port's dft_kernel
 (csrc/rdm_sm90.cu), ``mma_sync`` the first bf16 DFT, mtd_gemm_tc_kernel
 (synchronous scalar staging into mma.sync m16n8k16), kept only here
-(``OLD_DFT``, appended to a copy of csrc/rdm_variants.cu after
+(``OLD_DFT``, appended to csrc/rdm_variants.cu as it was before the
+mix's redesign, ``scripts/ablate_mix.py``'s ``OLD_SOURCE``, after
 ``ablate_k7_k8.py``'s ``OLD_HELPERS``, its mma.sync GEMM), on the same pc
 planes; both held within 3e-4 RMS of the plain product and timed in
 turns.
@@ -746,6 +747,7 @@ def build(build_dir: str) -> dict:
     appended, and its variants), each built with its source's flags (one
     nvcc each, all at once) and loaded."""
     from ablate_k7_k8 import OLD_HELPERS
+    from ablate_mix import OLD_SOURCE
 
     from radar_tpu_torch import _build
 
@@ -755,7 +757,7 @@ def build(build_dir: str) -> dict:
         raise RuntimeError("cfar.cu no longer has the text no_walk changes")
     sources = {"k3_old": (cfar + OLD_K3, "cfar"),
                "k3_no_walk": (cfar.replace(*WALK), "cfar"),
-               "dft_old": (src("rdm_variants") + OLD_HELPERS + OLD_DFT,
+               "dft_old": (OLD_SOURCE + OLD_HELPERS + OLD_DFT,
                            "rdm_variants")}
     ring = src("rdm_sm90") + CLUSTER + RING
     sources["ring_shipped"] = (ring, "rdm_sm90")

@@ -22,7 +22,9 @@ K9 at bf16 (a compact white cube holding K1c's planes): ``old`` is the
 CUDA-core tail (``mtd_mix_kernel<__nv_bfloat16>``, reachable only here
 through ``OLD_K9``, appended with ``scripts/ablate_f32_schedules.py``'s
 ``OLD_F32``, which keeps the kernel, to a copy of
-``csrc/rdm_variants.cu`` with ``ablate_k7_k8.py``'s ``OLD_HELPERS``) after
+``csrc/rdm_variants.cu`` as it was before the mix's redesign,
+``scripts/ablate_mix.py``'s ``OLD_SOURCE``, with ``ablate_k7_k8.py``'s
+``OLD_HELPERS``) after
 the strip GEMM's PC, as K9 ran before; ``new`` the port's
 ``noise_rdm_compact(variant="allbeams", mul_dtype=bf16)`` (the strip GEMM,
 then K7's wgmma DFT GEMM and mix). Then the tails alone on the same pc
@@ -979,13 +981,13 @@ def build(build_dir: str):
     appended), one nvcc each, at once; (old K4 library, old K9 library)."""
     from ablate_f32_schedules import OLD_F32
     from ablate_k7_k8 import OLD_HELPERS
+    from ablate_mix import OLD_SOURCE
 
     from radar_tpu_torch import _build
 
     src = lambda name: open(os.path.join(_build._CSRC, name + ".cu")).read()
     sos = _compile({"k4_old": src("noise_rdm") + OLD_K4,
-                    "k9_old": src("rdm_variants") + OLD_HELPERS + OLD_F32
-                              + OLD_K9},
+                    "k9_old": OLD_SOURCE + OLD_HELPERS + OLD_F32 + OLD_K9},
                    build_dir)
     k4 = _load(sos["k4_old"], "noise_rdm")
     for fn, argtypes in OLD_K4_SIGNATURES.items():

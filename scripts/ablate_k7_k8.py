@@ -11,7 +11,8 @@ stages, then the wgmma DFT GEMM and the mix) and
 staging kernel's f32 planes, then K1's 3xTF32 strip GEMM with both passes
 in one launch, ``k8_pc_kernel`` of ``csrc/noise_rdm_sm90.cu``). ``old`` is
 what they ran before, kept only here (``OLD_HELPERS`` and ``OLD_PC``,
-appended to a copy of ``radar_tpu_torch/csrc/rdm_variants.cu`` built into
+appended to ``radar_tpu_torch/csrc/rdm_variants.cu`` as it was before the
+mix's redesign, ``scripts/ablate_mix.py``'s ``OLD_SOURCE``, built into
 ``build/ablate_k7_k8/``): ``band_pc_tc_kernel`` (mma.sync m16n8k16, 64 x 64
 tiles, the draws made in synchronous scalar loads, a launch a segment)
 before the same DFT GEMM and mix, and ``band_pc_kernel`` (the CUDA cores,
@@ -59,7 +60,8 @@ from ablate_k1 import _compile, _load, _profile  # noqa: E402
 from ablate_k4_k9 import _rel_rms, in_turns, swapped  # noqa: E402
 
 # The CUDA-core and mma.sync GEMM helpers of the first K7-K10 kernels,
-# appended after a copy of csrc/rdm_variants.cu (its kThreads)
+# appended after csrc/rdm_variants.cu as it was before the mix's redesign
+# (scripts/ablate_mix.py's OLD_SOURCE: its kThreads)
 OLD_HELPERS = r"""
 #include "philox.cuh"
 
@@ -442,13 +444,12 @@ TIMING_ONLY = ("no_draw", "no_philox")   # their maps are wrong by design
 
 
 def build(build_dir: str) -> ctypes.CDLL:
-    """The copy of rdm_variants.cu with OLD_HELPERS and OLD_PC appended,
-    built and loaded."""
-    from radar_tpu_torch import _build
+    """rdm_variants.cu as it was before the mix's redesign (ablate_mix.py's
+    OLD_SOURCE) with OLD_HELPERS and OLD_PC appended, built and loaded."""
+    from ablate_mix import OLD_SOURCE
 
-    with open(os.path.join(_build._CSRC, "rdm_variants.cu")) as f:
-        so = _compile({"old_pc": f.read() + OLD_HELPERS + OLD_PC},
-                      build_dir)["old_pc"]
+    so = _compile({"old_pc": OLD_SOURCE + OLD_HELPERS + OLD_PC},
+                  build_dir)["old_pc"]
     lib = _load(so, "rdm_variants")
     lib.rv_band_pc.argtypes = OLD_SIGNATURE
     lib.rv_band_pc.restype = ctypes.c_int

@@ -1313,7 +1313,7 @@ def test_k1_bf16_matches_plain_on_card(cuda_device):
         factors, mul_dtype=bf, emit_maps=True)
     counts = (nr.k1_bf16_launch_count, nr.strip_pc_launch_count,
               nr.dft_launch_count, nr.k1c_bf16_launch_count,
-              nr.tf32_pc_launch_count)
+              nr.tf32_pc_launch_count, nr.mix_launch_count)
     y, maps = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
                            mul_dtype=bf, emit_maps=True)
     y16 = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
@@ -1321,9 +1321,9 @@ def test_k1_bf16_matches_plain_on_card(cuda_device):
     torch.cuda.synchronize()
     assert (nr.k1_bf16_launch_count, nr.strip_pc_launch_count,
             nr.dft_launch_count, nr.k1c_bf16_launch_count,
-            nr.tf32_pc_launch_count) == (counts[0] + 2, counts[1] + 2,
-                                         counts[2] + 2, counts[3] + 2,
-                                         counts[4])
+            nr.tf32_pc_launch_count, nr.mix_launch_count) == (
+                counts[0] + 2, counts[1] + 2, counts[2] + 2, counts[3] + 2,
+                counts[4], counts[5] + 2)
     assert _rms(y - ref) <= BF16_HOLD * _rms(ref)
     assert _rms(y16 - nr.round_mul(ref, bf)) <= BF16_OUT_HOLD * _rms(ref)
     assert torch.equal(y16, nr.round_mul(y, bf))
@@ -1401,3 +1401,133 @@ def test_k4_f32_bf16_output_is_its_map_rounded_on_card(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(y16, nr.round_mul(y, torch.bfloat16))
     assert not torch.equal(y16, y)
+
+
+# ------------------------------------------------------------ the bf16 mix
+
+# (Doppler bins, gates): the perf frame's, and K1_RAGGED's 41 bins at a
+# segment's 300 and 700 gates (even, not multiples of 8: two-cell runs)
+# and its 1037 gates in all (odd: the one-cell instance)
+MIX_SHAPES = {"full": (332, 3404), "g300": (41, 300), "g700": (41, 700),
+              "g1037": (41, 1037)}
+
+
+@pytest.fixture(scope="module")
+def old_mix():
+    """scripts/ablate_mix.py (the mix before its redesign, built there)."""
+    import importlib.util
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels run only on the card)")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "scripts", "ablate_mix.py")
+    spec = importlib.util.spec_from_file_location("ablate_mix", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, mod.build_old()
+
+
+def _mix_inputs(device, num_b, num_v, num_g, seed=1):
+    """Random bf16 planes [B, V, G], an L [B, B] holding bf16 values and
+    rank-K signal factors for K = 0, 2 and 40."""
+    rng = np.random.default_rng(seed)
+    c = lambda *s: torch.from_numpy((rng.normal(size=s) + 1j * rng.normal(
+        size=s)).astype(np.complex64)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mtr, mti = (torch.randn((num_b, num_v, num_g), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+    lmat = nr.round_mul(c(num_b, num_b) * 0.5, torch.bfloat16).contiguous()
+    signals = {0: None}
+    for k in (2, 40):
+        signals[k] = (c(k, num_v), c(k, num_g), c(k, num_b) * 0.1)
+    return mtr, mti, lmat, signals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_b", [1, 2, 13, 16])
+@pytest.mark.parametrize("shape", list(MIX_SHAPES))
+def test_mix_equals_old_mix_on_card(cuda_device, old_mix, shape, num_b):
+    """The redesigned bf16 mix equals the mix it replaced bit for bit, map
+    and pair maps, at K of 0, 2 and 40, with and without the maps (2 beams
+    and up), with and without bf16 output; one launch a call."""
+    ablate, old_lib = old_mix
+    num_v, num_g = MIX_SHAPES[shape]
+    mtr, mti, lmat, signals = _mix_inputs(cuda_device, num_b, num_v, num_g)
+    for k in (0, 2, 40):
+        for with_maps in ((False, True) if num_b > 1 else (False,)):
+            for round_out in (False, True):
+                before = nr.mix_launch_count
+                new, new_maps = nr.mix(mtr, mti, lmat, signals[k],
+                                       round_out=round_out,
+                                       emit_maps=with_maps)
+                assert nr.mix_launch_count == before + 1
+                old, old_maps = ablate.run_mix(old_lib, mtr, mti, lmat,
+                                               signals[k],
+                                               round_out=round_out,
+                                               emit_maps=with_maps)
+                torch.cuda.synchronize()
+                what = (k, with_maps, round_out)
+                assert float(old.abs().max()) > 0.0, what
+                assert torch.equal(new, old), what
+                assert not with_maps or torch.equal(new_maps, old_maps), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["full", "g1037"])
+def test_mix_matches_plain_on_card(cuda_device, shape):
+    """The mix against its plain version (``mix_plain``) on the same planes
+    at 13 beams with K = 2 and 40: the map within 1e-6 RMS of the plain
+    map (the 13-term sums and the signal in f32, in another order), the
+    maps within 1e-6 of the plain map's pair maps, bf16 output the f32
+    output rounded bit for bit."""
+    num_v, num_g = MIX_SHAPES[shape]
+    mtr, mti, lmat, signals = _mix_inputs(cuda_device, 13, num_v, num_g,
+                                          seed=4)
+    mt = torch.complex(mtr.float(), mti.float())
+    for k in (2, 40):
+        y, maps = nr.mix(mtr, mti, lmat, signals[k], emit_maps=True)
+        y16, _ = nr.mix(mtr, mti, lmat, signals[k], round_out=True)
+        ref, ref_maps = nr.mix_plain(mt, lmat, signals[k], emit_maps=True)
+        torch.cuda.synchronize()
+        assert _rms(y - ref) <= 1e-6 * _rms(ref)
+        inner = lambda m: m[:, :num_v, ck.HALO:ck.HALO + num_g]
+        assert _rms(inner(maps) - inner(ref_maps)) <= 1e-6 * _rms(
+            inner(ref_maps))
+        assert torch.equal(y16, nr.round_mul(y, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_mix_launches_once_a_bf16_call_on_card(cuda_device):
+    """Each bf16 call of K1 (draw and planes mode), K4, K10, K7 (planes
+    and draw mode) and K9 launches the mix once."""
+    bf = torch.bfloat16
+    num_b = 5
+    plan, lmat, signal = _ragged_inputs(cuda_device, num_b, seed=2)
+    planes = _bf16_planes(plan, num_b, plan.n_pulses, 3, cuda_device)
+    kw = dict(layout="bvg", mul_dtype=bf)
+    calls = {
+        "K1": lambda: nr.noise_rdm(plan, lmat, signal, seed=(1, 2), **kw),
+        "K1_maps": lambda: nr.noise_rdm(plan, lmat, signal, seed=(1, 2),
+                                        emit_maps=True, **kw),
+        "K1_planes": lambda: nr.noise_rdm(plan, lmat, signal, planes=planes,
+                                          **kw),
+        "K4": lambda: nr.noise_rdm(plan, lmat, signal, seed=(1, 2),
+                                   rolling=False, **kw),
+        "K10": lambda: nr.noise_rdm(plan, lmat, signal, planes=planes,
+                                    variant="resident", **kw),
+        "K7": lambda: nr.noise_rdm(plan, lmat, signal, planes=planes,
+                                   variant="stacked", **kw),
+        "K7_draw": lambda: nr.noise_rdm(plan, lmat, signal, seed=(1, 2),
+                                        stacked=True, **kw),
+        "K9": lambda: nr.noise_rdm(plan, lmat, signal, planes=planes,
+                                   variant="allbeams", **kw)}
+    got = {}
+    for name, call in calls.items():
+        before = nr.mix_launch_count
+        call()
+        torch.cuda.synchronize()
+        got[name] = nr.mix_launch_count - before
+    assert got == {name: 1 for name in calls}
+
