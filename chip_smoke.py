@@ -23,7 +23,11 @@ targets:
   the Philox planes and on K1c's rows, and K4 at bf16 equals K1, bit for
   bit; K1 at bf16 (signal, pair maps, bf16 output) against its plain
   version; each call's launches; times beside K1 f32 and K7's bf16 draw
-  mode, the profiler's split and the bounds; the bf16 beam mix alone (the
+  mode, the profiler's split and the bounds; K1c's bf16 rows in turns
+  with the K1c before its redesign (one Philox block a sample,
+  ``scripts/ablate_planes.py``'s copy, built beside the port's kernels and
+  held against its own plain version, the old stream) and ``torch.rand``
+  of the same values; the bf16 beam mix alone (the
   tail of K1, K4, K10, K7 and K9 at bf16) bit for bit against the mix
   before its redesign (``scripts/ablate_mix.py``'s copy, built beside the
   port's kernels) in every variant (K of 0, 2 and 40, pair maps, bf16
@@ -46,7 +50,11 @@ targets:
   against the "pallas" route's torch-drawn planes; K1c and K4 against
   their plain versions (K4 at 13, 1 and 2 beams a block, bit for bit
   alike and equal to K4 planes mode on K1c's planes), and K1c's integer
-  issue bound from the SASS of its loop (``cuobjdump``);
+  issue bound from the SASS of its loop (``cuobjdump``), each instruction
+  costed at the rate ``scripts/ablate_planes.py``'s probe measures on this
+  card right after the build (IMAD.WIDE, IMAD.HI, IMAD, I2FP, F2FP lanes
+  an SM and clock); the f32 planes in turns with the old K1c and
+  ``torch.rand`` too;
 - phase ``tails``: one full-width frame of each tail variant (the
   kernel-maps tail, with and without bf16 output and with matmul means,
   bf16 output alone, the beams-major tail on both kernel routes, the perf
@@ -462,21 +470,34 @@ ALU_OPS = ("IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT",
            "MOV", "IMNMX", "IABS", "BMSK", "SGXT")
 PEAK_PIPE_PER_SM = 64
 PEAK_ISSUE_PER_SM = 128
+# lanes an SM and clock of these instructions on this card, measured by
+# scripts/ablate_planes.py's probe (``probe_rates``) in main(): IMAD.WIDE,
+# IMAD.HI and IMAD share the FMA-heavy pipe; I2FP and F2FP are costed
+# each on its own
+IMAD_RATES: dict = {}
 
 
 def _loop_sass(lib_path: str, kernel: str, store: str = "STG",
-               per_store: int = 2, innermost: bool = False) -> dict:
+               per_store: int = 2, innermost: bool = False,
+               samples: int | None = None,
+               loop_with: str | None = None) -> dict:
     """The SASS of the longest loop of ``kernel`` in the compiled library
     (``cuobjdump -sass``; with ``innermost``, the shortest loop holding the
-    16-byte ``store``s): its instruction counts by opcode, the samples one
+    16-byte ``store``s; with ``loop_with``, the shortest loop holding
+    nearly the most instructions of that opcode): its instruction counts
+    by opcode, the samples one
     pass stores (``per_store`` samples a 16-byte ``store``: 2 for f32 re
-    and im planes, 4 for bf16), and per sample its FMA-heavy-pipe
-    instructions (``IMAD_OPS``; IMAD.WIDE counted once, and twice in
-    ``imad_wide2_per_sample``), its ALU-pipe ones (``ALU_OPS``) and all its
-    instructions; ``clocks_per_sample`` is the SM clocks a sample takes at
-    the busiest of these rates (pipes at ``PEAK_PIPE_PER_SM``, issue at
-    ``PEAK_ISSUE_PER_SM``), and ``clocks_per_sample_wide2`` the same with
-    IMAD.WIDE at two slots."""
+    and im planes, 4 for bf16; or ``samples`` a pass, for a loop without
+    stores), and per sample its FMA-heavy-pipe instructions (``IMAD_OPS``;
+    IMAD.WIDE counted once, and twice in ``imad_wide2_per_sample``), its
+    ALU-pipe ones (``ALU_OPS``) and all its instructions.
+    ``clocks_per_sample`` is the SM clocks a sample takes at the busiest of
+    these rates: the FMA-heavy pipe at the measured ``IMAD_RATES`` (each
+    IMAD.WIDE, IMAD.HI and other IMAD at its rate; I2FP and F2FP each at
+    its own), or, before they are measured, at ``PEAK_PIPE_PER_SM``; the
+    ALU pipe at ``PEAK_PIPE_PER_SM``; issue at ``PEAK_ISSUE_PER_SM``.
+    ``clocks_per_sample_wide1`` and ``_wide2`` are the model without the
+    measured rates, IMAD.WIDE at one and two slots."""
     import re
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -497,7 +518,15 @@ def _loop_sass(lib_path: str, kernel: str, store: str = "STG",
     stores_in = lambda lo, hi: sum(
         1 for a, op, _ in ins if lo <= a <= hi
         and op.split()[-1].startswith(store) and ".128" in op)
-    if innermost:
+    if loop_with:
+        # the shortest of the loops holding (nearly) the most of them
+        n_of = {ab: sum(1 for a, op, _ in ins if ab[0] <= a <= ab[1]
+                        and op.split()[-1].startswith(loop_with))
+                for ab in loops}
+        top = max(n_of.values())
+        lo, hi = min((ab for ab in loops if n_of[ab] >= 0.9 * top),
+                     key=lambda ab: ab[1] - ab[0])
+    elif innermost:
         loops = [ab for ab in loops if stores_in(*ab) >= 2]
         _require(len(loops) >= 1, f"a loop of {kernel} storing {store}")
         lo, hi = min(loops, key=lambda ab: ab[1] - ab[0])
@@ -510,19 +539,37 @@ def _loop_sass(lib_path: str, kernel: str, store: str = "STG",
     count = lambda ops: sum(n for op, n in hist.items()
                             if op.split(".")[0] in ops)
     stores = stores_in(lo, hi)
-    _require(stores >= 2 and stores % 2 == 0,
-             f"{kernel}'s loop stores 16-byte vectors to both planes")
-    samples = per_store * stores
+    if samples is None:
+        _require(stores >= 2 and stores % 2 == 0,
+                 f"{kernel}'s loop stores 16-byte vectors to both planes")
+        samples = per_store * stores
     wide = sum(n for op, n in hist.items() if op.startswith("IMAD.WIDE"))
     imad, alu = count(IMAD_OPS) / samples, count(ALU_OPS) / samples
     every = sum(hist.values()) / samples
     clocks = lambda fma: max(fma / PEAK_PIPE_PER_SM, alu / PEAK_PIPE_PER_SM,
                              every / PEAK_ISSUE_PER_SM)
-    return {"ops": hist, "samples": samples, "imad_per_sample": imad,
-            "imad_wide2_per_sample": imad + wide / samples,
-            "alu_per_sample": alu, "all_per_sample": every,
-            "clocks_per_sample": clocks(imad),
-            "clocks_per_sample_wide2": clocks(imad + wide / samples)}
+    out = {"ops": hist, "samples": samples, "imad_per_sample": imad,
+           "imad_wide2_per_sample": imad + wide / samples,
+           "alu_per_sample": alu, "all_per_sample": every,
+           "clocks_per_sample_wide1": clocks(imad),
+           "clocks_per_sample_wide2": clocks(imad + wide / samples)}
+    out["clocks_per_sample"] = out["clocks_per_sample_wide1"]
+    if IMAD_RATES:
+        of = lambda pre: sum(n for op, n in hist.items()
+                             if op.startswith(pre)) / samples
+        hi_ = of("IMAD.HI")
+        fma = (wide / samples / IMAD_RATES["IMAD.WIDE"]
+               + hi_ / IMAD_RATES["IMAD.HI"]
+               + (imad - wide / samples - hi_) / IMAD_RATES["IMAD"])
+        conv = {"I2FP": of("I2FP") / IMAD_RATES["I2FP"],
+                "F2FP": of("F2FP") / IMAD_RATES["F2FP"]}
+        pipes = {"fma_heavy": fma, "alu": alu / PEAK_PIPE_PER_SM,
+                 "issue": every / PEAK_ISSUE_PER_SM, **conv}
+        out["clocks_a_sample_by_pipe"] = pipes
+        out["busiest_pipe"] = max(pipes, key=pipes.get)
+        out["clocks_per_sample"] = max(pipes.values())
+        out["rates_per_sm_clock"] = dict(IMAD_RATES)
+    return out
 
 
 def _sass_has(lib_path: str, kernel: str, opcode: str) -> list:
@@ -798,7 +845,7 @@ def _k7_draw_bf16(nr, plan, lmat, planes, seed, n_out: int, card) -> tuple:
     # im) times the samples it draws, each once for every 128-gate block
     # whose window holds it
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
-                          "planes_kernelIfLb1E")
+                          "planes_kernelIfLb1E", innermost=True)
     sass = _loop_sass(_build._library_path("band_pc_sm90")[1],
                       "strip_pc_kernelILb1E", store="STS", per_store=4,
                       innermost=True)
@@ -1227,7 +1274,7 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
 
 
 def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
-             launches: dict) -> list:
+             launches: dict, planes_libs: dict) -> list:
     """Phase ``k1_bf16``: K1, K4 and K1's planes mode with bf16 operands
     (the TPU kernel's default, what the main path runs on the card) and
     K1c's bf16 rows, at full size. Bit for bit: K1c's rows equal the f32
@@ -1239,9 +1286,13 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
     within BF16_HOLD (BF16_OUT_HOLD at bf16 output), the maps within
     BF16_HOLD; 1e-3..1e-2 from K1's f32 map. Each call's launches. Times
     (busy/idle card, host ms, plain ms, the profiler's split) beside K1
-    f32 and K7's bf16 draw mode in this call, and the bounds. ``launches``:
-    each kernel's count from the main path's runs (``track_k1``: K1's in a
-    headline tracking run). Returns the kernels-line rows."""
+    f32 and K7's bf16 draw mode in this call, and the bounds. K1c's bf16
+    rows in turns with the K1c before its redesign (``planes_libs``:
+    scripts/ablate_planes.py's copies; ``old`` held against its own plain
+    version, the old stream) and ``torch.rand`` of the same values.
+    ``launches``: each kernel's count from the main path's runs
+    (``track_k1``: K1's in a headline tracking run). Returns the
+    kernels-line rows."""
     import torch
 
     from radar_tpu_torch import _build
@@ -1271,6 +1322,14 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
           pad_abs_sum=k1c_pads, tol="bit-equal, pad columns zero")
     _require(all(k1c_same) and not any(k1c_pads) and k1c_calls == (1, 1),
              "K1c's bf16 rows == the f32 Philox planes rounded, one launch")
+    ablate_planes = _script("ablate_planes")
+    old_k1c = planes_libs["old"]
+    old_same = ablate_planes.old_matches_plain(old_k1c[0], plan, seed, num_b)
+    _line("k1_bf16", kernel="K1c before its redesign (old stream, "
+          "scripts/ablate_planes.py)", identical_to_its_plain=old_same,
+          tol="bit-equal")
+    _require(all(all(v) for v in old_same.values()),
+             "the old K1c == its plain version (the old stream)")
 
     kw = dict(layout="bvg", mul_dtype=bf)
     bits = {}
@@ -1410,10 +1469,11 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
     t["K1_bf16_signal_again"] = {"busy_card_ms": _busy_event_ms(k1b)[0]}
     n_planes = sum(num_b * num_p * nr.k1c_row_len(sg.xlen, bf)
                    for sg in plan.segments)
-    k1c_lib = lambda: torch.rand(2 * n_planes, device=dev, dtype=bf)
-    t["K1c_bf16"]["library_busy_card_ms"] = _busy_event_ms(k1c_lib)[0]
-    t["K1c_bf16"]["library_idle_card_ms"] = statistics.median(
-        _event_ms(k1c_lib, 10))
+    # K1c new, old and torch.rand of the same values, in turns
+    turns = ablate_planes.k1c_turns({"old": old_k1c}, plan, seed, num_b, bf)
+    t["K1c_bf16"]["in_turns"] = turns
+    t["K1c_bf16"]["library_busy_card_ms"] = turns["rand"]["busy"]
+    t["K1c_bf16"]["library_idle_card_ms"] = turns["rand"]["idle"]
     prof = _kernel_profile(k1b, reps=5, need=("strip_pc_kernel<false>",))
     parts = (("K1c_bf16_rows", "planes_kernel<__nv_bfloat16"),
              ("strip_gemm", "strip_pc_kernel<false>"),
@@ -1437,7 +1497,10 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
     # at K1c's bf16 SASS cost a sample), the bytes (the map written once;
     # planes mode also reads its bf16 planes, K1c writes its rows)
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
-                          "planes_kernelI13__nv_bfloat16Lb1E", per_store=4)
+                          "planes_kernelI13__nv_bfloat16Lb1E", per_store=4,
+                          innermost=True)
+    old_sass = _loop_sass(old_k1c[1], "planes_kernelI13__nv_bfloat16Lb1E",
+                          per_store=4, innermost=True)
     _, sm_max_mhz = _sm_clocks()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_drawn = sum(num_b * num_p * (sg.xlen - sg.pad_front)
@@ -1458,6 +1521,9 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
           profile_launches_recorded_a_call=seen, profile_ms_maps=split_maps,
           bf16_ops_bound_ms=ops_ms, draws_bound_ms=draws_ms,
           drawn_samples=n_drawn, k1c_bf16_sass=k1c_sass,
+          old_k1c_bf16_sass=old_sass,
+          old_k1c_issue_ms=old_sass["clocks_per_sample"] * n_drawn
+          / (sms * sm_max_mhz * 1e6) * 1e3,
           map_bytes_ms=map_ms, maps_bytes_ms=maps_ms,
           k1c_bf16_rows_bytes_ms=planes_ms, bounds=bounds)
     extra = lambda label, **kw2: {
@@ -1510,6 +1576,12 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
           "library_call": "torch.rand of the bf16 rows' values",
           "issue_bound_ms": draws_ms, "bytes_bound_ms": planes_ms,
           "clocks_per_sample": k1c_sass["clocks_per_sample"],
+          "busiest_pipe": k1c_sass.get("busiest_pipe"),
+          "in_turns_ms": turns,
+          "in_turns_note": "busy/idle card: new (this K1c), old (one "
+                           "Philox block a sample, scripts/ablate_planes.py)"
+                           ", rand (torch.rand of the same values)",
+          "old_clocks_per_sample": old_sass["clocks_per_sample"],
           "launches_from": "K1's draw mode in the perf SNR sweep"})]
 
 
@@ -3385,9 +3457,14 @@ def main() -> int:
     # beside the port's kernels, only to be held against the port's mix
     ablate_mix = _script("ablate_mix")
     old_mix_build = ablate_mix.start_old_build()
+    # K1c before its redesign and the instruction-rate probe
+    # (scripts/ablate_planes.py), built beside them
+    ablate_planes = _script("ablate_planes")
+    planes_build = ablate_planes.start_build()
     _build.build_all(["noise_rdm", "noise_rdm_sm90", "rdm_variants",
                       "band_pc_sm90", "rdm_sm90", "cfar", "awgn", "ring"])
     old_mix = ablate_mix.finish_build(old_mix_build)["old"]
+    planes_libs = ablate_planes.finish_build(planes_build)
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
           seconds=round(time.perf_counter() - t0, 2))
     t0 = time.perf_counter()
@@ -3398,6 +3475,20 @@ def main() -> int:
         for ln in info["log"].splitlines():
             if "Used" in ln or "spill" in ln or "wgmma" in ln:
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
+    for name, log in ablate_planes.build_logs.items():
+        for ln in log.splitlines():
+            if ("Used" in ln or "spill" in ln) and name in ("old", "probe"):
+                print(f"  ptxas ablate_planes {name}: {ln.strip()}",
+                      flush=True)
+    # the instruction rates that cost a sample of SASS (_loop_sass): lanes
+    # an SM and clock, measured on this card by scripts/ablate_planes.py's
+    # probe
+    rates = ablate_planes.probe_rates(planes_libs["probe"][0])
+    IMAD_RATES.update({k: v["per_sm_clock"] for k, v in rates.items()})
+    _line("probe", card=repr(card), rates_per_sm_clock=rates,
+          loop_sass=ablate_planes.probe_sass(planes_libs["probe"][1]))
+    _require(all(v["per_sm_clock"] > 0.0 for v in rates.values()),
+             "the instruction-rate probe ran on every SM")
     # what the redesigned kernels compiled to: wgmma (HGMMA) in the bf16
     # DFT GEMM (K10's, K7's and K9's) and K4's PC (its instances), TMA loads
     # (UTMALDG) in every K3 instance
@@ -3925,7 +4016,8 @@ def main() -> int:
         "K1_bf16": sweeps["perf"]["K1_bf16"],
         "K1c_bf16": sweeps["perf"]["K1c_bf16"],
         "K4_bf16": val_launches["K4_bf16"],
-        "K1_planes_bf16": route_launches["pallas_uniform"]["K1_bf16"]})
+        "K1_planes_bf16": route_launches["pallas_uniform"]["K1_bf16"]},
+        planes_libs)
     mix_row, mix_ms = _mix(nr, ablate_mix, old_mix, lr, dev, card,
                            sweeps["perf"]["mix"])
     bf16_rows.append(mix_row)
@@ -4026,12 +4118,14 @@ def main() -> int:
         lambda: nr.gen_noise_planes(plan, seed, num_b, device=dev))
     k1c_lib_busy_ms, _ = _busy_event_ms(
         lambda: torch.rand(2 * n_planes, device=dev))
+    k1c_f32_turns = ablate_planes.k1c_turns({"old": planes_libs["old"]},
+                                            plan, seed, num_b, torch.float32)
     # K1c's operations: the SM clocks a sample of its loop's SASS takes at
     # the busiest pipe or the issue rate, over the samples this plan
     # draws, on every SM at the SM clock nvidia-smi reads (its maximum:
     # the least time)
     k1c_sass = _loop_sass(_build._library_path("noise_rdm")[1],
-                          "planes_kernelIfLb1E")
+                          "planes_kernelIfLb1E", innermost=True)
     sm_mhz, sm_max_mhz = _sm_clocks()
     n_drawn = sum(num_b * plan.n_pulses * (sg.xlen - sg.pad_front)
                   for sg in plan.segments)
@@ -4048,6 +4142,7 @@ def main() -> int:
           drawn_samples=n_drawn, sm_mhz=sm_mhz, sm_max_mhz=sm_max_mhz,
           issue_ms=round(k1c_issue_ms, 5),
           issue_imad_wide_two_slots_ms=round(k1c_issue_wide2_ms, 5),
+          in_turns_ms=k1c_f32_turns,
           bytes_ms=round(k1c_bytes_ms, 5),
           launches_per_call=val_launches["K1c"])
     k4_ms, k4_plain_ms = _time_pair(
@@ -4269,6 +4364,11 @@ def main() -> int:
           "bytes_bound_ms": k1c_bytes_ms, "issue_bound_ms": k1c_issue_ms,
           "issue_bound_imad_wide_two_slots_ms": k1c_issue_wide2_ms,
           "clocks_per_sample": k1c_sass["clocks_per_sample"],
+          "busiest_pipe": k1c_sass.get("busiest_pipe"),
+          "in_turns_ms": k1c_f32_turns,
+          "in_turns_note": "busy/idle card: new (this K1c), old (one "
+                           "Philox block a sample, scripts/ablate_planes.py)"
+                           ", rand (torch.rand of the same values)",
           "sm_max_mhz": sm_max_mhz}),
         ("K4 noise RDM, window schedule: K1's 3xTF32 GEMMs, the PC's data "
          "drawn in its blocks (13 beams walked a block)",

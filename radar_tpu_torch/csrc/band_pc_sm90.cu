@@ -98,7 +98,7 @@ constexpr int kDrawers = 256;
 constexpr int kDrawThreads = 128 * kConsumers + kDrawers;
 constexpr int kProducerRegs = 88, kConsumerRegs = 168;
 constexpr int kDrawLanes = 4;                   // Philox chains a drawing thread runs
-                                                // at once (4 measured faster than 8)
+                                                // at once: 8 samples, a chunk
 constexpr int kDrawRows = kBM / (kDrawers / 8); // rows a drawing thread fills a stage
 constexpr int kMaxSeg = 3;
 constexpr int kTileA = kBM * kBK * 2;           // bytes of an X plane's box
@@ -284,11 +284,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // Draw mode: drawing thread t makes its share of a stage's Xr and Xi boxes
 // [128 rows][64 samples] bf16 at samples n0 .. n0 + 63: chunk ch = t % 8
 // (8 consecutive samples, 16 bytes of a row) of the kDrawRows rows
-// t / 8 + 32 i, each sample a Philox draw keyed as K1c's (counter (n, p, b,
-// seg), rails by uniform_rail, zeros before pad_front, from x_cols on and
-// past the last row) rounded to bf16 (nearest even), stored in the
-// 128-byte swizzle TMA writes (16-byte chunk c of row r at chunk c ^ (r %
-// 8)). (b0, p0) is the beam and pulse of the thread's first row.
+// t / 8 + 32 i, the samples keyed as K1c's, two a Philox block (counter (n /
+// 2, p, b, seg): words 0, 1 of the block give sample n, words 2, 3 sample n
+// + 1, so a block is one bf16 pair of each plane; rails by uniform_rail,
+// zeros before pad_front, from x_cols on and past the last row), rounded to
+// bf16 (nearest even), stored in the 128-byte swizzle TMA writes (16-byte
+// chunk c of row r at chunk c ^ (r % 8)). (b0, p0) is the beam and pulse of
+// the thread's first row.
 __device__ __forceinline__ void draw_stage(unsigned char* xr, int t, int m0,
                                            int b0, int p0, int n0, const Seg& sg,
                                            const StripArgs& a) {
@@ -307,26 +309,26 @@ __device__ __forceinline__ void draw_stage(unsigned char* xr, int t, int m0,
     uint32_t pr[4] = {}, pi[4] = {};   // the chunk's 8 samples, bf16 pairs
     if (m0 + r < a.rows) {
 #pragma unroll
-      for (int h = 0; h < 8; h += kDrawLanes) {
-        const int nb = n0 + 8 * ch + h;   // the first sample of these lanes
-        unsigned n[kDrawLanes], w0[kDrawLanes], w1[kDrawLanes];
+      for (int h = 0; h < 4; h += kDrawLanes) {
+        const int nb = n0 + 8 * ch + 2 * h;   // the first sample of these lanes
+        unsigned m[kDrawLanes];
+        uint4 w[kDrawLanes];
 #pragma unroll
-        for (int e = 0; e < kDrawLanes; ++e) n[e] = (unsigned)(nb + e);
-        philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w0,
-                     w1);
+        for (int e = 0; e < kDrawLanes; ++e) m[e] = (unsigned)(nb / 2 + e);
+        philox_lanes(m, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w);
 #pragma unroll
-        for (int e = 0; e < kDrawLanes; e += 2) {
-          float v[2][2];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const bool keep = nb + e + q >= sg.pad_front && nb + e + q < sg.x_cols;
-            v[0][q] = keep ? uniform_rail(w0[e + q], a.scale) : 0.f;
-            v[1][q] = keep ? uniform_rail(w1[e + q], a.scale) : 0.f;
-          }
-          __nv_bfloat162 hr = __floats2bfloat162_rn(v[0][0], v[0][1]);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(v[1][0], v[1][1]);
-          pr[(h + e) / 2] = *reinterpret_cast<uint32_t*>(&hr);
-          pi[(h + e) / 2] = *reinterpret_cast<uint32_t*>(&hi);
+        for (int e = 0; e < kDrawLanes; ++e) {
+          const int n = nb + 2 * e;
+          const bool keep0 = n >= sg.pad_front && n < sg.x_cols;
+          const bool keep1 = n + 1 >= sg.pad_front && n + 1 < sg.x_cols;
+          __nv_bfloat162 hr = __floats2bfloat162_rn(
+              keep0 ? uniform_rail(w[e].x, a.scale) : 0.f,
+              keep1 ? uniform_rail(w[e].z, a.scale) : 0.f);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(
+              keep0 ? uniform_rail(w[e].y, a.scale) : 0.f,
+              keep1 ? uniform_rail(w[e].w, a.scale) : 0.f);
+          pr[h + e] = *reinterpret_cast<uint32_t*>(&hr);
+          pi[h + e] = *reinterpret_cast<uint32_t*>(&hi);
         }
       }
     }
@@ -676,7 +678,8 @@ int sp_band_pc(int n_seg, const long long* tab, int rows, int num_g,
 
 // The strip GEMM in draw mode (K7's draw-mode PC at bf16) over n_seg (1..3)
 // segments in one launch: the data's boxes drawn in the block (Philox keyed
-// by (s0, s1), counter (n, p, b, seg), uniform_rail's scale, bf16) for
+// by (s0, s1), counter (n / 2, p, b, seg) for samples n, uniform_rail's
+// scale, bf16) for
 // rows b * num_p + p of num_b beams, the rounded bf16 planes outr, outi
 // [rows, num_g] out. tab holds 7 values a segment: the strip [2, 128,
 // k_pad] bf16, k_pad, the segment's gates j_len, their offset g0 in the

@@ -115,7 +115,7 @@
 // TB/s; with the pcT and correction buffers this design also moves
 // (written, mixed, read, added), ~1.7 GB, 0.52 ms. So the tensor cores
 // bind. K4 has no input to read: its draws are integer work, one Philox
-// block a sample and use, (128 + lh - 1)/128 uses a sample (6.5 on the
+// block two samples a use, (128 + lh - 1)/128 uses a sample (6.5 on the
 // 700-tap segment), for both passes at once, issued by the producer
 // warpgroup beside the consumers' asynchronous MMAs (measured: about as
 // long as the MMAs of a stage, PERF.md).
@@ -581,7 +581,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the draws held them). The producer is two warpgroups (one drawing warp a
 // scheduler could not keep up with the MMAs: PERF.md): in draw mode their
 // 256 threads make the data's stage themselves (kDraw), Philox draws keyed
-// as K1c's (counter (n, p, b, seg), rails, zeros before pad_front and past
+// as K1c's (counter (n / 2, p, b, seg), sample n from words 0, 1 of the
+// block if n is even, 2, 3 if odd; rails, zeros before pad_front and past
 // the segment's samples), written with st.shared into the
 // 128-byte-swizzled [64 rows][32 k] layout TMA writes, then
 // fence.proxy.async (wgmma reads through the async proxy) and an arrive on
@@ -599,7 +600,8 @@ constexpr int kK4Threads = 128 * kConsumers + kK4Producers;
 // setmaxnreg: the producers give registers to the consumers (256 x 88 +
 // 256 x 168 = 512 x 128, the entry budget of 512 threads; 168 is K1's)
 constexpr int kProducerRegs = 88, kConsumerRegs = 168;
-constexpr int kDrawLanes = 8;   // Philox chains a producer thread runs at once
+constexpr int kDrawBlocks = 4;  // Philox blocks (chains) a producer thread runs
+                                // at once: 8 samples, two a block
 
 struct K4Seg {
   int blk0;             // first block of the segment
@@ -646,32 +648,38 @@ struct Slot {
 };
 
 // Producer thread t of kK4Producers draws its part of the data's stage: 8
-// consecutive samples (two 16-byte chunks of a row) a step, rows p0 .. p0
-// + 63 of beam b, samples n0 .. n0 + 31; zeros past the pulses, before
-// pad_front and past the row's samples.
+// consecutive samples (two 16-byte chunks of a row) a step from kDrawBlocks
+// Philox blocks, two samples a block (philox.cuh), rows p0 .. p0 + 63 of
+// beam b, samples n0 .. n0 + 31; zeros past the pulses, before pad_front
+// and past the row's samples.
 __device__ __forceinline__ void draw_stage(unsigned char* are, int t, int p0,
                                            int b, int n0, const K4Seg& sg,
                                            const K4Args& a) {
   const int ch = 2 * (t & 3);   // the thread's first chunk of 8
+  const int nb = n0 + 4 * ch;   // its first sample (even)
 #pragma unroll 1
   for (int r = t >> 2; r < kK4Rows; r += kK4Producers / 4) {
     const int p = p0 + r;
-    float v[2][kDrawLanes];
+    float v[2][2 * kDrawBlocks];
     if (p < a.num_p) {
-      unsigned n[kDrawLanes], w0[kDrawLanes], w1[kDrawLanes];
+      unsigned m[kDrawBlocks];
+      uint4 w[kDrawBlocks];
 #pragma unroll
-      for (int e = 0; e < kDrawLanes; ++e) n[e] = (unsigned)(n0 + 4 * ch + e);
-      philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w0,
-                   w1);
+      for (int e = 0; e < kDrawBlocks; ++e) m[e] = (unsigned)(nb / 2 + e);
+      philox_lanes(m, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, a.key, w);
 #pragma unroll
-      for (int e = 0; e < kDrawLanes; ++e) {
-        const bool keep = (int)n[e] >= sg.pad_front && (int)n[e] < sg.x_cols;
-        v[0][e] = keep ? uniform_rail(w0[e], a.scale) : 0.f;
-        v[1][e] = keep ? uniform_rail(w1[e], a.scale) : 0.f;
+      for (int e = 0; e < kDrawBlocks; ++e) {
+        const int n = nb + 2 * e;
+        const bool keep0 = n >= sg.pad_front && n < sg.x_cols;
+        const bool keep1 = n + 1 >= sg.pad_front && n + 1 < sg.x_cols;
+        v[0][2 * e] = keep0 ? uniform_rail(w[e].x, a.scale) : 0.f;
+        v[1][2 * e] = keep0 ? uniform_rail(w[e].y, a.scale) : 0.f;
+        v[0][2 * e + 1] = keep1 ? uniform_rail(w[e].z, a.scale) : 0.f;
+        v[1][2 * e + 1] = keep1 ? uniform_rail(w[e].w, a.scale) : 0.f;
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < kDrawLanes; ++e) v[0][e] = v[1][e] = 0.f;
+      for (int e = 0; e < 2 * kDrawBlocks; ++e) v[0][e] = v[1][e] = 0.f;
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {

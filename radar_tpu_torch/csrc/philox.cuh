@@ -30,20 +30,22 @@ __device__ __forceinline__ float uniform_rail(unsigned w, float scale) {
   return __fmul_rn(__fsub_rn(k24, 8388607.5f), scale);
 }
 
-// Philox4x32-10 on kLanes counters (n[i], p, b, seg) at once with one key
-// schedule: words 0 and 1 of each block into w0, w1 (independent chains side
-// by side, so a thread keeps the integer pipes busy). The drawing producers
-// of K4 (noise_rdm_sm90.cu) and of the strip GEMM's draw mode
-// (band_pc_sm90.cu) key their draws as K1c does.
+// Philox4x32-10 on kLanes counters (m[i], p, b, seg) at once with one key
+// schedule, all four words of each block into w[i] (independent chains side
+// by side, so a thread keeps the integer pipes busy). K1's draws are keyed
+// two samples a block: block m of (pulse p, beam b, segment seg) gives
+// sample 2m its (re, im) rails from (w.x, w.y) and sample 2m + 1 from (w.z,
+// w.w), as K5 and torch.rand use all four words. K1c (noise_rdm.cu), the
+// drawing producers of K4 (noise_rdm_sm90.cu) and of the strip GEMM's draw
+// mode (band_pc_sm90.cu) all draw so.
 template <int kLanes>
-__device__ __forceinline__ void philox_lanes(const unsigned (&n)[kLanes],
+__device__ __forceinline__ void philox_lanes(const unsigned (&m)[kLanes],
                                              unsigned p, unsigned b, unsigned seg,
-                                             uint2 k, unsigned (&w0)[kLanes],
-                                             unsigned (&w1)[kLanes]) {
+                                             uint2 k, uint4 (&w)[kLanes]) {
   unsigned c0[kLanes], c1[kLanes], c2[kLanes], c3[kLanes];
 #pragma unroll
   for (int i = 0; i < kLanes; ++i) {
-    c0[i] = n[i];
+    c0[i] = m[i];
     c1[i] = p;
     c2[i] = b;
     c3[i] = seg;
@@ -67,8 +69,5 @@ __device__ __forceinline__ void philox_lanes(const unsigned (&n)[kLanes],
     }
   }
 #pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-    w0[i] = c0[i];
-    w1[i] = c1[i];
-  }
+  for (int i = 0; i < kLanes; ++i) w[i] = make_uint4(c0[i], c1[i], c2[i], c3[i]);
 }

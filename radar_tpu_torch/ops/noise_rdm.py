@@ -70,15 +70,20 @@ only on the CPU.
 
 Noise draws. The TPU kernel draws from the TPU's hardware generator; the
 port uses a counter-based Philox4x32-10 keyed by the frame seed's two
-32-bit words and counted by (absolute sample index within the segment
-buffer, pulse, beam, segment). Any window covering a sample regenerates
-the same value, the property the banded convolution relies on. Philox does
-not reproduce the TPU's bits, so draws are held by statistics and by the
-bit-identity of ``philox_planes`` (plain) with the kernel's own draws.
-Each draw uses words 0 and 1 of one Philox block for the (re, im) rails:
-24-bit integers ``k = w >> 8`` mapped to ``(k + 0.5 - 2^23) * 2a/2^24``
-with ``a = sqrt(1.5)`` (zero mean, rail variance 1/2); samples before
-``pad_front`` (pre-PRT causal history) are zero.
+32-bit words and counted by (half the absolute sample index within the
+segment buffer, pulse, beam, segment). Any window covering a sample
+regenerates the same value, the property the banded convolution relies
+on. Philox does not reproduce the TPU's bits, so draws are held by
+statistics and by the bit-identity of ``philox_planes`` (plain) with the
+kernel's own draws.
+Each Philox block feeds two samples, all four words as K5 and
+``torch.rand`` use them: block ``(m, pulse, beam, segment)`` gives sample
+``2m`` its (re, im) rails from words 0 and 1 and sample ``2m + 1`` from
+words 2 and 3 (``draw_words``): 24-bit integers ``k = w >> 8`` mapped to
+``(k + 0.5 - 2^23) * 2a/2^24`` with ``a = sqrt(1.5)`` (zero mean, rail
+variance 1/2); samples before ``pad_front`` (pre-PRT causal history) are
+zero. K1's counters keep the segment index (0..2) in their last word, so
+they never meet K5's (``csrc/awgn.cu``, tag ``AWGN``).
 """
 
 from __future__ import annotations
@@ -332,22 +337,43 @@ def _uniform_rail(w: torch.Tensor) -> torch.Tensor:
                                              device=w.device)
 
 
+def draw_words(n: torch.Tensor, p, b, seg, seed: tuple[int, int]):
+    """The (re, im) words of samples ``n`` (int64, any shape, broadcast
+    with pulse ``p``, beam ``b`` and segment ``seg``) as K1's draws key
+    them: Philox block ``n // 2``, words 0 and 1 for an even ``n``, 2 and 3
+    for an odd one."""
+    w0, w1, w2, w3 = philox4x32_10(n >> 1, p, b, seg, seed[0], seed[1])
+    odd = (n & 1).bool()
+    return torch.where(odd, w2, w0), torch.where(odd, w3, w1)
+
+
+def _paired_rails(half: int, p, b, seg, seed: tuple[int, int]):
+    """The rails of samples 0 .. 2 * half - 1 of a row (last axis), each
+    Philox block once: blocks 0 .. half - 1, its words (0, 1) and (2, 3)
+    interleaved as samples 2m and 2m + 1."""
+    m = torch.arange(half, dtype=torch.int64, device=p.device)
+    w0, w1, w2, w3 = philox4x32_10(m, p, b, seg, seed[0], seed[1])
+    pair = lambda a, c: torch.stack([_uniform_rail(a), _uniform_rail(c)],
+                                    -1).flatten(-2)
+    return pair(w0, w2), pair(w1, w3)
+
+
 def philox_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
                   device) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """The white (re, im) planes [B, P, xlen] f32 of every segment exactly
-    as K1 draws them in draw mode (plain PyTorch integer arithmetic)."""
+    as K1 draws them in draw mode (plain PyTorch integer arithmetic; two
+    samples a Philox block)."""
     i64 = torch.int64
     p = torch.arange(plan.n_pulses, dtype=i64, device=device)[None, :, None]
     b = torch.arange(num_b, dtype=i64, device=device)[:, None, None]
     out = []
     for si, seg in enumerate(plan.segments):
-        n = torch.arange(seg.xlen, dtype=i64, device=device)[None, None, :]
         c3 = torch.full((), si, dtype=i64, device=device)
-        w0, w1, _, _ = philox4x32_10(n, p, b, c3, seed[0], seed[1])
-        keep = n >= seg.pad_front
+        re, im = _paired_rails(-(-seg.xlen // 2), p, b, c3, seed)
+        keep = torch.arange(seg.xlen, device=device) >= seg.pad_front
         zero = torch.zeros((), dtype=torch.float32, device=device)
-        out.append((torch.where(keep, _uniform_rail(w0), zero),
-                    torch.where(keep, _uniform_rail(w1), zero)))
+        out.append((torch.where(keep, re[..., :seg.xlen], zero),
+                    torch.where(keep, im[..., :seg.xlen], zero)))
     return out
 
 
@@ -358,22 +384,21 @@ def strip_draw_stage_plain(plan: RdmPlan, seed: tuple[int, int], num_b: int,
     draw mode (``csrc/band_pc_sm90.cu``, ``draw_stage``): the Xr and Xi
     boxes [2, STRIP_BN rows, STRIP_BK samples] bfloat16 of segment ``si``
     for rows m0 .. m0+127 (row = beam * P + pulse) and samples n0 ..
-    n0+63, each a Philox draw keyed as ``philox_planes``'s (zeros before
-    pad_front, from xlen on and past the last row) rounded to bfloat16, in
-    the byte order of the 128-byte swizzle TMA writes: sample k of row r at
-    position ((k // 8) ^ (r % 8)) * 8 + k % 8 of the row."""
+    n0+63, each a Philox draw keyed as ``philox_planes``'s (``draw_words``;
+    zeros before pad_front, from xlen on and past the last row) rounded to
+    bfloat16, in the byte order of the 128-byte swizzle TMA writes: sample
+    k of row r at position ((k // 8) ^ (r % 8)) * 8 + k % 8 of the row."""
     i64 = torch.int64
     seg = plan.segments[si]
     row = m0 + torch.arange(STRIP_BN, dtype=i64, device=device)[:, None]
     n = n0 + torch.arange(STRIP_BK, dtype=i64, device=device)[None, :]
     b, p = row // plan.n_pulses, row % plan.n_pulses
-    w0, w1, _, _ = philox4x32_10(n, p, b, torch.full((), si, dtype=i64,
-                                                     device=device),
-                                 seed[0], seed[1])
+    words = draw_words(n, p, b, torch.full((), si, dtype=i64, device=device),
+                       seed)
     keep = (n >= seg.pad_front) & (n < seg.xlen) & (row < num_b * plan.n_pulses)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     box = torch.stack([torch.where(keep, _uniform_rail(w), zero)
-                       for w in (w0, w1)]).to(torch.bfloat16)
+                       for w in words]).to(torch.bfloat16)
     r = torch.arange(STRIP_BN, device=device)[:, None]
     k = torch.arange(STRIP_BK, device=device)[None, :]
     pos = ((k // 8) ^ (r % 8)) * 8 + k % 8
@@ -630,20 +655,21 @@ def _k1_cuda(plan: RdmPlan, l_factor, signal, seed, planes, *,
     the epilogue that walks the beams."""
     global launch_count, k1c_draw_launch_count
     num_b, num_p = l_factor.shape[0], plan.n_pulses
-    k1c_floats = 0 if planes is not None else _k1c_table(plan, num_b)[2]
+    k1c = None if planes is not None else _k1c_table(plan, num_b)
+    k1c_floats = 0 if k1c is None else k1c[2]
     lib, lmat, sig, p4, scratch, ptrs, out, stream = _k1_setup(
         plan, l_factor, signal, "K1", k1c_floats)
     dev, base = lmat.device, scratch.data_ptr()
     xs, kept = [], []    # per segment (xr, xi, row stride); tensors alive
     if planes is None:
-        spans = _k1c_launch(plan, seed, num_b, scratch, stream)
+        _k1c_launch(plan, seed, num_b, scratch, stream, k1c)
         k1c_draw_launch_count += 1
-        if all(xlen % 4 == 0 for *_, xlen in spans):
+        if all(xlen % 4 == 0 for *_, xlen in k1c[1]):
             # K1c's [B*P, xlen] rows in place (TMA: 16-byte row strides)
             xs = [(base + 4 * r, base + 4 * i, xlen)
-                  for r, i, _, xlen in spans]
+                  for r, i, _, xlen in k1c[1]]
         else:
-            planes = _k1c_views(scratch, spans, num_b, num_p)
+            planes = _k1c_views(scratch, k1c)
     if planes is not None:
         xs, kept = _tf32_rows(planes, plan, dev, num_b, num_p)
     _tf32_pc(lib, plan, xs, num_b, p4, ptrs, dev, stream)
@@ -1000,10 +1026,10 @@ def _bf16_chain(plan: RdmPlan, l_factor, signal, seed, planes, *,
     pci = torch.empty_like(pcr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if planes is None and draw == "k1c":
-        buf = torch.empty(_k1c_table(plan, num_b, bf)[2], dtype=bf,
-                          device=dev)
-        planes = _k1c_views(buf, _k1c_launch(plan, seed, num_b, buf, stream),
-                            num_b, num_p)
+        k1c = _k1c_table(plan, num_b, bf)
+        buf = torch.empty(k1c[2], dtype=bf, device=dev)
+        _k1c_launch(plan, seed, num_b, buf, stream, k1c)
+        planes = _k1c_views(buf, k1c)
         k1c_draw_launch_count += 1
         k1c_bf16_launch_count += 1
     if planes is not None:
@@ -1268,61 +1294,62 @@ def _gen_planes_cuda(plan: RdmPlan, seed, num_b: int, device, dtype):
     """K1c: one launch writes every segment's planes into one allocation;
     the planes are views of it."""
     global k1c_launch_count, k1c_bf16_launch_count
-    buf = torch.empty(_k1c_table(plan, num_b, dtype)[2], dtype=dtype,
-                      device=device)
-    spans = _k1c_launch(plan, seed, num_b, buf,
-                        torch.cuda.current_stream(device).cuda_stream)
+    k1c = _k1c_table(plan, num_b, dtype)
+    buf = torch.empty(k1c[2], dtype=dtype, device=device)
+    _k1c_launch(plan, seed, num_b, buf,
+                torch.cuda.current_stream(device).cuda_stream, k1c)
     k1c_launch_count += 1
     k1c_bf16_launch_count += int(dtype == torch.bfloat16)
-    return _k1c_views(buf, spans, num_b, plan.n_pulses)
+    return _k1c_views(buf, k1c)
 
 
 def _k1c_table(plan: RdmPlan, num_b: int, dtype=torch.float32):
-    """``k1c_layout`` with its table as a ctypes array, kept per plane
-    geometry and type."""
+    """``k1c_layout`` with its table as a ctypes array and each segment's
+    (re, im) plane views as ``as_strided`` arguments (size, stride,
+    offset; [B, P, xlen], row stride ``k1c_row_len``: bf16 rows keep their
+    zero pad columns beyond the view): ``(table, spans, n, views)``, kept
+    per plane geometry and type."""
     import ctypes
 
     geom = (num_b, plan.n_pulses, dtype,
             tuple((sg.pad_front, sg.xlen) for sg in plan.segments))
     if geom not in _k1c_tables:
         table, spans, n = k1c_layout(plan, num_b, dtype)
+        num_p = plan.n_pulses
+        view = lambda off, xlen: ((num_b, num_p, xlen), (
+            num_p * k1c_row_len(xlen, dtype), k1c_row_len(xlen, dtype), 1),
+            off)
         _k1c_tables[geom] = ((ctypes.c_longlong * len(table))(*table),
-                             spans, n)
+                             spans, n, [(view(r, xlen), view(i, xlen))
+                                        for r, i, _, xlen in spans])
     return _k1c_tables[geom]
 
 
 def _k1c_launch(plan: RdmPlan, seed, num_b: int, buf: torch.Tensor,
-                stream: int):
+                stream: int, k1c) -> None:
     """K1c's launch (``k1c_planes``) into ``buf`` (float32, or bfloat16
     rows padded to ``k1c_row_len``) from its first value, uncounted here
     (``gen_noise_planes`` counts it in ``k1c_launch_count``, K1's draw mode
-    in ``k1c_draw_launch_count``): the spans of ``k1c_layout``."""
-    import ctypes
-
+    in ``k1c_draw_launch_count``); ``k1c``: ``_k1c_table``'s entry of
+    ``buf``'s type."""
     from .. import _build
 
     if buf.dtype not in _DTYPES:
         raise ValueError("K1c writes float32 or bfloat16 planes")
-    lib = _build.load("noise_rdm")
-    table, spans, n = _k1c_table(plan, num_b, buf.dtype)
+    table, spans, n, _ = k1c
     if buf.numel() < n or not buf.is_contiguous():
         raise ValueError(f"K1c writes {n} contiguous {buf.dtype} values")
-    rc = lib.k1c_planes(table, len(spans), seed[0], seed[1],
-                        ctypes.c_float(U_SCALE), num_b, plan.n_pulses,
-                        int(buf.dtype == torch.bfloat16), buf.data_ptr(),
-                        stream)
+    lib = _build.load("noise_rdm")
+    rc = lib.k1c_planes(table, len(spans), seed[0], seed[1], U_SCALE,
+                        num_b, plan.n_pulses, int(buf.dtype == torch.bfloat16),
+                        buf.data_ptr(), stream)
     _build.check(lib, rc, "k1c_planes")
-    return spans
 
 
-def _k1c_views(buf: torch.Tensor, spans, num_b: int, num_p: int):
+def _k1c_views(buf: torch.Tensor, k1c):
     """The (re, im) planes [B, P, xlen] of each segment in K1c's ``buf``
-    (row stride ``k1c_row_len``: bf16 rows keep their zero pad columns
-    beyond the view)."""
-    def plane(off, xlen):
-        ld = k1c_row_len(xlen, buf.dtype)
-        return buf.as_strided((num_b, num_p, xlen), (num_p * ld, ld, 1), off)
-    return [(plane(r, xlen), plane(i, xlen)) for r, i, _, xlen in spans]
+    (``_k1c_table``'s entry ``k1c``)."""
+    return [(buf.as_strided(*r), buf.as_strided(*i)) for r, i in k1c[3]]
 
 
 def gen_noise_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
@@ -1344,7 +1371,8 @@ def gen_noise_planes(plan: RdmPlan, seed: tuple[int, int], num_b: int, *,
     if dtype not in _DTYPES:
         raise ValueError("gen_noise_planes writes torch.float32 or "
                          "torch.bfloat16 planes")
-    device = torch.device(device)
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
     if device.type == "cuda":
         return _gen_planes_cuda(plan, seed, num_b, device, dtype)
     return [(xr.to(dtype), xi.to(dtype))

@@ -100,9 +100,13 @@ __device__ __forceinline__ float2 old_sample(const OldPcArgs& a, int b, int p,
     return make_float2(a.xr[off], a.xi[off]);
   }
   if (n < a.pad_front) return make_float2(0.f, 0.f);
+  // two samples a Philox block, as the port keys its draws
   const uint4 w = philox4x32_10(
-      make_uint4((unsigned)n, (unsigned)p, (unsigned)b, a.seg), a.key);
-  return make_float2(uniform_rail(w.x, a.scale), uniform_rail(w.y, a.scale));
+      make_uint4((unsigned)n >> 1, (unsigned)p, (unsigned)b, a.seg), a.key);
+  return n & 1 ? make_float2(uniform_rail(w.z, a.scale),
+                             uniform_rail(w.w, a.scale))
+               : make_float2(uniform_rail(w.x, a.scale),
+                             uniform_rail(w.y, a.scale));
 }
 
 // One 64-pulse x 64-gate block of the f32 PC of beam blockIdx.z: the

@@ -109,10 +109,11 @@ __device__ __forceinline__ void stage_window(
     if (p < num_p) {
       if (kDraw) {
         if (n >= pad_front) {
+          // two samples a Philox block, as the port keys its draws
           const uint4 w = philox4x32_10(
-              make_uint4((unsigned)n, (unsigned)p, (unsigned)b, seg), key);
-          vr = uniform_rail(w.x, scale);
-          vi = uniform_rail(w.y, scale);
+              make_uint4((unsigned)n >> 1, (unsigned)p, (unsigned)b, seg), key);
+          vr = uniform_rail(n & 1 ? w.z : w.x, scale);
+          vi = uniform_rail(n & 1 ? w.w : w.y, scale);
         }
       } else {
         const long long off = ((long long)b * num_p + p) * x_len + n;
@@ -455,11 +456,11 @@ _FENCE = "          asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"mem
 _ARRIVE = "          mbar_arrive(full(sl.i));\n        }\n"
 K4_VARIANTS = {
     "no_philox": ((
-        "      philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, "
-        "a.key, w0,\n                   w1);\n",
-        "      for (int e = 0; e < kDrawLanes; ++e) {\n"
-        "        w0[e] = n[e] * 2654435761u;\n"
-        "        w1[e] = w0[e] ^ (unsigned)p;\n      }\n"),),
+        "      philox_lanes(m, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, "
+        "a.key, w);\n",
+        "      for (int e = 0; e < kDrawBlocks; ++e)\n"
+        "        w[e] = make_uint4(m[e] * 2654435761u, m[e] ^ (unsigned)p,\n"
+        "                          m[e] * 40503u, m[e] ^ (unsigned)b);\n"),),
     "no_draw": ((_DRAW, ""),),
     "warp_arrive": (
         ("      mbar_init(full(st), kDraw ? kK4Producers + 1 : 1);",

@@ -23,8 +23,8 @@ and mma.sync GEMM helpers) also serves the old kernels of
 Copies of band_pc_sm90.cu with a part of the drawing producer changed
 (``DRAW_VARIANTS``; the last two are timing only, their maps wrong by
 design) are
-swapped in for the port's library: ``lanes_8`` (eight Philox chains a
-thread at once instead of four), ``one_drawing_warpgroup`` (128 drawing
+swapped in for the port's library: ``lanes_2`` (two Philox chains, four
+samples, a thread at once instead of four, eight), ``one_drawing_warpgroup`` (128 drawing
 threads, 384 in the block, no ``setmaxnreg``), ``trap_in_loop`` (the
 bounded wait's trap inside its loop: ptxas then spills the consumers'
 accumulators), ``no_draw`` (the producers store nothing: the MMAs and the
@@ -267,10 +267,11 @@ __device__ __forceinline__ float2 load_sample(const PcArgs& a, int b, int p,
     return make_float2(rnd<T>(v.x), rnd<T>(v.y));
   }
   if (n < a.pad_front) return make_float2(0.f, 0.f);
+  // two samples a Philox block, as the port keys its draws
   const uint4 w = philox4x32_10(
-      make_uint4((unsigned)n, (unsigned)p, (unsigned)b, a.seg), a.key);
-  return make_float2(rnd<T>(uniform_rail(w.x, a.scale)),
-                     rnd<T>(uniform_rail(w.y, a.scale)));
+      make_uint4((unsigned)n >> 1, (unsigned)p, (unsigned)b, a.seg), a.key);
+  return make_float2(rnd<T>(uniform_rail(n & 1 ? w.z : w.x, a.scale)),
+                     rnd<T>(uniform_rail(n & 1 ? w.w : w.y, a.scale)));
 }
 
 // One 64-pulse x 64-gate block of K8's f32 PC of beam blockIdx.z on the
@@ -415,9 +416,9 @@ OLD_SIGNATURE = [_I, _P, _LL, _I, _I, _I, _I, _U, _U, _F, _P, _P, _I, _I, _I,
 # copies of band_pc_sm90.cu with a part of the drawing producer changed:
 # (old, new) text pairs
 DRAW_VARIANTS = {
-    # Philox chains a drawing thread runs at once: 8 (one call a chunk)
-    "lanes_8": (("constexpr int kDrawLanes = 4; ",
-                 "constexpr int kDrawLanes = 8; "),),
+    # Philox chains a drawing thread runs at once: 2 (two calls a chunk)
+    "lanes_2": (("constexpr int kDrawLanes = 4; ",
+                 "constexpr int kDrawLanes = 2; "),),
     # one drawing warpgroup, no setmaxnreg (384 threads: 168 registers each)
     "one_drawing_warpgroup": (
         ("constexpr int kDrawers = 256;", "constexpr int kDrawers = 128;"),
@@ -434,11 +435,11 @@ DRAW_VARIANTS = {
         "        draw_stage(smem_raw + (base - raw), t, m0, b0, p0, "
         "j0 + kt * kBK, sg, a);\n", ""),),
     "no_philox": ((
-        "        philox_lanes(n, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, "
-        "a.key, w0,\n                     w1);\n",
-        "        for (int e = 0; e < kDrawLanes; ++e) {\n"
-        "          w0[e] = n[e] * 2654435761u;\n"
-        "          w1[e] = w0[e] ^ (unsigned)p;\n        }\n"),),
+        "        philox_lanes(m, (unsigned)p, (unsigned)b, (unsigned)sg.seg_id, "
+        "a.key, w);\n",
+        "        for (int e = 0; e < kDrawLanes; ++e)\n"
+        "          w[e] = make_uint4(m[e] * 2654435761u, m[e] ^ (unsigned)p,\n"
+        "                            m[e] * 40503u, m[e] ^ (unsigned)b);\n"),),
 }
 TIMING_ONLY = ("no_draw", "no_philox")   # their maps are wrong by design
 
@@ -539,10 +540,8 @@ def old_k7_draw(lib, plan, lmat, seed):
         nr.dft(plan, pcr, pci, num_g, mtr, mti)
         out = torch.empty((num_b, num_v, num_g), dtype=torch.complex64,
                           device=dev)
-        _build.check(rv, rv.rv_mix(mtr.data_ptr(), mti.data_ptr(),
-                                   l16.data_ptr(), num_b, num_v, num_g, None,
-                                   None, None, 0, 0, out.data_ptr(), stream),
-                     "rv_mix")
+        args, _ = nr.mix_args(mtr, mti, l16, None, False, out, None)
+        _build.check(rv, rv.rv_mix(*args), "rv_mix")
         return out
 
     return call

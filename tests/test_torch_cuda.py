@@ -1266,10 +1266,11 @@ def test_k1_emit_maps_at_ragged_shapes_on_card(cuda_device):
 
 # K1 without the maps on the perf config's full shape (draw mode, seed
 # (3, 5), the signal of the benchmark's two targets, f32 output): SHA-256
-# of the map's bytes as the build before the maps epilogue (commit 808a8af)
-# wrote them on an NVIDIA H100 80GB HBM3, planes mode the same
-K1_BITS_SHA256 = ("3a59303f43cbb276de8fbe500ddb51001fc1980587afc5a4c1fd6cfad0"
-                  "c683c1")
+# of the map's bytes on an NVIDIA H100 80GB HBM3, planes mode the same, on
+# the draws keyed two samples a Philox block (the digest of the stream
+# before, one block a sample, was 3a59303f...)
+K1_BITS_SHA256 = ("d3417cd0328540c6438a55ce20034016addb9cc4b05c470bb4f4801059"
+                  "5ca68a")
 
 
 @pytest.mark.cuda

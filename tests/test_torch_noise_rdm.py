@@ -491,3 +491,73 @@ def test_k4_launch_table_and_blocks(setup):
                                   seg.pad_front, si]
         assert d[5] % nr.TF32_BK == 0 and d[5] >= nr.STRIP_BN + \
             seg.taps.shape[0] - 1
+
+
+@pytest.mark.parametrize("si,b,p,m", [(0, 0, 0, 9), (1, 4, 31, 0),
+                                      (2, 2, 17, 300)])
+def test_philox_planes_pair_two_samples_a_block(setup, si, b, p, m):
+    """Known answer of the pairing: samples 2m and 2m + 1 of the plain
+    planes are the rails of words (0, 1) and (2, 3) of Philox4x32-10 at
+    counter (m, pulse, beam, segment) under the seed's key."""
+    plan = setup["tl"].rplan
+    xr, xi = nr.philox_planes(plan, SEED, 5, device="cpu")[si]
+    assert 2 * m + 1 < plan.segments[si].xlen
+    assert 2 * m >= plan.segments[si].pad_front
+    words = nr.philox4x32_10(*[torch.tensor(c, dtype=torch.int64)
+                               for c in (m, p, b, si)], *SEED)
+    rails = [float(nr._uniform_rail(w)) for w in words]
+    assert float(xr[b, p, 2 * m]) == rails[0]
+    assert float(xi[b, p, 2 * m]) == rails[1]
+    assert float(xr[b, p, 2 * m + 1]) == rails[2]
+    assert float(xi[b, p, 2 * m + 1]) == rails[3]
+    n = torch.tensor([2 * m, 2 * m + 1])
+    wr, wi = nr.draw_words(n, torch.tensor(p), torch.tensor(b),
+                           torch.tensor(si), SEED)
+    assert [int(w) for w in wr] == [int(words[0]), int(words[2])]
+    assert [int(w) for w in wi] == [int(words[1]), int(words[3])]
+
+
+def test_every_sample_has_its_own_counter_and_words(setup):
+    """Every (beam, pulse, segment, sample) maps to its own (counter, word
+    pair): the keys (sample // 2, pulse, beam, segment; sample % 2) of the
+    plan's samples are distinct, and so are the drawn (re, im) 48-bit rail
+    pairs of every sample after pad_front (a shared key or word pair would
+    repeat one)."""
+    plan = setup["tl"].rplan
+    num_b, num_p = 5, plan.n_pulses
+    keys, pairs = set(), set()
+    planes = nr.philox_planes(plan, SEED, num_b, device="cpu")
+    for si, (seg, (xr, xi)) in enumerate(zip(plan.segments, planes)):
+        n = np.arange(seg.pad_front, seg.xlen)
+        for b in range(num_b):
+            for p in range(num_p):
+                keys.update(zip(n // 2, [p] * len(n), [b] * len(n),
+                                [si] * len(n), n % 2))
+        got = torch.stack([xr[..., seg.pad_front:], xi[..., seg.pad_front:]],
+                          -1).reshape(-1, 2)
+        pairs.update(map(tuple, got.numpy().tolist()))
+        total = num_b * num_p * (seg.xlen - seg.pad_front)
+        assert got.shape[0] == total
+    count = sum(num_b * num_p * (sg.xlen - sg.pad_front)
+                for sg in plan.segments)
+    assert len(keys) == count and len(pairs) == count
+
+
+def test_paired_rail_statistics():
+    """The rails of all four words, as samples 2m and 2m + 1 use them
+    (5e5 blocks, 1e6 samples): each rail's mean 0 within 5 sigma and
+    variance a^2/3 = 1/2 within 1%; the lag-1 correlation of samples 2m and
+    2m + 1 (re with re, im with im) and of the re and im rails of one
+    sample within 5 / sqrt(pairs) of zero."""
+    n = torch.arange(1_000_000, dtype=torch.int64)
+    re_w, im_w = nr.draw_words(n, torch.tensor(7), torch.tensor(2),
+                               torch.tensor(1), (11, 13))
+    re, im = nr._uniform_rail(re_w).double(), nr._uniform_rail(im_w).double()
+    for u in (re, im):
+        assert abs(float(u.mean())) < 5 * np.sqrt(0.5 / u.numel())
+        assert abs(float(u.var()) / (nr.A_UNIF ** 2 / 3) - 1.0) < 0.01
+    corr = lambda a, c: float((a * c).mean() / (a.std() * c.std()))
+    tol = 5.0 / np.sqrt(n.numel() // 2)
+    for u in (re, im):
+        assert abs(corr(u[0::2], u[1::2])) < tol
+    assert abs(corr(re, im)) < 5.0 / np.sqrt(n.numel())
