@@ -74,7 +74,9 @@ targets:
 - the Monte-Carlo studies: ``snr_sweep`` of the perf config (5 points x 16
   trials) and one point each of the reference stream and the xla route,
   and ``run_streaming_mc`` (128 injected targets, then the statistical
-  hold at 40 targets per scene);
+  hold at 40 targets per scene), and its ``dp_trials=True`` route without
+  a mesh (JAX ignores the flag there: one device, K1 with K1c's rows and
+  K2 counted) bit for bit against ``dp_trials=False``;
 - the noise-RDM kernel studies: phase ``rdm_variants`` runs the planes
   kernel's schedules K10 (resident), K7 (stacked) and K9 (all beams)
   through ``noise_rdm_compact`` with bf16 operands on a cube holding K1c's
@@ -165,7 +167,13 @@ targets:
 - phase ``multiprocess``: ``radar_tpu_torch/scripts/run_multiprocess.py``
   with its workers joined through the environment (4 processes sharing
   the card): the four parity checks, the streaming arms 1, 2 and 4
-  (bit-equal) and the weak-scaling bench arms.
+  (bit-equal) and the weak-scaling bench arms;
+- phase ``baseline``: the port's NumPy/SciPy baseline frame
+  (``radar_tpu_torch/bench/baseline_np.py``, float64 on the host, the
+  denominator the benchmark divides the card's frames by) once at
+  ``full_config()`` with the two targets and ``default_rng(0)``: its wall
+  seconds beside the host's name, CPU count and BLAS threads, both truths
+  found.
 
 K1, K2 and K4 are also timed on a card kept busy (events behind a sleep
 kernel) beside the idle card and the host's time a call; K1 and K4 are
@@ -2268,6 +2276,9 @@ def _multichip_rank() -> dict:
                                        precomp=pre_p, device=dev).errors
     if rank == 1:
         mc["streaming_single"] = run_streaming_mc(perf, device=dev, **st_kw)
+        # without a mesh dp_trials is ignored, as JAX ignores it
+        mc["streaming_single_dp_flag"] = run_streaming_mc(
+            perf, device=dev, dp_trials=True, **st_kw)
     out["mc_dp"] = mc
 
     # ---- doa_cov: music_2d(mesh=) on BASELINE config 4's 16x8 URA, its
@@ -2425,14 +2436,19 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
                                      st1.snr_bin_rate, equal_nan=True)
                   and a["streaming"].range_rmse_m == st1.range_rmse_m
                   for a in arms)
+    st_flag_same = _stats_equal(res[1]["mc_dp"]["streaming_single_dp_flag"],
+                                st1)
     _line("multichip", arm="mc_dp", launches=[a["launches"] for a in arms],
           sweep_pd=arms[0]["pd"], sweep_identical=sw_same,
           sweep_s=[round(a["sweep_s"], 3) for a in arms],
           streaming_rate=arms[0]["streaming"].detection_rate,
           streaming_targets=arms[0]["streaming"].total_targets,
-          streaming_identical=st_same)
+          streaming_identical=st_same,
+          streaming_dp_trials_without_mesh_identical=st_flag_same)
     _require(sw_same and st_same,
              "mc_dp: the dp sweep and streaming MC == the one-rank runs")
+    _require(st_flag_same, "mc_dp: run_streaming_mc(dp_trials=True) without "
+             "a mesh == dp_trials=False, bit for bit")
     _require(all(a["launches"]["K1"] == 8 for a in arms),
              "mc_dp: 8 K1 trials per rank (2 points x 16 trials / 4)")
     arms = [r["doa_cov"] for r in res]
@@ -3410,6 +3426,63 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
     return walls
 
 
+def _blas_threads() -> dict:
+    """Each BLAS library mapped into this process and its thread count,
+    asked through ctypes."""
+    import ctypes
+
+    with open("/proc/self/maps") as fh:
+        libs = {ln.split()[-1] for ln in fh
+                if any(k in ln.rsplit("/", 1)[-1].lower() for k in (
+                    "openblas", "mkl", "libblas", "libcblas"))}
+    out = {}
+    for path in sorted(libs):
+        lib = ctypes.CDLL(path)
+        for sym in ("scipy_openblas_get_num_threads64_",
+                    "scipy_openblas_get_num_threads",
+                    "openblas_get_num_threads64_", "openblas_get_num_threads",
+                    "MKL_Get_Max_Threads"):
+            if hasattr(lib, sym):
+                out[os.path.basename(path)] = int(getattr(lib, sym)())
+                break
+    return out or {"not found; env": {k: os.environ.get(k) for k in (
+        "OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS")}}
+
+
+def _baseline(card: str) -> None:
+    """Phase ``baseline``: the port's NumPy/SciPy baseline frame
+    (``bench/baseline_np.py``, float64 on the host) once at
+    ``full_config()`` with the two targets and ``default_rng(0)``, as
+    bench.py runs its denominator; its wall seconds beside the host's
+    name, CPU count and BLAS threads; both truths found within 2 gates and
+    2 Doppler bins."""
+    import platform
+
+    from radar_tpu_torch.bench.baseline_np import frame_baseline_np
+    from radar_tpu_torch.config.params import full_config
+    from radar_tpu_torch.sim.scenario import TargetBatch
+    from radar_tpu_torch.waveform.precompute import precompute
+
+    cfg = full_config()
+    pre = precompute(cfg)
+    truth = TargetBatch.make([3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0],
+                             [10.0, 15.0])
+    t0 = time.perf_counter()
+    rows, n = frame_baseline_np(np.random.default_rng(0), truth, pre, cfg)
+    wall = time.perf_counter() - t0
+    at = np.stack([pre.range_axis[rows[:, 1].astype(int)],
+                   pre.velocity_axis[rows[:, 0].astype(int)]], 1)
+    found = _found(at, truth, pre.delta_r, pre.delta_v)
+    sig = cfg.sig
+    _line("baseline", card=repr(card), seconds=round(wall, 4),
+          node=platform.node(), cpu_count=os.cpu_count(),
+          blas_threads=_blas_threads(), numpy=np.__version__,
+          frame=[sig.channel_num, sig.prt_num, sig.point_prt],
+          detections=n, found=found)
+    _require(n == len(rows) > 0 and all(found),
+             "baseline: both truths within 2 gates and 2 Doppler bins")
+
+
 def _host_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -4064,6 +4137,27 @@ def main() -> int:
               velocity_rmse_ms=s_.velocity_rmse_ms)
     _require(stats.total_targets == 128 and st_launches["K1"] == 16,
              "streaming MC: 128 targets over 16 K1 frames")
+    # this slice's path: dp_trials=True without a mesh, through the entry
+    # point as a user calls it (its own processor); JAX ignores the flag
+    # there, so the statistics are those of dp_trials=False, bit for bit
+    reset()
+    t0 = time.perf_counter()
+    st_flag = run_streaming_mc(cfg, num_scenes=4, targets_per_scene=8,
+                               trials_per_scene=4, snr_range=(-5.0, 20.0),
+                               dp_trials=True, device=dev)
+    st_flag_wall = time.perf_counter() - t0
+    st_flag_launches = counts()
+    _line("streaming_mc", scenes="8_per_scene, dp_trials=True, no mesh",
+          launches=st_flag_launches, seconds=round(st_flag_wall, 3),
+          targets=st_flag.total_targets, detected=st_flag.total_detected,
+          identical_to_dp_trials_false=_stats_equal(st_flag, stats))
+    _require(_stats_equal(st_flag, stats),
+             "streaming MC: dp_trials=True without a mesh == dp_trials="
+             "False, bit for bit")
+    _require(all(st_flag_launches[k] == 16 for k in ("K1", "K1_bf16",
+                                                      "K1c_bf16", "K2")),
+             "streaming MC, dp_trials=True: K1 (bf16, K1c's rows) and K2 "
+             "once a trial")
     _require(stats.range_rmse_m <= 2 * 8.4, "streaming MC range RMSE")
     _require(abs(dense.detection_rate - 0.683) <= 0.13
              and dense.range_rmse_m <= 2 * 8.4,
@@ -4306,6 +4400,11 @@ def main() -> int:
     # (after the profiled phases, which ran at these points of the
     # process before it: the profiler's misses, _kernel_profile)
     _entry_points(card, dev, dr, dv, counts, reset)
+
+    # ---- 18. phase baseline: the port's NumPy baseline frame on this host
+    reset()
+    _baseline(card)
+    _require(not any(counts().values()), "baseline: no kernel launched")
 
     # launches: K1 and K2 from the perf SNR sweep, K3 and K5 from the
     # reference frame, K1c and K4 from the validation path, K7, K9 and K10

@@ -62,13 +62,32 @@ def _lead_trail_sums(x: torch.Tensor, guard: int, ref: int, axis: int):
     return lead, trail
 
 
+def _inv(ref: int) -> float:
+    """The f32 reciprocal of ``ref`` that the window sums are scaled by."""
+    return float(np.float32(1.0 / ref))
+
+
+def lead_trail_means(x: torch.Tensor, guard: int, ref: int,
+                     axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean over the ``ref`` cells before/after the guard band, per cell:
+
+      lead[i]  = mean(x[i-guard-ref : i-guard])
+      trail[i] = mean(x[i+guard+1 : i+guard+ref+1])
+
+    Border positions see zero-filled cells; callers mask them out. The sums
+    times the f32 reciprocal of ``ref``, as jitted JAX computes them."""
+    lead, trail = _lead_trail_sums(x, guard, ref, axis)
+    inv = _inv(ref)
+    return lead * inv, trail * inv
+
+
 def _combine(lead: torch.Tensor, trail: torch.Tensor, ref: int,
              method: str) -> torch.Tensor:
     """The per-axis noise estimate from the two window sums. For "CA" XLA
     contracts ``lead*inv + trail*inv`` into ``fma(lead, inv, trail*inv)``;
     the product lead*inv is exact in f64, so the f64 sum rounded to f32 is
     that FMA (but for a double rounding, at odds of about 2^-29)."""
-    inv = float(np.float32(1.0 / ref))
+    inv = _inv(ref)
     if method == "GOCA":
         return torch.maximum(lead * inv, trail * inv)
     if method == "SOCA":

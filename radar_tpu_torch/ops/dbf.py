@@ -28,10 +28,23 @@ def dbf_weights_effective_np(w, variant: str = "v8") -> np.ndarray:
     raise ValueError(f"unknown DBF variant: {variant}")
 
 
+def dbf_weights_effective(w: torch.Tensor,
+                          variant: str = "v8") -> torch.Tensor:
+    """Effective weight matrix M [beams, channels] such that
+    ``y = einsum('...c,bc->...b', x, M)`` reproduces ``variant``."""
+    if variant == "v8":
+        return torch.conj(w).resolve_conj()
+    if variant == "v7_7":
+        return torch.flip(w, dims=(1,))
+    if variant == "realdata":
+        return w
+    raise ValueError(f"unknown DBF variant: {variant}")
+
+
 def dbf(raw_iq: torch.Tensor, w, variant: str = "v8") -> torch.Tensor:
-    """[pulses, samples, channels] x host weights [beams, channels] ->
-    [pulses, samples, beams]."""
-    m = torch.as_tensor(
-        np.ascontiguousarray(dbf_weights_effective_np(w, variant)),
-        device=raw_iq.device)
-    return torch.einsum("psc,bc->psb", raw_iq, m.to(raw_iq.dtype))
+    """[pulses, samples, channels] x weights [beams, channels] (host array
+    or tensor) -> [pulses, samples, beams]."""
+    if not isinstance(w, torch.Tensor):
+        w = torch.as_tensor(np.ascontiguousarray(w))
+    m = dbf_weights_effective(w.to(raw_iq.device, raw_iq.dtype), variant)
+    return torch.einsum("psc,bc->psb", raw_iq, m)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.dbf import dbf_weights_effective
 from .mesh import Mesh
 from .pallas_ring import halo_right_permute, halo_right_plain
 
@@ -73,17 +74,6 @@ def gates_to_pulses(y: torch.Tensor, mesh: Mesh, axes,
     return got.transpose(0, 1).reshape((p, n * gl) + rest)[:, :num_gates]
 
 
-def _weights_effective(w: torch.Tensor, variant: str) -> torch.Tensor:
-    """``ops/dbf.py::dbf_weights_effective_np`` on a (local) tensor."""
-    if variant == "v8":
-        return w.conj()
-    if variant == "v7_7":
-        return w.flip(-1)
-    if variant == "realdata":
-        return w
-    raise ValueError(f"unknown DBF variant: {variant}")
-
-
 def dbf_channel_sharded(mesh: Mesh, axis: str = "ch", variant: str = "v8"):
     """``f(iq_local [P, S, C/n], w_local [B, C/n]) -> [P, S, B]`` with the
     channel axis sharded over ``axis``: each rank contracts its channel
@@ -92,8 +82,8 @@ def dbf_channel_sharded(mesh: Mesh, axis: str = "ch", variant: str = "v8"):
     block, as JAX's does."""
 
     def f(iq_local: torch.Tensor, w_local: torch.Tensor) -> torch.Tensor:
-        m = _weights_effective(torch.as_tensor(w_local, device=iq_local.device)
-                               .to(iq_local.dtype), variant)
+        m = dbf_weights_effective(torch.as_tensor(
+            w_local, device=iq_local.device).to(iq_local.dtype), variant)
         return mesh.all_reduce(torch.einsum("psc,bc->psb", iq_local, m),
                                axis)
 

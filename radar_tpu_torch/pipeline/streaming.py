@@ -15,7 +15,9 @@ statistics), ``dp_trials=True`` shards each scene's trials over the dp
 axis (``parallel/dp.py``'s contract), the reference's parfor boundary
 (main_plot_snr_vs_angle_error.m:167) on ranks, equal to the one-rank run
 trial for trial; without it, every trial's frame is sharded over the mesh
-(``parallel/sharded.py``).
+(``parallel/sharded.py``). Without a mesh the flag is ignored, as JAX
+ignores it: the trials run on one device, and the statistics are those of
+``dp_trials=False``.
 
 Trial seeds: trial ``t`` of scene ``s`` takes the integer seed
 ``pipeline/driver.py::trial_seed(seed, s, t)``.
@@ -128,13 +130,9 @@ def run_streaming_mc(cfg: RadarConfig, num_scenes: int = 16,
                      device="cuda", processor=None) -> StreamingStats:
     """Total injected targets = num_scenes*targets_per_scene*trials_per_scene,
     run on ``device`` (the card by default), or on the mesh's device with
-    ``mesh`` (see the module docstring). ``processor`` may be a frame
+    ``mesh`` (see the module docstring; ``dp_trials`` acts only there). ``processor`` may be a frame
     processor built once and reused (single-device route only);
     ``store`` resumes any route (see the module docstring)."""
-    if dp_trials and mesh is None:
-        raise NotImplementedError(
-            "dp_trials=True without mesh= (which JAX ignores) is not "
-            "ported: it shards the trials over a mesh's dp axis")
     local = None            # the dp route: this rank's trials
     if mesh is not None:
         from ..parallel.mesh import AXES, AXIS_DP, check_mesh

@@ -101,6 +101,28 @@ def build_tx_pulse(cfg: RadarConfig) -> tuple[np.ndarray, tuple]:
     return tx, (n1, n2, n3, pulse2, pulse3)
 
 
+def build_tx_pulse_v1(cfg: RadarConfig) -> np.ndarray:
+    """The historical v1 waveform (main_simulate_echoes_with_array.m:86-121):
+    the three pulses sit at the starts of the three range-gate segments of
+    the gated PRT (``n_total_gate`` samples, not the full PRT), and the
+    narrow pulse is sin(2*pi*t + pi/2) instead of ones."""
+    sig = cfg.sig
+    fs = sig.fs
+    tau1, tau2, tau3 = sig.tau
+    n1, n2, n3 = round(tau1 * fs), round(tau2 * fs), round(tau3 * fs)
+    t1 = np.linspace(-tau1 / 2, tau1 / 2, n1)
+    t2 = np.linspace(-tau2 / 2, tau2 / 2, n2)
+    t3 = np.linspace(-tau3 / 2, tau3 / 2, n3)
+    k2 = -sig.bandwidth / tau2
+    k3 = sig.bandwidth / tau3
+    g1, g2, _ = sig.point_prt_segments
+    tx = np.zeros(sig.n_total_gate, dtype=np.complex128)
+    tx[:n1] = np.sin(2 * np.pi * t1 + np.pi / 2).astype(np.complex128)
+    tx[g1:g1 + n2] = np.exp(1j * 2 * np.pi * 0.5 * k2 * t2**2)
+    tx[g1 + g2:g1 + g2 + n3] = np.exp(1j * 2 * np.pi * 0.5 * k3 * t3**2)
+    return tx
+
+
 def build_dbf_bank(cfg: RadarConfig):
     """(dbf_w [B,C], beam_angles_deg [B], k_slopes [B-1]): the measured
     assets for the 16-channel/13-beam default, else a synthesized Hamming

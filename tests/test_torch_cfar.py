@@ -4,6 +4,7 @@ indices, amplitudes and counts are compared with equality)."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 from radar_tpu.config.params import CfarParams as JCfar
 from radar_tpu.ops.cfar import extract_detections as j_extract
 from radar_tpu.ops.cfar import goca_cfar_2d as j_cfar
+from radar_tpu.ops.cfar import lead_trail_means as j_lead_trail_means
 from radar_tpu.ops.cfar import pair_sum_maps as j_pair_sum_maps
 from radar_tpu.ops.pallas_kernels import goca_cfar_qvg_pallas
 from radar_tpu.ops.pallas_kernels import pad_maps_qvg as j_pad
@@ -20,7 +22,7 @@ from radar_tpu_torch.config.params import (CfarParams, full_config,
                                            small_test_config)
 from radar_tpu_torch.ops import cfar_kernel as ck
 from radar_tpu_torch.ops.cfar import (extract_detections, goca_cfar_2d,
-                                      pair_sum_maps)
+                                      lead_trail_means, pair_sum_maps)
 
 SMALL = dict(ref_cells_v=3, guard_cells_v=4, ref_cells_r=5, guard_cells_r=10)
 
@@ -36,6 +38,23 @@ def _maps(seed, shape, hits=12, axes=(1, 2)):
         maps[tuple(idx)] += 60.0
     return maps
 
+
+@pytest.mark.parametrize("config", ["small", "full"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_lead_trail_means_match_jitted_jax(config, axis):
+    """The window means bit for bit against jitted JAX (which multiplies
+    by the f32 reciprocal of ``ref``), at the config's range and Doppler
+    windows, in f32."""
+    p = (small_test_config() if config == "small" else full_config()).cfar
+    x = _maps(5, (40, 300, 4), axes=(0, 1))
+    j_means = jax.jit(j_lead_trail_means, static_argnums=(1, 2, 3))
+    for guard, ref in ((p.guard_cells_r, p.ref_cells_r),
+                       (p.guard_cells_v, p.ref_cells_v)):
+        want = j_means(jnp.asarray(x), guard, ref, axis)
+        got = lead_trail_means(torch.from_numpy(x), guard, ref, axis)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("layout", ["vgq", "qvg"])

@@ -20,6 +20,7 @@ from radar_tpu.ops.pallas_rdm import make_rdm_plan as j_make_rdm_plan
 from radar_tpu.ops.pulse_compression import (
     compact_noise_plan as j_compact_noise_plan,
     make_matmul_plan as j_make_matmul_plan)
+from radar_tpu.waveform.precompute import build_tx_pulse_v1 as j_tx_v1
 from radar_tpu.waveform.precompute import precompute as j_precompute
 
 import radar_tpu_torch.config.params as tparams
@@ -28,8 +29,10 @@ from radar_tpu_torch.ops.mtd import make_mtd_matrix
 from radar_tpu_torch.ops.noise_rdm import make_rdm_plan
 from radar_tpu_torch.ops.pulse_compression import (compact_noise_plan,
                                                    make_matmul_plan)
-from radar_tpu_torch.waveform.precompute import (Precomputed, from_numpy,
-                                                 precompute)
+from radar_tpu_torch.sim.echo import radar_equation_amplitude
+from radar_tpu_torch.waveform.precompute import (Precomputed,
+                                                 build_tx_pulse_v1,
+                                                 from_numpy, precompute)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "radar_tpu_torch")
@@ -175,3 +178,29 @@ def test_rdm_plan_matches_jax(name):
     np.testing.assert_array_equal(d.real, want.dr[:v, :p])
     np.testing.assert_array_equal(d.imag, want.di[:v, :p])
     assert got.d.dtype == torch.complex64
+
+
+def test_v1_waveform_matches_jax_and_the_v1_models():
+    """``build_tx_pulse_v1`` bit for bit against JAX's at ``full_config``,
+    and ``tests/test_viz.py::test_v1_waveform_and_amplitude_models``'s
+    assertions on the port."""
+    cfg = tparams.full_config()
+    tx = build_tx_pulse_v1(cfg)
+    want = j_tx_v1(jparams.full_config())
+    assert tx.dtype == want.dtype == np.complex128
+    np.testing.assert_array_equal(tx, want)
+    assert tx.shape == (3404,)
+    # pulses at segment starts 0 / 228 / 951
+    assert np.all(tx[:4] != 0) and np.all(np.abs(tx[4:228]) == 0)
+    assert np.all(tx[228:428] != 0) and np.all(np.abs(tx[428:951]) == 0)
+    assert np.all(tx[951:1651] != 0) and np.all(np.abs(tx[1651:]) == 0)
+    # narrow pulse is cos-like (sin(2*pi*t + pi/2)), ~1 at center samples
+    assert abs(tx[1]) > 0.9
+
+    # radar-equation amplitude: R^-2 law with the 1e8 fudge gain
+    a1 = float(radar_equation_amplitude(1000.0, 1.0, cfg.sig.wavelength))
+    a2 = float(radar_equation_amplitude(2000.0, 1.0, cfg.sig.wavelength))
+    np.testing.assert_allclose(a1 / a2, 4.0, rtol=1e-6)
+    want_a = 1e8 * np.sqrt(cfg.sig.wavelength**2) / (1000.0**2
+                                                     * (4 * np.pi) ** 1.5)
+    np.testing.assert_allclose(a1, want_a, rtol=1e-5)

@@ -20,6 +20,7 @@ from radar_tpu.cluster.connected import connected_components_np as j_cc
 from radar_tpu.config import params as jparams
 from radar_tpu.measure.estimate import estimate_parameters as j_estimate
 from radar_tpu.ops.dbf import dbf as j_dbf
+from radar_tpu.ops.dbf import dbf_weights_effective as j_weights
 from radar_tpu.ops.mtd import make_mtd_matrix as j_mtd_matrix
 from radar_tpu.ops.mtd import mtd as j_mtd
 from radar_tpu.ops.mtd import mtd_matmul as j_mtd_matmul
@@ -88,6 +89,21 @@ def test_dbf_matches_jax(setup, variant):
     _close(got, want)
     with pytest.raises(ValueError, match="variant"):
         tdbf.dbf(torch.from_numpy(raw), w, "v9")
+
+
+@pytest.mark.parametrize("variant", ["v8", "v7_7", "realdata"])
+def test_dbf_weights_effective_matches_jax(setup, variant):
+    """The effective weights on tensors, bit for bit against JAX's, in
+    complex64 and complex128."""
+    _, jpre, _, _ = setup
+    for dtype in (np.complex64, np.complex128):
+        w = np.asarray(jpre.dbf_w).astype(dtype)
+        want = np.asarray(j_weights(jnp.asarray(w), variant))
+        got = tdbf.dbf_weights_effective(torch.from_numpy(w), variant)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got.numpy().dtype == want.dtype == dtype
+    with pytest.raises(ValueError, match="variant"):
+        tdbf.dbf_weights_effective(torch.from_numpy(w), "v9")
 
 
 @pytest.mark.parametrize("trim", [True, False])

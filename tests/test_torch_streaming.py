@@ -112,7 +112,22 @@ def test_streaming_mc_reuses_a_processor_and_is_deterministic():
                                 {"store": object(), "mesh": object()}],
                          ids=["mesh", "dp_trials", "store"])
 def test_unported_routes_are_refused(kw):
+    """``mesh=`` and ``store=`` refuse objects the port does not take.
+    ``dp_trials=True`` without a mesh is no longer refused: JAX ignores the
+    flag there (``radar_tpu/pipeline/streaming.py:116-150``), and the port
+    runs the one-device route, with the statistics of ``dp_trials=False``
+    at the same seed, bit for bit."""
     cfg = tparams.small_test_config()
+    if "mesh" not in kw:
+        run = dict(num_scenes=1, targets_per_scene=3, trials_per_scene=2,
+                   seed=6, snr_range=(-5.0, 20.0), device="cpu")
+        got = run_streaming_mc(cfg.replace(**PERF), **kw, **run)
+        want = run_streaming_mc(cfg.replace(**PERF), **run)
+        assert got.total_targets == 6
+        for f in want._fields:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)
+        return
     with pytest.raises(NotImplementedError, match=next(iter(kw))):
         run_streaming_mc(cfg, num_scenes=1, device="cpu", **kw)
 
