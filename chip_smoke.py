@@ -34,6 +34,17 @@ targets:
   output), against its plain version, old and new timed in turns beside
   each variant's bound, through its wrapper beside one complex64
   ``torch.matmul`` (its yardstick), and K1 at K = 40;
+- phase ``fft512``: the perf path at the reference's 512-point Doppler
+  FFT (``perf_config()`` with ``dbf_variant="v7_7"``, ``mtd_fft_len=512``,
+  ``use_pallas_cfar=True``; RDM [13, 512, 3404]): one frame through K1 at
+  bf16 (K1c's rows inside it) and K2, one launch each, both truths found
+  within 2 gates and 2 of the 512 bins; K1 bf16 (noise only with bf16
+  output, with the signal, with the pair maps), K1 f32, K1's planes mode
+  (the "pallas" route, its frame too), K1c's rows and K2 against their
+  plain versions; times on a busy and an idle card beside the bounds, the
+  profiler's split of K1 bf16, a 16-trial sweep point and a streaming arm;
+  its entries join the kernels line's rows of K1, K1's planes mode, K1c
+  and K2 under ``fft512``;
 - the exact reference stream, the default entry point (per-element echoes
   -> AWGN -> DBF -> PC -> MTD -> vgq tail), through K5 (AWGN, with
   ``noise_impl="pallas"``) and K3 (pair sum + CFAR: a block walks every
@@ -1591,6 +1602,328 @@ def _k1_bf16(nr, plan, lmat, factors, seed, card, track_k1: int,
                            ", rand (torch.rand of the same values)",
           "old_clocks_per_sample": old_sass["clocks_per_sample"],
           "launches_from": "K1's draw mode in the perf SNR sweep"})]
+
+
+def _fft512(card: str, dev, truth, counts, reset, draws_ms: float,
+            k1c_bound: tuple) -> dict:
+    """Phase ``fft512``: the perf path at the reference's 512-point Doppler
+    FFT (main_simulate_echoes_with_array_v7_7.m zero-pads the MTD to 512
+    points), uncut: ``perf_config()`` with ``dbf_variant="v7_7"``,
+    ``mtd_fft_len=512`` and ``use_pallas_cfar=True``, an RDM [13, 512,
+    3404] from 332 pulses. One frame on the main path (K1 at bf16, K1c's
+    rows inside it, K2: one launch each) finds both truths within 2 gates
+    and 2 of the 512 Doppler bins. Against the plain versions: K1 bf16
+    noise only with bf16 output (the trials' map), with the signal, with
+    the pair maps (the maps those of the map bit for bit), K1 f32, K1's
+    planes mode (the "pallas" route, whose frame also finds both truths),
+    K1c's bf16 rows (the rounded Philox planes bit for bit), K2 (mask and
+    counts identical). Times on a busy and an idle card beside each bound
+    (``draws_ms`` and ``k1c_bound``: phase k1_bf16's, which do not depend
+    on V), the profiler's split of K1 bf16, a 16-trial perf sweep point
+    (Pd, sigma; trials/s of a 16-trial batch after a warm-up, as phase
+    mc_rate times them) and a one-device streaming arm. Returns the V = 512 entries
+    of the kernels-line rows K1 bf16, K1 f32, K1 planes mode, K1c and K2."""
+    import torch
+
+    from radar_tpu_torch.config.params import perf_config
+    from radar_tpu_torch.ops import cfar_kernel as ck
+    from radar_tpu_torch.ops import noise_rdm as nr
+    from radar_tpu_torch.pipeline.frame import make_frame_processor
+    from radar_tpu_torch.pipeline.lowrank import make_lowrank_stages
+    from radar_tpu_torch.pipeline.montecarlo import make_trial_fn, snr_sweep
+    from radar_tpu_torch.pipeline.streaming import run_streaming_mc
+    from radar_tpu_torch.sim.scenario import TargetBatch
+    from radar_tpu_torch.waveform.precompute import precompute
+
+    phase_t0 = time.perf_counter()
+    bf = torch.bfloat16
+    cfg = perf_config().replace(dbf_variant="v7_7", mtd_fft_len=512,
+                                use_pallas_cfar=True)
+    pre = precompute(cfg)
+    dr = float(pre.delta_r)
+    dv = cfg.sig.v_max / cfg.mtd_fft_len
+
+    # the main path: one frame, its launches, both truths
+    process = make_frame_processor(cfg, pre, device=dev)
+    process(1, truth)                      # warm-up outside the count
+    torch.cuda.synchronize()
+    reset()
+    res = process(20261016, truth)
+    torch.cuda.synchronize()
+    launches = counts()
+    rows = _rows(res)
+    found = _found(rows, truth, dr, dv)
+    _line("fft512", what="frame", launches=launches,
+          num_final=int(res.num_final), found=found, delta_v=dv,
+          targets=np.round(rows, 3).tolist())
+    _require(bool(np.all(np.isfinite(rows))) and all(found),
+             "fft512: both truths found within 2 gates and 2 Doppler bins")
+    _require(all(launches[k] == 1 for k in ("K1", "K1_bf16", "K1c_draw",
+                                            "K1c_bf16", "mix", "K2")),
+             "fft512: a frame launches K1 (bf16), K1c inside it and K2 once")
+    frame_launches = {k: launches[k] for k in ("K1", "K1c_draw", "K2")}
+
+    # the kernels against their plain versions at V = 512
+    lr = make_lowrank_stages(cfg, pre, device=dev)
+    plan, lmat = lr.rplan, lr.l_factor
+    num_b, num_v, num_g = lmat.shape[0], plan.n_dop, plan.n_gates
+    _require(num_v == 512 and plan.n_pulses == 332,
+             "fft512: D is [512, 332]")
+    factors = lr.signal_factors(truth)
+    seed = nr.seed_words(20261022)
+    ph = nr.philox_planes(plan, seed, num_b, device=dev)
+    kw = dict(layout="bvg", mul_dtype=bf)
+    g16 = nr.gen_noise_planes(plan, seed, num_b, device=dev, dtype=bf)
+    y, maps = nr.noise_rdm(plan, lmat, factors, seed=seed, emit_maps=True,
+                           **kw)
+    y_s = nr.noise_rdm(plan, lmat, factors, seed=seed, **kw)
+    y_n = nr.noise_rdm(plan, lmat, seed=seed, out_dtype=bf, **kw)
+    y_g = nr.noise_rdm(plan, lmat, factors, planes=g16, **kw)
+    torch.cuda.synchronize()
+    _require(tuple(y.shape) == (13, 512, 3404) and tuple(maps.shape[:2])
+             == (12, 512), "fft512: RDM [13, 512, 3404], maps [12, 512, .]")
+    ref, ref_maps = nr.noise_rdm_plain(plan, lmat, ph, factors, mul_dtype=bf,
+                                       emit_maps=True)
+    inner = lambda m: m[:, :num_v, ck.HALO:ck.HALO + num_g]
+    hold = {"signal": _rel_rms(y, ref),
+            "maps": _rel_rms(inner(maps), inner(ref_maps))}
+    k1_err = float((y - ref).abs().max())
+    del ref_maps
+    ref = nr.noise_rdm_plain(plan, lmat, ph, mul_dtype=bf, out_dtype=bf)
+    hold["noise_bf16_out"] = _rel_rms(y_n, ref)
+    bits = {"k1c_rows_eq_rounded_philox": all(
+                bool(torch.equal(a, c.to(bf)) and torch.equal(b, d.to(bf)))
+                for (a, b), (c, d) in zip(g16, ph)),
+            "draw_eq_planes_mode_on_k1c_rows": bool(torch.equal(y, y_g)),
+            "maps_call_map_eq_map": bool(torch.equal(y, y_s)),
+            "maps_eq_pair_maps_of_map": bool(torch.equal(
+                maps, nr.pair_maps_plain(y))),
+            "maps_pad_rows_zero": not bool(maps[:, num_v:].any()),
+            "finite": bool(torch.isfinite(torch.view_as_real(y)).all())}
+    del y_s, y_g, y_n
+    # K1 f32 (3xTF32) with the signal
+    y32 = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg")
+    ref = nr.noise_rdm_plain(plan, lmat, ph, factors)
+    torch.cuda.synchronize()
+    diff = (y32 - ref).abs()
+    rms = float(ref.abs().pow(2).mean().sqrt())
+    hold["f32_signal"] = float(diff.pow(2).mean().sqrt()) / rms
+    f32_err = float(diff.max())
+    bits["f32_elements_within_1e-4_rms"] = bool(
+        (diff <= 1e-4 * rms + 1e-5 * ref.abs()).all())
+    del y32, diff
+    # K1's planes mode: the "pallas" route's planes and map
+    cfg_p = cfg.replace(noise_rdm_impl="pallas")
+    lr_p = make_lowrank_stages(cfg_p, pre, device=dev)
+    planes_p = lr_p.noise_planes(20261022)
+    y_p = lr_p.noise_rdm(0, layout="bvg", planes=planes_p)
+    ref = nr.noise_rdm_plain(plan, lmat, planes_p, mul_dtype=bf,
+                             out_dtype=bf)
+    torch.cuda.synchronize()
+    hold["planes_noise_bf16_out"] = _rel_rms(y_p, ref)
+    planes_err = float((y_p - ref).abs().max())
+    del ref, y_p
+    # K2 on K1's maps
+    mask, rc = ck.goca_cfar_qvg(maps, cfg.cfar, num_g, num_v)
+    mask_p, rc_p = ck.goca_cfar_qvg_plain(maps, cfg.cfar, num_g, num_v)
+    torch.cuda.synchronize()
+    bits["k2_mask_and_counts_eq_plain"] = bool(
+        torch.equal(mask, mask_p) and torch.equal(rc, rc_p))
+    k2_hits = int(mask.sum())
+    _line("fft512", what="kernels vs plain", rms_err_over_rms=hold,
+          max_abs_err={"K1_bf16_signal": k1_err, "K1_f32_signal": f32_err,
+                       "K1_planes": planes_err}, bits=bits, k2_hits=k2_hits,
+          tol=f"bf16 map and maps <= {BF16_HOLD}, bf16 output <= "
+          f"{BF16_OUT_HOLD}, f32 <= 1e-5 (rms rel); the rest bit for bit")
+    _require(hold["signal"] <= BF16_HOLD and hold["maps"] <= BF16_HOLD
+             and hold["noise_bf16_out"] <= BF16_OUT_HOLD
+             and hold["planes_noise_bf16_out"] <= BF16_OUT_HOLD
+             and hold["f32_signal"] <= 1e-5 and all(bits.values())
+             and k2_hits > 0, "fft512: K1, K1c and K2 vs plain at V = 512")
+
+    # the "pallas" route's frame (K1's planes mode)
+    proc_p = make_frame_processor(cfg_p, pre, device=dev)
+    proc_p(1, truth)
+    torch.cuda.synchronize()
+    reset()
+    res_p = proc_p(20261016, truth)
+    torch.cuda.synchronize()
+    launches_p = counts()
+    found_p = _found(_rows(res_p), truth, dr, dv)
+    _line("fft512", what="\"pallas\" route frame", launches=launches_p,
+          found=found_p)
+    _require(all(found_p) and launches_p["K1_bf16"] == launches_p["K2"] == 1
+             and launches_p["K1c_draw"] == 0,
+             "fft512: the pallas route's frame (K1 planes mode, K2) finds "
+             "both truths")
+
+    # times: busy card, idle card in turns with the plain version, host ms
+    calls = {
+        "K1_bf16_signal": (lambda: nr.noise_rdm(plan, lmat, factors,
+                                                seed=seed, **kw),
+                           lambda: nr.noise_rdm_plain(
+                               plan, lmat, nr.philox_planes(
+                                   plan, seed, num_b, device=dev),
+                               factors, mul_dtype=bf)),
+        "K1_bf16_signal_maps": (lambda: nr.noise_rdm(
+            plan, lmat, factors, seed=seed, emit_maps=True, **kw), None),
+        "K1_bf16_noise_bf16_out": (lambda: nr.noise_rdm(
+            plan, lmat, seed=seed, out_dtype=bf, **kw), None),
+        "K1_f32_signal": (lambda: nr.noise_rdm(plan, lmat, factors,
+                                               seed=seed, layout="bvg"),
+                          lambda: nr.noise_rdm_plain(
+                              plan, lmat, nr.philox_planes(
+                                  plan, seed, num_b, device=dev), factors)),
+        "K1_planes_bf16": (lambda: nr.noise_rdm(plan, lmat, planes=planes_p,
+                                                out_dtype=bf, **kw),
+                           lambda: nr.noise_rdm_plain(
+                               plan, lmat, planes_p, mul_dtype=bf,
+                               out_dtype=bf)),
+        "K1c_bf16": (lambda: nr.gen_noise_planes(plan, seed, num_b,
+                                                 device=dev, dtype=bf),
+                     lambda: [(a.to(bf), b.to(bf)) for a, b in
+                              nr.philox_planes(plan, seed, num_b,
+                                               device=dev)]),
+        "K2": (lambda: ck.goca_cfar_qvg(maps, cfg.cfar, num_g, num_v),
+               lambda: ck.goca_cfar_qvg_plain(maps, cfg.cfar, num_g, num_v)),
+        "frame": (lambda: process(20261016, truth), None)}
+    t = {}
+    for label, (call, plain) in calls.items():
+        busy, host = _busy_event_ms(call)
+        t[label] = {"busy_card_ms": busy, "host_ms": host}
+        if plain is not None:
+            t[label]["idle_card_ms"], t[label]["plain_ms"] = _time_pair(
+                call, plain)
+    t["frame"]["idle_card_ms"] = statistics.median(_event_ms(
+        calls["frame"][0], 5))
+    n_planes = sum(num_b * plan.n_pulses * nr.k1c_row_len(sg.xlen, bf)
+                   for sg in plan.segments)
+    t["K1c_bf16"]["library_busy_card_ms"] = _busy_event_ms(
+        lambda: torch.rand(2 * n_planes, device=dev, dtype=bf))[0]
+    prof = _kernel_profile(calls["K1_bf16_signal"][0], reps=5,
+                           need=("strip_pc_kernel<false>", "dft_kernel"))
+    parts = (("K1c_bf16_rows", "planes_kernel<__nv_bfloat16"),
+             ("strip_gemm", "strip_pc_kernel<false>"),
+             ("dft_gemm", "dft_kernel"), ("mix_signal", "::mix_kernel<"))
+    split = {p: sum(v[0] for k, v in prof.items() if key in k)
+             for p, key in parts}
+    maps_split = _named_ms(_kernel_ms(calls["K1_bf16_signal_maps"][0],
+                                      reps=5, need=("::mix_kernel<",)),
+                           "::mix_kernel<")
+    frame_busy, frame_top = _device_busy_ms(calls["frame"][0], reps=3)
+    # bounds from this run's shapes: K1's bf16 operations (the DFT's grow
+    # with V) or the draws (phase k1_bf16's, V-free), or its bytes (the
+    # map written once; with the maps those too; planes mode reads its
+    # planes); the mix alone reads the DFT's bf16 planes and writes the
+    # map (and maps); K2 reads the maps' interior, writes mask and counts
+    ops_ms = _k1_bound_ms(plan, num_b, PEAK_BF16)
+    dft_ops_ms = 8.0 * num_b * num_v * plan.n_pulses * num_g / PEAK_BF16 \
+        * 1e3
+    map_ms = num_b * num_v * num_g * 8 / PEAK_HBM * 1e3
+    maps_ms = (num_b - 1) * num_v * num_g * 4 / PEAK_HBM * 1e3
+    mt_ms = num_b * num_v * num_g * 4 / PEAK_HBM * 1e3
+    planes_ms = sum(2 * x.numel() * x.element_size() for x, _ in planes_p
+                    ) / PEAK_HBM * 1e3
+    k2_bound = _bytes_ms(inner(maps), mask, rc)
+    bounds = {"K1_bf16": _bound(max(ops_ms, draws_ms), map_ms),
+              "K1_bf16_maps": _bound(max(ops_ms, draws_ms),
+                                     map_ms + maps_ms),
+              "K1_f32": _bound(_k1_bound_ms(plan, num_b, PEAK_TF32,
+                                            products=3), map_ms),
+              "K1_planes_bf16": _bound(ops_ms, planes_ms + map_ms),
+              "K2": (k2_bound, "bytes"),
+              "mix_signal": (mt_ms + map_ms, "bytes"),
+              "mix_signal_maps": (mt_ms + map_ms + maps_ms, "bytes")}
+    bounds["frame_kernels"] = (bounds["K1_bf16"][0] + k2_bound,
+                               "K1 bf16 + K2")
+    reset()
+    sw = snr_sweep(cfg, snr_db_vector=[10.0], num_trials=16, precomp=pre,
+                   device=dev)
+    sweep_launches = counts()
+    # trials/s as phase mc_rate times them: host clock around a 16-trial
+    # batch that ends in the copy to the host, median of 3 after a warm-up
+    trials = make_trial_fn(cfg, pre, device=dev)
+    tb10 = TargetBatch.make([10000.0], [20.0], [10.0], [10.0])
+    batch = lambda: trials(tb10, range(16))[1].cpu()
+    batch()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch()
+        walls.append(time.perf_counter() - t0)
+    batch_s = statistics.median(walls)
+    reset()
+    st_t0 = time.perf_counter()
+    st = run_streaming_mc(cfg, num_scenes=2, targets_per_scene=8,
+                          trials_per_scene=2, snr_range=(-5.0, 20.0),
+                          processor=process, device=dev)
+    st_s = time.perf_counter() - st_t0
+    st_launches = counts()
+    _line("fft512", what="times", card=repr(card), ms=t,
+          profile_ms_K1_bf16_signal=split, profile_ms_mix_with_maps=maps_split,
+          frame_device_busy_ms=frame_busy, frame_top_kernels=frame_top,
+          bounds=bounds, bf16_ops_ms=ops_ms, dft_bf16_ops_ms=dft_ops_ms,
+          draws_ms=draws_ms)
+    _line("fft512", what="perf sweep and streaming", card=repr(card),
+          sweep_launches=sweep_launches, pd=sw.detection_probability.tolist(),
+          sigma_deg=sw.angle_error_std.tolist(),
+          theory_deg=sw.theory_bound.tolist(),
+          batch16_ms=round(batch_s * 1e3, 4),
+          trials_per_s=round(16 / batch_s, 3), streaming_launches=st_launches,
+          streaming_targets=st.total_targets,
+          streaming_detected=st.total_detected,
+          streaming_range_rmse_m=st.range_rmse_m,
+          streaming_velocity_rmse_ms=st.velocity_rmse_ms,
+          streaming_s=round(st_s, 3),
+          phase_s=round(time.perf_counter() - phase_t0, 3))
+    _require(sweep_launches["K1_bf16"] == sweep_launches["K2"] == 16
+             and bool(np.all(sw.detection_probability == 1.0))
+             and bool(np.all(sw.angle_error_std < sw.theory_bound)),
+             "fft512 sweep: 16 K1 bf16 and K2 launches, Pd = 1, sigma below "
+             "the theory bound")
+    _require(st.total_targets == 32 and st_launches["K1_bf16"] == 4
+             and st_launches["K2"] == 4 and st.total_detected > 0
+             and st.range_rmse_m <= 2 * 8.4,
+             "fft512 streaming: 32 targets over 4 K1 frames, range RMSE "
+             "<= 16.8 m")
+    entry = lambda label, bound, n, err, **kw2: {
+        "config": "perf_config(), dbf_variant=v7_7, mtd_fft_len=512, "
+                  "use_pallas_cfar=True: RDM [13, 512, 3404]",
+        "launches_a_frame": n, "ms": t[label]["busy_card_ms"],
+        "ms_is": "events around one call, the card kept busy",
+        **{k: v for k, v in t[label].items() if k != "busy_card_ms"},
+        "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err,
+        **kw2}
+    return {
+        "K1_bf16": entry(
+            "K1_bf16_signal", bounds["K1_bf16"], frame_launches["K1"],
+            k1_err, profile_ms=split, rms_err_over_rms=hold["signal"],
+            busy_card_ms_with_maps=t["K1_bf16_signal_maps"]["busy_card_ms"],
+            bound_with_maps=bounds["K1_bf16_maps"],
+            mix_ms_with_maps=maps_split,
+            mix_bound=bounds["mix_signal"],
+            mix_bound_with_maps=bounds["mix_signal_maps"],
+            busy_card_ms_noise_bf16_out=t["K1_bf16_noise_bf16_out"][
+                "busy_card_ms"],
+            frame_busy_card_ms=t["frame"]["busy_card_ms"],
+            frame_idle_card_ms=t["frame"]["idle_card_ms"],
+            frame_host_ms=t["frame"]["host_ms"],
+            frame_device_busy_ms=frame_busy,
+            frame_kernels_bound=bounds["frame_kernels"],
+            sweep_trials_per_s=16 / batch_s),
+        "K1_f32": entry("K1_f32_signal", bounds["K1_f32"], 0, f32_err,
+                        rms_err_over_rms=hold["f32_signal"],
+                        launches_note="off the main path (f32 checks)"),
+        "K1_planes_bf16": entry(
+            "K1_planes_bf16", bounds["K1_planes_bf16"],
+            launches_p["K1_bf16"], planes_err,
+            rms_err_over_rms=hold["planes_noise_bf16_out"],
+            launches_note="a frame of the \"pallas\" route"),
+        "K1c_bf16": entry("K1c_bf16", k1c_bound, frame_launches["K1c_draw"],
+                          0.0, library_busy_card_ms=t["K1c_bf16"][
+                              "library_busy_card_ms"]),
+        "K2": entry("K2", bounds["K2"], frame_launches["K2"], 0.0,
+                    hits=k2_hits)}
 
 
 def _mix(nr, am, old_lib, lr, dev, card, launches: int) -> tuple:
@@ -4164,6 +4497,11 @@ def main() -> int:
              "streaming MC at 40 targets per scene: rate 0.683 +- 0.13, "
              "range RMSE <= 16.8 m")
 
+    # ---- 15b. phase fft512: the perf path at the 512-point Doppler FFT
+    fft512 = _fft512(card, dev, truth, counts, reset,
+                     bf16_rows[0][10]["draws_bound_ms"],
+                     tuple(bf16_rows[3][7:9]))
+
     # ---- 16. the noise-RDM kernel studies: the planes kernel's schedules
     # (K10, K7, K9) and the banded-PC study (K8)
     study_rows = _rdm_variants(nr, plan, lmat, dev, card)
@@ -4484,6 +4822,12 @@ def main() -> int:
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
           "bound_fp32_cuda_cores_ms": k1_bound,
           "bytes_bound_ms": k4_bytes_ms})] + bf16_rows + study_rows
+    # the V = 512 entries (phase fft512) of the rows its path runs
+    for row, key in ((kernels[0], "K1_f32"), (kernels[1], "K2"),
+                     (bf16_rows[0], "K1_bf16"),
+                     (bf16_rows[2], "K1_planes_bf16"),
+                     (bf16_rows[3], "K1c_bf16")):
+        row[10]["fft512"] = fft512[key]
     # a row may end with a dict of extra keys
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

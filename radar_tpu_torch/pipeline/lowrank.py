@@ -21,6 +21,11 @@ with the Cholesky beam mix applied afterwards. Three noise-RDM backends
   trials run it noise-only (``noise_rdm``) on a signal RDM made once per
   SNR point.
 
+Every route takes ``cfg.mtd_fft_len``: D is [V, P] with V Doppler bins
+from P pulses (the reference's zero-padded v7_7 MTD, 512 points), and
+the kernels take V as they take P. A kernel route needs the matmul PC
+plan and the MTD matrix, and raises JAX's ``ValueError`` without them.
+
 The kernel routes take JAX's effective dtypes (``route_dtypes``). On the
 card they are those JAX runs on its accelerator: K1 multiplies in bf16 (the
 TPU kernel's own operands: planes, filter, D and L rounded, the PC and the
@@ -111,17 +116,14 @@ def check_config(cfg: RadarConfig) -> None:
     if cfg.noise_rdm_impl not in IMPLS:
         raise ValueError(f"cfg.noise_rdm_impl={cfg.noise_rdm_impl!r}: not "
                          f"one of {IMPLS}")
-    if cfg.noise_rdm_impl != "xla":
-        for flag in ("pc_method", "mtd_method"):
-            if getattr(cfg, flag) != "matmul":
-                raise NotImplementedError(
-                    f"cfg.{flag}={getattr(cfg, flag)!r} is not ported with "
-                    f"noise_rdm_impl={cfg.noise_rdm_impl!r} (the noise-RDM "
-                    "kernel needs the matmul plans)")
-        if cfg.mtd_fft_len is not None:
-            raise NotImplementedError(
-                f"cfg.mtd_fft_len={cfg.mtd_fft_len!r} is not ported with "
-                f"noise_rdm_impl={cfg.noise_rdm_impl!r}")
+    if cfg.noise_rdm_impl != "xla" and (cfg.pc_method, cfg.mtd_method) != (
+            "matmul", "matmul"):
+        # as JAX refuses it (radar_tpu/pipeline/lowrank.py:93-104)
+        raise ValueError(
+            f"noise_rdm_impl={cfg.noise_rdm_impl!r} requires the matmul PC "
+            "plan and the MTD matrix (pc_method='matmul' and "
+            f"mtd_method='matmul'); got pc_method={cfg.pc_method!r}, "
+            f"mtd_method={cfg.mtd_method!r}")
     if cfg.noise_dist not in ("normal", "uniform"):
         raise ValueError(f"cfg.noise_dist={cfg.noise_dist!r}: not one of "
                          "('normal', 'uniform')")

@@ -3,7 +3,9 @@ K9 and K10 against their plain PyTorch versions (K6 on a ring of two ranks
 sharing the card, through ``run_ranks``; K8 at bf16, the staging kernel
 and the strip GEMM, and at f32, the staging kernel and the 3xTF32 strip
 GEMM, also at ragged shapes and with probe inputs; K7's bf16 draw mode,
-the strip GEMM with drawing producers, against its planes mode), the
+the strip GEMM with drawing producers, against its planes mode; K1, K2,
+K4, K10, K7 and K9 also at a zero-padded Doppler FFT, ``mtd_fft_len`` 40
+and 64 on 32 pulses), the
 perf-config frame (each noise-RDM route) and the reference-stream frame
 through the kernels against the plain path on the CPU, and a small SNR
 sweep. Marked ``cuda``; each test skips without an NVIDIA GPU.
@@ -1532,3 +1534,141 @@ def test_mix_launches_once_a_bf16_call_on_card(cuda_device):
         got[name] = nr.mix_launch_count - before
     assert got == {name: 1 for name in calls}
 
+
+
+# ------------------------------ the kernel routes at a zero-padded Doppler FFT
+
+# cfg.mtd_fft_len at small_test_config's 32 pulses: V = 2P, and V = 40, not
+# a multiple of 8 or 16 (the Doppler rows of D, the DFT's tile and the maps
+# padded); the perf path runs 512 bins from 332 pulses (chip_smoke.py's
+# phase fft512)
+FFT_LENS = (40, 64)
+
+
+def _fft_stages(device, fft_len):
+    cfg = CFG.replace(mtd_fft_len=fft_len)
+    lr = make_lowrank_stages(cfg, precompute(cfg), device=device)
+    assert lr.rplan.n_dop == fft_len != lr.rplan.n_pulses
+    return cfg, lr, lr.signal_factors(TargetBatch.make(*TARGETS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mul", ["f32", "bf16"])
+@pytest.mark.parametrize("fft_len", FFT_LENS)
+def test_k1_at_fft_len_matches_plain_on_card(cuda_device, fft_len, mul):
+    """K1 at V != P, draw mode with the signal and the pair maps, against
+    its plain version (RMS of the difference within 1e-5 of the RMS at f32,
+    BF16_HOLD at bf16) and its planes mode on the plain Philox planes bit
+    for bit; the maps those of its map bit for bit, the padded Doppler rows
+    zero; bf16 output the map rounded; each part counted."""
+    _, lr, factors = _fft_stages(cuda_device, fft_len)
+    plan, lmat = lr.rplan, lr.l_factor
+    md = _MUL[mul]
+    seed = (3, 5)
+    planes = nr.philox_planes(plan, seed, 5, device=cuda_device)
+    ref, ref_maps = nr.noise_rdm_plain(plan, lmat, planes, factors,
+                                       mul_dtype=md, emit_maps=True)
+    names = ("launch_count", "k1_bf16_launch_count", "dft_launch_count",
+             "mix_launch_count", "tf32_dft_launch_count",
+             "k1c_draw_launch_count")
+    before = {n: getattr(nr, n) for n in names}
+    kw = dict(layout="bvg", mul_dtype=md)
+    y, maps = nr.noise_rdm(plan, lmat, factors, seed=seed, emit_maps=True,
+                           **kw)
+    fed = nr.noise_rdm(plan, lmat, factors, planes=planes, **kw)
+    y16 = nr.noise_rdm(plan, lmat, factors, seed=seed,
+                       out_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    got = {n: getattr(nr, n) - before[n] for n in names}
+    bf = mul == "bf16"
+    assert got == {"launch_count": 3, "k1_bf16_launch_count": 3 * bf,
+                   "dft_launch_count": 3 * bf, "mix_launch_count": 3 * bf,
+                   "tf32_dft_launch_count": 3 * (not bf),
+                   "k1c_draw_launch_count": 2}
+    assert y.shape == (5, fft_len, plan.n_gates)
+    assert torch.equal(y, fed)
+    assert torch.equal(y16, nr.round_mul(y, torch.bfloat16))
+    assert torch.equal(maps, nr.pair_maps_plain(y))
+    assert not maps[:, fft_len:].any()
+    hold = BF16_HOLD if bf else 1e-5
+    assert _rms(y - ref) <= hold * _rms(ref)
+    inner = lambda m: m[:, :fft_len, ck.HALO:ck.HALO + plan.n_gates]
+    assert _rms(inner(maps) - inner(ref_maps)) <= hold * _rms(inner(ref_maps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mul", ["f32", "bf16"])
+@pytest.mark.parametrize("fft_len", FFT_LENS)
+def test_k4_at_fft_len_on_card(cuda_device, fft_len, mul):
+    """K4 at V != P with the signal: within K1's hold of its plain version
+    (at bf16 equal to K1 bit for bit, as at V = P); one K4 launch a call."""
+    _, lr, factors = _fft_stages(cuda_device, fft_len)
+    plan, lmat = lr.rplan, lr.l_factor
+    md = _MUL[mul]
+    seed = (4, 8)
+    ref = nr.noise_rdm_plain(plan, lmat, nr.philox_planes(
+        plan, seed, 5, device=cuda_device), factors, mul_dtype=md)
+    before = nr.k4_launch_count
+    got = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                       rolling=False, mul_dtype=md)
+    k1 = nr.noise_rdm(plan, lmat, factors, seed=seed, layout="bvg",
+                      mul_dtype=md)
+    torch.cuda.synchronize()
+    assert nr.k4_launch_count == before + 1
+    assert got.shape == (5, fft_len, plan.n_gates)
+    assert _rms(got - ref) <= (BF16_HOLD if mul == "bf16" else 1e-5) * _rms(ref)
+    if mul == "bf16":
+        assert torch.equal(got, k1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mul", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["resident", "stacked", "allbeams"])
+@pytest.mark.parametrize("fft_len", FFT_LENS)
+def test_rdm_variants_at_fft_len_on_card(cuda_device, fft_len, variant, mul):
+    """K10, K7 and K9 at V != P with the signal against the plain version
+    at the same multiply type (1e-5 RMS at f32, BF16_HOLD at bf16); one
+    launch of the schedule a call."""
+    _, lr, factors = _fft_stages(cuda_device, fft_len)
+    md = _MUL[mul]
+    planes = nr.philox_planes(lr.rplan, (3, 5), 5, device=cuda_device)
+    ref = nr.noise_rdm_plain(lr.rplan, lr.l_factor, planes, factors,
+                             mul_dtype=md)
+    before = getattr(nr, _COUNTER[variant])
+    got = nr.noise_rdm(lr.rplan, lr.l_factor, factors, planes=planes,
+                       variant=variant, mul_dtype=md, layout="bvg")
+    torch.cuda.synchronize()
+    assert getattr(nr, _COUNTER[variant]) == before + 1
+    assert got.shape == (5, fft_len, lr.rplan.n_gates)
+    assert _rms(got - ref) <= (BF16_HOLD if mul == "bf16" else 1e-5) * _rms(ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft_len", FFT_LENS)
+def test_k2_and_frame_at_fft_len_on_card(cuda_device, fft_len):
+    """K2 over V != P Doppler rows of K1's pair maps: mask and row counts
+    identical to its plain version; the perf frame at V != P on the card
+    (K1 at bf16, K2, one launch each) and on the CPU at the accelerator's
+    dtypes: same final targets within rtol 1e-3 (the noise's bf16
+    roundings come after sums in other orders)."""
+    cfg, lr, factors = _fft_stages(cuda_device, fft_len)
+    num_g = lr.rplan.n_gates
+    _, maps = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=(3, 5),
+                           layout="bvg", mul_dtype=torch.bfloat16,
+                           emit_maps=True)
+    before = ck.launch_count
+    mask, rc = ck.goca_cfar_qvg(maps, cfg.cfar, num_g, fft_len)
+    mask_p, rc_p = ck.goca_cfar_qvg_plain(maps, cfg.cfar, num_g, fft_len)
+    torch.cuda.synchronize()
+    assert ck.launch_count == before + 1
+    assert torch.equal(mask, mask_p) and torch.equal(rc, rc_p)
+    assert int(mask.sum()) >= 1
+    tb = TargetBatch.make(*TARGETS)
+    before = (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count)
+    a = make_frame_processor(cfg, device=cuda_device)(5, tb)
+    torch.cuda.synchronize()
+    assert (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    b = make_frame_processor(cfg, device="cpu", accelerator_dtypes=True)(5, tb)
+    assert int(a.num_final) == int(b.num_final) >= 2
+    _assert_same_rows(_rows(a), _rows(b), rtol=1e-3)

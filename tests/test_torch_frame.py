@@ -155,10 +155,11 @@ def test_no_target_no_detection():
 
 @pytest.mark.parametrize("flag,value", [("pc_method", "fft")])
 def test_unported_variants_are_refused(flag, value):
-    """The kernel routes need the matmul plans (the frame's tail variants
-    are held against JAX in test_torch_frame_tails.py)."""
+    """The kernel routes need the matmul plans and raise JAX's ValueError
+    without them (the frame's tail variants are held against JAX in
+    test_torch_frame_tails.py)."""
     cfg = tparams.small_test_config().replace(**OVER).replace(**{flag: value})
-    with pytest.raises(NotImplementedError, match=flag):
+    with pytest.raises(ValueError, match=flag):
         make_frame_processor(cfg, device="cpu")
 
 
