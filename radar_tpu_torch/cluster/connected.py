@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 CHECK_EVERY = 4   # propagation steps between convergence checks (host syncs)
 
 
@@ -39,8 +41,15 @@ def connected_labels(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         prev = labels
         for _ in range(CHECK_EVERY):
             labels = step(labels)
-        if not bool(torch.any(labels != prev)):
+        if _converged(labels, prev):
             return labels
+
+
+def _converged(labels: torch.Tensor, prev: torch.Tensor) -> bool:
+    """Whether no label moved: one read of a device value (``rt.sync``)."""
+    changed = torch.any(labels != prev)
+    with span("sync"):
+        return not bool(changed)
 
 
 def gate_adjacency(fields: list, valid: torch.Tensor) -> torch.Tensor:

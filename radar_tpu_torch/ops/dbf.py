@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import host_to_device
+
 
 def dbf_weights_effective_np(w, variant: str = "v8") -> np.ndarray:
     """Effective host-numpy weights M [beams, channels] such that
@@ -46,5 +48,6 @@ def dbf(raw_iq: torch.Tensor, w, variant: str = "v8") -> torch.Tensor:
     or tensor) -> [pulses, samples, beams]."""
     if not isinstance(w, torch.Tensor):
         w = torch.as_tensor(np.ascontiguousarray(w))
-    m = dbf_weights_effective(w.to(raw_iq.device, raw_iq.dtype), variant)
+    m = dbf_weights_effective(
+        host_to_device(w, raw_iq.device, raw_iq.dtype), variant)
     return torch.einsum("psc,bc->psb", raw_iq, m)

@@ -49,6 +49,7 @@ from ..cluster.connected import connected_components_np
 from ..cluster.stages import ClusteredTargets
 from ..config.params import RadarConfig
 from ..sim.scenario import Scenario, TargetBatch
+from ..utils.profiling import span
 from .frame import FrameResult, make_frame_processor
 
 
@@ -70,7 +71,11 @@ def trial_seed(seed: int, point: int, trial: int) -> int:
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    """A tensor's values on the host: one wait on its device (``rt.sync``)."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    with span("sync"):
+        return x.detach().cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -421,7 +426,8 @@ def run_multiframe(cfg: RadarConfig, initial_targets: TargetBatch,
                       f"{len(saved['range_m'])} targets (resumed)")
             continue
         result = processor(frame_seed(seed, frame_idx), targets)
-        log.append_frame(result, frame_idx, scen.azimuth_deg)
+        with span("log"):
+            log.append_frame(result, frame_idx, scen.azimuth_deg)
         if store is not None:
             rows = log.frame == frame_idx
             store.save("measurements", frame_idx,
@@ -434,8 +440,9 @@ def run_multiframe(cfg: RadarConfig, initial_targets: TargetBatch,
             print(f"frame {frame_idx}/{num_frames}: "
                   f"{int(result.num_final)} targets, "
                   f"az={scen.azimuth_deg:.2f}")
-    if cfg.inter_frame.enable:
-        tracks = associate_tracks(log, cfg)
-    else:
-        tracks = tracks_without_association(log)
+    with span("associate"):
+        if cfg.inter_frame.enable:
+            tracks = associate_tracks(log, cfg)
+        else:
+            tracks = tracks_without_association(log)
     return log, tracks, scen

@@ -74,6 +74,7 @@ from ..ops.pulse_compression import (make_matmul_plan, make_plan,
 from ..sim.echo import (add_noise, add_noise_beamspace, beam_noise_factor,
                         seeded_generator, synthesize_echo_beams,
                         synthesize_echoes, white_complex_noise)
+from ..utils.profiling import host_to_device, span
 from ..waveform.precompute import Precomputed, precompute
 from .lowrank import make_lowrank_stages
 
@@ -212,15 +213,18 @@ def _estimate_and_cluster(cfg: RadarConfig, mc: MeasureConsts,
                           dets: Detections, maps, rdm, rdm_layout: str,
                           maps_layout: str | None):
     ip = cfg.interp
-    params = estimate_parameters(
-        dets, maps, rdm, mc, ip.extra_dots, ip.r_interp_times,
-        ip.v_interp_times, layout=rdm_layout, maps_layout=maps_layout,
-        monopulse_complex=cfg.monopulse_complex,
-        monopulse_refined=cfg.monopulse_refined)
-    s1 = cluster_stage1(params, cfg.cluster)
-    final = cluster_stage2(s1, cfg.cluster)
-    result = FrameResult(targets=final, num_raw_detections=dets.count,
-                         num_final=final.count.to(torch.int32))
+    with span("estimate"):
+        params = estimate_parameters(
+            dets, maps, rdm, mc, ip.extra_dots, ip.r_interp_times,
+            ip.v_interp_times, layout=rdm_layout, maps_layout=maps_layout,
+            monopulse_complex=cfg.monopulse_complex,
+            monopulse_refined=cfg.monopulse_refined)
+    with span("cluster1"):
+        s1 = cluster_stage1(params, cfg.cluster)
+    with span("cluster2"):
+        final = cluster_stage2(s1, cfg.cluster)
+        result = FrameResult(targets=final, num_raw_detections=dets.count,
+                             num_final=final.count.to(torch.int32))
     return params, s1, result
 
 
@@ -239,58 +243,68 @@ def detection_tail(cfg: RadarConfig, mc: MeasureConsts, rdm: torch.Tensor,
     - "qgv": [pairs, G, V] pair sums of a "bvg" RDM -> CFAR -> extraction.
 
     Returns (pair maps [V, G, pairs] or None, detections, parameters,
-    stage-1 clusters, FrameResult)."""
+    stage-1 clusters, FrameResult). Its stages are the spans ``rt.cfar``
+    (magnitudes, pair sums and the CFAR), ``rt.extract``, ``rt.estimate``,
+    ``rt.cluster1`` and ``rt.cluster2``, one each a call."""
     cap, matmul = cfg.cfar.max_detections, cfg.cfar.means_impl == "matmul"
     bvg = rdm_layout == "bvg"
     if tail == "qgv":
         if not bvg:
             raise ValueError("the qgv tail takes a 'bvg' RDM")
-        maps = pair_sum_maps_bm(rdm)                              # [Q, G, V]
-        mask, _ = goca_cfar_2d(maps, cfg.cfar, layout="qgv")
-        dets = extract_detections(mask, maps, cap, layout="qgv")
+        with span("cfar"):
+            maps = pair_sum_maps_bm(rdm)                          # [Q, G, V]
+            mask, _ = goca_cfar_2d(maps, cfg.cfar, layout="qgv")
+        with span("extract"):
+            dets = extract_detections(mask, maps, cap, layout="qgv")
         return (None, dets, *_estimate_and_cluster(cfg, mc, dets, maps, rdm,
                                                    "bvg", "qgv"))
     num_v, num_g = rdm.shape[1:] if bvg else rdm.shape[:2]
     if tail == "qvg":
-        if maps_p is None:
-            mag = rdm.abs() if bvg else rdm.permute(2, 0, 1).abs()
-            maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
-            kernel = True
-        else:
-            kernel = not matmul
-        maps = maps_p[:, :num_v, HALO:HALO + num_g]               # [Q, V, G]
-        rc = None
-        if kernel:
-            mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
-        else:
-            mask, _ = goca_cfar_2d(maps, cfg.cfar, layout="qvg")
-        dets = extract_detections(mask, maps, cap, layout="qvg",
-                                  row_counts=rc)
+        with span("cfar"):
+            if maps_p is None:
+                mag = rdm.abs() if bvg else rdm.permute(2, 0, 1).abs()
+                maps_p = pad_maps_qvg(mag[:-1] + mag[1:])
+                kernel = True
+            else:
+                kernel = not matmul
+            maps = maps_p[:, :num_v, HALO:HALO + num_g]           # [Q, V, G]
+            rc = None
+            if kernel:
+                mask, rc = goca_cfar_qvg(maps_p, cfg.cfar, num_g, num_v)
+            else:
+                mask, _ = goca_cfar_2d(maps, cfg.cfar, layout="qvg")
+        with span("extract"):
+            dets = extract_detections(mask, maps, cap, layout="qvg",
+                                      row_counts=rc)
         return (maps.permute(1, 2, 0), dets,
                 *_estimate_and_cluster(cfg, mc, dets, maps, rdm, rdm_layout,
                                        "qvg"))
     if tail != "vgq":
         raise ValueError(f"unknown tail {tail!r}")
-    mag = (rdm.abs() if bvg
-           else rdm.permute(2, 0, 1).abs().contiguous())       # [B, V, G]
-    maps = None
-    if matmul:
-        maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)              # [V, G, Q]
-        mask, _ = goca_cfar_2d(maps, cfg.cfar)
-    else:
-        mask, _ = goca_cfar_2d_fused(mag, cfg.cfar)               # [V, G, Q]
+    with span("cfar"):
+        mag = (rdm.abs() if bvg
+               else rdm.permute(2, 0, 1).abs().contiguous())   # [B, V, G]
+        maps = None
+        if matmul:
+            maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)          # [V, G, Q]
+            mask, _ = goca_cfar_2d(maps, cfg.cfar)
+        else:
+            mask, _ = goca_cfar_2d_fused(mag, cfg.cfar)           # [V, G, Q]
     if tfr:
         # the amplitudes and stencils come from the RDM ([V, G, B] view)
         rdm_v = rdm.permute(1, 2, 0) if bvg else rdm
-        dets = extract_detections(mask, None, cap, layout="vgq", rdm=rdm_v)
+        with span("extract"):
+            dets = extract_detections(mask, None, cap, layout="vgq",
+                                      rdm=rdm_v)
         return (None, dets, *_estimate_and_cluster(cfg, mc, dets, None,
                                                    rdm_v, "vgb", None))
-    if maps is None:
-        # the tail gathers <= cap stencils of the pair sums: a [V, G, Q]
-        # view of one elementwise pass
-        maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)
-    dets = extract_detections(mask, maps, cap, layout="vgq",
-                              native_scan=cfg.extract_native_scan)
+    with span("extract"):
+        if maps is None:
+            # the tail gathers <= cap stencils of the pair sums: a
+            # [V, G, Q] view of one elementwise pass
+            maps = (mag[:-1] + mag[1:]).permute(1, 2, 0)
+        dets = extract_detections(mask, maps, cap, layout="vgq",
+                                  native_scan=cfg.extract_native_scan)
     return (maps, dets, *_estimate_and_cluster(cfg, mc, dets, maps, rdm,
                                                rdm_layout, "vgq"))
 
@@ -382,31 +396,38 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
         draws the reference stream's AWGN with ``torch.randn`` whatever
         ``noise_impl`` says, as the JAX trial function does."""
         if noise is not None:
-            noise = torch.as_tensor(noise, device=device)
+            noise = host_to_device(noise, device)
         if fused:
-            if noise is None:
-                noise = white_complex_noise(
-                    echo.shape, seeded_generator(frame_seed, device),
-                    device=device)
-            elif noise.shape != echo.shape:
+            if noise is not None and noise.shape != echo.shape:
                 raise ValueError(f"the fused stream takes white beam noise "
                                  f"{tuple(echo.shape)}, got "
                                  f"{tuple(noise.shape)}")
-            noisy, beams = None, add_noise_beamspace(echo, l_t, noise)
+            with span("noise"):
+                if noise is None:
+                    noise = white_complex_noise(
+                        echo.shape, seeded_generator(frame_seed, device),
+                        device=device)
+                noisy, beams = None, add_noise_beamspace(echo, l_t, noise)
         else:
-            if noise is not None:
-                if noise.shape != echo.shape:
-                    raise ValueError(f"the reference stream takes channel "
-                                     f"AWGN {tuple(echo.shape)}, got "
-                                     f"{tuple(noise.shape)}")
-                noisy = echo + noise.to(c64)
-            elif kernel_noise and cfg.noise_impl == "pallas":
-                noisy = awgn(echo, seed_words(frame_seed))
-            else:
-                noisy = add_noise(echo, seeded_generator(frame_seed, device))
-            beams = dbf(noisy, precomp.dbf_w, cfg.dbf_variant)
-        pc = pc_stage(beams)
-        return noisy, beams, pc, mtd_stage(pc)
+            if noise is not None and noise.shape != echo.shape:
+                raise ValueError(f"the reference stream takes channel "
+                                 f"AWGN {tuple(echo.shape)}, got "
+                                 f"{tuple(noise.shape)}")
+            with span("noise"):
+                if noise is not None:
+                    noisy = echo + noise.to(c64)
+                elif kernel_noise and cfg.noise_impl == "pallas":
+                    noisy = awgn(echo, seed_words(frame_seed))
+                else:
+                    noisy = add_noise(echo,
+                                      seeded_generator(frame_seed, device))
+            with span("dbf"):
+                beams = dbf(noisy, precomp.dbf_w, cfg.dbf_variant)
+        with span("pc"):
+            pc = pc_stage(beams)
+        with span("mtd"):
+            rdm = mtd_stage(pc)
+        return noisy, beams, pc, rdm
 
     def pc_stage(beams):
         if mplan is not None:
@@ -473,8 +494,9 @@ def make_frame_processor(cfg: RadarConfig,
         if noise_planes is not None:
             raise ValueError("noise_planes= drives the rank-K perf stream "
                              "only; this stream takes noise=")
-        noisy, beams, pc, rdm = st.chain(st.synth(targets), frame_seed,
-                                         noise)
+        with span("synth"):
+            echo = st.synth(targets)
+        noisy, beams, pc, rdm = st.chain(echo, frame_seed, noise)
         pair_maps, dets, params, s1, result = st.detect(rdm, "vgb")
         if return_intermediates:
             return FrameIntermediates(

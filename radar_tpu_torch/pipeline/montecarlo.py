@@ -36,6 +36,7 @@ import torch
 
 from ..config.params import RadarConfig
 from ..sim.scenario import TargetBatch
+from ..utils.profiling import span
 from ..waveform.precompute import Precomputed, precompute
 from .driver import trial_seed
 from .frame import make_frame_stages
@@ -58,7 +59,9 @@ def _first_valid_angle(result):
     first = t.valid.to(torch.uint8).argmax()        # first True
     nan = torch.full((), float("nan"), dtype=t.angle_deg.dtype,
                      device=t.angle_deg.device)
-    return torch.where(has, t.angle_deg[first], nan), has
+    # a gather: indexing by the 0-d tensor itself would read it on the host
+    angle = t.angle_deg.gather(0, first.reshape(1)).reshape(())
+    return torch.where(has, angle, nan), has
 
 
 def make_trial_fn(cfg: RadarConfig, precomp: Precomputed | None = None, *,
@@ -85,7 +88,8 @@ def make_trial_fn(cfg: RadarConfig, precomp: Precomputed | None = None, *,
         if lr is not None:
             echo = lr.signal_rdm(targets, lr.rdm_layout)
         else:
-            echo = st.synth(targets)
+            with span("synth"):
+                echo = st.synth(targets)
         angles, hits = [], []
         for t, seed in enumerate(seeds):
             z = None if noise is None else noise[t]

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config.params import RadarConfig
+from ..utils.profiling import host_to_device
 
 P_NOISE_FLOOR = 1.0  # reference v8 noise floor (fun_process_single_frame.m:16)
 
@@ -58,15 +59,15 @@ def _target_factors(targets, precomp, cfg: RadarConfig, amplitudes, *,
         snr_lin = 10.0 ** (np.asarray(targets.snr_db, np.float64) / 10.0)
         amplitudes = np.sqrt(snr_lin * P_NOISE_FLOOR
                              / precomp.p_signal_unscaled)
-    amp = torch.as_tensor(np.asarray(amplitudes, np.float64)
-                          .astype(np.float32), device=device)
+    amp = host_to_device(np.asarray(amplitudes, np.float64)
+                         .astype(np.float32), device)
 
     # delayed base pulse: exact zero-filled integer shift
-    tx = torch.as_tensor(np.asarray(precomp.tx_pulse), device=device
-                         ).to(torch.complex64)
+    tx = host_to_device(np.asarray(precomp.tx_pulse), device
+                        ).to(torch.complex64)
     num_s = tx.shape[0]
-    delay = torch.as_tensor(np.round(2.0 * rng / sig.c * sig.fs)
-                            .astype(np.int64), device=device)      # [K]
+    delay = host_to_device(np.round(2.0 * rng / sig.c * sig.fs)
+                           .astype(np.int64), device)              # [K]
     s = torch.arange(num_s, device=device)
     src = s[None, :] - delay[:, None]                               # [K,S]
     ok = ((src >= 0) & (delay[:, None] > 0) & (delay[:, None] < num_s))
@@ -74,17 +75,17 @@ def _target_factors(targets, precomp, cfg: RadarConfig, amplitudes, *,
                        torch.zeros((), dtype=tx.dtype, device=device))
 
     # slow-time Doppler phasor: theta = f32(f32(2*pi*PRT * fd) * p)
-    fd = torch.as_tensor((2.0 * vel / sig.wavelength).astype(np.float32),
-                         device=device)
-    w = torch.tensor(2.0 * np.pi * sig.prt, dtype=f32, device=device)
+    fd = host_to_device((2.0 * vel / sig.wavelength).astype(np.float32),
+                        device)
+    w = host_to_device(2.0 * np.pi * sig.prt, device, f32)
     m = torch.arange(sig.prt_num, dtype=f32, device=device)
     theta = (w * fd)[:, None] * m[None, :]
     dop = torch.complex(torch.cos(theta), torch.sin(theta))
 
     # channel steering phasors: theta = f32(f32(dphi) * c)
-    dphi = torch.as_tensor(
+    dphi = host_to_device(
         (2.0 * np.pi * cfg.array.element_spacing * np.sin(np.deg2rad(el))
-         / sig.wavelength).astype(np.float32), device=device)
+         / sig.wavelength).astype(np.float32), device)
     n = torch.arange(sig.channel_num, dtype=f32, device=device)
     th_c = dphi[:, None] * n[None, :]
     steer = torch.complex(torch.cos(th_c), torch.sin(th_c))          # [K,C]

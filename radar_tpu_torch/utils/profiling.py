@@ -12,6 +12,18 @@ fun_process_single_frame.m:46-153). The framework replaces that with:
   - ``trace``: context manager around ``torch.profiler`` (CPU and, where
     there is a card, CUDA activities) that writes a Chrome trace into a
     directory;
+  - ``span``: the program's own ranges. Each stage of a frame or trial
+    (``rt.synth``, ``rt.noise``, ``rt.dbf``, ``rt.pc``, ``rt.mtd``,
+    ``rt.cfar``, ``rt.extract``, ``rt.estimate``, ``rt.cluster1``,
+    ``rt.cluster2``; a multi-frame run's ``rt.log`` and ``rt.associate``)
+    is one flat range at its call site, and each wait of the host on the
+    card (a copy between host and card, a read of a device value) is one
+    ``rt.sync`` inside its stage. They are
+    ``torch.profiler.record_function`` ranges, recorded exactly when a
+    profiler records (``trace``, any ``torch.profiler.profile``), on the
+    profiler's own clock beside the CUDA activity, and kept in the
+    profiler's memory for its owner to read or export. With no profiler a
+    span costs one flag check and enters nothing;
   - ``FrameMetrics``: structured per-frame records (the system-of-record
     detection-count log, ref :156, v8_3:236-246).
 """
@@ -47,6 +59,31 @@ def _sync(value) -> None:
     walk(value)
     for dev in devices:
         torch.cuda.synchronize(dev)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range ``"rt." + name`` (``torch.profiler.record_function``)
+    while a profiler records; else one shared do-nothing context. Stages
+    are siblings, never nested, so a profile's idle gap takes the name of
+    the stage the host was in; ``span("sync")`` marks one wait of the host
+    on the card, inside its stage."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("rt." + name)
+    return _NO_SPAN
+
+
+def host_to_device(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``. A copy from the
+    host to a card waits on the card's stream, so there it is one
+    ``rt.sync``; on the CPU nothing moves and nothing is recorded."""
+    device = torch.device(device)
+    if device.type == "cuda" and not (torch.is_tensor(x) and x.is_cuda):
+        with span("sync"):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
 
 
 class StageTimer:

@@ -1672,3 +1672,48 @@ def test_k2_and_frame_at_fft_len_on_card(cuda_device, fft_len):
     b = make_frame_processor(cfg, device="cpu", accelerator_dtypes=True)(5, tb)
     assert int(a.num_final) == int(b.num_final) >= 2
     _assert_same_rows(_rows(a), _rows(b), rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["run", "trials"])
+def test_sync_spans_match_the_cards_sync_count(cuda_device, kind):
+    """A 3-frame multi-frame run and a batch of 3 trials on the reference
+    stream: the program's ``rt.sync`` spans equal the host's
+    synchronisations that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports over the same work (not counting the mode's own notice that
+    it is a prototype)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from radar_tpu_torch.pipeline.driver import run_multiframe
+    from radar_tpu_torch.pipeline.montecarlo import make_trial_fn
+
+    cfg = small_test_config()
+    tb = TargetBatch.make(*TARGETS)
+    if kind == "run":
+        process = make_frame_processor(cfg, device=cuda_device)
+        work = lambda seed: run_multiframe(cfg, tb, 3, seed=seed,
+                                           processor=process,
+                                           device=cuda_device)
+    else:
+        trials = make_trial_fn(cfg, device=cuda_device)
+        work = lambda seed: trials(tb, [seed, seed + 1, seed + 2])
+    work(4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                work(5)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message)
+                and "prototype" not in str(w.message) for w in caught)
+    spans = [e for e in prof.events() if e.name == "rt.sync"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    assert syncs >= 3 * 3
+    assert len(spans) == syncs
