@@ -66,6 +66,12 @@ targets:
   card right after the build (IMAD.WIDE, IMAD.HI, IMAD, I2FP, F2FP lanes
   an SM and clock); the f32 planes in turns with the old K1c and
   ``torch.rand`` too;
+- phase ``labels``: the clusterings' connected-labels kernel
+  (``csrc/connected.cu``) on the benchmark's frame (the reference stream,
+  512 slots): launched twice by an eager frame on the card, bit for bit
+  the plain pair on that frame's stage-1 and stage-2 inputs and on a
+  512-slot path, twice in a replayed frame's profile, timed on a busy
+  card beside the plain pair and its gate tests' least time on one SM;
 - phase ``tails``: one full-width frame of each tail variant (the
   kernel-maps tail, with and without bf16 output and with matmul means,
   bf16 output alone, the beams-major tail on both kernel routes, the perf
@@ -196,7 +202,11 @@ K1 and K4 are timed beside them by ``scripts/ablate_k1.py`` and
 ``scripts/ablate_k4_k9.py``).
 
 The launch counters are set to 0 just before each path runs and read just
-after, to show the path went through its kernels. Kernels, plain versions,
+after, to show the path went through its kernels. On the card the frame
+tail runs as a CUDA graph: a tail kernel's wrapper counts its real calls,
+two at a graph's capture (the eager warm-up and the capture) and none at a
+replay, so a path's tail kernels are read from its captures and its
+replays (``_tail_ran``), one replay a frame or trial. Kernels, plain versions,
 library calls and frames are timed with CUDA events, Monte-Carlo
 throughput with the host clock. Every phase prints one line; any failure
 raises and exits non-zero. The line before the last lists every kernel
@@ -309,6 +319,47 @@ def _found(rows, truth, dr: float, dv: float) -> list:
             for r, v in zip(truth.range_m, truth.velocity_ms)]
 
 
+# the launches of each tail kernel in one frame tail: K2 or K3 once, the
+# connected labels twice (the two clusterings)
+TAIL_LAUNCHES = {"K2": 1, "K3": 1, "labels": 2}
+
+
+def _tail_ran(got: dict, kernels, calls: int) -> bool:
+    """Whether a run's ``calls`` frame tails on the card ran ``kernels``
+    and the connected labels, from the run's counters (``counts``): each
+    tail one replay of its CUDA graph, and each graph the run captured
+    holding those kernels, whose wrappers count their real calls, two a
+    capture (the eager warm-up, then the capture itself; a replay calls
+    none). A graph captured before the run replays what its capture
+    launched."""
+    return got["tail_replays"] == calls and all(
+        got[k] == 2 * TAIL_LAUNCHES[k] * got["tail_captures"]
+        for k in (*kernels, "labels"))
+
+
+def _counted_frame(proc, truth, counts, reset):
+    """``proc``'s warm-up frame (seed 1; on the card it captures the frame
+    tail's CUDA graph) and its counted frame (seed 20261016): (the counted
+    frame's result, its counters, the warm-up's)."""
+    import torch
+
+    reset()
+    proc(1, truth)
+    torch.cuda.synchronize()
+    warm = counts()
+    reset()
+    res = proc(20261016, truth)
+    torch.cuda.synchronize()
+    return res, counts(), warm
+
+
+def _captured(warm: dict, kernels, calls: int = 1) -> bool:
+    """Whether the counters of a warm-up of ``calls`` frames show one
+    capture of the frame tail's CUDA graph holding ``kernels``
+    (``_tail_ran``)."""
+    return warm["tail_captures"] == 1 and _tail_ran(warm, kernels, calls)
+
+
 def _rows(res):
     """Valid final targets of a FrameResult as host rows (range, velocity,
     angle, power)."""
@@ -404,7 +455,6 @@ def _kernel_profile(fn, reps: int = 5, need=()) -> dict:
     ``PROFILE_WINDOWS`` windows, the last returned for the caller's
     check."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # kernel rows only: an operator's row repeats its kernels' device time
@@ -420,13 +470,22 @@ def _kernel_profile(fn, reps: int = 5, need=()) -> dict:
             torch.cuda.synchronize()
         out = {}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and dev_t(e) > 0:
+            if _kernel_row(e) and dev_t(e) > 0:
                 seen = e.count / reps
                 calls = round(seen) if seen >= 0.5 else seen
                 out[e.key] = (dev_t(e) / e.count / 1000.0 * calls, seen)
         if all(any(n in k for k in out) for n in need):
             break
     return out
+
+
+def _kernel_row(e) -> bool:
+    """A profile row of the card's own work: a CUDA row that is not the
+    mirror of one of the port's spans (``rt.*``, whose device range covers
+    the kernels under it: a stage's, or the tail's graph replay)."""
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not e.key.startswith("rt.")
 
 
 def _kernel_ms(fn, reps: int = 5, need=()) -> dict:
@@ -1089,6 +1148,98 @@ def _strip_pc_planes(nr, plan, planes, pcr, pci) -> None:
                 num_b * num_p, pcr.shape[-1], outr=pcr, outi=pci)
 
 
+def _labels(ref_cfg, ref_pre, truth, dev, card, counts, reset) -> tuple:
+    """Phase ``labels``: the connected-labels kernel (``csrc/connected.cu``
+    through ``cluster/connected.py::gated_labels``) on the benchmark's
+    frame (the reference stream, 512 slots). An eager frame on the card
+    (``return_intermediates``: no tail graph) launches it twice, the
+    counter set to 0 just before; on that frame's stage-1 and stage-2
+    inputs and on a 512-slot path (diameter 511) its labels equal the
+    plain pair ``connected_labels(gate_adjacency(.))`` on the card bit for
+    bit; a replayed frame's profile shows ``cc_kernel`` twice. Times: the
+    kernel on a busy card beside the plain pair (events around it, its
+    host reads included) and the least time of its gate tests on one SM.
+    Returns the kernels line's row."""
+    import torch
+
+    from radar_tpu_torch.cluster import connected as cc
+    from radar_tpu_torch.pipeline.frame import make_frame_processor
+
+    cl = ref_cfg.cluster
+    debug = make_frame_processor(ref_cfg, ref_pre, device=dev,
+                                 return_intermediates=True)
+    debug(1, truth)
+    torch.cuda.synchronize()
+    reset()
+    taps = debug(20261016, truth)
+    torch.cuda.synchronize()
+    got = counts()
+    p1, s1 = taps.params, taps.stage1
+    v_gate = (cl.max_vel_sep if cl.stage2_vel_gate is None
+              else cl.stage2_vel_gate)
+    rng = np.random.default_rng(20261016)
+    x = np.empty(512, np.float32)
+    x[rng.permutation(512)] = np.arange(512, dtype=np.float32)
+    inputs = {
+        "stage1": ([(p1.range_m, cl.max_range_sep),
+                    (p1.velocity_ms, cl.max_vel_sep),
+                    (p1.angle_deg, cl.max_angle_sep)], p1.valid),
+        "stage2": ([(s1.range_m, cl.max_range_sep),
+                    (s1.velocity_ms, v_gate)], s1.valid),
+        "path512": ([(torch.from_numpy(x).to(dev), 1.0)],
+                    torch.ones(512, dtype=torch.bool, device=dev))}
+    same, slots, valid, ms, plain_ms, bound_ms = {}, {}, {}, {}, {}, {}
+    _, sm_max_mhz = _sm_clocks()
+    for name, (fields, ok) in inputs.items():
+        kern = lambda: cc.gated_labels(fields, ok)
+        plain = lambda: cc.connected_labels(cc.gate_adjacency(fields, ok),
+                                            ok)
+        same[name] = bool(torch.equal(kern(), plain()))
+        slots[name], valid[name] = ok.shape[0], int(ok.sum())
+        ms[name] = _busy_event_ms(kern)[0]
+        plain_ms[name] = _busy_event_ms(plain, reps=3)[0]
+        # the gate tests of the valid slots' pairs, 4 instructions a field
+        # and pair (subtract, absolute, compare, set the bit), at one SM's
+        # issue; the propagation passes come on top
+        bound_ms[name] = (valid[name] ** 2 * len(fields) * 4
+                          / (PEAK_ISSUE_PER_SM * sm_max_mhz * 1e6) * 1e3)
+    path_labels = cc.gated_labels(*inputs["path512"])
+    replayed = make_frame_processor(ref_cfg, ref_pre, device=dev)
+    replayed(1, truth)
+    prof = _kernel_profile(lambda: replayed(20261016, truth), reps=4,
+                           need=("cc_kernel",))
+    seen = sum(c for k, (_, c) in prof.items() if "cc_kernel" in k)
+    _line("labels", card=repr(card), frame_launches=got["labels"],
+          frame_replays=got["tail_replays"], slots=slots, valid=valid,
+          equal_plain=same, busy_card_ms=ms, plain_ms=plain_ms,
+          bound_ms=bound_ms, replayed_frame_cc_kernels=seen)
+    _require(got["labels"] == 2 and got["tail_replays"] == 0,
+             "labels: an eager frame on the card launches the kernel twice")
+    _require(all(same.values()) and slots["stage1"] == slots["stage2"]
+             == ref_cfg.cfar.max_detections == 512 and valid["stage1"] > 0,
+             "labels: the kernel == the plain pair on the frame's stage-1 "
+             "and stage-2 inputs and the 512-slot path, bit for bit")
+    _require(set(path_labels.tolist()) == {0},
+             "labels: the 512-slot path is one component")
+    # the profiler of this process may miss a window's first launches
+    _require(round(seen) == 2,
+             "labels: a replayed frame runs cc_kernel twice")
+    return ("connected labels of the clusterings: gate graph in a "
+            "shared-memory bit matrix, min-label propagation and pointer "
+            "jumping to the fixpoint in one block", "connected.cu",
+            "none (JAX: lax.while_loop, radar_tpu/cluster/connected.py)",
+            got["labels"], 0.0, ms["stage1"], plain_ms["stage1"],
+            bound_ms["stage1"], "one SM's issue of the gate tests", None,
+            {"ms_is": "events around one call on the reference frame's "
+                      "stage-1 input, the card kept busy",
+             "plain_is": "events around gate_adjacency + connected_labels "
+                         "(its host reads included)",
+             "launches_from": "one eager frame (return_intermediates)",
+             "slots": slots, "valid": valid, "by_input_ms": ms,
+             "by_input_plain_ms": plain_ms, "by_input_bound_ms": bound_ms,
+             "replayed_frame_cc_kernels": seen, "sm_max_mhz": sm_max_mhz})
+
+
 def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
            counts, reset, perf_process) -> dict:
     """Phase ``tails``: one full-width frame of each tail variant, both
@@ -1135,9 +1286,8 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
     procs, launches = {}, {}
     for label, cfg_t, pre_t, want in branches:
         proc = make_frame_processor(cfg_t, pre_t, device=dev)
-        proc(1, truth)                     # warm-up outside the count
-        torch.cuda.synchronize()
         reset()
+        proc(1, truth)                     # the tail's capture, counted
         res = proc(20261016, truth)
         torch.cuda.synchronize()
         got = counts()
@@ -1151,8 +1301,12 @@ def _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv, dev, card,
               targets=np.round(rows, 3).tolist())
         _require(bool(np.all(np.isfinite(rows))) and all(found),
                  f"tails {label}: both truth targets found")
-        _require(all(got[k] >= 1 for k in want),
-                 f"tails {label} launched {want}")
+        _require(all(got[k] >= 1 for k in want)
+                 and got["tail_captures"] == 1
+                 and _tail_ran(got, [k for k in want
+                                     if k in TAIL_LAUNCHES], 2),
+                 f"tails {label} launched {want}: two frames, their tail "
+                 "one graph captured and replayed twice")
         _require(("matmul" not in label or got["K2"] + got["K3"] == 0)
                  and (label.startswith("kernel_maps") or got["K1_maps"] == 0)
                  and got["K1_bf16"] == got["K1"],
@@ -1645,12 +1799,7 @@ def _fft512(card: str, dev, truth, counts, reset, draws_ms: float,
 
     # the main path: one frame, its launches, both truths
     process = make_frame_processor(cfg, pre, device=dev)
-    process(1, truth)                      # warm-up outside the count
-    torch.cuda.synchronize()
-    reset()
-    res = process(20261016, truth)
-    torch.cuda.synchronize()
-    launches = counts()
+    res, launches, warm = _counted_frame(process, truth, counts, reset)
     rows = _rows(res)
     found = _found(rows, truth, dr, dv)
     _line("fft512", what="frame", launches=launches,
@@ -1659,9 +1808,13 @@ def _fft512(card: str, dev, truth, counts, reset, draws_ms: float,
     _require(bool(np.all(np.isfinite(rows))) and all(found),
              "fft512: both truths found within 2 gates and 2 Doppler bins")
     _require(all(launches[k] == 1 for k in ("K1", "K1_bf16", "K1c_draw",
-                                            "K1c_bf16", "mix", "K2")),
-             "fft512: a frame launches K1 (bf16), K1c inside it and K2 once")
-    frame_launches = {k: launches[k] for k in ("K1", "K1c_draw", "K2")}
+                                            "K1c_bf16", "mix"))
+             and _tail_ran(launches, ("K2",), 1) and _captured(warm, ("K2",)),
+             "fft512: a frame launches K1 (bf16) and K1c inside it once and "
+             "replays its tail's graph once, K2 in it (captured at the "
+             "warm-up)")
+    frame_launches = {"K1": launches["K1"], "K1c_draw": launches["K1c_draw"],
+                      "K2": launches["tail_replays"]}
 
     # the kernels against their plain versions at V = 512
     lr = make_lowrank_stages(cfg, pre, device=dev)
@@ -1743,17 +1896,13 @@ def _fft512(card: str, dev, truth, counts, reset, draws_ms: float,
 
     # the "pallas" route's frame (K1's planes mode)
     proc_p = make_frame_processor(cfg_p, pre, device=dev)
-    proc_p(1, truth)
-    torch.cuda.synchronize()
-    reset()
-    res_p = proc_p(20261016, truth)
-    torch.cuda.synchronize()
-    launches_p = counts()
+    res_p, launches_p, warm_p = _counted_frame(proc_p, truth, counts, reset)
     found_p = _found(_rows(res_p), truth, dr, dv)
     _line("fft512", what="\"pallas\" route frame", launches=launches_p,
           found=found_p)
-    _require(all(found_p) and launches_p["K1_bf16"] == launches_p["K2"] == 1
-             and launches_p["K1c_draw"] == 0,
+    _require(all(found_p) and launches_p["K1_bf16"] == 1
+             and _tail_ran(launches_p, ("K2",), 1)
+             and _captured(warm_p, ("K2",)) and launches_p["K1c_draw"] == 0,
              "fft512: the pallas route's frame (K1 planes mode, K2) finds "
              "both truths")
 
@@ -1876,13 +2025,15 @@ def _fft512(card: str, dev, truth, counts, reset, draws_ms: float,
           streaming_velocity_rmse_ms=st.velocity_rmse_ms,
           streaming_s=round(st_s, 3),
           phase_s=round(time.perf_counter() - phase_t0, 3))
-    _require(sweep_launches["K1_bf16"] == sweep_launches["K2"] == 16
+    _require(sweep_launches["K1_bf16"] == 16
+             and _tail_ran(sweep_launches, ("K2",), 16)
              and bool(np.all(sw.detection_probability == 1.0))
              and bool(np.all(sw.angle_error_std < sw.theory_bound)),
-             "fft512 sweep: 16 K1 bf16 and K2 launches, Pd = 1, sigma below "
-             "the theory bound")
+             "fft512 sweep: 16 K1 bf16 launches and tail replays (K2), Pd = "
+             "1, sigma below the theory bound")
     _require(st.total_targets == 32 and st_launches["K1_bf16"] == 4
-             and st_launches["K2"] == 4 and st.total_detected > 0
+             and _tail_ran(st_launches, ("K2",), 4)
+             and st.total_detected > 0
              and st.range_rmse_m <= 2 * 8.4,
              "fft512 streaming: 32 targets over 4 K1 frames, range RMSE "
              "<= 16.8 m")
@@ -2294,11 +2445,13 @@ def _multichip_rank() -> dict:
     import torch
     import torch.distributed as dist
 
+    from radar_tpu_torch.cluster import connected as cc
     from radar_tpu_torch.config.params import full_config, perf_config
     from radar_tpu_torch.ops import awgn as k5
     from radar_tpu_torch.ops import cfar_kernel as ck
     from radar_tpu_torch.ops import noise_rdm as nr
     from radar_tpu_torch.parallel import pallas_ring as ring
+    from radar_tpu_torch.pipeline import frame as fr
     from radar_tpu_torch.parallel.collectives import (
         gather_along, pulse_compress_range_sharded, shard_along)
     from radar_tpu_torch.parallel.dp import (broadcast_targets,
@@ -2321,11 +2474,16 @@ def _multichip_rank() -> dict:
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
                       "K6": ring.k6_launch_count,
-                      "K6_fill": ring.k6_fill_count}
+                      "K6_fill": ring.k6_fill_count,
+                      "labels": cc.launch_count,
+                      "tail_captures": fr.tail_graph_captures,
+                      "tail_replays": fr.tail_graph_replays}
 
     def reset():
         nr.launch_count = ck.launch_count = ck.k3_launch_count = 0
         k5.launch_count = ring.k6_launch_count = ring.k6_fill_count = 0
+        cc.launch_count = 0
+        fr.tail_graph_captures = fr.tail_graph_replays = 0
 
     truth = TargetBatch.make([3000.0, 10000.0], [20.0, 25.0], [10.0, 10.0],
                              [10.0, 15.0])
@@ -2448,14 +2606,12 @@ def _multichip_rank() -> dict:
         ``names`` (all kernels for None), from torch.profiler, ``fn`` run
         one rank at a time inside ``timed``'s rounds (the kernels of
         ``before_rep`` and ``after_rep`` counted too)."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             timed(fn, reps, turns=True, before_rep=before_rep,
                   after_rep=after_rep)
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+        evs = [e for e in prof.key_averages() if _kernel_row(e)]
         dev_t = lambda e: getattr(e, "self_device_time_total",
                                   getattr(e, "self_cuda_time_total", 0))
         return {n: sum(dev_t(e) for e in evs if n is None or n in e.key)
@@ -2532,8 +2688,10 @@ def _multichip_rank() -> dict:
     for label, cfg in (("perf_dp_fused", perf),
                        ("perf_dp_xla", perf_config(pallas=False))):
         proc = make_dp_frame_processor(cfg, dp_mesh, pre_p)
-        proc(seeds, batch_targets)         # warm-up outside the count
+        reset()
+        proc(seeds, batch_targets)         # warm-up: the tail's capture
         torch.cuda.synchronize()
+        warm = counts()
         reset()
         t0 = time.perf_counter()
         batch = host_result(proc(seeds, batch_targets))
@@ -2541,7 +2699,8 @@ def _multichip_rank() -> dict:
         got = counts()
         single = host_result(make_frame_processor(cfg, pre_p, device=dev)(
             seeds[j], truth))
-        out[label] = {"launches": got, "batch_ms": 1e3 * wall,
+        out[label] = {"launches": got, "capture": warm,
+                      "batch_ms": 1e3 * wall,
                       "exact": _same({k: v[j] for k, v in batch.items()},
                                      single),
                       "batch": batch if rank == 0 else None}
@@ -2558,14 +2717,16 @@ def _multichip_rank() -> dict:
                                               noise_impl="pallas"))):
         pre_c = pre if label != "lowrank" else precompute(cfg)
         proc = make_sharded_frame_processor(cfg, mesh_122, pre_c)
-        proc(1, truth)                     # warm-up outside the count
+        reset()
+        proc(1, truth)                     # warm-up: the tail's capture
         torch.cuda.synchronize()
+        warm = counts()
         reset()
         t0 = time.perf_counter()
         res = host_result(proc(20261016, truth))
         wall = time.perf_counter() - t0
-        out[label] = {"launches": counts(), "frame_ms": 1e3 * wall,
-                      "result": res}
+        out[label] = {"launches": counts(), "capture": warm,
+                      "frame_ms": 1e3 * wall, "result": res}
         if rank == 0:
             out[label]["single"] = host_result(make_frame_processor(
                 cfg.replace(fused_synth_dbf=label == "lowrank"), pre_c,
@@ -2576,8 +2737,10 @@ def _multichip_rank() -> dict:
                                            pre)
     seeds7 = [frame_seed(7, i) for i in range(4)]
     targets4 = broadcast_targets(truth, 4)
+    reset()
     proc([frame_seed(8, i) for i in range(4)], targets4)   # warm-up
     torch.cuda.synchronize()
+    warm = counts()
     reset()
     t0 = time.perf_counter()
     batch = host_result(proc(seeds7, targets4))
@@ -2586,7 +2749,7 @@ def _multichip_rank() -> dict:
     single = host_result(make_frame_processor(full, pre, device=dev)(
         seeds7[rank], truth))
     out["dp_x_model"] = {
-        "launches": launches, "batch_ms": 1e3 * wall,
+        "launches": launches, "capture": warm, "batch_ms": 1e3 * wall,
         "same": _same({k: v[rank] for k, v in batch.items()}, single,
                       rtol=1e-4),
         "num_final": batch["num_final"].tolist()}
@@ -2713,8 +2876,8 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
              "range_rdma: within 1e-4 of the unsharded convolution")
 
     found = lambda h: _found(_host_rows(h), truth, dr, dv)
-    for label, want in (("perf_dp_fused", {"K1": 1, "K2": 1}),
-                        ("perf_dp_xla", {"K1": 0, "K2": 1})):
+    for label, want in (("perf_dp_fused", {"K1": 1}),
+                        ("perf_dp_xla", {"K1": 0})):
         arms = [r[label] for r in res]
         batch = arms[0]["batch"]
         frames = [{k: v[i] for k, v in batch.items()} for i in range(n)]
@@ -2726,8 +2889,11 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
         _require(all(a["exact"] for a in arms),
                  f"{label}: every frame == its single-rank frame")
         _require(all(a["launches"][k] == v for a in arms
-                     for k, v in want.items()),
-                 f"{label}: {want} per rank (one frame each)")
+                     for k, v in want.items())
+                 and all(_tail_ran(a["launches"], ("K2",), 1)
+                         and _captured(a["capture"], ("K2",)) for a in arms),
+                 f"{label}: {want} per rank (one frame each), one tail "
+                 "replay with K2")
         _require(all(all(found(f)) for f in frames),
                  f"{label}: truth targets found in every frame")
 
@@ -2744,8 +2910,13 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
               frame_ms=[round(a["frame_ms"], 3) for a in arms],
               tol="counts exact, fields rtol 1e-4")
         _require(all(same), f"{label}: == the single-rank frame")
-        _require(all(a["launches"][k] >= 1 for a in arms for k in kernels),
-                 f"{label}: the frame launched {kernels}")
+        tail_k = [k for k in kernels if k in TAIL_LAUNCHES]
+        _require(all(a["launches"][k] >= 1 for a in arms for k in kernels
+                     if k not in TAIL_LAUNCHES)
+                 and all(_tail_ran(a["launches"], tail_k, 1)
+                         and _captured(a["capture"], tail_k) for a in arms),
+                 f"{label}: the frame launched {kernels} (the tail's in its "
+                 "graph's one replay)")
         _require(all(found(arms[0]["result"])),
                  f"{label}: truth targets found")
 
@@ -2757,8 +2928,10 @@ def _multichip(card: str, truth, dr: float, dv: float) -> list:
           tol="counts exact, fields rtol 1e-4")
     _require(all(a["same"] for a in arms),
              "dp_x_model: every frame == its single-rank frame")
-    _require(all(a["launches"]["K3"] == 2 for a in arms),
-             "dp_x_model: K3 twice per rank (4 frames / dp 2)")
+    _require(all(_tail_ran(a["launches"], ("K3",), 2)
+                 and _captured(a["capture"], ("K3",), 2) for a in arms),
+             "dp_x_model: two tail replays with K3 per rank (4 frames / dp "
+             "2)")
 
     arms = [r["mc_dp"] for r in res]
     sw_same = all(np.array_equal(a["errors"], arms[0]["sweep_single"],
@@ -2886,13 +3059,14 @@ def _elastic(card: str) -> None:
     _require(all(same_resumed) and all(same_full),
              "elastic: the dp=2 resume and the dp=4 run == the one-rank run")
     _require(want.total_detected > 0, "elastic: targets detected")
-    _require(all(r["launches"]["K1"] == r["launches"]["K2"] == 2
-                 for r in first),
-             "elastic: dp=4, 2 scenes: K1 and K2 once a scene a rank")
-    _require(all(r["launches"]["K1"] == r["launches"]["K2"] == 4
-                 for r in second),
-             "elastic: dp=2 resume: K1 and K2 only for scenes 3-4 (2 "
-             "trials a scene a rank), none for the replayed scenes")
+    _require(all(r["launches"]["K1"] == 2
+                 and _tail_ran(r["launches"], ("K2",), 2) for r in first),
+             "elastic: dp=4, 2 scenes: K1 and a tail replay with K2 once a "
+             "scene a rank")
+    _require(all(r["launches"]["K1"] == 4
+                 and _tail_ran(r["launches"], ("K2",), 4) for r in second),
+             "elastic: dp=2 resume: K1 and the tail (K2) only for scenes "
+             "3-4 (2 trials a scene a rank), none for the replayed scenes")
     _require(first[0]["frames_done"] == [1, 2]
              and second[0]["frames_done"] == [1, 2, 3, 4],
              "elastic: the store holds 2 scenes, then 4")
@@ -2956,7 +3130,6 @@ def _tracked_run(fn, frames: int, syncs: bool = True,
     import warnings
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     a = torch.cuda.Event(enable_timing=True)
@@ -2986,7 +3159,7 @@ def _tracked_run(fn, frames: int, syncs: bool = True,
         dev_t = lambda e: getattr(e, "self_device_time_total",
                                   getattr(e, "self_cuda_time_total", 0))
         busy = sum(dev_t(e) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1000.0
+                   if _kernel_row(e)) / 1000.0
         stats["device_busy_ms"] = round(busy, 3)
         stats["wall_ms"] = round(wall * 1e3, 3)
         stats["idle_share"] = round(1.0 - busy / (wall * 1e3), 4)
@@ -3068,8 +3241,10 @@ def _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts, reset) -> dict:
               ghost_tracks=sc.ghost_tracks,
               switched_tracks=sc.switched_tracks,
               coverage=np.round(sc.truth_coverage, 3).tolist(), **stats)
-        _require(got["K1"] == TRACK_FRAMES and got["K2"] == TRACK_FRAMES,
-                 f"headline seed {seed}: K1 and K2 at {TRACK_FRAMES}")
+        _require(got["K1"] == TRACK_FRAMES
+                 and _tail_ran(got, ("K2",), TRACK_FRAMES),
+                 f"headline seed {seed}: K1 and tail replays (K2) at "
+                 f"{TRACK_FRAMES}")
         _require(sc.track_pd == 1.0 and int(sc.truth_n_tracks.sum()) == 5
                  and sc.fragmentation == 1.0,
                  f"headline seed {seed}: 5 matched tracks, one a truth")
@@ -3157,7 +3332,8 @@ def _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts, reset) -> dict:
     _line("tracking", run="exact stream, 10 frames", launches=
           launches["exact"], detections=len(log_x), tracks=len(tracks_x),
           track_pd=sc_x.track_pd, false_tracks=sc_x.false_tracks, **st_x)
-    _require(launches["exact"]["K3"] == 10, "exact stream: K3 at 10")
+    _require(_tail_ran(launches["exact"], ("K3",), 10),
+             "exact stream: tail replays (K3) at 10")
 
     # the tracking Monte-Carlo's entry point, 2 scenes of each type
     out = os.path.join(os.path.dirname(root), "tracking_mc_smoke.json")
@@ -3176,13 +3352,14 @@ def _tracking(cfg, pre, ref_cfg, ref_pre, dev, card, counts, reset) -> dict:
           by_scene_type=mc["by_scene_type"], wall_s=mc["wall_s"],
           beside=f"results/tracking_mc.json ({tpu['device']}, "
                  f"{tpu['scenes']} scenes): {tpu['overall']}", **st_m)
-    _require(launches["mc"]["K1"] == 240 and launches["mc"]["K2"] == 240,
-             "tracking MC: K1 and K2 at 240")
+    _require(launches["mc"]["K1"] == 240
+             and _tail_ran(launches["mc"], ("K2",), 240),
+             "tracking MC: K1 and tail replays (K2) at 240")
     _require(mc["overall"]["track_pd"] >= 0.95
              and mc["overall"]["switched_tracks_total"] == 0,
              "tracking MC: mean track Pd >= 0.95, no switched track")
     return {"K1": TRACK_FRAMES, "K2": TRACK_FRAMES,
-            "K3": launches["exact"]["K3"]}
+            "K3": launches["exact"]["tail_replays"]}
 
 
 REALDATA_TRUTH = (1500, 12.0, 12.0)     # gate, m/s, physical elevation
@@ -3571,7 +3748,7 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
         fig = headline(rep) if headline else None
         _line("scripts", script=label, wall_s=round(wall, 3),
               launches={k: got[k] for k in ("K1", "K1c_draw", "K2", "K3",
-                                            "K5")},
+                                            "K5", "tail_replays")},
               headline=fig, card=repr(card))
         _require(got["K5"] == 0, f"{label}: no K5 launch")
         for k in want:
@@ -3621,7 +3798,8 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
                     run_simulation, ["--device-scan", "--resume", "--frames",
                                      "8", "--out", out("scan")], ("K3",),
                     sim_head)
-    _require(got["K3"] == 4, "the resumed scan ran the 4 new frames only")
+    _require(_tail_ran(got, ("K3",), 4),
+             "the resumed scan ran the 4 new frames only")
     call("run_simulation --device-scan (8)", run_simulation,
          ["--device-scan", "--frames", "8", "--out", out("scan_whole")],
          ("K3",), sim_head)
@@ -3635,7 +3813,8 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
     rep, got = call("run_simulation --resume (3)", run_simulation,
                     ["--resume", "--frames", "3", "--out", out("host")],
                     ("K3",), sim_head)
-    _require(got["K3"] == 1, "the resumed host loop ran frame 3 only")
+    _require(_tail_ran(got, ("K3",), 1),
+             "the resumed host loop ran frame 3 only")
     _require(log_of(out("host")) == log_of(out("sim")),
              "host-loop resume == the uninterrupted run, bit for bit")
 
@@ -3745,7 +3924,8 @@ def _entry_points(card: str, dev, dr: float, dv: float, counts,
             walls[name] = time.perf_counter() - t0
             got = counts()
             _line("scripts", example=name, wall_s=round(walls[name], 3),
-                  launches={k: got[k] for k in ("K1", "K2", "K3", "K5")},
+                  launches={k: got[k] for k in ("K1", "K2", "K3", "K5",
+                                                "tail_replays")},
                   card=repr(card))
             for k in want.get(name, ()):
                 _require(got[k] > 0, f"example {name} launched {k}")
@@ -3832,12 +4012,14 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
     from radar_tpu_torch import _build, native
+    from radar_tpu_torch.cluster import connected as cc
     from radar_tpu_torch.config.params import (PERF_OVERRIDES, full_config,
                                                perf_config,
                                                small_test_config)
     from radar_tpu_torch.ops import awgn as k5
     from radar_tpu_torch.ops import cfar_kernel as ck
     from radar_tpu_torch.ops import noise_rdm as nr
+    from radar_tpu_torch.pipeline import frame as fr
     from radar_tpu_torch.pipeline.driver import run_multiframe
     from radar_tpu_torch.pipeline.frame import make_frame_processor
     from radar_tpu_torch.pipeline.lowrank import make_lowrank_stages
@@ -3868,7 +4050,8 @@ def main() -> int:
     ablate_planes = _script("ablate_planes")
     planes_build = ablate_planes.start_build()
     _build.build_all(["noise_rdm", "noise_rdm_sm90", "rdm_variants",
-                      "band_pc_sm90", "rdm_sm90", "cfar", "awgn", "ring"])
+                      "band_pc_sm90", "rdm_sm90", "cfar", "awgn", "ring",
+                      "connected"])
     old_mix = ablate_mix.finish_build(old_mix_build)["old"]
     planes_libs = ablate_planes.finish_build(planes_build)
     _line("build", torch=torch.__version__, cuda=torch.version.cuda,
@@ -3983,8 +4166,6 @@ def main() -> int:
 
     # ---- 5. the main path: frame processor at the perf config
     process = make_frame_processor(cfg, pre, device=dev)
-    process(1, truth)                      # warm-up outside the count
-    torch.cuda.synchronize()
     counts = lambda: {"K1": nr.launch_count, "K2": ck.launch_count,
                       "K3": ck.k3_launch_count, "K5": k5.launch_count,
                       "K1c": nr.k1c_launch_count, "K4": nr.k4_launch_count,
@@ -3993,7 +4174,10 @@ def main() -> int:
                       "K1_bf16": nr.k1_bf16_launch_count,
                       "K4_bf16": nr.k4_bf16_launch_count,
                       "K1c_bf16": nr.k1c_bf16_launch_count,
-                      "mix": nr.mix_launch_count}
+                      "mix": nr.mix_launch_count,
+                      "labels": cc.launch_count,
+                      "tail_captures": fr.tail_graph_captures,
+                      "tail_replays": fr.tail_graph_replays}
 
     def reset():
         nr.launch_count = ck.launch_count = 0
@@ -4002,11 +4186,10 @@ def main() -> int:
         nr.maps_launch_count = nr.k1c_draw_launch_count = 0
         nr.k1_bf16_launch_count = nr.k4_bf16_launch_count = 0
         nr.k1c_bf16_launch_count = nr.mix_launch_count = 0
+        cc.launch_count = 0
+        fr.tail_graph_captures = fr.tail_graph_replays = 0
 
-    reset()
-    res = process(20261016, truth)
-    torch.cuda.synchronize()
-    launches = counts()
+    res, launches, warm = _counted_frame(process, truth, counts, reset)
     rows = _rows(res)
     dr = float(pre.delta_r)
     dv = float(pre.velocity_axis[1] - pre.velocity_axis[0])
@@ -4014,11 +4197,12 @@ def main() -> int:
     _line("frame", launches=launches, num_raw=int(res.num_raw_detections),
           num_final=int(res.num_final), found=found,
           targets=np.round(rows, 3).tolist())
-    _require(launches["K1"] >= 1 and launches["K2"] >= 1
+    _require(launches["K1"] >= 1
              and launches["K1_bf16"] == launches["K1"] == launches["mix"]
-             and launches["K1c_bf16"] == launches["K1c_draw"] >= 1,
+             and launches["K1c_bf16"] == launches["K1c_draw"] >= 1
+             and _tail_ran(launches, ("K2",), 1) and _captured(warm, ("K2",)),
              "frame launched K1 (bf16 operands, K1c's bf16 rows, the mix) "
-             "and K2")
+             "and replayed its tail once, K2 in it")
     _require(bool(np.all(np.isfinite(rows))) and all(found),
              "truth targets found")
     # the frame's kernels by name: K1 at bf16 (K1c's bf16 rows, the strip
@@ -4069,7 +4253,11 @@ def main() -> int:
     ref_cfg = full_config()
     ref_pre = precompute(ref_cfg)
 
-    # ---- 5b. phase tails: every tail variant at full width
+    # ---- 5b. phase labels: the clusterings' kernel on the benchmark's
+    # frame, against the plain pair
+    labels_row = _labels(ref_cfg, ref_pre, truth, dev, card, counts, reset)
+
+    # ---- 5c. phase tails: every tail variant at full width
     tails_extra = _tails(nr, ck, cfg, pre, ref_cfg, ref_pre, truth, dr, dv,
                          dev, card, counts, reset, process)
 
@@ -4169,19 +4357,18 @@ def main() -> int:
             ("bf16", ref_cfg.replace(matmul_precision="bf16"), ("K3",)),
             ("fused", ref_cfg.replace(fused_synth_dbf=True), ("K3",))):
         proc = make_frame_processor(cfg_r, ref_pre, device=dev)
-        proc(1, truth)                     # warm-up outside the count
-        torch.cuda.synchronize()
-        reset()
-        res = proc(20261016, truth)
-        torch.cuda.synchronize()
-        got = counts()
+        res, got, warm = _counted_frame(proc, truth, counts, reset)
         rows = _rows(res)
         found = _found(rows, truth, dr, dv)
-        _line("ref_frame", config=label, launches=got,
+        _line("ref_frame", config=label, launches=got, capture=warm,
               num_raw=int(res.num_raw_detections),
               num_final=int(res.num_final), found=found,
               targets=np.round(rows, 3).tolist())
-        _require(all(got[k] >= 1 for k in want), f"{label} launched {want}")
+        tail_k = [k for k in want if k in TAIL_LAUNCHES]
+        _require(all(got[k] >= 1 for k in want if k not in TAIL_LAUNCHES)
+                 and _tail_ran(got, tail_k, 1) and _captured(warm, tail_k),
+                 f"{label} launched {want} (the tail's in its graph's one "
+                 "replay)")
         _require(label != "threefry" or got["K5"] == 0,
                  "the threefry stream draws no K5 noise")
         _require(bool(np.all(np.isfinite(rows))) and all(found),
@@ -4214,7 +4401,7 @@ def main() -> int:
           launches=mf_launches,
           track_rows=[[round(t.range_m, 2), round(t.velocity_ms, 3),
                        t.num_points] for t in tracks])
-    _require(all(good) and mf_launches["K3"] >= 5,
+    _require(all(good) and _tail_ran(mf_launches, ("K3",), 5),
              "run_multiframe: a track of >= 4 points near each truth")
 
     # ---- 10b. phase tracking: the device-scan runner, its resume, the
@@ -4337,23 +4524,19 @@ def main() -> int:
                   "xla": perf_config(pallas=False)}
     for label, cfg_l in route_cfgs.items():
         proc = make_frame_processor(cfg_l, pre, device=dev)
-        proc(1, truth)                     # warm-up outside the count
-        torch.cuda.synchronize()
-        reset()
-        res = proc(20261016, truth)
-        torch.cuda.synchronize()
-        got = counts()
+        res, got, warm = _counted_frame(proc, truth, counts, reset)
         rows = _rows(res)
         found = _found(rows, truth, dr, dv)
-        _line("route", noise_rdm_impl=label, launches=got,
+        _line("route", noise_rdm_impl=label, launches=got, capture=warm,
               num_final=int(res.num_final), found=found,
               targets=np.round(rows, 3).tolist())
         _require(bool(np.all(np.isfinite(rows))) and all(found),
                  f"{label}: truth targets found")
-        _require(got["K2"] >= 1 and (got["K1"] == 0 if label == "xla"
-                                     else got["K1"] == got["K1_bf16"] >= 1),
+        _require(_tail_ran(got, ("K2",), 1) and _captured(warm, ("K2",))
+                 and (got["K1"] == 0 if label == "xla"
+                      else got["K1"] == got["K1_bf16"] >= 1),
                  f"{label}: K1 launched on the kernel routes only, at bf16 "
-                 "operands")
+                 "operands; the tail (K2) replayed once")
         route_launches[label] = got
 
     # small widths: each route on the card vs the CPU on the same noise,
@@ -4398,6 +4581,7 @@ def main() -> int:
                                           "mix": 80}),
             ("reference", ref_cfg, ref_pre, [10.0], 8, {"K3": 8}),
             ("xla", perf_config(pallas=False), pre, [10.0], 8, {"K2": 8})):
+        # the tail's kernels: one a trial, each in a graph's replay
         reset()
         t0 = time.perf_counter()
         sw = snr_sweep(cfg_m, snr_db_vector=vec, num_trials=n_tr,
@@ -4409,7 +4593,10 @@ def main() -> int:
               snr_db=vec, pd=sw.detection_probability.tolist(),
               sigma_deg=sw.angle_error_std.tolist(),
               theory_deg=sw.theory_bound.tolist(), wall_s=round(wall, 3))
-        _require(all(got[k] >= n for k, n in want.items()),
+        _require(all(got[k] >= n for k, n in want.items()
+                     if k not in TAIL_LAUNCHES)
+                 and all(_tail_ran(got, (k,), n) for k, n in want.items()
+                         if k in TAIL_LAUNCHES),
                  f"{label} sweep launched {want}")
         _require(label != "xla" or got["K1"] == 0,
                  "the xla route launches no K1")
@@ -4488,9 +4675,10 @@ def main() -> int:
              "streaming MC: dp_trials=True without a mesh == dp_trials="
              "False, bit for bit")
     _require(all(st_flag_launches[k] == 16 for k in ("K1", "K1_bf16",
-                                                      "K1c_bf16", "K2")),
-             "streaming MC, dp_trials=True: K1 (bf16, K1c's rows) and K2 "
-             "once a trial")
+                                                      "K1c_bf16"))
+             and _tail_ran(st_flag_launches, ("K2",), 16),
+             "streaming MC, dp_trials=True: K1 (bf16, K1c's rows) and a tail "
+             "replay (K2) once a trial")
     _require(stats.range_rmse_m <= 2 * 8.4, "streaming MC range RMSE")
     _require(abs(dense.detection_rate - 0.683) <= 0.13
              and dense.range_rmse_m <= 2 * 8.4,
@@ -4745,7 +4933,8 @@ def main() -> int:
     _require(not any(counts().values()), "baseline: no kernel launched")
 
     # launches: K1 and K2 from the perf SNR sweep, K3 and K5 from the
-    # reference frame, K1c and K4 from the validation path, K7, K9 and K10
+    # reference frame (K2 and K3 as the tail graph's replays that run
+    # them), K1c and K4 from the validation path, K7, K9 and K10
     # from noise_rdm_compact, K8 from chain_pallas_pc (the noise-RDM kernel
     # studies) and K6 from one range-sharded PC on 4 ranks (the sum over
     # the ranks); bounds from this run's shapes
@@ -4769,7 +4958,7 @@ def main() -> int:
           **tails_extra}),
         ("K2 2D GOCA-CFAR on qvg maps (TMA-staged, compiled-in window)",
          "cfar.cu", "radar_tpu/ops/pallas_kernels.py:234",
-         sweeps["perf"]["K2"], k2_err, k2_busy_ms, k2_plain_ms,
+         sweeps["perf"]["tail_replays"], k2_err, k2_busy_ms, k2_plain_ms,
          _bytes_ms(maps_p[:, :num_v, ck.HALO:ck.HALO + num_g], mask, rc),
          "bytes", None,
          {"ms_is": "events around one call, the card kept busy",
@@ -4777,7 +4966,8 @@ def main() -> int:
           "tracking_launches_a_headline_run": track_launches["K2"]}),
         ("K3 pair sum + 2D GOCA-CFAR (mask, threshold): the beams walked "
          "through TMA-staged slots, compiled-in window", "cfar.cu",
-         "radar_tpu/ops/pallas_kernels.py:292", ref_launches["K3"], k3_err,
+         "radar_tpu/ops/pallas_kernels.py:292", ref_launches["tail_replays"],
+         k3_err,
          k3_busy_ms, k3_plain_ms, _bytes_ms(mag, m3, t3), "bytes", None,
          {"ms_is": "events around one call, the card kept busy",
           "idle_card_ms": k3_ms, "host_ms": k3_host_ms,
@@ -4821,7 +5011,8 @@ def main() -> int:
           "profile_ms_1_beam_a_block": k4_split,
           "bound_3xtf32_tensor_cores_ms": k1_tf32_bound,
           "bound_fp32_cuda_cores_ms": k1_bound,
-          "bytes_bound_ms": k4_bytes_ms})] + bf16_rows + study_rows
+          "bytes_bound_ms": k4_bytes_ms})] + bf16_rows + study_rows + [
+        labels_row]
     # the V = 512 entries (phase fft512) of the rows its path runs
     for row, key in ((kernels[0], "K1_f32"), (kernels[1], "K2"),
                      (bf16_rows[0], "K1_bf16"),

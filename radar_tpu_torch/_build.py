@@ -29,14 +29,16 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build", "radar_tpu_torch")
 
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# K2, K3 and K5 must match their plain versions' rounding: no FMA
-# contraction; so must K1c's bf16 rows (the rounded f32 planes, bit for
-# bit) and the mix's pair maps (the plain version's of the unrounded map),
-# so noise_rdm and rdm_variants do not contract either; the GEMMs of the
-# noise-RDM kernels are held by RMS-relative bounds and may contract
+# K2, K3, K5 and the connected labels must match their plain versions'
+# rounding: no FMA contraction; so must K1c's bf16 rows (the rounded f32
+# planes, bit for bit) and the mix's pair maps (the plain version's of the
+# unrounded map), so noise_rdm and rdm_variants do not contract either;
+# the GEMMs of the noise-RDM kernels are held by RMS-relative bounds and
+# may contract
 _EXTRA = {"noise_rdm": ["-fmad=false"], "noise_rdm_sm90": [],
           "rdm_variants": ["-fmad=false"], "band_pc_sm90": [], "rdm_sm90": [],
-          "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": []}
+          "cfar": ["-fmad=false"], "awgn": ["-fmad=false"], "ring": [],
+          "connected": ["-fmad=false"]}
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F, _LL = ctypes.c_float, ctypes.c_longlong
@@ -74,6 +76,9 @@ _SIGNATURES = {
     },
     "awgn": {
         "k5_awgn": [_P, _P, _LL, _U, _U, _F, _F, _P],
+    },
+    "connected": {
+        "cc_labels": [_I, _I, _P, _P, _P, _F, _F, _F, _P, _P, _P],
     },
     "ring": {
         "k6_handle_bytes": [],

@@ -5,6 +5,11 @@ The reference's BFS flood fills (fun_process_single_frame.m:302-407)
 become masked min-label propagation plus pointer jumping over the gate-
 adjacency matrix, iterated to fixpoint. A cluster's label is its smallest
 member index, so the fixpoint equals the JAX package's labels exactly.
+
+On the card the clusterings take ``gated_labels``: the connected-labels
+kernel (``csrc/connected.cu``) builds the gate graph from the fields and
+runs the same step to its fixpoint in one thread block, with no host read;
+CPU tensors take ``gate_adjacency`` and ``connected_labels``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,10 @@ import torch
 from ..utils.profiling import span
 
 CHECK_EVERY = 4   # propagation steps between convergence checks (host syncs)
+MAX_FIELDS = 3    # gate fields the kernel takes
+MAX_SLOTS = 1024  # slots the kernel takes (its bit matrix in shared memory)
+
+launch_count = 0  # connected-labels kernel launches
 
 
 def connected_labels(adj: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -58,6 +67,51 @@ def gate_adjacency(fields: list, valid: torch.Tensor) -> torch.Tensor:
     for f, gate in fields:
         a = a & ((f[:, None] - f[None, :]).abs() <= gate)
     return a
+
+
+def gated_labels(fields: list, valid: torch.Tensor) -> torch.Tensor:
+    """``connected_labels(gate_adjacency(fields, valid), valid)``: labels
+    [n] int64 of the components under the gates of ``fields`` [(f [n],
+    gate)]. The connected-labels kernel for CUDA tensors (or it raises:
+    at most ``MAX_SLOTS`` slots), the plain pair for CPU tensors."""
+    if valid.is_cuda:
+        return _gated_labels_cuda(fields, valid)
+    return connected_labels(gate_adjacency(fields, valid), valid)
+
+
+def _gated_labels_cuda(fields: list, valid: torch.Tensor) -> torch.Tensor:
+    global launch_count
+    from .. import _build
+
+    n = valid.shape[0]
+    if valid.dim() != 1 or not 1 <= len(fields) <= MAX_FIELDS:
+        raise ValueError(f"the kernel takes valid [n] and 1 to {MAX_FIELDS} "
+                         "gate fields")
+    if n > MAX_SLOTS:
+        raise ValueError(f"the kernel takes at most {MAX_SLOTS} slots "
+                         f"(cfar.max_detections), not {n}")
+    fs = []
+    for f, _ in fields:
+        if f.dtype != torch.float32 or f.shape != (n,) \
+                or f.device != valid.device:
+            raise ValueError("the kernel takes f32 gate fields [n] on the "
+                             "device of valid")
+        fs.append(f.contiguous())
+    labels = torch.empty(n, dtype=torch.int64, device=valid.device)
+    if n == 0:
+        return labels
+    valid = valid.contiguous()
+    pad = MAX_FIELDS - len(fs)
+    lib = _build.load("connected")
+    code = lib.cc_labels(
+        n, len(fs), *[f.data_ptr() for f in fs], *[None] * pad,
+        # the gates rounded to f32, as the card compares a float to them
+        *[float(np.float32(gate)) for _, gate in fields], *[0.0] * pad,
+        valid.data_ptr(), labels.data_ptr(),
+        torch.cuda.current_stream(valid.device).cuda_stream)
+    _build.check(lib, code, "cc_labels")
+    launch_count += 1
+    return labels
 
 
 def merge_weighted_mean(labels: torch.Tensor, valid: torch.Tensor,

@@ -17,7 +17,7 @@ import torch
 
 from ..config.params import ClusterParams
 from ..measure.estimate import ParamDetections
-from .connected import (connected_labels, gate_adjacency, merge_weighted_mean,
+from .connected import (gated_labels, merge_weighted_mean,
                         merge_winner_take_all)
 
 
@@ -59,11 +59,10 @@ def _modal_pair_idx(labels: torch.Tensor, valid: torch.Tensor,
 
 def cluster_stage1(dets: ParamDetections,
                    params: ClusterParams) -> ClusteredTargets:
-    adj = gate_adjacency(
+    labels = gated_labels(
         [(dets.range_m, params.max_range_sep),
          (dets.velocity_ms, params.max_vel_sep),
          (dets.angle_deg, params.max_angle_sep)], dets.valid)
-    labels = connected_labels(adj, dets.valid)
     merged, wsum, rep_valid = merge_weighted_mean(
         labels, dets.valid, dets.power,
         {"range_m": dets.range_m, "velocity_ms": dets.velocity_ms,
@@ -86,9 +85,8 @@ def cluster_stage2(t: ClusteredTargets,
     # widens only this anti-ghost merge
     v_gate = (params.max_vel_sep if params.stage2_vel_gate is None
               else params.stage2_vel_gate)
-    adj = gate_adjacency([(t.range_m, params.max_range_sep),
-                          (t.velocity_ms, v_gate)], t.valid)
-    labels = connected_labels(adj, t.valid)
+    labels = gated_labels([(t.range_m, params.max_range_sep),
+                           (t.velocity_ms, v_gate)], t.valid)
     fields = {"range_m": t.range_m, "velocity_ms": t.velocity_ms,
               "angle_deg": t.angle_deg}
     if t.pair_idx is not None:

@@ -105,7 +105,9 @@ class CfarParams:
     guard_cells_r: int = 10
     threshold_factor: float = 8.0
     method: str = "GOCA"  # one of GOCA | CA | SO (per-dim combine rule)
-    # Fixed detection capacity for jit-static shapes (SURVEY.md section 7.4).
+    # Fixed detection capacity for jit-static shapes (SURVEY.md section 7.4);
+    # on a card the clusterings' kernel takes at most 1024
+    # (cluster/connected.py::MAX_SLOTS)
     max_detections: int = 512
     # Window-mean formulation for the RANGE axis (the 3404-gate axis, where
     # the work is): "shift" = statically-unrolled VPU shift-adds, exactly

@@ -112,6 +112,17 @@ def _banded_means_matrix(guard: int, ref: int, tile: int) -> np.ndarray:
     return w
 
 
+@functools.cache
+def _banded_means_tensor(guard: int, ref: int, tile: int, dtype,
+                         device) -> torch.Tensor:
+    """``_banded_means_matrix`` in ``dtype`` on ``device``, copied there
+    once: a call then makes no copy from the host, so the card does not
+    wait for one and the tail's CUDA graph can capture it. Kept for the
+    process (never evicted): a captured graph reads it at its address."""
+    return torch.tensor(_banded_means_matrix(guard, ref, tile), dtype=dtype,
+                        device=device)
+
+
 def lead_trail_means_matmul(x: torch.Tensor, guard: int, ref: int,
                             axis: int, tile: int = 128):
     """The lead and trail window means along ``axis`` as one blocked
@@ -126,8 +137,7 @@ def lead_trail_means_matmul(x: torch.Tensor, guard: int, ref: int,
     n_tiles = -(-n // tile)
     xp = torch.nn.functional.pad(xm, (halo, n_tiles * tile - n + halo))
     blocks = xp.unfold(-1, tile + 2 * halo, tile)    # [..., n_tiles, win]
-    w = torch.tensor(_banded_means_matrix(guard, ref, tile), dtype=x.dtype,
-                     device=x.device)
+    w = _banded_means_tensor(guard, ref, tile, x.dtype, x.device)
     y = torch.matmul(blocks, w)                      # [..., n_tiles, 2T]
     flat = xm.shape[:-1] + (n_tiles * tile,)
     lead = y[..., :tile].reshape(flat)[..., :n]

@@ -47,6 +47,13 @@ draws, and its two 32-bit words key the Philox streams of K1 and K5
 The stages are built once by ``make_frame_stages``; the frame processor
 and the Monte-Carlo trial function (``pipeline/montecarlo.py``) compose
 them, as JAX's trial function reuses the frame's stages.
+
+On a card the tail runs as one CUDA graph (``FrameStages.detect``): the
+first call of a tail, RDM layout, shape, strides, dtype and maps input
+runs it eagerly once and captures it; every call then copies its RDM
+(and K1's maps) into the graph's inputs, replays it and clones the
+``FrameResult`` out, with no host read (JAX jit-compiles the same tail).
+CPU tensors and ``return_intermediates`` run the tail eagerly.
 """
 
 from __future__ import annotations
@@ -309,6 +316,58 @@ def detection_tail(cfg: RadarConfig, mc: MeasureConsts, rdm: torch.Tensor,
                                                rdm_layout, "vgq"))
 
 
+tail_graph_captures = 0   # CUDA graphs of the detection tail captured
+tail_graph_replays = 0    # and replayed
+
+
+class _TailGraph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    rdm: torch.Tensor               # its static inputs
+    maps_p: torch.Tensor | None
+    result: FrameResult             # its static outputs
+
+
+def _capture_tail(st, rdm, rdm_layout: str, tail: str, maps_p) -> _TailGraph:
+    """``detection_tail`` on static copies of the inputs, run once on a
+    side stream to warm it up (the ``torch.cuda.graphs`` rule), then
+    captured. The tail's kernels count both calls in their launch counters;
+    a replay launches the graph alone (``tail_graph_replays``)."""
+    global tail_graph_captures
+
+    def run():
+        return detection_tail(st.cfg, st.mc, static_rdm, rdm_layout, tail,
+                              tfr=st.tfr, maps_p=static_maps)[-1]
+
+    static_rdm = torch.empty_like(rdm).copy_(rdm)
+    static_maps = (None if maps_p is None
+                   else torch.empty_like(maps_p).copy_(maps_p))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        result = run()
+    tail_graph_captures += 1
+    return _TailGraph(graph, static_rdm, static_maps, result)
+
+
+def _replay_tail(g: _TailGraph, rdm, maps_p) -> FrameResult:
+    """The captured tail on ``rdm`` (and ``maps_p``): copied in, replayed,
+    its FrameResult cloned out, so no two calls share memory."""
+    global tail_graph_replays
+    g.rdm.copy_(rdm)
+    if maps_p is not None:
+        g.maps_p.copy_(maps_p)
+    g.graph.replay()
+    tail_graph_replays += 1
+    t = g.result.targets
+    return FrameResult(
+        ClusteredTargets(*(None if x is None else x.clone() for x in t)),
+        g.result.num_raw_detections.clone(), g.result.num_final.clone())
+
+
 class FrameStages(NamedTuple):
     """The stages of one frame, composed by ``make_frame_processor`` and by
     the Monte-Carlo trial function (``pipeline/montecarlo.py``), which
@@ -324,13 +383,30 @@ class FrameStages(NamedTuple):
     mtd: object         # pc [P, G, B] -> rdm [V, G, B] (any gate count)
     tail: str           # "kernel_maps", "qgv", "qvg" or "vgq"
     tfr: bool = False   # the vgq tail gathers from the RDM (tail_from_rdm)
+    graphs: dict | None = None   # the tail's CUDA graphs by key; None: eager
 
     def detect(self, rdm: torch.Tensor, rdm_layout: str, maps_p=None):
         """``detection_tail`` on an RDM in ``rdm_layout`` (and, on the
-        kernel-maps tail, K1's padded maps ``maps_p``)."""
+        kernel-maps tail, K1's padded maps ``maps_p``). On a card, with
+        ``graphs``, one replay of the tail's CUDA graph, captured at the
+        first call with its key: the copy-in, the replay and the clones
+        form the call's one ``rt.cfar`` span, and only the FrameResult is
+        returned (the other slots None)."""
         tail = "qvg" if self.tail == "kernel_maps" else self.tail
-        return detection_tail(self.cfg, self.mc, rdm, rdm_layout, tail,
-                              tfr=self.tfr, maps_p=maps_p)
+        if self.graphs is None or not rdm.is_cuda:
+            return detection_tail(self.cfg, self.mc, rdm, rdm_layout, tail,
+                                  tfr=self.tfr, maps_p=maps_p)
+        key = (tail, rdm_layout, rdm.device, rdm.dtype, tuple(rdm.shape),
+               rdm.stride(), None if maps_p is None else
+               (maps_p.dtype, tuple(maps_p.shape), maps_p.stride()))
+        with torch.cuda.device(rdm.device):
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = _capture_tail(self, rdm, rdm_layout,
+                                                     tail, maps_p)
+            with span("cfar"):
+                result = _replay_tail(g, rdm, maps_p)
+        return None, None, None, None, result
 
 
 def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
@@ -355,6 +431,8 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
     fused = cfg.fused_synth_dbf and not return_intermediates
     lowrank = cfg.lowrank_rdm and fused
     mc = measure_consts(cfg, precomp, device=device)
+    # the debug taps read every stage of the tail: eager
+    graphs = None if return_intermediates else {}
     if trials:
         tail, tfr = select_tail(
             cfg, lowrank, pallas_cfar=cfg.use_pallas_cfar
@@ -371,7 +449,7 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
                            make_lowrank_stages(
                                cfg, precomp, device=device,
                                accelerator_dtypes=accelerator_dtypes),
-                           None, None, None, None, tail, tfr)
+                           None, None, None, None, tail, tfr, graphs)
     c64 = torch.complex64
     w_eff = dbf_weights_effective_np(precomp.dbf_w, cfg.dbf_variant)
     if fused:
@@ -440,7 +518,7 @@ def make_frame_stages(cfg: RadarConfig, precomp: Precomputed | None = None,
         return mtd(pc, precomp.mtd_win, cfg.mtd_fft_len)          # [V, G, B]
 
     return FrameStages(cfg, mc, None, synth, chain, pc_stage, mtd_stage,
-                       tail, tfr)
+                       tail, tfr, graphs)
 
 
 def make_frame_processor(cfg: RadarConfig,

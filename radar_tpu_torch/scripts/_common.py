@@ -65,15 +65,23 @@ def require_matplotlib(flag: str) -> None:
 def kernel_launches() -> dict:
     """The launch counters of the kernels a script's path can reach: K1
     (noise RDM), K1c's planes inside K1's draw mode and as
-    ``gen_noise_planes``, K2 and K3 (CFAR) and K5 (AWGN)."""
+    ``gen_noise_planes``, K2 and K3 (CFAR), K5 (AWGN) and the connected
+    labels (``labels``), each its wrapper's calls; and the frame tail's
+    CUDA graphs captured and replayed on a card (a replay runs the tail's
+    K2 or K3 and labels without a call of their wrappers)."""
+    from ..cluster import connected
     from ..ops import awgn, cfar_kernel, noise_rdm
+    from ..pipeline import frame
 
     return {"K1": noise_rdm.launch_count,
             "K1c": noise_rdm.k1c_launch_count
             + noise_rdm.k1c_draw_launch_count,
             "K2": cfar_kernel.launch_count,
             "K3": cfar_kernel.k3_launch_count,
-            "K5": awgn.launch_count}
+            "K5": awgn.launch_count,
+            "labels": connected.launch_count,
+            "tail_captures": frame.tail_graph_captures,
+            "tail_replays": frame.tail_graph_replays}
 
 
 def launches_since(before: dict) -> dict:

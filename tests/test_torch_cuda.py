@@ -7,8 +7,10 @@ the strip GEMM with drawing producers, against its planes mode; K1, K2,
 K4, K10, K7 and K9 also at a zero-padded Doppler FFT, ``mtd_fft_len`` 40
 and 64 on 32 pulses), the
 perf-config frame (each noise-RDM route) and the reference-stream frame
-through the kernels against the plain path on the CPU, and a small SNR
-sweep. Marked ``cuda``; each test skips without an NVIDIA GPU.
+through the kernels against the plain path on the CPU, a small SNR
+sweep, and the connected-labels kernel and the frame tail's CUDA graph
+against their eager versions. Marked ``cuda``; each test skips without
+an NVIDIA GPU.
 
 This file imports neither JAX nor ``radar_tpu``, so it also runs where
 JAX is not installed (the suite's conftest.py needs JAX):
@@ -1648,9 +1650,12 @@ def test_rdm_variants_at_fft_len_on_card(cuda_device, fft_len, variant, mul):
 def test_k2_and_frame_at_fft_len_on_card(cuda_device, fft_len):
     """K2 over V != P Doppler rows of K1's pair maps: mask and row counts
     identical to its plain version; the perf frame at V != P on the card
-    (K1 at bf16, K2, one launch each) and on the CPU at the accelerator's
-    dtypes: same final targets within rtol 1e-3 (the noise's bf16
-    roundings come after sums in other orders)."""
+    (K1 at bf16 once; K2 in the tail's CUDA graph, its wrapper called at
+    the eager warm-up and the capture, then one replay) and on the CPU at
+    the accelerator's dtypes: same final targets within rtol 1e-3 (the
+    noise's bf16 roundings come after sums in other orders)."""
+    from radar_tpu_torch.pipeline import frame
+
     cfg, lr, factors = _fft_stages(cuda_device, fft_len)
     num_g = lr.rplan.n_gates
     _, maps = nr.noise_rdm(lr.rplan, lr.l_factor, factors, seed=(3, 5),
@@ -1664,11 +1669,14 @@ def test_k2_and_frame_at_fft_len_on_card(cuda_device, fft_len):
     assert torch.equal(mask, mask_p) and torch.equal(rc, rc_p)
     assert int(mask.sum()) >= 1
     tb = TargetBatch.make(*TARGETS)
-    before = (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count)
+    before = (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count,
+              frame.tail_graph_captures, frame.tail_graph_replays)
     a = make_frame_processor(cfg, device=cuda_device)(5, tb)
     torch.cuda.synchronize()
-    assert (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert (nr.launch_count, nr.k1_bf16_launch_count, ck.launch_count,
+            frame.tail_graph_captures, frame.tail_graph_replays) == (
+        before[0] + 1, before[1] + 1, before[2] + 2, before[3] + 1,
+        before[4] + 1)
     b = make_frame_processor(cfg, device="cpu", accelerator_dtypes=True)(5, tb)
     assert int(a.num_final) == int(b.num_final) >= 2
     _assert_same_rows(_rows(a), _rows(b), rtol=1e-3)
@@ -1717,3 +1725,251 @@ def test_sync_spans_match_the_cards_sync_count(cuda_device, kind):
              and e.device_type == torch.autograd.DeviceType.CPU]
     assert syncs >= 3 * 3
     assert len(spans) == syncs
+
+
+# ------------------------------------------------ the connected-labels kernel
+
+
+def _label_fields(seed, n, nf, span=20.0, frac=0.8):
+    rng = np.random.default_rng(seed)
+    return ([((rng.random(n) * span).astype(np.float32), 1.5)
+             for _ in range(nf)], rng.random(n) < frac)
+
+
+def _label_chain(order):
+    x = np.empty(len(order), np.float32)
+    x[order] = np.arange(len(order), dtype=np.float32)
+    return [(x, 1.0)], np.ones(len(order), bool)
+
+
+def _label_cases():
+    """(fields [(f32 [n], gate)], valid [n]): random graphs, the permuted
+    chains of test_torch_tail.py, 512-slot paths of diameter 511,
+    differences that land on the gate in f32, all invalid, n = 1, n off
+    the kernel's 1024-thread block (517), and the most slots it takes
+    (``MAX_SLOTS``, 1024)."""
+    rng = np.random.default_rng(5)
+    cases = {f"random96_{s}": _label_fields(s, 96, 2) for s in range(3)}
+    cases["random512_3f"] = _label_fields(3, 512, 3)
+    cases["random512_dense"] = _label_fields(4, 512, 2, span=8.0, frac=0.95)
+    cases["chain7"] = _label_chain(np.array([1, 4, 2, 3, 6, 5, 0]))
+    for i in range(20):
+        cases[f"chain128_{i}"] = _label_chain(rng.permutation(128))
+    cases["path512"] = _label_chain(rng.permutation(512))
+    cases["path512_reversed"] = _label_chain(np.arange(512)[::-1])
+    x = np.concatenate([np.arange(12, dtype=np.float32) * np.float32(0.25),
+                        np.float32([100.0, 100.0 + np.float32(0.1), 200.0])])
+    y = np.concatenate([np.zeros(12, np.float32), np.float32([0, 0.1, 0])])
+    cases["on_gate"] = ([(x, 0.25), (y, 0.1)], np.ones(15, bool))
+    cases["all_invalid"] = ([(np.zeros(512, np.float32), 1.0)],
+                            np.zeros(512, bool))
+    cases["one_slot"] = ([(np.float32([2.0]), 1.0)], np.ones(1, bool))
+    cases["n517"] = _label_fields(6, 517, 3)
+    cases["n1024"] = _label_fields(7, 1024, 3, span=60.0)
+    return cases
+
+
+@pytest.mark.cuda
+def test_connected_kernel_equals_the_eager_labels_on_card(cuda_device):
+    """The kernel's labels equal ``connected_labels(gate_adjacency(.))``
+    on the card bit for bit, one launch a call."""
+    from radar_tpu_torch.cluster import connected as cc
+
+    for name, (fields, valid) in _label_cases().items():
+        t = [(torch.from_numpy(f).to(cuda_device), g) for f, g in fields]
+        ok = torch.from_numpy(valid).to(cuda_device)
+        before = cc.launch_count
+        got = cc.gated_labels(t, ok)
+        assert cc.launch_count == before + 1, name
+        want = cc.connected_labels(cc.gate_adjacency(t, ok), ok)
+        assert got.dtype == torch.int64
+        assert torch.equal(got, want), name
+        if name.startswith(("chain", "path")):
+            assert set(got.tolist()) == {0}
+
+
+@pytest.mark.cuda
+def test_connected_kernel_refuses_past_its_slots_on_card(cuda_device):
+    """Past ``MAX_SLOTS`` the kernel's wrapper raises, and launches
+    nothing."""
+    from radar_tpu_torch.cluster import connected as cc
+
+    fields, valid = _label_fields(7, cc.MAX_SLOTS + 1, 2, span=60.0)
+    t = [(torch.from_numpy(f).to(cuda_device), g) for f, g in fields]
+    ok = torch.from_numpy(valid).to(cuda_device)
+    before = cc.launch_count
+    with pytest.raises(ValueError, match="at most 1024 slots"):
+        cc.gated_labels(t, ok)
+    assert cc.launch_count == before
+
+
+# ------------------------------------------------------ the tail's CUDA graph
+
+def _matmul_means(cfg):
+    import dataclasses
+
+    return cfg.replace(cfar=dataclasses.replace(cfg.cfar,
+                                                means_impl="matmul"))
+
+
+def _pair_mode(cfg):
+    import dataclasses
+
+    return cfg.replace(cluster=dataclasses.replace(cfg.cluster,
+                                                   keep_pair_mode=True))
+
+
+_REF = small_test_config()
+_TAIL_CFGS = {
+    "vgq": _REF,
+    "vgq_from_rdm": _REF.replace(tail_from_rdm=True),
+    "qvg_k2": _REF.replace(use_pallas_cfar=True),
+    "vgq_matmul": _matmul_means(_REF),
+    "native_scan": _REF.replace(extract_native_scan=True),
+    "monopulse_complex_pair_mode": _pair_mode(_REF.replace(
+        monopulse_complex=True)),
+    "monopulse_refined": _REF.replace(monopulse_refined=True),
+    "rank_k_qvg": CFG,
+    "rank_k_matmul": _matmul_means(CFG),
+    "kernel_maps": CFG.replace(kernel_maps=True),
+    "kernel_maps_matmul": _matmul_means(CFG.replace(kernel_maps=True)),
+    "qgv": CFG.replace(beams_major_tail=True),
+}
+
+
+def _tail_input(st, tb, seed):
+    """(rdm, layout, maps_p) of one frame of the stage set ``st``."""
+    lr = st.lowrank
+    if lr is None:
+        return st.chain(st.synth(tb), seed)[-1], "vgb", None
+    if st.tail == "kernel_maps":
+        rdm, maps_p = lr.noise_rdm_sig(seed, tb, layout="bvg",
+                                       emit_maps=True)
+        return rdm, "bvg", maps_p
+    return (lr.noisy_rdm(lr.signal_rdm(tb, lr.rdm_layout), seed, None, None),
+            lr.rdm_layout, None)
+
+
+def _same_result(a, b) -> bool:
+    leaves = lambda r: (*r.targets, r.num_raw_detections, r.num_final)
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_TAIL_CFGS))
+def test_tail_graph_replays_equal_the_eager_tail_on_card(cuda_device, case,
+                                                        monkeypatch):
+    """On each tail a replayed FrameResult equals the eager one bit for bit
+    over 4 seeds: on the same RDM through ``detect``, and through the frame
+    processor and the trial function against twins whose stages have no
+    graphs. One capture a stage set and key, one replay a call; the
+    results of successive calls stay intact (no two share memory)."""
+    from radar_tpu_torch.pipeline import frame, montecarlo
+
+    cfg, tb, seeds = _TAIL_CFGS[case], TargetBatch.make(*TARGETS), [3, 4, 5, 6]
+    st = frame.make_frame_stages(cfg, device=cuda_device)
+    eager = st._replace(graphs=None)
+    caps, reps = frame.tail_graph_captures, frame.tail_graph_replays
+    for s in seeds:
+        rdm, layout, maps_p = _tail_input(st, tb, s)
+        out = st.detect(rdm, layout, maps_p)
+        assert out[:4] == (None,) * 4
+        assert _same_result(out[-1], eager.detect(rdm, layout, maps_p)[-1])
+    assert len(st.graphs) == 1
+    process = frame.make_frame_processor(cfg, device=cuda_device)
+    trials = montecarlo.make_trial_fn(cfg, device=cuda_device)
+    got = [process(s, tb) for s in seeds]
+    got_t = trials(tb, seeds)
+    assert frame.tail_graph_captures == caps + 3
+    assert frame.tail_graph_replays == reps + 3 * len(seeds)
+    assert len({r.targets.range_m.data_ptr() for r in got}) == len(seeds)
+    real = frame.make_frame_stages
+    no_graphs = lambda *a, **k: real(*a, **k)._replace(graphs=None)
+    monkeypatch.setattr(frame, "make_frame_stages", no_graphs)
+    monkeypatch.setattr(montecarlo, "make_frame_stages", no_graphs)
+    want = [frame.make_frame_processor(cfg, device=cuda_device)(s, tb)
+            for s in seeds]
+    want_t = montecarlo.make_trial_fn(cfg, device=cuda_device)(tb, seeds)
+    assert frame.tail_graph_replays == reps + 3 * len(seeds)
+    for g, w in zip(got, want):
+        assert _same_result(g, w) and int(g.num_final) >= 2
+    for g, w in zip(got_t, want_t):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vgq", "kernel_maps"])
+def test_tail_replay_makes_no_host_sync_on_card(cuda_device, case):
+    """After its capture, a tail's replay (copy-in, replay, clones) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from radar_tpu_torch.pipeline import frame
+
+    st = frame.make_frame_stages(_TAIL_CFGS[case], device=cuda_device)
+    rdm, layout, maps_p = _tail_input(st, TargetBatch.make(*TARGETS), 3)
+    st.detect(rdm, layout, maps_p)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = st.detect(rdm, layout, maps_p)[-1]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(res.num_final) >= 2
+
+
+@pytest.mark.cuda
+def test_tail_graph_one_capture_a_stage_set_and_key_on_card(cuda_device):
+    """A stage set captures once a key (another RDM shape, another
+    layout of the same values) and replays every call; another stage set
+    captures its own. The kernels' wrappers count their real calls: at a
+    capture K3 twice and the connected labels four times (the eager
+    warm-up, then the capture), at a replay none."""
+    from radar_tpu_torch.cluster import connected as cc
+    from radar_tpu_torch.pipeline import frame
+
+    cfg, tb = small_test_config(), TargetBatch.make(*TARGETS)
+    st = frame.make_frame_stages(cfg, device=cuda_device)
+    rdm = _tail_input(st, tb, 3)[0]
+    narrow = rdm[:, :rdm.shape[1] - 40]
+    inputs = [rdm, rdm, narrow, narrow.clone(), rdm, narrow]
+    caps, reps = frame.tail_graph_captures, frame.tail_graph_replays
+    for i, x in enumerate(inputs):
+        before = (ck.k3_launch_count, cc.launch_count)
+        st.detect(x, "vgb")
+        calls = 2 if i in (0, 2, 3) else 0
+        assert (ck.k3_launch_count, cc.launch_count) == (
+            before[0] + calls, before[1] + 2 * calls), i
+    # keys: rdm; the narrow view; its contiguous copy (other strides)
+    assert frame.tail_graph_captures == caps + 3 == caps + len(st.graphs)
+    assert frame.tail_graph_replays == reps + len(inputs)
+    other = frame.make_frame_stages(cfg, device=cuda_device)
+    other.detect(rdm, "vgb")
+    assert frame.tail_graph_captures == caps + 4 and len(other.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_tail_graph_keeps_the_banded_means_matrix_on_card(cuda_device):
+    """A matmul-means tail's graph reads the banded means matrix at its
+    address; the matrix outlives more other cached matrices than a
+    bounded cache would hold, and the memory freed around it rewritten,
+    so a later replay equals the eager tail bit for bit."""
+    from radar_tpu_torch.ops import cfar
+    from radar_tpu_torch.pipeline import frame
+
+    cfg, tb = _TAIL_CFGS["vgq_matmul"], TargetBatch.make(*TARGETS)
+    st = frame.make_frame_stages(cfg, device=cuda_device)
+    rdm, layout, maps_p = _tail_input(st, tb, 3)
+    st.detect(rdm, layout, maps_p)
+    p = cfg.cfar
+    for tile in range(129, 161):
+        cfar._banded_means_tensor(p.guard_cells_r, p.ref_cells_r, tile,
+                                  torch.float32, rdm.device)
+    shape = cfar._banded_means_matrix(p.guard_cells_r, p.ref_cells_r,
+                                      128).shape
+    junk = [torch.full(shape, 1e6, device=rdm.device) for _ in range(64)]
+    torch.cuda.synchronize()
+    del junk
+    rdm, layout, maps_p = _tail_input(st, tb, 4)
+    got = st.detect(rdm, layout, maps_p)[-1]
+    want = st._replace(graphs=None).detect(rdm, layout, maps_p)[-1]
+    assert _same_result(got, want) and int(got.num_final) >= 2

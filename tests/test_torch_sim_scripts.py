@@ -239,7 +239,9 @@ def test_scripts_in_one_process_load_no_jax(tmp_path):
     cal = json.load(open(t + "/cal.json"))
     assert len(cal["beam_angles_deg"]) == 13 == len(cal["pairs"]) + 1
     for r in (rep, h, s, st):
-        assert set(r["launches"]) == {"K1", "K1c", "K2", "K3", "K5"}
+        assert set(r["launches"]) == {"K1", "K1c", "K2", "K3", "K5",
+                                      "labels", "tail_captures",
+                                      "tail_replays"}
         assert not any(r["launches"].values())   # the CPU: no kernel
 
 

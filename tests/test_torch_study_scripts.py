@@ -103,7 +103,9 @@ def test_run_roc_deterministic_fields_equal_the_artifact(reports):
     # the truth found at low thresholds, lost at high ones
     assert rep["pd"][0] == 1.0 and rep["pd"][-1] == 0.0
     assert rep["pfa_hits"] == sorted(rep["pfa_hits"], reverse=True)
-    assert rep["launches"] == {"K1": 0, "K1c": 0, "K2": 0, "K3": 0, "K5": 0}
+    assert rep["launches"] == {"K1": 0, "K1c": 0, "K2": 0, "K3": 0, "K5": 0,
+                               "labels": 0, "tail_captures": 0,
+                               "tail_replays": 0}
 
 
 def test_run_pfa_analytic_columns_equal_the_artifact(reports):
